@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for sm_90a), ``nvcc`` (CUDA_HOME or
-/usr/local/cuda) and this checkout.  It drives the port's main path --
-Apache ``combined`` with the headline fields, 65,536 generated lines
-(seed 42, 1% garbage) plus crafted edge lines -- and fails (non-zero
-exit, no result line) on the first phase that fails:
+/usr/local/cuda) and this checkout.  It drives the port's two paths --
+Apache ``combined`` with the headline fields (65,536 generated lines,
+seed 42, 1% garbage, plus crafted edge lines), then the URI chain
+(``URI_CHAIN_FIELDS``: path, query parameters, the protocol split, the
+referer's authority; 65,536 generated lines, seed 53, plus the URI edge
+lines) -- and fails (non-zero exit, no result line) on the first phase
+that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the four kernels from logparser_tpu_torch/csrc, in parallel;
+2. build   -- the six kernels from logparser_tpu_torch/csrc, in parallel;
 3. corpus  -- the generated lines + edge lines;
 4. one phase per kernel (split, span_stages, timestamp, pack_rows): the
    kernel and its plain PyTorch version on the same CUDA tensors must be
@@ -20,7 +23,14 @@ exit, no result line) on the first phase that fails:
    launch counts zeroed just before and read just after, compared with
    the same parser on the CPU (to_dict and needs_host); then a small batch
    at the widest line bucket (8191 bytes, one line past it);
-6. the kernels line, the card line, and the result line
+6. the URI chain: span_stages (with the protocol split), uri_split and
+   csr_split (one launch per group, two groups each) and pack_rows (with
+   the overflow bit) against their plain versions under its tables at
+   16 slots, timed the same way; then parse_batch end to end, which
+   regrows the query-string slots on the card (16 -> 128: one edge line
+   has more parameters than the cap) and must equal the CPU, then the
+   same batch again at the grown slots; then the 8191-byte bucket;
+7. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -39,6 +49,8 @@ REPLACES = {
     "span_stages": "logparser_tpu/tpu/postproc.py:1027",
     "timestamp": "logparser_tpu/tpu/timeparse.py:255",
     "pack_rows": "logparser_tpu/tpu/pipeline.py:888",
+    "uri_split": "logparser_tpu/tpu/postproc.py:210",
+    "csr_split": "logparser_tpu/tpu/postproc.py:640",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -126,7 +138,12 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     from logparser_tpu_torch import TorchBatchParser
-    from logparser_tpu_torch.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
+    from logparser_tpu_torch.tools.demolog import (
+        HEADLINE_FIELDS,
+        URI_CHAIN_FIELDS,
+        generate_combined_lines,
+        uri_edge_lines,
+    )
     from logparser_tpu_torch.tpu import kernels, pipeline, runtime
 
     # ---- 2. build ------------------------------------------------------
@@ -158,7 +175,11 @@ def main() -> int:
     # ---- 4. one phase per kernel ---------------------------------------
     rows = {}
 
-    def phase(name, run_kernel, run_plain, bytes_moved, ops):
+    def phase(name, run_kernel, run_plain, bytes_moved, ops, kernel=None, n=None):
+        """Kernel vs plain version on the same CUDA tensors, then timed.
+        ``kernel`` names the kernels-line row when the phase name differs
+        (a kernel re-run under the URI chain's tables keeps its slice-1
+        row and reports here only)."""
         got = run_kernel()
         want = run_plain()
         torch.cuda.synchronize()
@@ -168,17 +189,20 @@ def main() -> int:
         plain_ms = time_kernel(torch, run_plain, PLAIN_REPS)
         bound_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
         bound_ops = ops / H100_CUDA_CORE_OPS_PER_S * 1e3
-        rows[name] = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": None,
+        row = {
+            "name": kernel or name, "route": "cuda",
+            "source": SOURCES[kernel or name],
+            "replaces": REPLACES[kernel or name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None,
         }
-        emit({"phase": name, "equal": True, "B": B, "L": L, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": rows[name]["bound_ms"],
-              "bytes": bytes_moved, "card": smi})
+        if kernel is None:
+            rows[name] = row
+        emit({"phase": name, "equal": True, "B": n or B, "L": L, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
+              "bound_by": row["bound_by"], "bytes": bytes_moved, "card": smi})
         return got
 
     T = unit.split.n_tok
@@ -245,19 +269,13 @@ def main() -> int:
     res = gpu.parse_batch(lines)
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("split", "span_stages", "timestamp", "pack_rows"):
+        if launches[name] < 1:
             fail(f"kernel {name} was not launched on the main path")
-        rows[name]["launches"] = n
+        rows[name]["launches"] = launches[name]
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu")
     ref = cpu.parse_batch(lines)
-    if not (res.needs_host.tolist() == ref.needs_host.tolist()):
-        fail(f"needs_host differs: {res.needs_host[:10]} vs {ref.needs_host[:10]}")
-    got_d, want_d = res.to_dict(), ref.to_dict()
-    for fid in want_d:
-        if got_d[fid] != want_d[fid]:
-            i = next(i for i, (a, b) in enumerate(zip(got_d[fid], want_d[fid])) if a != b)
-            fail(f"end to end: {fid} row {i}: {got_d[fid][i]!r} != {want_d[fid][i]!r}")
+    compare_results(res, ref, "end to end")
     n_valid = int(res.valid.sum())
     if n_valid < 0.98 * N_LINES:
         fail(f"only {n_valid} of {B} lines valid on device")
@@ -272,21 +290,195 @@ def main() -> int:
     wide.append(EDGE_PREFIX + ' "x" "' + "w" * (8191 - len(EDGE_PREFIX) - 7) + '"')
     wide.append(EDGE_PREFIX + ' "x" "' + "v" * 9000 + '"')   # past the cap: host
     res_w = gpu.parse_batch(wide)
-    ref_w = cpu.parse_batch(wide)
-    if res_w.buf.shape[1] != 8191 or res_w.to_dict() != ref_w.to_dict() \
-            or res_w.needs_host.tolist() != ref_w.needs_host.tolist():
-        fail("the 8191-byte bucket batch differs from the CPU run")
+    if res_w.buf.shape[1] != 8191:
+        fail(f"the wide batch took bucket {res_w.buf.shape[1]}, not 8191")
+    compare_results(res_w, cpu.parse_batch(wide), "wide bucket")
     if len(wide) - 1 not in res_w.needs_host.tolist():
         fail("the over-long line was not routed to the host")
     emit({"phase": "wide_bucket", "B": len(wide), "L": 8191,
           "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
 
-    # ---- 6. result -----------------------------------------------------
+    # ---- 6. the URI chain -----------------------------------------------
+    uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
+               smi, URI_CHAIN_FIELDS, generate_combined_lines, uri_edge_lines)
+
+    # ---- 7. result -----------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [rows[k] for k in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def span_bytes(torch, s, e, cap):
+    """Bytes a kernel must read of spans [s, e) cut to ``cap``."""
+    return int((e - s).clamp(0, cap).to(torch.int64).sum())
+
+
+def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
+               smi, fields, generate_combined_lines, uri_edge_lines):
+    """Section 6: the URI chain's kernels, end to end, wide bucket."""
+    edge = uri_edge_lines()
+    lines = generate_combined_lines(N_LINES, seed=53) + edge
+    buf, lengths, overflow = runtime.encode_batch(lines)
+    B, L = buf.shape
+    if L != 384 or overflow:
+        fail(f"URI corpus bucket {L} != 384 or overflow {overflow}")
+    emit({"phase": "corpus_uri", "B": B, "L": L, "bytes": int(buf.nbytes)})
+    gpu = TorchBatchParser("combined", fields)
+    ex = gpu.executor
+    t = ex.unit_tables[0]
+    dbuf = torch.from_numpy(buf).cuda()
+    dlen = torch.from_numpy(lengths).cuda()
+    starts, ends, flags = kernels.split(t.split, dbuf, dlen)
+    block = torch.zeros((t.n_comp, B), dtype=torch.int32, device="cuda")
+    a = t.stages.n_out
+
+    stages = t.stages
+    fl_toks = {x[1] for x in stages.tasks_py if x[0] == pipeline.TASK_SPAN and x[2]}
+    sb = sum(span_bytes(torch, starts[k], ends[k], L) for k in fl_toks)
+    sb += sum(B for x in stages.tasks_py if x[2] == pipeline.PART_DIRECT)
+    phase("span_stages_uri",
+          lambda: kernels.span_stages(stages, dbuf, starts, ends, out=block[:a]),
+          lambda: pipeline.span_stages_plain(
+              stages, dbuf, starts, ends,
+              torch.empty((a, B), dtype=torch.int32, device="cuda")),
+          bytes_moved=sb + 8 * B * len(fl_toks) + 4 * B * a, ops=4 * sb,
+          kernel="span_stages", n=B)
+    kernels.span_stages(stages, dbuf, starts, ends, out=block[:a])
+    for g, ts in enumerate(t.ts):
+        kernels.timestamp(ts, dbuf, starts, ends, out=block[a + 4 * g:a + 4 * g + 4])
+
+    # uri_split: both groups per timing, each on the block as it stands
+    # before the URI stage (its own rows are outputs only).
+    base = block.clone()
+    u_bytes = u_rows = 0
+    for u in t.uri:
+        if u.src[0] < 0:
+            s, e = starts[u.token_index], ends[u.token_index]
+        else:
+            s = base[u.src[0]]
+            e = s + base[u.src[1]]
+        u_bytes += span_bytes(torch, s, e, u.window) + (8 if u.src[0] < 0 else 12) * B
+        u_rows += 2 + 6 * len(u.parts_py) + 3 * sum(p[-1] >= 0 for p in u.parts_py)
+
+    def uri_kernel():
+        for u in t.uri:
+            kernels.uri_split(u, dbuf, starts, ends, block)
+        return block
+
+    def uri_plain():
+        out = base.clone()
+        for u in t.uri:
+            pipeline.uri_split_plain(u, dbuf, starts, ends, out)
+        return out
+
+    phase("uri_split", uri_kernel, uri_plain, bytes_moved=u_bytes + 4 * B * u_rows,
+          ops=10 * u_bytes, n=B)
+    uri_kernel()
+    torch.cuda.synchronize()
+
+    base = block.clone()
+    c_bytes = c_rows = 0
+    for c in t.csr:
+        s = base[c.src[0]]
+        c_bytes += span_bytes(torch, s, s + base[c.src[1]], c.window) + 12 * B
+        c_rows += 2 * c.slots + 2
+
+    def csr_kernel():
+        for c in t.csr:
+            kernels.csr_split(c, dbuf, block)
+        return block
+
+    def csr_plain():
+        out = base.clone()
+        for c in t.csr:
+            pipeline.csr_split_plain(c, dbuf, out)
+        return out
+
+    phase("csr_split", csr_kernel, csr_plain, bytes_moved=c_bytes + 4 * B * c_rows,
+          ops=6 * c_bytes, n=B)
+    csr_kernel()
+    flags_u = flags[None, :].contiguous()
+    phase("pack_rows_uri",
+          lambda: kernels.pack_rows(ex.pack, flags_u, block),
+          lambda: pipeline.pack_rows_plain(ex.pack, flags_u, block),
+          bytes_moved=4 * B * (block.shape[0] + 1 + ex.n_out_rows),
+          ops=3 * B * (len(ex.pack.slots_py) + 8 * ex.pack.V),
+          kernel="pack_rows", n=B)
+
+    # End to end: the regrow happens on the card inside parse_batch.
+    gpu.parse_batch(lines[:min(4096, N_LINES)])  # warm the allocator, no edge lines
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gpu.parse_batch(lines)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the URI chain's path")
+    for name in ("uri_split", "csr_split"):
+        rows[name]["launches"] = launches[name]
+    cpu = TorchBatchParser("combined", fields, device="cpu")
+    ref = cpu.parse_batch(lines)
+    compare_results(res, ref, "end_to_end_uri")
+    twenty = len(lines) - len(edge) + next(
+        i for i, x in enumerate(edge) if "k19=v19" in x)
+    cap_line = len(lines) - 1
+    if res.csr_regrows < 1 or gpu.csr_slots < 32 or not res.valid[twenty]:
+        fail(f"no regrow on the card: {gpu.csr_slots} slots, 20-param line "
+             f"valid {bool(res.valid[twenty])}")
+    if cap_line not in res.needs_host.tolist():
+        fail("the line past the 128-slot cap is not in needs_host")
+    n_valid = int(res.valid.sum())
+    if n_valid < 0.98 * N_LINES:
+        fail(f"only {n_valid} of {B} URI lines valid on device")
+    emit({"phase": "end_to_end_uri", "B": B, "L": L, "equal_to_cpu": True,
+          "valid": n_valid, "needs_host": len(res.needs_host),
+          "csr_slots": gpu.csr_slots, "csr_regrows": res.csr_regrows,
+          "stage_seconds": res.stage_seconds, "wall_seconds": wall,
+          "lines_per_s": B / wall,
+          "device_lines_per_s": B / res.stage_seconds["kernels"],
+          "d2h_bytes": res.d2h_bytes, "launches": launches, "card": smi})
+    # The same batch again at the grown slots: no regrow, one device pass.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res2 = gpu.parse_batch(lines)
+    wall2 = time.perf_counter() - t0
+    compare_results(res2, ref, "end_to_end_uri_grown")
+    emit({"phase": "end_to_end_uri_grown", "B": B, "L": L, "equal_to_cpu": True,
+          "csr_slots": gpu.csr_slots, "csr_regrows": res2.csr_regrows,
+          "stage_seconds": res2.stage_seconds, "wall_seconds": wall2,
+          "lines_per_s": B / wall2,
+          "device_lines_per_s": B / res2.stage_seconds["kernels"],
+          "d2h_bytes": res2.d2h_bytes, "launches": kernels.launch_counts(),
+          "card": smi})
+
+    wide = generate_combined_lines(256, seed=7, garbage_fraction=0.05) + edge + [
+        edge[0].replace("/x/y?", "/p?" + "&".join(f"k{i}" for i in range(200)) + "&"),
+        edge[0].replace("/x/y?", "/" + "z" * 5000 + "?"),
+    ]
+    gpu_w = TorchBatchParser("combined", fields)
+    res_w = gpu_w.parse_batch(wide)
+    ref_w = TorchBatchParser("combined", fields, device="cpu").parse_batch(wide)
+    if res_w.buf.shape[1] != 8191:
+        fail(f"the wide URI batch took bucket {res_w.buf.shape[1]}, not 8191")
+    compare_results(res_w, ref_w, "wide_bucket_uri")
+    host = res_w.needs_host.tolist()
+    if not {len(wide) - 2, len(wide) - 1} <= set(host):
+        fail("the 200-parameter or the 5,000-byte URI line is not in needs_host")
+    emit({"phase": "wide_bucket_uri", "B": len(wide), "L": 8191,
+          "equal_to_cpu": True, "csr_slots": gpu_w.csr_slots, "needs_host": host})
+
+
+def compare_results(got, want, what) -> None:
+    if got.needs_host.tolist() != want.needs_host.tolist():
+        fail(f"{what}: needs_host differs: {got.needs_host[:10]} vs {want.needs_host[:10]}")
+    got_d, want_d = got.to_dict(), want.to_dict()
+    for fid in want_d:
+        if got_d[fid] != want_d[fid]:
+            i = next(i for i, (a, b) in enumerate(zip(got_d[fid], want_d[fid])) if a != b)
+            fail(f"{what}: {fid} row {i}: {got_d[fid][i]!r} != {want_d[fid][i]!r}")
 
 
 if __name__ == "__main__":

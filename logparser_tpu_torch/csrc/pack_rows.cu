@@ -6,9 +6,12 @@
 // packing and row-0 assembly of compute_rows, the row stacking of
 // _units_rows_and_prefixes, and compute_view_rows.
 //
-// One thread per line.  Per unit: valid = split valid AND every line
-// constraint component; row 0 = valid | plausible<<1 | (esc_hit &
-// valid)<<3.  Per output row: OR of its slots, (comp & (2^bits - 1)) <<
+// One thread per line.  Per unit the line constraints apply in plan
+// order, as (component, kind) rows: kind 0 requires the component, kind
+// 1 (a query-string overflow) fails the line and raises bit 2 only where
+// the line is still valid at that point, kind 2 (a URI over its window)
+// fails it and raises bit 2 unmasked; row 0 = valid | plausible<<1 |
+// overflow<<2 | (esc_hit & valid)<<3.  Per output row: OR of its slots, (comp & (2^bits - 1)) <<
 // shift (bits 0 = the full word).  Views: the winner is the first unit
 // whose row 0 is valid (0 when none), un-claimed when an earlier unit is
 // still plausible; each view field takes the winner's span word
@@ -37,12 +40,21 @@ __global__ void pack_rows_kernel(
     uint32_t row0[MAX_UNITS];
     for (int u = 0; u < U; ++u) {
       const int f = flags[static_cast<size_t>(u) * B + b];
-      bool valid = (f & 1) != 0;
-      for (int i = 0; i < units[3 * u + 2]; ++i) {
-        if (comp(cons[units[3 * u + 1] + i]) == 0) valid = false;
+      bool valid = (f & 1) != 0, over = false;
+      for (int i = units[3 * u + 1], end = i + units[3 * u + 2]; i < end; ++i) {
+        bool hit = comp(cons[2 * i]) != 0;
+        const int kind = cons[2 * i + 1];
+        if (kind == 0) {          // require
+          valid = valid && hit;
+          continue;
+        }
+        if (kind == 1) hit = hit && valid;   // CSR overflow: masked so far
+        valid = valid && !hit;
+        over = over || hit;
       }
       const bool esc = (f & 4) != 0;
-      row0[u] = (valid ? 1u : 0u) | (f & 2) | ((esc && valid) ? 8u : 0u);
+      row0[u] = (valid ? 1u : 0u) | (f & 2) | (over ? 4u : 0u) |
+                ((esc && valid) ? 8u : 0u);
     }
     for (int r = 0; r < K; ++r) {
       const int unit = rows[3 * r];

@@ -1,15 +1,17 @@
 // Kernel 2: the span post-stages of one format unit.
 //
 // Replaces, from logparser_tpu/tpu: pipeline.py compute_rows.clf_dash,
-// postproc.py gather_span_bytes (as a plain gather), split_firstline and
-// parse_long_spans (CLF mode), and pipeline.py span_prefix_words.
+// postproc.py gather_span_bytes (as a plain gather), split_firstline,
+// split_protocol_version and parse_long_spans (CLF mode), and
+// pipeline.py span_prefix_words.
 //
 // One thread per line runs the unit's task table.  Task rows (TASKW
 // ints): kind (0 span, 1 long), token, part (span: 0 direct, 1 method,
-// 2 uri, 3 protocol), clf (long), then output rows -- span: start, len,
-// ok, null, -, -, -, prefix row (3 words, or -1); long: hi, lo, d18,
-// ndig, ok, null, big.  Outputs are int32 rows [n_out, B], coalesced
-// across threads.
+// 2 uri, 3 protocol, 4 / 5 the protocol / version halves of the
+// protocol split at its first '/'), clf (long), then output rows --
+// span: start, len, ok, null, -, -, -, prefix row (3 words, or -1);
+// long: hi, lo, d18, ndig, ok, null, big.  Outputs are int32 rows
+// [n_out, B], coalesced across threads.
 //
 // Bound: the bytes it must read are the spans it scans (the request
 // line, 19 bytes of the byte count, 12 bytes per view prefix) plus the
@@ -99,38 +101,35 @@ __global__ void span_stages_kernel(
           if (part == 1) { start = fl.ms; end = fl.me; }
           else if (part == 2) { start = fl.us; end = fl.ue; }
           else { start = fl.ps; end = fl.pe; ok = ok && fl.has_protocol; }
+          if (part >= 4) {
+            // "HTTP/1.1" -> protocol + version at the first '/'; null
+            // when the span is empty or holds no '/'.
+            int slash = L;
+            for (int p = max(start, 0), hi = min(end, L); p < hi; ++p) {
+              if (row.p[p] == '/') { slash = p; break; }
+            }
+            null = start >= end || slash >= L;
+            if (part == 4) end = min(slash, end);
+            else start = min(slash + 1, end);
+          }
         }
         put(task[4], start);
         put(task[5], end - start);
         put(task[6], ok ? 1 : 0);
         put(task[7], null ? 1 : 0);
         if (task[11] >= 0) {
-          const bool live = ok && !null;
-          const int n = end - start;
           for (int w = 0; w < 3; ++w) {
-            uint32_t word = 0;
-            for (int j = 0; j < 4; ++j) {
-              const int i = 4 * w + j;
-              if (live && i < n) word |= static_cast<uint32_t>(row.at(start, i)) << (8 * j);
-            }
-            put(task[11] + w, static_cast<int>(word));
+            put(task[11] + w, static_cast<int>(
+                lp::prefix_word(row, start, end - start, ok && !null, false, w)));
           }
         }
       } else {
         // 19-digit left-aligned limb frame (the reference's
         // parse_long_spans); int32 sums wrap, as there.
         const int n = e - s;
-        uint32_t hi = 0, lo = 0, d18 = 0;
-        bool window_digits = true;
-        for (int i = 0; i < 19; ++i) {
-          const uint32_t d = static_cast<uint32_t>(row.at(s, i) - '0') & 0xFFu;
-          const bool in_span = i < n;
-          if (in_span && d > 9) window_digits = false;
-          const uint32_t dd = in_span ? d : 0u;
-          if (i < 9) hi = hi * 10u + dd;
-          else if (i < 18) lo = lo * 10u + dd;
-          else d18 = dd;
-        }
+        const lp::LongFrame lf = lp::long_frame(row, s, n);
+        uint32_t hi = lf.hi, lo = lf.lo, d18 = lf.d18;
+        const bool window_digits = lf.digits_ok;
         const bool clf = task[3] != 0;
         const bool is_dash = n == 1 && row.at(s, 0) == '-';
         const bool big = n > 19;

@@ -1,6 +1,6 @@
 """The Apache HTTPD ``%``-token table, cut to the tokens of ``common`` and
-``combined`` (the port's own copy of the reference package's
-``httpd/apache.py``).
+``combined`` plus the typed cookie headers (the port's own copy of the
+reference package's ``httpd/apache.py``).
 
 Same format cleanup (``%!200,304{...}`` modifiers stripped, header names
 lower-cased, ``%t`` -> ``[%t]``), the same ``<`` / ``>`` original/last
@@ -100,6 +100,10 @@ def create_token_parsers() -> List[TokenParser]:
                              "HTTP.USERAGENT", STRING_ONLY, FORMAT_STRING, 1))
     p.extend(_first_and_last("%{referer}i", "request.referer", "HTTP.URI",
                              STRING_ONLY, FORMAT_STRING, 1))
+    p.extend(_first_and_last("%{cookie}i", "request.cookies", "HTTP.COOKIES",
+                             STRING_ONLY, FORMAT_STRING, 1))
+    p.extend(_first_and_last("%{set-cookie}o", "response.cookies",
+                             "HTTP.SETCOOKIES", STRING_ONLY, FORMAT_STRING, 1))
     return p
 
 

@@ -93,3 +93,63 @@ HEADLINE_FIELDS = [
     "HTTP.URI:request.referer",
     "HTTP.USERAGENT:request.user-agent",
 ]
+
+# The URI dashboard field set: page path plus three campaign / search
+# query keys (the reference's bench.py URI_DASHBOARD_FIELDS).
+URI_DASHBOARD_FIELDS = [
+    "HTTP.PATH:request.firstline.uri.path",
+    "STRING:request.firstline.uri.query.q",
+    "STRING:request.firstline.uri.query.utm_source",
+    "STRING:request.firstline.uri.query.id",
+]
+
+# The URI chain end to end: the headline fields, the dashboard fields,
+# every query parameter, the raw query string, the protocol split and the
+# referer's authority and parameters.
+URI_CHAIN_FIELDS = HEADLINE_FIELDS + URI_DASHBOARD_FIELDS + [
+    "STRING:request.firstline.uri.query.*",
+    "HTTP.QUERYSTRING:request.firstline.uri.query",
+    "TIME.YEAR:request.receive.time.year",
+    "HTTP.PROTOCOL:request.firstline.protocol",
+    "HTTP.PROTOCOL.VERSION:request.firstline.protocol.version",
+    "HTTP.HOST:request.referer.host",
+    "HTTP.PORT:request.referer.port",
+    "HTTP.PROTOCOL:request.referer.protocol",
+    "STRING:request.referer.query.*",
+]
+
+
+def uri_edge_lines(max_len: int = 384) -> List[str]:
+    """Crafted ``combined`` lines for the URI chain: absolute first-line
+    URIs with userinfo and port, opaque and registry authorities, a
+    20-digit port, '#', ';', two '?', bad escapes and encode-set bytes, a
+    URI longer than the default 192-byte scan window, a query with 20
+    parameters (past the default 16 slots) and one with more parameters
+    than the 128-slot cap -- as many as fit a ``max_len``-byte line."""
+    def line(uri: str, ref: str = "-") -> str:
+        return (f'1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET {uri} HTTP/1.1" '
+                f'200 5 "{ref}" "u"')
+
+    lines = [
+        line("http://user:pw@example.com:8080/x/y?a=1&b=%41", "http://u@h.com:81/r?z=1"),
+        line("/p", "mailto:someone@example.com"),
+        line("http://[::1]:80/p?x=1", "http://[::1]/x?y=2"),
+        line("/p", "http://h.com:12345678901234567890/x"),
+        line("/p", "http://h.com:9223372036854775808/x"),
+        line("/p#frag"),
+        line("/p;jsessionid=1"),
+        line("/p?a=1?b=2"),
+        line("/p?broken=50%-off&q=caf%C3%A9&e=%zz&plus=a+b"),
+        line("/p?x={y}&%41=1&n%2=v", "https://s.com/?q=a%20b&q=c"),
+        line("/a%20b/c?", "urn:isbn:0451450523"),
+        line("HTTP/1.1"),
+        line("/" + "x" * 250 + "?y=1"),
+        line("/p?" + "&".join(f"k{i}=v{i}" for i in range(20))),
+        line("/p?a=1&A=2&a=3&=4&&k&" + "k" * 5 + "=%2B"),
+        line("/p", "-"),
+        line("/p", ""),
+    ]
+    base = len(line("/p?"))
+    n = (max_len - base + 1) // 2
+    lines.append(line("/p?" + "&".join("a" * n)))
+    return lines

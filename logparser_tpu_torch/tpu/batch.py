@@ -4,16 +4,20 @@ parse on the card -> columnar :class:`BatchResult`.
 The port of the reference package's ``tpu/batch.py`` for this slice:
 
 - plan resolution chases each token output through the consumer edges
-  the slice runs (direct token outputs, the first-line split, the
+  the port runs (direct token outputs, the first-line split, the
+  protocol-version split, the URI split, the query-string wildcard, the
   timestamp bundle, the CLF -> number conversion); a field reached any
   other way, or by more than one path, raises
-  :class:`UnsupportedFieldError` naming the slice that brings it;
+  :class:`UnsupportedFieldError` naming the ROADMAP item that brings it;
 - the batch goes host -> device once (pinned buffer, ``non_blocking`` on
-  the current stream), through the four kernels (``UnitsExecutor``), and
-  back once as the packed ``[K + 4V, B]`` int32;
+  the current stream), through the kernels (``UnitsExecutor``), and back
+  once as the packed ``[K + 4V, B]`` int32; a batch whose row 0 carries
+  the CSR overflow bit doubles the query-string slots (up to
+  ``CSR_SLOTS_MAX``) and runs again;
 - materialization decides, per line, the winning format, validity and
   plausibility, and decodes span / long / timestamp columns on the host
-  (int64 numpy), including the Long-overflow patch of ``%b``.
+  (int64 numpy), including the Long-overflow patch of ``%b``, the
+  per-row URI repair of ``fix`` spans and the query-string parameters.
 
 Lines the reference sends to its host oracle (device-invalid but still
 plausible, contested, truncated) are returned in ``needs_host`` with all
@@ -23,22 +27,28 @@ Definitely-bad lines (implausible for every format) are plain invalid.
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..dissectors.timelayout import APACHE_LAYOUT
 from ..dissectors.tokenformat import UnsupportedFormatError
+from ..dissectors.uri import _BAD_ESCAPE_PATTERN, _encode_bad_uri_chars, _percent_decode
+from ..dissectors.utils import resilient_url_decode
 from ..httpd.apache import NAMED_FORMATS, ApacheLogFormat
 from . import postproc, timefields
 from .pipeline import (
+    CSR_OVERFLOW_BIT,
+    CSR_SLOTS,
+    CSR_SLOTS_MAX,
     FieldPlan,
     FormatUnit,
     PackedLayout,
     UnitsExecutor,
     _SPAN_BITS,
     assign_row_offsets,
+    csr_group_key,
     ts_group_key,
 )
 from .program import CS_CLF_DIGITS, CS_DIGITS, DeviceProgram, compile_device_program
@@ -100,15 +110,17 @@ _CONSUMERS: Dict[str, List[Tuple[str, List[Tuple[str, str]]]]] = {
         ("HTTP.QUERYSTRING", "query"), ("HTTP.REF", "ref"),
     ])],
     "HTTP.QUERYSTRING": [("querystring", [("STRING", "*")])],
+    "HTTP.COOKIES": [("cookies", [("HTTP.COOKIE", "*")])],
+    "HTTP.SETCOOKIES": [("setcookies", [("HTTP.SETCOOKIE", "*")])],
     "BYTESCLF": [("clf_to_number", [("BYTES", "")])],
     "BYTES": [("number_to_clf", [("BYTESCLF", "")])],
 }
+_SETCOOKIE_ATTRS = ("value", "path", "domain", "comment", "expires")
 
 # Where each unported edge lands in ROADMAP.md.
 _LATER = {
-    "uri": "slice 2 (split_uri_fast, ROADMAP queue A item 1)",
-    "querystring": "slice 2 (split_csr, ROADMAP queue A item 1)",
-    "protocol_version": "split_protocol_version (ROADMAP queue A item 1)",
+    "cookies": "the cookie CSR split (ROADMAP queue A item 5)",
+    "setcookies": "the Set-Cookie CSR split, split_setcookie_csr (ROADMAP queue A item 5)",
     "number_to_clf": "the zero->null CLF conversion (ROADMAP queue A item 5)",
     "timestamp": "the host oracle port (ROADMAP queue A item 3)",
     "multi": "the host oracle port (ROADMAP queue A item 3): more than one producer",
@@ -140,11 +152,13 @@ class TorchBatchParser:
             raise ValueError(f"unsupported device {self.device}")
         self.log_format = log_format
         self.requested = list(dict.fromkeys(cleanup_field_value(f) for f in fields))
+        self.csr_slots = CSR_SLOTS
         self.units: List[FormatUnit] = []
         for fmt in _split_formats(log_format):
             prog = compile_device_program(ApacheLogFormat(fmt))
             plans = [self._resolve(prog, fid) for fid in self.requested]
-            self.units.append(FormatUnit(prog, plans, PackedLayout.for_plans(plans)))
+            self.units.append(FormatUnit(prog, plans,
+                                         PackedLayout.for_plans(plans, self.csr_slots)))
         if not self.units:
             raise UnsupportedFormatError(f"no LogFormat in {log_format!r}")
         assign_row_offsets(self.units)
@@ -161,6 +175,20 @@ class TorchBatchParser:
             for fid in self.requested if _plan_group(self.plan_by_id[fid]) == "span"
         ]
         self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
+
+    def _grow_csr_slots(self) -> bool:
+        """Adaptive CSR: double the query-string slot count (bounded by
+        CSR_SLOTS_MAX; the scan windows scale along) and rebuild the
+        layouts and the executor's tables.  False at the cap (those lines
+        stay in ``needs_host``)."""
+        if self.csr_slots >= CSR_SLOTS_MAX:
+            return False
+        self.csr_slots *= 2
+        for u in self.units:
+            u.layout = PackedLayout.for_plans(u.plans, self.csr_slots)
+        assign_row_offsets(self.units)
+        self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
+        return True
 
     # -- plan resolution -------------------------------------------------
 
@@ -210,6 +238,15 @@ class TorchBatchParser:
             return ("value", ("long", "dash_zero", vctx[2]), steps, device_ok, why)
         if consumer == "firstline" and parse == "":
             return ("span", vctx, steps + (("fl", oname),), device_ok, why)
+        if consumer == "protocol_version" and parse == "":
+            part = "version" if oname else "protocol"
+            return ("span", vctx, steps + (("pv", part),), device_ok, why)
+        if consumer == "uri" and parse == "":
+            if oname == "port":
+                # The port is numeric on the host: a long over the span.
+                return ("value", ("long", vctx[1], vctx[2]),
+                        steps + (("uri", oname),), device_ok, why)
+            return ("span", vctx, steps + (("uri", oname),), device_ok, why)
         if consumer == "timestamp" and parse == "":
             dl = None
             if oname in timefields.DEVICE_COMPONENTS:
@@ -236,8 +273,8 @@ class TorchBatchParser:
         for consumer, outputs in _CONSUMERS.get(t, ()):
             for ot, oname in outputs:
                 if oname == "*":
-                    if ot == ftype and path.startswith(name + "."):
-                        plans.append(FieldPlan(field_id, "host", meta=_LATER[consumer]))
+                    plans.extend(self._wildcard(field_id, ftype, path, tok, consumer,
+                                                ot, name, vctx, steps, device_ok, why))
                     continue
                 new_name = (name + "." + oname if name else oname) if oname else name
                 if not (path == new_name or path.startswith(new_name + ".")):
@@ -263,35 +300,70 @@ class TorchBatchParser:
                     ))
         return plans
 
+    @staticmethod
+    def _wildcard(field_id, ftype, path, tok, consumer, ot, name, vctx, steps,
+                  device_ok, why) -> List[FieldPlan]:
+        """Plans through a wildcard output: a query-string parameter is a
+        ``qscsr`` plan (``comp`` = the key or ``*``); cookies and Set-Cookie
+        attributes are later slices."""
+        if not path.startswith(name + "."):
+            return []
+        rest = path[len(name) + 1:]
+        if ot == ftype:
+            if consumer == "querystring" and vctx[0] == "" and device_ok:
+                return [FieldPlan(field_id, "qscsr", tok.index, steps, comp=rest,
+                                  meta="query")]
+            return [FieldPlan(field_id, "host", meta=why or _LATER[consumer])]
+        cname, _, attr = rest.rpartition(".")
+        typed = ((ftype == "STRING" and attr in _SETCOOKIE_ATTRS)
+                 or (ftype == "TIME.EPOCH" and attr == "expires"))
+        if consumer == "setcookies" and cname and typed:
+            return [FieldPlan(field_id, "host", meta=why or _LATER[consumer])]
+        return []
+
     # -- parsing ---------------------------------------------------------
 
     def parse_batch(self, lines: Sequence[Union[bytes, str]]) -> "BatchResult":
         t0 = time.perf_counter()
         buf, lengths, overflow = encode_batch(lines)
         stage = {"encode": time.perf_counter() - t0}
-        packed = self._run_device(buf, lengths, stage)
+        B = len(lines)
+        regrows = 0
+        while True:
+            packed = self._run_device(buf, lengths, stage)
+            # Adaptive CSR: a line with more query parameters than slots
+            # (or a span past its scan window) -> double the slots and run
+            # the batch again.
+            row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
+            if not ((row0 & CSR_OVERFLOW_BIT) != 0).any() or not self._grow_csr_slots():
+                break
+            regrows += 1
         t1 = time.perf_counter()
         result = self._materialize(list(lines), buf, lengths, overflow, packed)
         stage["materialize"] = time.perf_counter() - t1
         result.stage_seconds = stage
         result.d2h_bytes = int(packed.nbytes)
+        result.csr_regrows = regrows
         return result
 
     def _run_device(self, buf: np.ndarray, lengths: np.ndarray,
                     stage: Dict[str, float]) -> np.ndarray:
         """One H2D copy, the kernels, one D2H copy of the packed rows.
         On the card the device stages are timed with CUDA events."""
+        def add(key, seconds):
+            stage[key] = stage.get(key, 0.0) + seconds
+
         if self.device.type == "cpu":
             t0 = time.perf_counter()
             out = self.executor(torch.from_numpy(buf), torch.from_numpy(lengths))
-            stage["kernels"] = time.perf_counter() - t0
+            add("kernels", time.perf_counter() - t0)
             return out.numpy()
         t0 = time.perf_counter()
         host_buf = torch.from_numpy(buf).pin_memory()
         host_len = torch.from_numpy(lengths).pin_memory()
         host_out = torch.empty((self.executor.n_out_rows, buf.shape[0]),
                                dtype=torch.int32, pin_memory=True)
-        stage["pin"] = time.perf_counter() - t0
+        add("pin", time.perf_counter() - t0)
         with torch.cuda.device(self.device):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
@@ -303,9 +375,9 @@ class TorchBatchParser:
             host_out.copy_(packed, non_blocking=True)
             ev[3].record()
             ev[3].synchronize()
-        stage["h2d"] = ev[0].elapsed_time(ev[1]) / 1e3
-        stage["kernels"] = ev[1].elapsed_time(ev[2]) / 1e3
-        stage["d2h"] = ev[2].elapsed_time(ev[3]) / 1e3
+        add("h2d", ev[0].elapsed_time(ev[1]) / 1e3)
+        add("kernels", ev[1].elapsed_time(ev[2]) / 1e3)
+        add("d2h", ev[2].elapsed_time(ev[3]) / 1e3)
         return host_out.numpy()
 
     def _materialize(self, lines, buf, lengths, overflow, packed) -> "BatchResult":
@@ -332,11 +404,21 @@ class TorchBatchParser:
             plausible_any[i] = True
 
         columns: Dict[str, Dict[str, np.ndarray]] = {}
-        patches = []  # (fid, big rows, overflow rows, wide, hi row)
+        patches = []  # (fid, plan, big rows, overflow rows, wide, hi row)
         ts_cache: Dict[tuple, tuple] = {}
         for fid in self.requested:
-            group = _plan_group(self.plan_by_id[fid])
+            merged = self.plan_by_id[fid]
+            group = _plan_group(merged)
             col = _empty_column(group, B)
+            if group == "span":
+                # Which per-row repair `fix` rows need: the final uri step
+                # decides (path / userinfo: %-repair + decode; query:
+                # %-repair only).
+                col["fix_mode"] = (merged.steps[-1][1] if merged.steps
+                                   and merged.steps[-1][0] == "uri" else "")
+            columns[fid] = col
+            if group == "wild":
+                continue  # query parameters: _materialize_csr below
             for ui, u in enumerate(self.units):
                 sel = winner == ui
                 if not sel.any():
@@ -353,6 +435,8 @@ class TorchBatchParser:
                     col["ends"] = np.where(sel, starts + get(fid, "len"), col["ends"])
                     col["ok"] = np.where(sel, get(fid, "ok") != 0, col["ok"])
                     col["null"] = np.where(sel, get(fid, "null") != 0, col["null"])
+                    col["amp"] = np.where(sel, get(fid, "amp") != 0, col["amp"])
+                    col["fix"] = np.where(sel, get(fid, "fix") != 0, col["fix"])
                 elif plan.kind == "ts":
                     key = (ui, ts_group_key(plan))
                     if key not in ts_cache:
@@ -376,23 +460,27 @@ class TorchBatchParser:
                     row_ok = get(fid, "ok") != 0
                     of_sel = sel & row_ok & valid & (ovf | big)
                     if of_sel.any():
-                        patches.append((fid, of_sel & big, of_sel & ovf, wide, hi_row))
+                        patches.append((fid, plan, of_sel & big, of_sel & ovf,
+                                        wide, hi_row))
                     col["values"] = np.where(sel, values, col["values"])
                     col["null"] = np.where(sel, is_null, col["null"])
                     col["ok"] = np.where(sel, row_ok, col["ok"])
                     if plan.null_mode == "dash_zero":
                         col["null_zero"] = np.where(sel, True, col["null_zero"])
-            columns[fid] = col
 
-        # Long overflow (every token of this port has a STRING cast, so the
-        # reference delivers the exact integer): 19-digit values beyond
-        # Long.MAX from the uint64 frame, >19-digit runs byte-patched from
-        # the buffer; a run whose unchecked tail is not all digits goes to
-        # the host like any device reject.
+        # Long overflow (every direct token of this port has a STRING cast,
+        # so the reference delivers the exact integer): 19-digit values
+        # beyond Long.MAX from the uint64 frame, >19-digit runs
+        # byte-patched from the buffer; a run whose unchecked tail is not
+        # all digits, and any overflow of a chained long (the URI port),
+        # goes to the host like a device reject.
         overrides: Dict[str, Dict[int, Any]] = {fid: {} for fid in columns}
         demoted = set()
         span_mask = (1 << _SPAN_BITS) - 1
-        for fid, big_rows, ovf_rows, wide, hi_row in patches:
+        for fid, plan, big_rows, ovf_rows, wide, hi_row in patches:
+            if plan.steps:
+                demoted.update(int(i) for i in np.nonzero(big_rows | ovf_rows)[0])
+                continue
             ov = overrides[fid]
             for i in np.nonzero(ovf_rows)[0]:
                 ov[int(i)] = int(wide[i])
@@ -411,9 +499,216 @@ class TorchBatchParser:
             plausible_any[i] = True
             for ov in overrides.values():
                 ov.pop(i, None)
+        # Query parameters; a value whose decode fails fails the line on
+        # the host, so those rows go there.
+        for i in self._materialize_csr(packed, winner, valid, columns, overrides,
+                                       buf, B):
+            valid[i] = False
+            winner[i] = -1
+            plausible_any[i] = True
+            for ov in overrides.values():
+                ov.pop(i, None)
         needs_host = np.nonzero(~valid & plausible_any)[0].astype(np.int64)
         return BatchResult(lines, buf, lengths, valid, columns, overrides,
                            needs_host, winner)
+
+    def _materialize_csr(self, packed, winner, valid, columns, overrides, buf, B) -> set:
+        """Query-string parameters from the packed segment tables (the
+        reference's _materialize_csr in ``query`` mode), for the rows each
+        unit claims.  A concrete key fills its span column with the value
+        of the last segment of that name (an override when that value was
+        decoded); a ``.*`` field gets one dict per row.  Rows with a name
+        that needs %-repair take the reference's per-row path (repair,
+        then resilientUrlDecode of flagged values); the others decode
+        flagged values with the left-to-right '+' / %XX rule.  Returns the
+        rows whose value decode failed."""
+        failed: set = set()
+        for ui, u in enumerate(self.units):
+            qs = [(fid, u.plan_for(fid)) for fid in self.requested
+                  if u.plan_for(fid).kind == "qscsr"]
+            rows = np.nonzero((winner == ui) & valid)[0]
+            if not qs or rows.size == 0:
+                continue
+            block = packed[u.row_offset:u.row_offset + u.layout.n_rows]
+            by_key: Dict[str, List[Tuple[str, FieldPlan]]] = {}
+            for fid, p in qs:
+                by_key.setdefault(csr_group_key(p), []).append((fid, p))
+            for key, flist in by_key.items():
+                slots = u.layout.slots[key]
+                K = u.layout.csr_slots
+                # Each slot packs into two rows (start... and vstart...):
+                # gather both [K, rows] word blocks once, then the fields.
+                words = {part: block[[slots[f"s{k}_{part}"][0] for k in range(K)]][:, rows]
+                         for part in ("start", "vstart")}
+
+                def mat(comp, _slots=slots, _words=words):
+                    _, shift, bits = _slots[f"s0_{comp}"]
+                    part = "vstart" if comp.startswith("v") else "start"
+                    return ((_words[part] >> shift) & ((1 << bits) - 1)).astype(np.int64)
+
+                ok = (u.layout.get(block, key, "ok")[:B][rows] != 0)
+                SS, NL, VS, VL = mat("start"), mat("nlen"), mat("vstart"), mat("vlen")
+                HE, DC, ND = (mat(c).astype(bool) for c in ("eq", "dec", "ndec"))
+                emit = (NL > 0) & ok[None, :]
+                slow = (ND & emit).any(axis=0)
+                fast = rows[~slow]
+                segs = _QuerySegments(buf, fast, emit[:, ~slow], SS[:, ~slow],
+                                      NL[:, ~slow], VS[:, ~slow],
+                                      np.where(HE, VL, 0)[:, ~slow], DC[:, ~slow])
+                slow_dicts = {}
+                for j in np.nonzero(slow)[0].tolist():
+                    i = int(rows[j])
+                    d = _query_dict_slow(buf[i], NL[:, j], HE[:, j], SS[:, j],
+                                         VS[:, j], VL[:, j], DC[:, j], ND[:, j])
+                    if d is None:
+                        failed.add(i)
+                    slow_dicts[i] = d
+                for fid, p in flist:
+                    ov = overrides[fid]
+                    if p.comp == "*":
+                        ov.update(segs.dicts())
+                        ov.update((i, d) for i, d in slow_dicts.items() if d is not None)
+                    else:
+                        segs.fill_column(columns[fid], ov, p.comp)
+                        ov.update((i, d.get(p.comp) if d else None)
+                                  for i, d in slow_dicts.items())
+        return failed
+
+
+def _fix_uri_part(value: str, mode: str) -> str:
+    """Per-row URI repair of a device ``fix`` span: the host's encode step
+    and %-repair (twice, like the host), then for a path or userinfo the
+    java.net.URI percent-decode."""
+    value = _encode_bad_uri_chars(value)
+    value = _BAD_ESCAPE_PATTERN.sub(r"%25\1", value)
+    value = _BAD_ESCAPE_PATTERN.sub(r"%25\1", value)
+    if mode in ("path", "userinfo"):
+        value = _percent_decode(value)
+    return value
+
+
+# Hex digit -> value (255 = not a hex digit).
+_HEX_VAL = np.full(256, 255, dtype=np.uint8)
+for _c in b"0123456789":
+    _HEX_VAL[_c] = _c - ord("0")
+for _c in b"abcdef":
+    _HEX_VAL[_c] = _c - ord("a") + 10
+for _c in b"ABCDEF":
+    _HEX_VAL[_c] = _c - ord("A") + 10
+del _c
+
+
+def _qs_value_decode(bts: np.ndarray, off: np.ndarray):
+    """'+' / percent decode of n concatenated value segments (``off`` the
+    [n+1] offsets): '+' -> 0x20, '%' + two same-segment hex digits -> the
+    byte, anything else verbatim.  Returns (decoded bytes, offsets)."""
+    n = len(off) - 1
+    total = int(off[-1])
+    if total == 0:
+        return np.zeros(0, dtype=np.uint8), np.zeros(n + 1, dtype=np.int64)
+    lens = np.diff(off)
+    seg_id = np.repeat(np.arange(n, dtype=np.int64), lens)
+    seg_end = np.repeat(off[1:], lens)
+    pos = np.arange(total, dtype=np.int64)
+    hexv = _HEX_VAL[bts]
+    is_hex = hexv < 16
+    i1 = np.minimum(pos + 1, total - 1)
+    i2 = np.minimum(pos + 2, total - 1)
+    start = (bts == 0x25) & (pos + 2 < seg_end) & is_hex[i1] & is_hex[i2]
+    consumed = np.zeros(total, dtype=bool)
+    consumed[1:] |= start[:-1]
+    consumed[2:] |= start[:-2]
+    out = np.where(bts == 0x2B, np.uint8(0x20), bts)
+    out = np.where(start, (hexv[i1].astype(np.uint8) << 4) | hexv[i2], out).astype(np.uint8)
+    keep = ~consumed
+    new_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(seg_id[keep], minlength=n), out=new_off[1:])
+    return out[keep], new_off
+
+
+class _QuerySegments:
+    """The emitted segments of rows whose names need no repair, in row
+    and slot order: their row, value span, decode flag, lower-cased name
+    and value ('+' / %XX-decoded as latin-1 when flagged, else the raw
+    bytes as UTF-8)."""
+
+    def __init__(self, buf, rows, emit, SS, NL, VS, VL, DC):
+        self.rows = rows
+        pr, pk = np.nonzero(emit.T)
+        sub = (pk, pr)
+        self.seg_row, self.vs, self.vl, self.dec = rows[pr], VS[sub], VL[sub], DC[sub]
+        ss, nl = SS[sub], NL[sub]
+        self.names = [bytes(buf[r, s:s + n]).decode("utf-8", "replace").lower()
+                      for r, s, n in zip(self.seg_row.tolist(), ss.tolist(), nl.tolist())]
+        self.values = [bytes(buf[r, v:v + n]).decode("utf-8", "replace")
+                       for r, v, n in zip(self.seg_row.tolist(), self.vs.tolist(),
+                                          self.vl.tolist())]
+        idx = np.nonzero(self.dec)[0]
+        if idx.size:
+            lens = self.vl[idx]
+            off = np.zeros(idx.size + 1, dtype=np.int64)
+            np.cumsum(lens, out=off[1:])
+            flat = np.concatenate([buf[r, v:v + n] for r, v, n in
+                                   zip(self.seg_row[idx], self.vs[idx], lens)])
+            darr, d_off = _qs_value_decode(flat, off)
+            for m, j in enumerate(idx.tolist()):
+                self.values[j] = bytes(darr[d_off[m]:d_off[m + 1]]).decode("latin-1")
+        self._dicts: Optional[Dict[int, Dict[str, str]]] = None
+
+    def dicts(self) -> Dict[int, Dict[str, str]]:
+        """{row: {name: value}}; a later segment of the same name wins."""
+        if self._dicts is None:
+            self._dicts = {int(i): {} for i in self.rows.tolist()}
+            for r, name, value in zip(self.seg_row.tolist(), self.names, self.values):
+                self._dicts[r][name] = value
+        return self._dicts
+
+    def fill_column(self, col, ov, comp: str) -> None:
+        """A concrete key: the span of the last segment of that name, None
+        where there is none; a decoded value goes to the overrides."""
+        col["ok"][self.rows] = True
+        col["null"][self.rows] = True
+        m = np.array([j for j, n in enumerate(self.names) if n == comp], dtype=np.int64)
+        if m.size == 0:
+            return
+        mr = self.seg_row[m]
+        col["starts"][mr] = self.vs[m]
+        col["ends"][mr] = self.vs[m] + self.vl[m]
+        col["null"][mr] = False
+        last = np.ones(m.size, dtype=bool)
+        last[:-1] = mr[:-1] != mr[1:]
+        for j in m[last & self.dec[m]].tolist():
+            ov[int(self.seg_row[j])] = self.values[j]
+
+
+def _query_dict_slow(line, NL, HE, SS, VS, VL, DC, ND) -> Optional[Dict[str, str]]:
+    """One row's parameters the reference's per-row way: a flagged name is
+    repaired, a flagged value repaired then resilientUrlDecode'd (None when
+    that raises: the host fails the line)."""
+    d: Dict[str, str] = {}
+    for k in range(len(NL)):
+        nlen, has_eq = int(NL[k]), bool(HE[k])
+        if nlen == 0 and not has_eq:
+            continue
+        s0 = int(SS[k])
+        name = bytes(line[s0:s0 + nlen]).decode("utf-8", "replace")
+        if ND[k]:
+            name = _fix_uri_part(name, "")
+        name = name.lower()
+        if name == "":
+            continue
+        if not has_eq:
+            d[name] = ""
+            continue
+        v0 = int(VS[k])
+        value = bytes(line[v0:v0 + int(VL[k])]).decode("utf-8", "replace")
+        if DC[k]:
+            try:
+                value = resilient_url_decode(_fix_uri_part(value, ""))
+            except ValueError:
+                return None
+        d[name] = value
+    return d
 
 
 def _split_formats(log_format: str) -> List[str]:
@@ -438,14 +733,19 @@ def _plan_group(plan: FieldPlan) -> str:
         return "numeric"
     if plan.kind == "ts":
         return "numeric" if timefields.is_numeric_output(plan.comp) else "obj"
+    if plan.kind == "qscsr":
+        return "wild"
     return "host"
 
 
 def _empty_column(group: str, B: int) -> Dict[str, Any]:
-    if group == "span":
-        return {"kind": "span", "starts": np.zeros(B, dtype=np.int32),
-                "ends": np.zeros(B, dtype=np.int32),
-                "ok": np.zeros(B, dtype=bool), "null": np.zeros(B, dtype=bool)}
+    if group in ("span", "wild"):
+        col = {"kind": "span", "starts": np.zeros(B, dtype=np.int32),
+               "ends": np.zeros(B, dtype=np.int32),
+               "ok": np.zeros(B, dtype=bool), "null": np.zeros(B, dtype=bool)}
+        if group == "span":
+            col.update(amp=np.zeros(B, dtype=bool), fix=np.zeros(B, dtype=bool))
+        return col
     if group == "obj":
         return {"kind": "obj", "values": np.full(B, None, dtype=object),
                 "ok": np.zeros(B, dtype=bool)}
@@ -474,6 +774,7 @@ class BatchResult:
         self.lines_read = len(lines)
         self.stage_seconds: Dict[str, float] = {}
         self.d2h_bytes = 0
+        self.csr_regrows = 0
 
     def field_ids(self) -> List[str]:
         return list(self._columns)
@@ -502,7 +803,12 @@ class BatchResult:
                 out.append(None)
             else:
                 raw = bytes(self.buf[i, int(col["starts"][i]):int(col["ends"][i])])
-                out.append(raw.decode("utf-8", errors="replace"))
+                if col.get("amp") is not None and col["amp"][i] and raw[:1] == b"?":
+                    raw = b"&" + raw[1:]  # the ?& query normalization
+                value = raw.decode("utf-8", errors="replace")
+                if col.get("fix") is not None and col["fix"][i]:
+                    value = _fix_uri_part(value, col["fix_mode"])
+                out.append(value)
         return out
 
     def to_dict(self) -> Dict[str, List[Any]]:

@@ -2,7 +2,8 @@
 
 This system has no weights: what plays their part is the compiled state
 of a parser -- per format unit the split program (ops, tokens, charset
-table), the field plans, the packed bit-slot layout and the timestamp
+table), the field plans (a ``qscsr`` plan's ``meta`` is its mode string),
+the packed bit-slot layout with its CSR slot count, and the timestamp
 layouts.  :func:`unit_to_plain` writes that state as plain Python and
 numpy data (tuples, dicts, ``np.ndarray``); :func:`units_from_reference`
 rebuilds the port's :class:`~.pipeline.FormatUnit` objects from it.  The
@@ -55,7 +56,8 @@ def unit_to_plain(unit) -> Plain:
     prog = unit.program
     plans = []
     for p in unit.plans:
-        meta = time_layout_to_plain(p.meta) if p.kind == "ts" else None
+        meta = (time_layout_to_plain(p.meta) if p.kind == "ts"
+                else p.meta if p.kind == "qscsr" else None)
         plans.append((p.field_id, p.kind, p.token_index, tuple(p.steps),
                       p.comp, meta, p.null_mode, p.scale, p.attr))
     return {
@@ -110,7 +112,9 @@ def program_from_plain(p: Plain) -> DeviceProgram:
 
 def units_from_reference(plain: Sequence[Plain]) -> List[FormatUnit]:
     """Plain per-unit data (``unit_to_plain``'s schema) -> the port's
-    FormatUnits.  Plausibility-only probe units are a later slice."""
+    FormatUnits, query-string (``qscsr``) plans, chained longs and the
+    layout's CSR slot count included.  Plausibility-only probe units are
+    a later slice."""
     units: List[FormatUnit] = []
     for d in plain:
         if d["plausibility_only"]:

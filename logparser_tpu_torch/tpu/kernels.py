@@ -1,4 +1,4 @@
-"""The four CUDA kernels of the main path: build, bind, launch.
+"""The CUDA kernels of the port: build, bind, launch.
 
 Sources live in ``logparser_tpu_torch/csrc``; at first use on a CUDA
 tensor they are compiled with ``nvcc`` for ``sm_90a`` into one shared
@@ -7,7 +7,8 @@ library per source (all four ``nvcc`` processes run at once) under
 C entry points take raw device pointers and PyTorch's current stream, and
 return ``cudaGetLastError()`` after the launch.
 
-Each wrapper (``split``, ``span_stages``, ``timestamp``, ``pack_rows``):
+Each wrapper (``split``, ``span_stages``, ``timestamp``, ``uri_split``,
+``csr_split``, ``pack_rows``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -31,10 +32,17 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import pipeline, timeparse
-from .pipeline import PackTables, SplitTables, StageTables, TsTables
+from .pipeline import (
+    CsrTables,
+    PackTables,
+    SplitTables,
+    StageTables,
+    TsTables,
+    UriTables,
+)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("split", "span_stages", "timestamp", "pack_rows")
+KERNELS = ("split", "span_stages", "timestamp", "uri_split", "csr_split", "pack_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +61,10 @@ _SIGNATURES = {
     "span_stages": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P],
     "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P, _INT, _INT, _INT,
                   _INT, _P, _P],
+    "uri_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
+                  _INT, _P, _INT, _INT, _INT, _P],
+    "csr_split": [_P, _INT, _INT, _P, _INT, _INT, _INT, _P, _INT, _INT, _INT,
+                  _INT, _INT, _P],
     "pack_rows": [_INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _INT, _INT,
                   _P, _P],
 }
@@ -285,6 +297,59 @@ def timestamp(
     return out
 
 
+def _check_block(comps: torch.Tensor, B: int, need: int, device: torch.device) -> None:
+    if comps.dim() != 2 or comps.shape[1] != B or comps.shape[0] <= need:
+        raise ValueError(f"comps must be [n > {need}, {B}], got {tuple(comps.shape)}")
+    _check("comps", comps, _I32, comps.shape, device)
+
+
+def uri_split(
+    tables: UriTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, comps: torch.Tensor,
+) -> torch.Tensor:
+    """Kernel 5: one URI group's rows of the unit component block
+    ``comps`` [n, B] int32, filled in place (its input span is the token
+    or three rows of the same block)."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    _check_tables(tables, dev)
+    _check_cursors(tables.token_index, buf, starts, ends)
+    need = max([tables.cons, tables.over, *tables.src]
+               + [v for p in tables.parts_py for v in p[2:-1]]
+               + [p[-1] + 2 for p in tables.parts_py])
+    _check_block(comps, B, need, dev)
+    if not _route(buf):
+        return pipeline.uri_split_plain(tables, buf, starts, ends, comps)
+    if B:
+        src = tables.src
+        _launch("uri_split", dev, _ptr(buf), B, L, _ptr(starts[tables.token_index]),
+                _ptr(ends[tables.token_index]), _ptr(comps), src[0], src[1], src[2],
+                int(tables.dash), int(tables.need_authority), tables.window,
+                _ptr(tables.parts), len(tables.parts_py), tables.cons, tables.over)
+        uri_split.launches += 1
+    return comps
+
+
+def csr_split(tables: CsrTables, buf: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
+    """Kernel 6: one query-string group's rows (2 packed words per slot,
+    ok, overflow) of the unit component block ``comps`` [n, B] int32,
+    filled in place from the query span rows of the same block."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    _check_tables(tables, dev)
+    need = max(tables.words + 2 * tables.slots - 1, tables.ok, tables.over, *tables.src)
+    _check_block(comps, B, need, dev)
+    if not _route(buf):
+        return pipeline.csr_split_plain(tables, buf, comps)
+    if B:
+        src = tables.src
+        _launch("csr_split", dev, _ptr(buf), B, L, _ptr(comps), src[0], src[1],
+                src[2], _ptr(tables.cls), tables.slots, tables.window,
+                tables.words, tables.ok, tables.over)
+        csr_split.launches += 1
+    return comps
+
+
 def pack_rows(
     tables: PackTables, flags: torch.Tensor, comps: torch.Tensor,
 ) -> torch.Tensor:
@@ -296,7 +361,7 @@ def pack_rows(
     _check("comps", comps, _I32, comps.shape, dev)
     _check("flags", flags, _I32, (tables.U, B), dev)
     _check_tables(tables, dev)
-    need = max([c for c, _, _ in tables.slots_py] + tables.cons_py
+    need = max([c for c, _, _ in tables.slots_py] + [c for c, _ in tables.cons_py]
                + [p + 2 for *_, p in tables.views_py], default=-1)
     if comps.shape[0] <= need:
         raise ValueError(f"comps has {comps.shape[0]} rows, tables read row {need}")
@@ -313,10 +378,10 @@ def pack_rows(
     return out
 
 
-for _fn in (split, span_stages, timestamp, pack_rows):
+WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
+            "uri_split": uri_split, "csr_split": csr_split, "pack_rows": pack_rows}
+for _fn in WRAPPERS.values():
     _fn.launches = 0
-WRAPPERS = {"split": split, "span_stages": span_stages,
-            "timestamp": timestamp, "pack_rows": pack_rows}
 
 
 def reset_launch_counts() -> None:

@@ -1,23 +1,30 @@
 """Device pipeline: split + typed post-stages -> ONE packed [K, B] int32.
 
 The port of the reference package's ``tpu/pipeline.py`` for the Apache
-``combined`` main path.  Host data (field plans, the packed bit-slot
-layout, format units) is copied; the device computation is four
-hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``) run by
-:class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
+``combined`` main path and the URI chain.  Host data (field plans, the
+packed bit-slot layout, format units) is copied; the device computation
+is six hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``)
+run by :class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
 
 1. ``split``       — the split program: token cursors, valid, plausible,
                      esc_hit (:func:`compute_split` is its plain version);
-2. ``span_stages`` — CLF dash, first-line split, ``%b`` limb frame, view
-                     prefix words (:func:`span_stages_plain`);
+2. ``span_stages`` — CLF dash, first-line and protocol splits, ``%b``
+                     limb frame, view prefix words (:func:`span_stages_plain`);
 3. ``timestamp``   — the ``DeviceTimeLayout`` items
                      (``timeparse.parse_device_timestamp``);
-4. ``pack_rows``   — bit-packing of every component into ``[K, B]``, the
-                     row-0 verdict bits and line constraints, and the
-                     winner-merged view rows (:func:`pack_rows_plain`).
+4. ``uri_split``   — one URI split per (token, steps) group: sub-spans,
+                     fix / amp flags, line constraints, the port long
+                     (:func:`uri_split_plain`);
+5. ``csr_split``   — one query-string split per group: packed segment
+                     words and overflow (:func:`csr_split_plain`);
+6. ``pack_rows``   — bit-packing of every component into ``[K, B]``, the
+                     row-0 verdict bits and line constraints in plan
+                     order, and the winner-merged view rows
+                     (:func:`pack_rows_plain`).
 
-Stages 2 and 3 write "components": one ``[B]`` int32 row per value a
-layout slot receives, in a ``[n_comp, B]`` tensor that stage 4 packs.
+Stages 2 to 5 write "components": one ``[B]`` int32 row per value a
+layout slot receives, in a ``[n_comp, B]`` tensor that stage 6 packs;
+stages 4 and 5 read their input spans from rows earlier stages wrote.
 The per-parser constants (program, plans, layout) become small int32
 tables uploaded once (the ``*Tables`` modules below) and passed to every
 launch.  The plain versions run on the CPU; on a CUDA tensor the wrappers
@@ -40,15 +47,18 @@ from .program import CS_ANY, DeviceProgram
 class FieldPlan:
     """How one requested field is produced on device.
 
-    A token capture plus a chain of span-transform ``steps`` (here only
-    the first-line split ``("fl", part)``) ending in a terminal decode
+    A token capture plus a chain of span-transform ``steps`` (the
+    first-line split ``("fl", part)``, the protocol split ``("pv",
+    part)``, the URI split ``("uri", part)``) ending in a terminal decode
     ``kind``: ``span`` (the sub-span itself), ``long`` (digit span ->
     int64, ``null_mode`` handles the CLF '-'), ``ts`` (timestamp ->
     component bundle; ``comp`` names the output, ``meta`` carries the
-    DeviceTimeLayout) or ``host`` (not device-resolvable)."""
+    DeviceTimeLayout), ``qscsr`` (a query-string wildcard: ``comp`` is
+    the key or ``*``, ``meta`` the mode ``"query"``) or ``host`` (not
+    device-resolvable)."""
 
     field_id: str                 # cleaned "TYPE:path"
-    kind: str                     # span | long | ts | host
+    kind: str                     # span | long | ts | qscsr | host
     token_index: int = -1
     steps: Tuple[Tuple[str, str], ...] = ()
     comp: str = ""
@@ -71,11 +81,24 @@ _SPAN_MASK = (1 << _SPAN_BITS) - 1
 Slot = Tuple[int, int, int]   # (row, shift, bits); bits=0 -> full int32 row
 
 # row 0 bit assignments: bit 0 = line validity, bit 1 = plausibility,
-# bit 2 = CSR slot overflow (no CSR stage on this slice, so never set),
-# bit 3 = the valid line's quoted-field split consumed a backslash-escaped
-# separator.
+# bit 2 = CSR slot overflow (a query string with more segments than
+# slots, or a URI / query span longer than its scan window), bit 3 = the
+# valid line's quoted-field split consumed a backslash-escaped separator.
+CSR_OVERFLOW_BIT = 4
 ESC_QUOTE_BIT = 8
+
+# Segment slots per CSR wildcard split (query params).  A line with more
+# segments than slots raises CSR_OVERFLOW_BIT and goes to the host;
+# TorchBatchParser reacts by doubling the slots (up to CSR_SLOTS_MAX) and
+# re-running the batch.
 CSR_SLOTS = 16
+CSR_SLOTS_MAX = 128
+# Scan windows, in span bytes per slot: csr_split scans at most
+# slots * CSR_WINDOW_PER_SLOT bytes of a query span, uri_split at most
+# slots * URI_WINDOW_PER_SLOT bytes of a URI (192 at 16 slots, 1536 at
+# the cap); a longer span raises the same overflow bit.
+CSR_WINDOW_PER_SLOT = 8
+URI_WINDOW_PER_SLOT = 12
 
 # Split flags (the split kernel's per-line output word).
 SPLIT_VALID = 1
@@ -86,6 +109,12 @@ SPLIT_ESC_HIT = 4
 def ts_group_key(plan: FieldPlan) -> str:
     """All ts plans over the same token+steps share one component bundle."""
     return f"@ts:{plan.token_index}:{plan.steps!r}"
+
+
+def csr_group_key(plan: FieldPlan) -> str:
+    """All qscsr plans over the same token+steps+mode share one segment
+    table."""
+    return f"@qs:{plan.token_index}:{plan.meta}:{plan.steps!r}"
 
 
 @dataclass
@@ -148,6 +177,23 @@ class PackedLayout:
                         "c2": (r + 1, 0, 0),
                         "off": (r + 2, 0, 0),
                     }
+                    aux_needs.append((key, "ok", 1))
+            elif kind == "qscsr":
+                key = csr_group_key(plan)
+                if key not in layout.slots:
+                    slots: Dict[str, Slot] = {}
+                    for k in range(csr_slots):
+                        rn, rv = layout.n_rows, layout.n_rows + 1
+                        layout.n_rows += 2
+                        slots[f"s{k}_start"] = (rn, 0, _SPAN_BITS)
+                        slots[f"s{k}_nlen"] = (rn, _SPAN_BITS, _SPAN_BITS)
+                        slots[f"s{k}_eq"] = (rn, 2 * _SPAN_BITS, 1)
+                        slots[f"s{k}_dec"] = (rn, 2 * _SPAN_BITS + 1, 1)
+                        slots[f"s{k}_ndec"] = (rn, 2 * _SPAN_BITS + 2, 1)
+                        slots[f"s{k}_nhigh"] = (rn, 2 * _SPAN_BITS + 3, 1)
+                        slots[f"s{k}_vstart"] = (rv, 0, _SPAN_BITS)
+                        slots[f"s{k}_vlen"] = (rv, _SPAN_BITS, _SPAN_BITS)
+                    layout.slots[key] = slots
                     aux_needs.append((key, "ok", 1))
             else:
                 raise ValueError(f"plan kind {kind!r} is not on this slice")
@@ -262,17 +308,6 @@ def esc_quote_op_flags(program: DeviceProgram) -> Dict[int, bool]:
     }
 
 
-def _shift_zero(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Left-shift columns by k, zero-filling the tail."""
-    if k <= 0:
-        return x
-    B, L = x.shape
-    if k >= L:
-        return torch.zeros_like(x)
-    return torch.cat([x[:, k:], torch.zeros((B, k), dtype=x.dtype,
-                                            device=x.device)], dim=1)
-
-
 def escaped_lead_positions(buf: torch.Tensor) -> torch.Tensor:
     """[B, L] bool: the backslash run right before p has odd length."""
     B, L = buf.shape
@@ -304,7 +339,7 @@ def compute_split(
     for lit in sorted({op.lit for op in program.ops if op.lit}):
         m = None
         for k, byte in enumerate(lit):
-            part = _shift_zero(buf, k) == byte
+            part = postproc.shift_zero(buf, k) == byte
             m = part if m is None else (m & part)
         lit_masks[lit] = m & (pos + len(lit) <= len_col)
 
@@ -420,8 +455,23 @@ MAX_TOKENS = 64
 
 TASK_SPAN, TASK_LONG = 0, 1
 PART_DIRECT, PART_METHOD, PART_URI, PART_PROTOCOL = 0, 1, 2, 3
+PART_PV_PROTOCOL, PART_PV_VERSION = 4, 5   # "pv" sub-steps of the fl protocol
 _FL_PART = {"method": PART_METHOD, "uri": PART_URI, "protocol": PART_PROTOCOL}
+_PV_PART = {"protocol": PART_PV_PROTOCOL, "version": PART_PV_VERSION}
 TASKW = 12       # span_stages task table width
+
+# uri_split parts: spans write (start, len, ok, null, amp, fix); the port
+# writes the long frame (hi, lo, d18, ndig, ok, null, big).
+URI_PATH, URI_QUERY, URI_PROTOCOL, URI_USERINFO, URI_HOST, URI_REF, URI_PORT = range(7)
+_URI_PART = {"path": URI_PATH, "query": URI_QUERY, "protocol": URI_PROTOCOL,
+             "userinfo": URI_USERINFO, "host": URI_HOST, "ref": URI_REF,
+             "port": URI_PORT}
+URIW = 10        # uri_split part table width: part, clf, out0..out6, prefix row
+
+# Line-constraint kinds of pack_rows, applied in plan order:
+CONS_REQUIRE = 0       # valid &= comp != 0
+CONS_CSR_OVERFLOW = 1  # o = comp != 0 & valid; valid &= ~o; bit 2 |= o
+CONS_URI_OVERFLOW = 2  # o = comp != 0;         valid &= ~o; bit 2 |= o
 
 ITEM_LIT, ITEM_NUM, ITEM_NAME = 0, 1, 2
 MAX_UNITS = 8
@@ -506,54 +556,119 @@ class SplitTables(nn.Module):
         ))
 
 
+
+
+@dataclass
+class _UriGroup:
+    """One URI split (one per (token, steps) prefix): its input span --
+    the token's cursors (``src`` all -1) or three span_stages rows (start,
+    len, ok) -- the CLF dash flag of a direct token, its part rows and
+    its two line-constraint rows."""
+
+    token: int
+    src: Tuple[int, int, int]
+    dash: bool
+    parts: List[Tuple] = dataclass_field(default_factory=list)
+    cons: int = -1
+    over: int = -1
+    query: Tuple[int, int, int] = (-1, -1, -1)
+
+
+@dataclass
+class _CsrGroup:
+    """One query-string CSR split: its input span (the rows of a URI
+    query part), the first of its 2 x slots packed segment words, and its
+    ok and overflow rows."""
+
+    key: str
+    src: Tuple[int, int, int]
+    words: int
+    ok: int
+    over: int
+
+
 @dataclass
 class _UnitComps:
-    """Component rows of one unit: span_stages tasks, timestamp groups,
-    line constraints and the slot every component is packed into."""
+    """Component rows of one unit: span_stages tasks (rows [0,
+    n_stage_rows)), then 4 rows (c1, c2, off, ok) per timestamp group,
+    then the URI and CSR groups' rows; the line constraints in the order
+    pack_rows applies them and the slot every component is packed into."""
 
     tasks: List[Tuple] = dataclass_field(default_factory=list)
     n_stage_rows: int = 0
     ts_groups: List[Tuple[str, int, object]] = dataclass_field(default_factory=list)
-    constraints: List[int] = dataclass_field(default_factory=list)
+    uri_groups: List[_UriGroup] = dataclass_field(default_factory=list)
+    csr_groups: List[_CsrGroup] = dataclass_field(default_factory=list)
+    need_authority: bool = False
+    constraints: List[Tuple[int, int]] = dataclass_field(default_factory=list)
     puts: List[Tuple[int, Slot]] = dataclass_field(default_factory=list)
     prefix: Dict[str, int] = dataclass_field(default_factory=dict)
     start_row: Dict[str, int] = dataclass_field(default_factory=dict)
+    n_rows: int = 0
 
-    @property
-    def n_rows(self) -> int:
-        return self.n_stage_rows + 4 * len(self.ts_groups)
+
+def _stage_part(steps) -> int:
+    """The span_stages part of a span chain that needs no URI split."""
+    if not steps:
+        return PART_DIRECT
+    if len(steps) == 1 and steps[0][0] == "fl":
+        return _FL_PART[steps[0][1]]
+    if len(steps) == 2 and steps[0] == ("fl", "protocol") and steps[1][0] == "pv":
+        return _PV_PART[steps[1][1]]
+    raise ValueError(f"span chain {steps} is not on this slice")
+
+
+def _uri_chained(plan: FieldPlan) -> bool:
+    return bool(plan.steps) and plan.steps[-1][0] == "uri"
 
 
 def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
-    """Assign component rows for one unit: span_stages rows first (in
-    plan order), then 4 rows (c1, c2, off, ok) per timestamp group."""
+    """Assign component rows for one unit (the reference's compute_rows
+    as tables): span_stages rows first, in plan order, then the
+    timestamp groups, then one URI group per (token, steps) prefix and
+    one CSR group per ``csr_group_key``."""
     uc = _UnitComps()
+    plans = [p for p in unit.plans if p.kind != "host"]
     slots = unit.layout.slots
     view_set = set(view_fields)
-    stage: List[Tuple[str, str]] = []   # (slot key, comp) per stage row
+    names: List[Tuple[object, str]] = []   # (slot key or None, comp) per row
 
-    def row(key: str, comp: str) -> int:
-        stage.append((key, comp))
-        return len(stage) - 1
+    def row(key, comp: str) -> int:
+        names.append((key, comp))
+        return len(names) - 1
 
-    for plan in unit.plans:
-        if plan.kind == "host":
-            continue
-        fid = plan.field_id
-        if plan.kind == "span":
-            if plan.steps and plan.steps[0][0] != "fl" or len(plan.steps) > 1:
-                raise ValueError(f"span chain {plan.steps} is not on this slice")
-            part = _FL_PART[plan.steps[0][1]] if plan.steps else PART_DIRECT
-            outs = [row(fid, c) for c in ("start", "len", "ok", "null")]
-            pfx = -1
-            if fid in view_set:
-                pfx = len(stage)
-                uc.prefix[fid] = pfx
-                for k in range(3):
-                    stage.append(("@view", f"{fid}:{k}"))
-            uc.start_row[fid] = slots[fid]["start"][0]
-            uc.tasks.append((TASK_SPAN, plan.token_index, part, 0,
-                             *outs, 0, 0, 0, pfx))
+    def prefix_rows(fid: str) -> int:
+        if fid not in view_set:
+            return -1
+        uc.prefix[fid] = row(None, "view0")
+        row(None, "view1")
+        row(None, "view2")
+        uc.start_row[fid] = slots[fid]["start"][0]
+        return uc.prefix[fid]
+
+    chain: Dict[tuple, Tuple[int, int, int]] = {}
+    long_ok: Dict[str, int] = {}
+
+    def stage_span(fid, key, tok, steps) -> Tuple[int, int, int]:
+        outs = [row(key, c) for c in ("start", "len", "ok", "null")]
+        pfx = prefix_rows(fid) if key is not None else -1
+        uc.tasks.append((TASK_SPAN, tok, _stage_part(steps), 0, *outs, 0, 0, 0, pfx))
+        chain.setdefault((tok, steps), tuple(outs[:3]))
+        return tuple(outs[:3])
+
+    # Pass 1: span_stages tasks (direct / fl / pv spans, direct longs, and
+    # the first-line URI span every URI split over it reads) and the
+    # timestamp groups.
+    for plan in plans:
+        fid, tok = plan.field_id, plan.token_index
+        if plan.kind in ("span", "long", "qscsr") and _uri_chained(plan):
+            prefix = plan.steps[:-1]
+            if prefix not in ((), (("fl", "uri"),)):
+                raise ValueError(f"URI chain {plan.steps} is not on this slice")
+            if prefix and (tok, prefix) not in chain:
+                stage_span(fid, None, tok, prefix)
+        elif plan.kind == "span":
+            stage_span(fid, fid, tok, plan.steps)
         elif plan.kind == "long":
             if plan.steps or plan.scale != 1 or plan.null_mode not in (
                 "", "dash_null", "dash_zero"
@@ -561,26 +676,108 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
                 raise ValueError(f"long plan {plan} is not on this slice")
             comps = ("hi", "lo", "d18", "lo_digits", "ok", "null", "big")
             outs = [row(fid, c) for c in comps]
-            uc.constraints.append(outs[4])
+            long_ok[fid] = outs[4]
             clf = int(plan.null_mode in ("dash_null", "dash_zero"))
-            uc.tasks.append((TASK_LONG, plan.token_index, 0, clf, *outs, -1))
+            uc.tasks.append((TASK_LONG, tok, 0, clf, *outs, -1))
         elif plan.kind == "ts":
             if plan.steps:
                 raise ValueError(f"ts chain {plan.steps} is not on this slice")
             key = ts_group_key(plan)
             if all(k != key for k, _, _ in uc.ts_groups):
-                uc.ts_groups.append((key, plan.token_index, plan.meta))
+                uc.ts_groups.append((key, tok, plan.meta))
         else:
-            raise ValueError(f"plan kind {plan.kind!r} is not on this slice")
-    uc.n_stage_rows = len(stage)
-    for r, (key, comp) in enumerate(stage):
-        if key != "@view":
+            raise ValueError(f"plan {plan.kind} {plan.steps} is not on this slice")
+    uc.n_stage_rows = len(names)
+    for key, _, _ in uc.ts_groups:
+        for comp in ("c1", "c2", "off", "ok"):
+            row(key, comp)
+
+    # Pass 2: URI and CSR groups, in plan order.
+    uri_groups: Dict[tuple, _UriGroup] = {}
+    csr_groups: Dict[str, _CsrGroup] = {}
+    uc.need_authority = any(
+        ("uri", part) in plan.steps for plan in plans
+        for part in ("host", "userinfo", "port")
+    )
+
+    def uri_group(tok, prefix) -> _UriGroup:
+        g = uri_groups.get((tok, prefix))
+        if g is None:
+            src = chain[(tok, prefix)] if prefix else (-1, -1, -1)
+            g = _UriGroup(tok, src, dash=not prefix)
+            g.cons, g.over = row(None, "uri_ok"), row(None, "uri_over")
+            uri_groups[(tok, prefix)] = g
+            uc.uri_groups.append(g)
+        return g
+
+    def uri_span(g: _UriGroup, fid, key, part: str) -> None:
+        outs = [row(key, c) for c in ("start", "len", "ok", "null", "amp", "fix")]
+        pfx = prefix_rows(fid) if key is not None else -1
+        g.parts.append((_URI_PART[part], 0, *outs, -1, pfx))
+        if part == "query" and g.query[0] < 0:
+            g.query = tuple(outs[:3])
+
+    for plan in plans:
+        if not _uri_chained(plan):
+            continue
+        fid, tok = plan.field_id, plan.token_index
+        g = uri_group(tok, plan.steps[:-1])
+        part = plan.steps[-1][1]
+        if plan.kind == "span":
+            uri_span(g, fid, fid, part)
+        elif plan.kind == "long":
+            if part != "port" or plan.scale != 1 or plan.null_mode not in (
+                "", "dash_null", "dash_zero"
+            ):
+                raise ValueError(f"long plan {plan} is not on this slice")
+            outs = [row(fid, c) for c in
+                    ("hi", "lo", "d18", "lo_digits", "ok", "null", "big")]
+            clf = int(plan.null_mode in ("dash_null", "dash_zero"))
+            g.parts.append((URI_PORT, clf, *outs, -1))
+        else:  # qscsr
+            key = csr_group_key(plan)
+            if plan.meta != "query" or part != "query":
+                raise ValueError(f"{plan.meta} CSR {plan.steps} is not on this slice")
+            if key in csr_groups:
+                continue
+            if g.query[0] < 0:
+                uri_span(g, fid, None, "query")
+            words = len(names)
+            for k in range(unit.layout.csr_slots):
+                row(key, f"@n{k}")
+                row(key, f"@v{k}")
+            cg = _CsrGroup(key, g.query, words=words, ok=row(key, "ok"),
+                           over=row(None, "csr_over"))
+            csr_groups[key] = cg
+            uc.csr_groups.append(cg)
+    uc.n_rows = len(names)
+
+    # Pass 3: line constraints in plan order (the reference's running
+    # `valid`), the URI constraints last (its line_constraints).
+    seen = set()
+    for plan in plans:
+        if plan.kind == "long" and not plan.steps:
+            uc.constraints.append((long_ok[plan.field_id], CONS_REQUIRE))
+        elif plan.kind == "ts" and ts_group_key(plan) not in seen:
+            seen.add(ts_group_key(plan))
+            g = [k for k, _, _ in uc.ts_groups].index(ts_group_key(plan))
+            uc.constraints.append((uc.n_stage_rows + 4 * g + 3, CONS_REQUIRE))
+        elif plan.kind == "qscsr" and csr_group_key(plan) not in seen:
+            seen.add(csr_group_key(plan))
+            uc.constraints.append((csr_groups[csr_group_key(plan)].over,
+                                   CONS_CSR_OVERFLOW))
+    for g in uc.uri_groups:
+        uc.constraints += [(g.cons, CONS_REQUIRE), (g.over, CONS_URI_OVERFLOW)]
+
+    for r, (key, comp) in enumerate(names):
+        if key is None:
+            continue
+        if comp.startswith("@n"):
+            uc.puts.append((r, (slots[key][f"s{comp[2:]}_start"][0], 0, 0)))
+        elif comp.startswith("@v"):
+            uc.puts.append((r, (slots[key][f"s{comp[2:]}_vstart"][0], 0, 0)))
+        else:
             uc.puts.append((r, slots[key][comp]))
-    for g, (key, _, _) in enumerate(uc.ts_groups):
-        base = uc.n_stage_rows + 4 * g
-        for k, comp in enumerate(("c1", "c2", "off", "ok")):
-            uc.puts.append((base + k, slots[key][comp]))
-        uc.constraints.append(base + 3)
     return uc
 
 
@@ -630,6 +827,43 @@ class TsTables(nn.Module):
         self.register_buffer("names", _i32(names or [(0,)], self.name_width))
 
 
+class UriTables(nn.Module):
+    """One URI group for the ``uri_split`` kernel: the input (token, or
+    the span_stages rows of its start / len / ok), the CLF dash flag,
+    ``need_authority``, the scan window, the constraint rows and ``parts``
+    rows (part, clf, out0..out6, prefix row), rows relative to the unit's
+    component block."""
+
+    def __init__(self, g: _UriGroup, need_authority: bool, window: int):
+        super().__init__()
+        self.token_index = g.token
+        self.src = g.src
+        self.dash = g.dash
+        self.need_authority = need_authority
+        self.window = window
+        self.cons, self.over = g.cons, g.over
+        self.parts_py = list(g.parts)
+        self.register_buffer("parts", _i32(self.parts_py, URIW))
+
+
+class CsrTables(nn.Module):
+    """One query-string group for the ``csr_split`` kernel: the rows of
+    its input span (a URI query part, so the split starts past a leading
+    '?' and the URI encode set flags names and values), the slot count
+    and scan window, and its output rows (2 packed words per slot, ok,
+    overflow)."""
+
+    def __init__(self, g: _CsrGroup, slots: int):
+        super().__init__()
+        self.key = g.key
+        self.src = g.src
+        self.slots = slots
+        self.window = CSR_WINDOW_PER_SLOT * slots
+        self.words, self.ok, self.over = g.words, g.ok, g.over
+        self.register_buffer("cls", torch.from_numpy(
+            postproc.csr_class_table(uri_encoded=True).astype(np.int32)))
+
+
 class UnitTables(nn.Module):
     """One unit's tables; its components start at row ``comp_base`` of
     the executor's component tensor."""
@@ -639,17 +873,23 @@ class UnitTables(nn.Module):
         self.split = SplitTables(unit.program)
         self.stages = StageTables(uc)
         self.ts = nn.ModuleList(TsTables(tok, dl) for _, tok, dl in uc.ts_groups)
+        window = URI_WINDOW_PER_SLOT * unit.layout.csr_slots
+        self.uri = nn.ModuleList(UriTables(g, uc.need_authority, window)
+                                 for g in uc.uri_groups)
+        self.csr = nn.ModuleList(CsrTables(g, unit.layout.csr_slots)
+                                 for g in uc.csr_groups)
         self.comp_base = comp_base
         self.n_comp = uc.n_rows
 
 
 class PackTables(nn.Module):
     """Packing for all units: ``units`` rows (row offset, first
-    constraint, constraint count) with ``cons`` the constraint component
-    rows; ``rows`` (unit whose validity row this is or -1, first slot,
-    slot count) per output row; ``slots`` (component, shift, bits);
-    ``views`` (view field, unit, packed row of its span word, first
-    prefix component) per (view field, decodable unit)."""
+    constraint, constraint count) with ``cons`` rows (component, kind)
+    in the order the constraints apply; ``rows`` (unit whose validity row
+    this is or -1, first slot, slot count) per output row; ``slots``
+    (component, shift, bits); ``views`` (view field, unit, packed row of
+    its span word, first prefix component) per (view field, decodable
+    unit)."""
 
     def __init__(self, units: Sequence[FormatUnit], ucs: Sequence[_UnitComps],
                  bases: Sequence[int], view_specs: ViewSpecs):
@@ -663,7 +903,7 @@ class PackTables(nn.Module):
         row_unit = [-1] * self.K
         for ui, (u, uc, base) in enumerate(zip(units, ucs, bases)):
             unit_rows.append((u.row_offset, len(cons), len(uc.constraints)))
-            cons.extend(base + c for c in uc.constraints)
+            cons.extend((base + c, kind) for c, kind in uc.constraints)
             row_unit[u.row_offset] = ui
             for c, (r, shift, bits) in uc.puts:
                 per_row[u.row_offset + r].append((base + c, shift, bits))
@@ -680,7 +920,7 @@ class PackTables(nn.Module):
         self.units_py, self.cons_py, self.rows_py = unit_rows, cons, rows
         self.slots_py, self.views_py = slots, views
         self.register_buffer("units", _i32(unit_rows, 3))
-        self.register_buffer("cons", torch.tensor(cons or [0], dtype=torch.int32))
+        self.register_buffer("cons", _i32(cons or [(0, 0)], 2))
         self.register_buffer("rows", _i32(rows, 3))
         self.register_buffer("slots", _i32(slots or [(0, 0, 0)], 3))
         self.register_buffer("views", _i32(views or [(0, 0, 0, 0)], 4))
@@ -688,8 +928,13 @@ class PackTables(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Kernels 2 and 4, plain versions.
+# Kernels 2, 4, 5 and 6, plain versions.
 # ---------------------------------------------------------------------------
+
+
+def _clf_dash(buf: torch.Tensor, s: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Token-level CLF null: the span is a lone '-'."""
+    return ((e - s) == 1) & (postproc.gather_span_bytes(buf, s, 1)[:, 0] == ord("-"))
 
 
 def span_stages_plain(
@@ -711,19 +956,22 @@ def span_stages_plain(
             if part == PART_DIRECT:
                 start, end = s, e
                 ok = torch.ones(B, dtype=torch.bool, device=buf.device)
-                # Token-level CLF null: the span is a lone '-'.
-                null = ((e - s) == 1) & (
-                    postproc.gather_span_bytes(buf, s, 1)[:, 0] == ord("-")
-                )
+                null = _clf_dash(buf, s, e)
             else:
                 fl = fl_cache.get(tok)
                 if fl is None:
                     fl = fl_cache[tok] = postproc.split_firstline(buf, s, e)
-                name = {PART_METHOD: "method", PART_URI: "uri",
-                        PART_PROTOCOL: "proto"}[part]
+                name = {PART_METHOD: "method", PART_URI: "uri"}.get(part, "proto")
                 start, end = fl[f"{name}_start"], fl[f"{name}_end"]
-                ok = fl["ok"] & fl["has_protocol"] if part == PART_PROTOCOL else fl["ok"]
+                ok = fl["ok"] & fl["has_protocol"] if name == "proto" else fl["ok"]
                 null = false_b
+                if part in (PART_PV_PROTOCOL, PART_PV_VERSION):
+                    pv = postproc.split_protocol_version(buf, start, end)
+                    if part == PART_PV_PROTOCOL:
+                        end = pv["proto_end"]
+                    else:
+                        start, end = pv["ver_start"], pv["ver_end"]
+                    null = pv["null"]
             out[o_start] = start
             out[o_len] = end - start
             out[o_ok] = ok.to(torch.int32)
@@ -768,13 +1016,112 @@ def timestamp_plain(
     return out
 
 
+def _src_span(src, token, starts, ends, comps):
+    """(start, end, ok) of a group's input: the token's cursors, or three
+    component rows (start, len, ok)."""
+    if src[0] < 0:
+        s, e = starts[token], ends[token]
+        return s, e, torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    s = comps[src[0]]
+    return s, s + comps[src[1]], comps[src[2]] != 0
+
+
+def uri_split_plain(
+    tables: UriTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, comps: torch.Tensor,
+) -> torch.Tensor:
+    """Fill one URI group's rows of the unit block ``comps`` (the uri
+    step of the reference's compute_rows: split_uri_fast, the line
+    constraints ``ok | ~ok_in`` and ``overflow & ok_in``, each part's span
+    or port long frame, and view prefix words)."""
+    s, e, ok_in = _src_span(tables.src, tables.token_index, starts, ends, comps)
+    B = buf.shape[0]
+    false_b = torch.zeros(B, dtype=torch.bool, device=buf.device)
+    uri = postproc.split_uri_fast(
+        buf, s, e, dash=_clf_dash(buf, s, e) if tables.dash else None,
+        need_authority=tables.need_authority, window=tables.window,
+    )
+    comps[tables.cons] = (uri["ok"] | ~ok_in).to(torch.int32)
+    comps[tables.over] = (uri["overflow"] & ok_in).to(torch.int32)
+    step_ok = ok_in & uri["ok"]
+    names = {URI_PATH: "path", URI_QUERY: "query", URI_PROTOCOL: "proto",
+             URI_USERINFO: "userinfo", URI_HOST: "host", URI_PORT: "port"}
+    for part, clf, *outs, pfx in tables.parts_py:
+        if part == URI_PORT:
+            (hi, lo, d18, ndig), is_null, ok, big = postproc.parse_long_spans(
+                buf, uri["port_start"], uri["port_end"], clf=bool(clf))
+            # A chained long takes no >19-digit patch: such runs fail.
+            vals = (hi, lo, d18, ndig, ok & ~big, is_null, false_b)
+            for o, v in zip(outs, vals):
+                comps[o] = v.to(torch.int32)
+            continue
+        if part == URI_REF:
+            start, end = s, s
+            null, amp, fix = torch.ones_like(false_b), false_b, false_b
+        else:
+            n = names[part]
+            start, end = uri[f"{n}_start"], uri[f"{n}_end"]
+            null = uri.get(f"{n}_null", false_b)
+            amp = uri["query_amp"] if part == URI_QUERY else false_b
+            fix = uri.get(f"{n}_fix", false_b)
+        for o, v in zip(outs, (start, end - start, step_ok, null, amp, fix)):
+            comps[o] = v.to(torch.int32)
+        if pfx >= 0:
+            words = postproc.span_prefix_words(buf, start, end, step_ok & ~null,
+                                               amp if part == URI_QUERY else None)
+            for k in range(3):
+                comps[pfx + k] = words[k]
+    return comps
+
+
+def csr_words(csr: Dict[str, object], k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot k of a split_csr result as its two packed layout words: start
+    | nlen<<13 | eq<<26 | dec<<27 | ndec<<28 | nhigh<<29 and vstart |
+    vlen<<13 (the qscsr put of the reference's compute_rows)."""
+    seg_s, seg_e, eq = csr["seg_start"][k], csr["seg_end"][k], csr["eq_pos"][k]
+    seg_empty = seg_s >= seg_e
+    nlen = torch.where(seg_empty, 0, eq - seg_s)
+    has_eq = (~seg_empty) & (eq < seg_e)
+    vstart = torch.minimum(eq + 1, seg_e)
+    vlen = torch.where(has_eq, seg_e - vstart, 0)
+    i32 = torch.int32
+    n_word = ((torch.where(seg_empty, 0, seg_s) & _SPAN_MASK)
+              | ((nlen & _SPAN_MASK) << _SPAN_BITS)
+              | (has_eq.to(i32) << 26) | (csr["decode"][k].to(i32) << 27)
+              | (csr["name_pct"][k].to(i32) << 28) | (csr["name_high"][k].to(i32) << 29))
+    v_word = ((torch.where(has_eq, vstart, 0) & _SPAN_MASK)
+              | ((vlen & _SPAN_MASK) << _SPAN_BITS))
+    return n_word.to(i32), v_word.to(i32)
+
+
+def csr_split_plain(
+    tables: CsrTables, buf: torch.Tensor, comps: torch.Tensor,
+) -> torch.Tensor:
+    """Fill one query-string group's rows of the unit block ``comps``
+    (the qscsr branch of the reference's compute_rows: the split starts
+    past a leading '?', split_csr over the window, 2 packed words per
+    slot, ok, and ``overflow & chain_ok``)."""
+    s, e, chain_ok = _src_span(tables.src, -1, None, None, comps)
+    first = postproc.gather_span_bytes(buf, s, 1)[:, 0]
+    s = torch.where((s < e) & (first == ord("?")), s + 1, s)
+    csr = postproc.split_csr(buf, s, e, tables.slots, uri_encoded=True,
+                             window=tables.window)
+    for k in range(tables.slots):
+        n_word, v_word = csr_words(csr, k)
+        comps[tables.words + 2 * k] = n_word
+        comps[tables.words + 2 * k + 1] = v_word
+    comps[tables.ok] = chain_ok.to(torch.int32)
+    comps[tables.over] = (csr["overflow"] & chain_ok).to(torch.int32)
+    return comps
+
+
 def pack_rows_plain(
     tables: PackTables, flags: torch.Tensor, comps: torch.Tensor,
 ) -> torch.Tensor:
     """[K + 4V, B] int32: every unit's packed rows (row 0: valid after the
-    line constraints | plausible<<1 | esc_hit&valid<<3), then per view
-    field the winner-merged span word and prefix words (the reference's
-    compute_rows ``put`` + compute_view_rows)."""
+    line constraints | plausible<<1 | overflow<<2 | esc_hit&valid<<3),
+    then per view field the winner-merged span word and prefix words (the
+    reference's compute_rows ``put`` + compute_view_rows)."""
     B = comps.shape[1]
     dev = comps.device
     zero = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -782,11 +1129,20 @@ def pack_rows_plain(
     for ui, (_, c0, nc) in enumerate(tables.units_py):
         f = flags[ui]
         valid = (f & SPLIT_VALID) != 0
-        for c in tables.cons_py[c0:c0 + nc]:
-            valid = valid & (comps[c] != 0)
+        over = torch.zeros_like(valid)
+        for c, kind in tables.cons_py[c0:c0 + nc]:
+            hit = comps[c] != 0
+            if kind == CONS_REQUIRE:
+                valid = valid & hit
+                continue
+            if kind == CONS_CSR_OVERFLOW:
+                hit = hit & valid
+            valid = valid & ~hit
+            over = over | hit
         plaus = (f & SPLIT_PLAUSIBLE) != 0
         esc = (f & SPLIT_ESC_HIT) != 0
         row0.append(valid.to(torch.int32) | (plaus.to(torch.int32) << 1)
+                    | (over.to(torch.int32) * CSR_OVERFLOW_BIT)
                     | ((esc & valid).to(torch.int32) * ESC_QUOTE_BIT))
     out = torch.empty((tables.K + VIEW_ROWS_PER_FIELD * tables.V, B),
                       dtype=torch.int32, device=dev)
@@ -841,8 +1197,9 @@ class UnitsExecutor(nn.Module):
     rows of every unit plus the view rows of ``view_specs``.
 
     Holds every per-parser table as a buffer, so ``.to(device)`` uploads
-    them once.  Per unit it launches split, span_stages and one
-    timestamp kernel per timestamp group, then one pack_rows over all
+    them once.  Per unit it launches split, span_stages, one timestamp
+    kernel per timestamp group, one uri_split per URI group and one
+    csr_split per query-string group, then one pack_rows over all
     units.  The CUDA grid replaces the reference's 16k-row tiling."""
 
     def __init__(self, units: Sequence[FormatUnit], view_specs: ViewSpecs = ()):
@@ -875,12 +1232,14 @@ class UnitsExecutor(nn.Module):
         comps = torch.empty((self.n_comp, B), dtype=torch.int32, device=buf.device)
         for ui, t in enumerate(self.unit_tables):
             starts, ends, _ = kernels.split(t.split, buf, lengths, flags_out=flags[ui])
-            a = t.comp_base
-            if t.stages.n_out:
-                kernels.span_stages(t.stages, buf, starts, ends,
-                                    out=comps[a:a + t.stages.n_out])
-            a += t.stages.n_out
+            block = comps[t.comp_base:t.comp_base + t.n_comp]
+            a = t.stages.n_out
+            if a:
+                kernels.span_stages(t.stages, buf, starts, ends, out=block[:a])
             for g, ts in enumerate(t.ts):
-                kernels.timestamp(ts, buf, starts, ends,
-                                  out=comps[a + 4 * g:a + 4 * g + 4])
+                kernels.timestamp(ts, buf, starts, ends, out=block[a + 4 * g:a + 4 * g + 4])
+            for u in t.uri:
+                kernels.uri_split(u, buf, starts, ends, block)
+            for c in t.csr:
+                kernels.csr_split(c, buf, block)
         return kernels.pack_rows(self.pack, flags, comps)

@@ -2,7 +2,7 @@
 ``span_stages`` kernel is held against), and the host-side long combine.
 
 Port of the reference package's ``tpu/postproc.py`` for the stages the
-Apache ``combined`` main path runs:
+Apache ``combined`` main path and the URI chain run:
 
 - :func:`gather_span_bytes` — a ``[B, width]`` byte window from a per-row
   start.  The reference builds it from log-shifts (TPU gathers are slow);
@@ -11,15 +11,20 @@ Apache ``combined`` main path runs:
 - :func:`parse_long_spans` — digit spans -> a left-aligned 19-digit limb
   frame, CLF ``-`` aware.
 - :func:`split_firstline` — ``METHOD URI PROTO`` sub-spans.
-- :func:`span_prefix_words` — a span's first 12 bytes as 3 LE int32 words.
+- :func:`span_prefix_words` — a span's first 12 bytes as 3 LE int32 words
+  (a query span's leading '?' rendered '&').
 - :func:`combine_long_limbs` — the exact uint64 host combine.
+- :func:`split_protocol_version`, :func:`split_uri_fast`,
+  :func:`split_csr` (with :func:`csr_class_table`) — the URI chain: the
+  plain versions of the ``pv`` parts of ``span_stages`` and of the
+  ``uri_split`` / ``csr_split`` kernels.
 
 Every function reproduces the reference's int32 arithmetic, wraparound
 included, so its outputs equal the reference bit for bit on any bytes.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,14 +140,20 @@ def split_firstline(
 
 def span_prefix_words(
     buf: torch.Tensor, s: torch.Tensor, e: torch.Tensor, live: torch.Tensor,
+    amp: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The span's first 12 bytes as 3 little-endian int32 words, bytes at
-    or past the span length zeroed, all-zero on rows that are not live."""
+    or past the span length zeroed, all-zero on rows that are not live.
+    On ``amp`` rows a leading '?' renders as '&' (the query
+    normalization)."""
     first12 = gather_span_bytes(buf, s, 12).to(torch.int64)
     pos = torch.arange(12, device=buf.device)
     masked = torch.where(
         live[:, None] & (pos[None, :] < (e - s)[:, None]), first12, 0
     )
+    if amp is not None:
+        amp_row = amp & live & ((e - s) > 0) & (masked[:, 0] == ord("?"))
+        masked[:, 0] = torch.where(amp_row, ord("&"), masked[:, 0])
     return tuple(
         wrap_i32(masked[:, 4 * w] | (masked[:, 4 * w + 1] << 8)
                  | (masked[:, 4 * w + 2] << 16) | (masked[:, 4 * w + 3] << 24))
@@ -170,3 +181,336 @@ def combine_long_limbs(hi, lo, d18, ndig, is_null):
     value[np.asarray(is_null)] = -1
     return value, overflow, wide
 
+
+
+# ---------------------------------------------------------------------------
+# The URI chain.  Plain versions of the uri_split / csr_split
+# kernels and of the protocol-version split in span_stages; each mirrors
+# the reference function named in its docstring, sentinels and windowing
+# included, so its outputs equal the reference bit for bit on any input.
+# ---------------------------------------------------------------------------
+
+
+def split_protocol_version(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+    dash: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """"HTTP/1.1" -> protocol (before the FIRST '/') + version (after it);
+    ``null`` when the span is empty, a CLF dash, or holds no '/'
+    (the reference's split_protocol_version)."""
+    B, L = buf.shape
+    pos = torch.arange(L, device=buf.device, dtype=torch.int32)[None, :]
+    in_span = (pos >= start[:, None]) & (pos < end[:, None])
+    slash = torch.where((buf == ord("/")) & in_span, pos, L).amin(dim=1)
+    absent = start >= end
+    if dash is not None:
+        absent = absent | dash
+    return {
+        "proto_start": start,
+        "proto_end": torch.minimum(slash, end),
+        "ver_start": torch.minimum(slash + 1, end),
+        "ver_end": end,
+        "null": absent | (slash >= L),
+    }
+
+
+def _window(buf: torch.Tensor, start: torch.Tensor, W: int) -> torch.Tensor:
+    """[B, W]: bytes ``clip(start + i, 0, L - 1)`` of each row (the
+    reference's scan-window gather)."""
+    L = buf.shape[1]
+    idx = (start.to(torch.int64)[:, None]
+           + torch.arange(W, device=buf.device)[None, :]).clamp(0, L - 1)
+    return torch.gather(buf, 1, idx)
+
+
+def _is_hex(x: torch.Tensor) -> torch.Tensor:
+    return (_is_digit(x) | ((x >= ord("a")) & (x <= ord("f")))
+            | ((x >= ord("A")) & (x <= ord("F"))))
+
+
+def _is_alpha(x: torch.Tensor) -> torch.Tensor:
+    return ((x >= ord("A")) & (x <= ord("Z"))) | ((x >= ord("a")) & (x <= ord("z")))
+
+
+def shift_zero(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Left-shift columns by k, zero-filling the tail."""
+    if k <= 0:
+        return x
+    B, L = x.shape
+    if k >= L:
+        return torch.zeros_like(x)
+    return torch.cat([x[:, k:], torch.zeros((B, k), dtype=x.dtype,
+                                            device=x.device)], dim=1)
+
+
+def split_uri_fast(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+    dash: Optional[torch.Tensor] = None, need_authority: bool = True,
+    window: Optional[int] = None,
+) -> Dict[str, torch.Tensor]:
+    """URI span -> protocol / userinfo / host / port / path / query
+    sub-spans, ``ok`` (False: the host repair chain would rewrite the
+    span), path / query / userinfo ``fix`` flags, the query ``amp`` flag
+    and, windowed, ``overflow`` (the reference's split_uri_fast).
+
+    With ``window`` W < L the span is gathered into a [B, W] buffer, split
+    there, and every ``*_start`` / ``*_end`` is rebased by ``start``;
+    spans longer than W raise ``overflow`` and hold ``ok`` True."""
+    from ..dissectors.uri import ENCODE_PRINTABLE
+
+    B, L = buf.shape
+    if window is not None and int(window) < L:
+        W = int(window)
+        span = end - start
+        res = split_uri_fast(
+            _window(buf, start, W), torch.zeros_like(start),
+            torch.minimum(span, torch.full_like(span, W)),
+            dash=dash, need_authority=need_authority,
+        )
+        for name, v in list(res.items()):
+            if name.endswith("_start") or name.endswith("_end"):
+                res[name] = v + start
+        over = span > W
+        res["ok"] = res["ok"] | over
+        res["overflow"] = over
+        return res
+    dev = buf.device
+    pos = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
+    in_span = (pos >= start[:, None]) & (pos < end[:, None])
+    all_null = (end - start) == 0
+    if dash is not None:
+        all_null = all_null | dash
+
+    def first(mask):
+        return torch.where(mask, pos, L).amin(dim=1)
+
+    def last(mask):
+        return torch.where(mask, pos, -1).amax(dim=1)
+
+    def any_(mask):
+        return mask.any(dim=1)
+
+    is_q = (buf == ord("?")) & in_span
+    is_amp = (buf == ord("&")) & in_span
+    first_sep = torch.minimum(first(is_q | is_amp), end)
+
+    bad = (buf < 0x20) | (buf >= 0x7F) | (buf == ord("#")) | (buf == ord(";"))
+    clean = ~any_(bad & in_span)
+    enc = torch.zeros_like(in_span)
+    for ch in ENCODE_PRINTABLE:
+        enc = enc | (buf == ch)
+    enc = enc & in_span
+    q_count = is_q.sum(dim=1)
+    first_q = first(is_q)
+    clean = clean & ((q_count == 0) | ((q_count == 1) & (first_q == first_sep)))
+
+    is_pct = (buf == ord("%")) & in_span
+    nxt1 = shift_zero(buf, 1)
+    nxt2 = shift_zero(buf, 2)
+    pct_bad = is_pct & ~(_is_hex(nxt1) & _is_hex(nxt2) & (pos + 2 < end[:, None]))
+
+    lead = gather_span_bytes(buf, start, 1)[:, 0]
+    relative = (~all_null) & (lead == ord("/"))
+
+    is_digit = _is_digit(buf)
+    is_alpha = _is_alpha(buf)
+    is_colon = (buf == ord(":")) & in_span
+    is_slash = (buf == ord("/")) & in_span
+    first_colon = first(is_colon)
+    first_slash = first(is_slash)
+    limit = torch.minimum(torch.minimum(first_slash, first_sep), end)
+    has_scheme = (first_colon < limit) & (first_colon > start)
+    scheme_cs = is_alpha | is_digit | (buf == ord("+")) | (buf == ord(".")) | (buf == ord("-"))
+    in_scheme = (pos > start[:, None]) & (pos < first_colon[:, None])
+    scheme_ok = _is_alpha(lead) & (scheme_cs | ~in_scheme).all(dim=1)
+
+    d2 = gather_span_bytes(buf, first_colon + 1, 2)
+    dslash = (d2[:, 0] == ord("/")) & (d2[:, 1] == ord("/")) & (first_colon + 3 <= end)
+    auth_start = first_colon + 3
+    slash_a = first(is_slash & (pos >= auth_start[:, None]))
+    auth_end = torch.minimum(torch.minimum(slash_a, first_sep), end)
+    if need_authority:
+        in_auth = (pos >= auth_start[:, None]) & (pos < auth_end[:, None])
+        at = last((buf == ord("@")) & in_auth)
+        has_at = at >= 0
+        rest_start = torch.where(has_at, at + 1, auth_start)
+        colon2 = last(is_colon & (pos >= rest_start[:, None]) & (pos < auth_end[:, None]))
+        has_pcolon = colon2 >= 0
+        port_start = colon2 + 1
+        port_len = auth_end - port_start
+        port_empty = port_len <= 0
+        in_port = has_pcolon[:, None] & (pos >= port_start[:, None]) & (pos < auth_end[:, None])
+        port_digits = (is_digit | ~in_port).all(dim=1)
+        host_end = torch.where(has_pcolon & (port_empty | port_digits), colon2, auth_end)
+        in_host = (pos >= rest_start[:, None]) & (pos < host_end[:, None])
+        host_cs = is_alpha | is_digit | (buf == ord(".")) | (buf == ord("-"))
+        host_ok_cs = (host_cs | ~in_host).all(dim=1)
+        registry = (~host_ok_cs) | (has_pcolon & ~port_empty & ~port_digits)
+        ui_fix = any_(is_pct & (pos >= auth_start[:, None]) & (pos < at[:, None]))
+        abs_ok = has_scheme & scheme_ok & dslash & ~(
+            has_pcolon & ~port_empty & port_digits & (port_len > MAX_LONG_DIGITS)
+        )
+    else:
+        false_v = torch.zeros(B, dtype=torch.bool, device=dev)
+        zero_v = torch.zeros(B, dtype=torch.int32, device=dev)
+        has_at = has_pcolon = port_empty = ui_fix = false_v
+        at = rest_start = host_end = port_start = zero_v
+        registry = torch.ones(B, dtype=torch.bool, device=dev)
+        abs_ok = has_scheme & scheme_ok & dslash
+    is_abs = has_scheme & abs_ok & ~all_null
+    opaque = has_scheme & scheme_ok & ~dslash & ~all_null
+    case3 = (~has_scheme) & (~relative) & (~all_null)
+    handled = all_null | relative | case3 | is_abs | opaque
+    ok = clean & handled
+
+    show_auth = is_abs & ~registry
+    path_begin = torch.where(is_abs, auth_end,
+                             torch.where(opaque, first_colon + 1, start))
+    path_fix = any_(is_pct & (pos >= path_begin[:, None]) & (pos < first_sep[:, None]))
+    query_fix = any_((pct_bad | enc) & (pos >= first_sep[:, None]))
+    has_query = (~all_null) & (first_sep < end)
+
+    def span(show, s, e):
+        return torch.where(show, s, start), torch.where(show, e, start)
+
+    proto_s, proto_e = span(is_abs | opaque, start, first_colon)
+    ui_show = show_auth & has_at
+    ui_s, ui_e = span(ui_show, auth_start, at)
+    host_s, host_e = span(show_auth, rest_start, host_end)
+    port_show = show_auth & has_pcolon & ~port_empty
+    port_s, port_e = span(port_show, port_start, auth_end)
+    return {
+        "ok": ok,
+        "overflow": torch.zeros(B, dtype=torch.bool, device=dev),
+        "all_null": all_null,
+        "path_start": torch.where(all_null, start, path_begin),
+        "path_end": torch.where(all_null, start, torch.maximum(first_sep, path_begin)),
+        "path_null": all_null,
+        "query_start": torch.where(all_null, start, first_sep),
+        "query_end": torch.where(all_null, start, end),
+        "query_null": all_null,
+        "query_amp": has_query,
+        "proto_start": proto_s,
+        "proto_end": proto_e,
+        "proto_null": all_null | ~(is_abs | opaque),
+        "userinfo_start": ui_s,
+        "userinfo_end": ui_e,
+        "userinfo_null": all_null | ~ui_show,
+        "userinfo_fix": ui_fix & ui_show,
+        "host_start": host_s,
+        "host_end": host_e,
+        "host_null": all_null | ~show_auth,
+        "port_start": port_s,
+        "port_end": port_e,
+        "path_fix": path_fix,
+        "query_fix": query_fix,
+    }
+
+
+# csr_split byte classes (the reference's _csr_class_table): bit 0 =
+# value-decode trigger, bit 1 = name-escape trigger, bit 2 = high byte,
+# bit 3 = the kv byte, bit 4 = the single-byte separator.
+CSR_DEC, CSR_PCT, CSR_HIGH, CSR_KV, CSR_SEP = 1, 2, 4, 8, 16
+
+
+def csr_class_table(uri_encoded: bool) -> np.ndarray:
+    """256-entry uint8 byte-class table of :func:`split_csr` (separator
+    ``&``, key / value byte ``=``)."""
+    from ..dissectors.uri import ENCODE_PRINTABLE
+
+    t = np.zeros(256, dtype=np.uint8)
+    t[ord("%")] |= CSR_DEC | CSR_PCT
+    t[ord("+")] |= CSR_DEC
+    t[0x80:] |= CSR_HIGH
+    if uri_encoded:
+        for ch in ENCODE_PRINTABLE:
+            t[ch] |= CSR_DEC | CSR_PCT
+    t[ord("=")] |= CSR_KV
+    t[ord("&")] |= CSR_SEP
+    return t
+
+
+def split_csr(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+    max_segments: int, uri_encoded: bool = False, window: Optional[int] = None,
+) -> Dict[str, object]:
+    """Query span -> up to ``max_segments`` ``&``-delimited segments, each
+    with its first ``=`` and its decode / name-escape / name-high
+    flags, plus ``overflow`` (more segments than slots, or, windowed, a
+    span longer than the window) -- the reference's split_csr.  Per-slot
+    outputs are lists of [B] tensors.  Both of the reference's count
+    layouts are kept: one packed 10-bit-field prefix count below
+    L = 1024, three prefix counts from there on; they give the same
+    flags."""
+    B, L = buf.shape
+    if window is not None and int(window) < L:
+        W = int(window)
+        span = end - start
+        res = split_csr(
+            _window(buf, start, W), torch.zeros_like(start),
+            torch.minimum(span, torch.full_like(span, W)), max_segments,
+            uri_encoded=uri_encoded,
+        )
+        for name in ("seg_start", "seg_end", "eq_pos"):
+            res[name] = [v + start for v in res[name]]
+        res["overflow"] = res["overflow"] | (span > W)
+        return res
+    dev = buf.device
+    pos = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
+    in_span = (pos >= start[:, None]) & (pos < end[:, None])
+    cls = torch.from_numpy(csr_class_table(uri_encoded)).to(dev)[buf.long()]
+    is_sep = ((cls & CSR_SEP) != 0) & in_span
+    is_kv = ((cls & CSR_KV) != 0) & in_span
+    is_dec = ((cls & CSR_DEC) != 0) & in_span
+    is_pct = ((cls & CSR_PCT) != 0) & in_span
+    is_high = ((cls & CSR_HIGH) != 0) & in_span
+
+    def suffix_min(mask):
+        m = torch.where(mask, pos, L)
+        return torch.flip(torch.cummin(torch.flip(m, [1]), dim=1).values, [1])
+
+    suffix_sep = suffix_min(is_sep)
+    suffix_kv = suffix_min(is_kv)
+
+    def excount(m):
+        c = torch.cumsum(m.to(torch.int32), dim=1, dtype=torch.int32)
+        return torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev), c], dim=1)
+
+    def gat(mat, idx, fill, width):
+        v = torch.gather(mat, 1, idx.clamp(0, width - 1).to(torch.int64)[:, None])[:, 0]
+        return torch.where(idx >= width, fill, v)
+
+    packed = None
+    if L < 1024:
+        packed = excount(is_dec.to(torch.int32) | (is_pct.to(torch.int32) << 10)
+                         | (is_high.to(torch.int32) << 20))
+    else:
+        cum_dec, cum_pct, cum_high = excount(is_dec), excount(is_pct), excount(is_high)
+
+    out = {k: [] for k in ("seg_start", "seg_end", "eq_pos", "decode",
+                           "name_pct", "name_high")}
+    cursor = start
+    for _ in range(max_segments):
+        s_end = torch.minimum(gat(suffix_sep, cursor, L, L), end)
+        eq = torch.minimum(gat(suffix_kv, cursor, L, L), s_end)
+        v_lo = torch.minimum(eq + 1, s_end)
+        n_lo = torch.minimum(cursor, eq)
+        if packed is not None:
+            val_d = gat(packed, s_end, 0, L + 1) - gat(packed, v_lo, 0, L + 1)
+            nam_d = gat(packed, eq, 0, L + 1) - gat(packed, n_lo, 0, L + 1)
+            dec_cnt = val_d & 0x3FF
+            np_cnt = (nam_d >> 10) & 0x3FF
+            nh_cnt = nam_d >> 20
+        else:
+            dec_cnt = gat(cum_dec, s_end, 0, L + 1) - gat(cum_dec, v_lo, 0, L + 1)
+            np_cnt = gat(cum_pct, eq, 0, L + 1) - gat(cum_pct, n_lo, 0, L + 1)
+            nh_cnt = gat(cum_high, eq, 0, L + 1) - gat(cum_high, n_lo, 0, L + 1)
+        out["seg_start"].append(cursor)
+        out["seg_end"].append(s_end)
+        out["eq_pos"].append(eq)
+        out["decode"].append(dec_cnt > 0)
+        out["name_pct"].append(np_cnt > 0)
+        out["name_high"].append(nh_cnt > 0)
+        cursor = s_end + 1
+    out["overflow"] = (gat(suffix_sep, cursor, L, L) < L) | (cursor < end)
+    return out

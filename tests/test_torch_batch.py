@@ -4,14 +4,18 @@
 equal the reference's on every row the reference decodes on device, and
 ``needs_host`` must be exactly the rows the reference routes to its host
 oracle.  The corpus is the benchmark's (in-repo generator, seed 42, 1%
-garbage) plus crafted edge lines.
+garbage) plus crafted edge lines; the URI chain adds the seed-53 corpus,
+its own edge lines, a batch that regrows the query-string slots and one
+that overflows at the 128-slot cap.
 """
 import numpy as np
 import pytest
 import torch
 
 from logparser_tpu.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
+from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser, UnsupportedFieldError
+from logparser_tpu_torch.tools.demolog import URI_CHAIN_FIELDS, uri_edge_lines
 from test_torch_harness import EDGE_LINES, corpus, reference_parser
 
 CONFIGS = [
@@ -26,11 +30,20 @@ CONFIGS = [
     ("combined\ncommon", ["IP:connection.client.host", "BYTES:response.body.bytes",
                           "TIME.EPOCH:request.receive.time.epoch",
                           "HTTP.URI:request.firstline.uri"]),
+    ("combined", URI_CHAIN_FIELDS),
 ]
 
 
+def _grows(fields) -> bool:
+    return any(".query." in f for f in fields)
+
+
 def _compare(fmt, fields, lines):
-    ref = reference_parser(fmt, fields).parse_batch(lines)
+    # A parser whose query-string slots may grow is built fresh: growing
+    # mutates it, and the shared reference parsers are read-only.
+    ref_parser = TpuBatchParser(fmt, list(fields)) if _grows(fields) \
+        else reference_parser(fmt, fields)
+    ref = ref_parser.parse_batch(lines)
     ours = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
     assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
     host = set(ours.needs_host.tolist())
@@ -44,6 +57,8 @@ def _compare(fmt, fields, lines):
                 assert a == b and type(a) is type(b), (fid, i, a, b)
     on_device = ~np.isin(np.arange(len(lines)), ours.needs_host)
     np.testing.assert_array_equal(ours.valid[on_device], ref.valid[on_device])
+    if _grows(fields):
+        assert ours.buf.shape == ref.buf.shape
     return ours, ref
 
 
@@ -85,14 +100,18 @@ def test_stage_seconds_are_recorded():
     assert res.d2h_bytes == (14 + 4 * 7) * 20 * 4
 
 
+COOKIE_FORMAT = '%h %t "%r" %>s "%{Cookie}i" "%{Set-Cookie}o"'
+
+
 @pytest.mark.parametrize("field", [
-    "HTTP.PATH:request.firstline.uri.path",
-    "HTTP.QUERYSTRING:request.firstline.uri.query",
-    "HTTP.PROTOCOL.VERSION:request.firstline.protocol.version",
+    "HTTP.COOKIE:request.cookies.session",       # cookie CSR (ROADMAP A5)
+    "HTTP.SETCOOKIE:response.cookies.id",        # Set-Cookie CSR (ROADMAP A5)
+    "STRING:response.cookies.id.domain",         # a Set-Cookie attribute
 ])
 def test_unsupported_field_raises(field):
-    with pytest.raises(UnsupportedFieldError):
-        TorchBatchParser("combined", ["IP:connection.client.host", field], device="cpu")
+    with pytest.raises(UnsupportedFieldError, match="ROADMAP queue A item 5"):
+        TorchBatchParser(COOKIE_FORMAT, ["IP:connection.client.host", field],
+                         device="cpu")
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -108,3 +127,53 @@ def test_empty_and_overlong_lines():
     ours, _ = _compare("combined", HEADLINE_FIELDS, lines)
     assert 1 in ours.needs_host.tolist()    # truncated: the host decides
     assert not ours.valid[0]
+
+
+def test_uri_chain_regrows_like_the_reference():
+    """The seed-53 corpus plus the URI edge lines that fit 16 -> 32 slots
+    (a 20-parameter query, a URI past the 192-byte window): one regrow on
+    both sides, the 20-parameter line delivered from the device."""
+    lines = generate_combined_lines(300, seed=53) + uri_edge_lines()[:-1]
+    ours, ref = _compare("combined", URI_CHAIN_FIELDS, lines)
+    assert ours.csr_regrows == 1 and ours.buf.shape[1] == 384
+    twenty = lines.index(next(x for x in lines if "k19=v19" in x))
+    assert ours.valid[twenty]
+    assert ours.to_pylist("STRING:request.firstline.uri.query.*")[twenty]["k19"] == "v19"
+    q = ours.to_pylist("STRING:request.firstline.uri.query.q")
+    assert "café".encode().decode("latin-1") in q   # the reference's mojibake
+    assert ours.to_pylist("HTTP.PORT:request.referer.port").count(81) == 1
+
+
+def test_query_overflow_at_the_cap_goes_to_the_host():
+    """More parameters than the 128-slot cap (156 in a 384-byte line, 200
+    in a longer one), and a URI past the 1,536-byte window at the cap:
+    three regrows, then those lines stay in needs_host.  The 5,000-byte
+    URI puts the batch in the 8191-byte bucket."""
+    fields = ["HTTP.PATH:request.firstline.uri.path",
+              "STRING:request.firstline.uri.query.*",
+              "STRING:request.firstline.uri.query.a"]
+    edge = uri_edge_lines()
+    lines = generate_combined_lines(100, seed=53) + edge + [
+        edge[0].replace("/x/y?", "/p?" + "&".join(f"k{i}" for i in range(200)) + "&"),
+        edge[0].replace("/x/y?", "/" + "z" * 5000 + "?"),
+    ]
+    ours, ref = _compare("combined", fields, lines)
+    assert ours.csr_regrows == 3 and ours.buf.shape[1] == 8191
+    assert {len(lines) - 3, len(lines) - 2, len(lines) - 1} <= set(ours.needs_host.tolist())
+
+
+def test_uri_chain_at_the_smallest_bucket():
+    """A 128-byte bucket (both scan windows past L: the unwindowed
+    split) with the request line and the referer alone."""
+    fmt = '"%r" %>s "%{Referer}i"'
+    fields = ["HTTP.PATH:request.firstline.uri.path",
+              "HTTP.QUERYSTRING:request.firstline.uri.query",
+              "STRING:request.firstline.uri.query.*",
+              "HTTP.PROTOCOL.VERSION:request.firstline.protocol.version",
+              "HTTP.HOST:request.referer.host", "HTTP.PORT:request.referer.port"]
+    lines = []
+    for ln in generate_combined_lines(200, seed=53) + uri_edge_lines()[:12]:
+        parts = ln.split('"')
+        lines.append(f'"{parts[1]}" 200 "{parts[3]}"'[:128])
+    ours, _ = _compare(fmt, fields, lines)
+    assert ours.buf.shape[1] == 128 and ours.csr_regrows == 0

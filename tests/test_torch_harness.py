@@ -126,6 +126,8 @@ def jax_unit_plain(unit):
                 },
                 "zone_table": dl.zone_table is not None,
             }
+        elif p.kind == "qscsr":
+            meta = p.meta
         plans.append((p.field_id, p.kind, p.token_index, tuple(p.steps),
                       p.comp, meta, p.null_mode, p.scale, p.attr))
     return {
@@ -159,9 +161,20 @@ def assert_plain_equal(a, b, path="unit"):
         assert a == b, (path, a, b)
 
 
+_REFERENCE_FNS = {}
+
+
 def reference_packed(units, view_specs, buf, lengths) -> np.ndarray:
-    fn = ref_pipeline.build_units_jnp_fn(units, view_specs or None)
-    return np.asarray(fn(jnp.asarray(buf), jnp.asarray(lengths)))
+    """The reference executor's packed rows; one jitted executor per
+    (units, layouts, view specs), so batches of one shape compile once."""
+    key = (tuple((id(u), id(u.layout)) for u in units),
+           tuple((f, tuple(i)) for f, i in view_specs or ()))
+    entry = _REFERENCE_FNS.get(key)
+    if entry is None:
+        # The units ride along so their ids stay unique while cached.
+        entry = _REFERENCE_FNS[key] = (
+            ref_pipeline.build_units_jnp_fn(units, view_specs or None), list(units))
+    return np.asarray(entry[0](jnp.asarray(buf), jnp.asarray(lengths)))
 
 
 def slot_names(units, view_specs):

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false
 (decided inside the ``cuda_device`` fixture, never at import).  This file
@@ -12,7 +12,12 @@ import pytest
 import torch
 
 from logparser_tpu_torch import TorchBatchParser
-from logparser_tpu_torch.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
+from logparser_tpu_torch.tools.demolog import (
+    HEADLINE_FIELDS,
+    URI_CHAIN_FIELDS,
+    generate_combined_lines,
+    uri_edge_lines,
+)
 from logparser_tpu_torch.tpu import kernels, pipeline
 from logparser_tpu_torch.tpu.runtime import encode_batch
 
@@ -103,7 +108,9 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     lines = generate_combined_lines(5000, seed=42, garbage_fraction=0.01) + EDGE_LINES
     kernels.reset_launch_counts()
     gpu = TorchBatchParser("combined", HEADLINE_FIELDS).parse_batch(lines)
-    assert all(n == 1 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("uri_split") == 0 and counts.pop("csr_split") == 0
+    assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
     assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
@@ -115,3 +122,98 @@ def test_kernel_rejects_cpu_tables_with_cuda_data(cuda_device):
     with pytest.raises(ValueError):
         kernels.split(ex.unit_tables[0].split, torch.from_numpy(buf).to(cuda_device),
                       torch.from_numpy(lengths).to(cuda_device))
+
+
+def _uri_lines(seed=53):
+    return uri_edge_lines() + generate_combined_lines(3000, seed=seed, garbage_fraction=0.02)
+
+
+def _grown(parser, slots):
+    while parser.csr_slots < slots:
+        assert parser._grow_csr_slots()
+    return parser
+
+
+@pytest.mark.parametrize("line_len,slots", [(0, 16), (128, 16), (0, 128), (8191, 32)])
+def test_uri_kernels_equal_plain_versions(cuda_device, line_len, slots):
+    """uri_split and csr_split, one group at a time, on the same input
+    block as their plain versions; span_stages (with the protocol split)
+    and pack_rows (with the overflow bit) under the URI chain's tables."""
+    ex = _grown(TorchBatchParser("combined", URI_CHAIN_FIELDS, device=cuda_device),
+                slots).executor
+    lines = _uri_lines()
+    if line_len == 8191:
+        lines += [uri_edge_lines()[0].replace("/x/y?", "/" + "z" * 2000 + "?")]
+    buf, lengths, _ = encode_batch(lines, line_len=line_len)
+    buf = torch.from_numpy(buf).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    B = buf.shape[0]
+    flags = torch.empty((len(ex.unit_tables), B), dtype=torch.int32, device=cuda_device)
+    comps = torch.zeros((ex.n_comp, B), dtype=torch.int32, device=cuda_device)
+    for ui, t in enumerate(ex.unit_tables):
+        starts, ends, _ = kernels.split(t.split, buf, lengths, flags_out=flags[ui])
+        block = comps[t.comp_base:t.comp_base + t.n_comp]
+        a = t.stages.n_out
+        out = kernels.span_stages(t.stages, buf, starts, ends, out=block[:a])
+        assert torch.equal(out, pipeline.span_stages_plain(
+            t.stages, buf, starts, ends, torch.empty_like(out)))
+        for g, ts in enumerate(t.ts):
+            kernels.timestamp(ts, buf, starts, ends, out=block[a + 4 * g:a + 4 * g + 4])
+        for u in t.uri:
+            want = pipeline.uri_split_plain(u, buf, starts, ends, block.clone())
+            assert torch.equal(kernels.uri_split(u, buf, starts, ends, block), want)
+        for c in t.csr:
+            want = pipeline.csr_split_plain(c, buf, block.clone())
+            assert torch.equal(kernels.csr_split(c, buf, block), want)
+    packed = kernels.pack_rows(ex.pack, flags, comps)
+    assert torch.equal(packed, pipeline.pack_rows_plain(ex.pack, flags, comps))
+    row0 = packed[0].cpu().numpy()
+    # The 20-parameter and the cap lines overflow unless the bucket cut them.
+    assert ((row0 & pipeline.CSR_OVERFLOW_BIT) != 0).any() == (line_len != 128)
+    cpu = _grown(TorchBatchParser("combined", URI_CHAIN_FIELDS, device="cpu"),
+                 slots).executor
+    assert np.array_equal(ex(buf, lengths).cpu().numpy(),
+                          cpu(buf.cpu(), lengths.cpu()).numpy())
+
+
+@pytest.mark.parametrize("L", [64, 512, 2048])
+def test_uri_kernels_on_random_buffers(cuda_device, L):
+    """URI-ish random bytes under a format that captures the whole line
+    as the first line and the referer: every URI and query class, spans
+    of any length, at windowed and unwindowed buckets."""
+    rng = np.random.default_rng(L)
+    alphabet = np.frombuffer(b'/?&=:%@#;.-+aZ09[]h {"', dtype=np.uint8)
+    lines = [b"GET " + bytes(rng.choice(alphabet, size=int(rng.integers(0, L - 24))))
+             + b' HTTP/1.1" "' + bytes(rng.choice(alphabet, size=int(rng.integers(0, 8))))
+             for _ in range(1500)]
+    fmt = '"%r" "%{Referer}i'
+    fields = ["HTTP.PATH:request.firstline.uri.path",
+              "HTTP.QUERYSTRING:request.firstline.uri.query",
+              "STRING:request.firstline.uri.query.*",
+              "HTTP.USERINFO:request.firstline.uri.userinfo",
+              "HTTP.HOST:request.firstline.uri.host",
+              "HTTP.PORT:request.firstline.uri.port",
+              "HTTP.PROTOCOL.VERSION:request.firstline.protocol.version",
+              "STRING:request.referer.query.a"]
+    buf, lengths, _ = encode_batch([b'"' + ln for ln in lines], line_len=L)
+    buf, lengths = torch.from_numpy(buf), torch.from_numpy(lengths)
+    for slots in (16, 64):
+        gpu = _grown(TorchBatchParser(fmt, fields, device=cuda_device), slots).executor
+        cpu = _grown(TorchBatchParser(fmt, fields, device="cpu"), slots).executor
+        packed = gpu(buf.to(cuda_device), lengths.to(cuda_device)).cpu()
+        assert torch.equal(packed, cpu(buf, lengths))
+
+
+def test_uri_chain_on_the_card_equals_the_cpu(cuda_device):
+    """parse_batch end to end: the regrow on the card (16 -> 128 slots,
+    the longest query stays on the host) and every column equal."""
+    lines = _uri_lines(7)
+    kernels.reset_launch_counts()
+    gpu = TorchBatchParser("combined", URI_CHAIN_FIELDS).parse_batch(lines)
+    counts = kernels.launch_counts()
+    assert counts["uri_split"] == 2 * counts["split"] and counts["csr_split"] >= 8
+    cpu = TorchBatchParser("combined", URI_CHAIN_FIELDS, device="cpu").parse_batch(lines)
+    assert gpu.csr_regrows == cpu.csr_regrows == 3
+    assert gpu.to_dict() == cpu.to_dict()
+    assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
+    assert len(uri_edge_lines()) - 1 in gpu.needs_host.tolist()

@@ -18,6 +18,7 @@ from logparser_tpu_torch.dissectors.tokenformat import (
 )
 from logparser_tpu_torch.httpd.apache import ApacheLogFormat
 from logparser_tpu_torch.tools import demolog
+from logparser_tpu_torch.tools.demolog import URI_CHAIN_FIELDS
 from logparser_tpu_torch.tpu.carry import unit_to_plain, units_from_reference
 from test_torch_harness import assert_plain_equal, jax_unit_plain, reference_parser
 
@@ -40,6 +41,12 @@ FIELD_SETS = [
     ("combined\ncommon", ["IP:connection.client.host",
                           "BYTES:response.body.bytes",
                           "TIME.EPOCH:request.receive.time.epoch"]),
+    # The URI chain: URI / protocol splits, query-string groups, the port.
+    ("combined", URI_CHAIN_FIELDS),
+    ('%h "%r" "%{Referer}i" "%{Cookie}i"',
+     ["HTTP.PATH:request.firstline.uri.path", "HTTP.REF:request.referer.ref",
+      "HTTP.USERINFO:request.referer.userinfo", "STRING:request.referer.query.a.b",
+      "HTTP.PROTOCOL:request.firstline.protocol"]),
 ]
 
 
@@ -66,7 +73,7 @@ def test_compiled_units_match_reference(fmt, fields):
     assert ours.view_specs == [(f, tuple(u)) for f, u in ref._view_specs()]
 
 
-@pytest.mark.parametrize("fmt,fields", FIELD_SETS[:2])
+@pytest.mark.parametrize("fmt,fields", FIELD_SETS[:2] + FIELD_SETS[5:6])
 def test_units_from_reference_round_trips(fmt, fields):
     plain = [jax_unit_plain(u) for u in reference_parser(fmt, fields).units]
     carried = units_from_reference(plain)
@@ -109,15 +116,18 @@ def test_unported_formats_raise(fmt):
         TorchBatchParser(fmt, ["IP:connection.client.host"], device="cpu")
 
 
+COOKIE_FORMAT = '%h %t "%r" %>s %b "%{Cookie}i" "%{Set-Cookie}o"'
+
+
 @pytest.mark.parametrize("field,where", [
-    ("HTTP.PATH:request.firstline.uri.path", "slice 2"),
-    ("STRING:request.firstline.uri.query.q", "slice 2"),
-    ("HTTP.PROTOCOL:request.firstline.protocol", "split_protocol_version"),
+    ("HTTP.COOKIE:request.cookies.*", "cookie CSR split"),
+    ("TIME.EPOCH:response.cookies.id.expires", "split_setcookie_csr"),
+    ("BYTESCLF:response.body.bytesclf", "zero->null CLF conversion"),
     ("STRING:no.such.field", "no producer"),
 ])
 def test_unported_fields_raise_naming_the_slice(field, where):
     with pytest.raises(UnsupportedFieldError, match=where):
-        TorchBatchParser("combined", [field], device="cpu")
+        TorchBatchParser(COOKIE_FORMAT, [field], device="cpu")
 
 
 def test_charset_tables_are_bool_copies():

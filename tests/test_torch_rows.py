@@ -13,6 +13,7 @@ import torch
 
 from logparser_tpu.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
 from logparser_tpu_torch import TorchBatchParser
+from logparser_tpu_torch.tools.demolog import URI_CHAIN_FIELDS, uri_edge_lines
 from logparser_tpu_torch.tpu import kernels, pipeline
 from logparser_tpu_torch.tpu.carry import units_from_reference
 from logparser_tpu_torch.tpu.runtime import encode_batch
@@ -44,6 +45,15 @@ CONFIGS = [
     ("%h " + "=" * 40 + ' %u %t "%r" %>s %b',
      ["IP:connection.client.host", "BYTES:response.body.bytes",
       "TIME.EPOCH:request.receive.time.epoch"]),
+    # The URI chain: two URI splits (first line, referer), two query-string
+    # CSR groups, the protocol split and the referer's port.
+    ("combined", URI_CHAIN_FIELDS),
+    # Path and query only: the URI split without the authority parts.
+    ("combined\ncommon", ["HTTP.PATH:request.firstline.uri.path",
+                          "STRING:request.firstline.uri.query.*",
+                          "HTTP.REF:request.firstline.uri.ref",
+                          "HTTP.QUERYSTRING:request.referer.query",
+                          "STRING:request.referer.query.q"]),
 ]
 
 
@@ -54,6 +64,7 @@ def _lines(seed):
     # the same with the long separator in place of %l.
     lines += common
     lines += [ln.replace(" - ", " " + "=" * 40 + " ", 1) for ln in common]
+    lines += uri_edge_lines() + generate_combined_lines(60, seed=53)
     return lines
 
 
@@ -131,3 +142,4 @@ def test_stage_wrappers_check_their_inputs():
     assert out.shape == (unit.stages.n_out, 4)
     assert np.array_equal(kernels.timestamp(unit.ts[0], b, starts, ends)[3].numpy(),
                           np.ones(4, dtype=np.int32))
+
