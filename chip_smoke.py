@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for sm_90a), ``nvcc`` (CUDA_HOME or
-/usr/local/cuda) and this checkout.  It drives the port's two paths --
+/usr/local/cuda) and this checkout.  It drives the port's four paths --
 Apache ``combined`` with the headline fields (65,536 generated lines,
-seed 42, 1% garbage, plus crafted edge lines), then the URI chain
+seed 42, 1% garbage, plus crafted edge lines), the URI chain
 (``URI_CHAIN_FIELDS``: path, query parameters, the protocol split, the
 referer's authority; 65,536 generated lines, seed 53, plus the URI edge
-lines) -- and fails (non-zero exit, no result line) on the first phase
-that fails:
+lines), and the two strftime configurations (``combinedio_strftime``:
+``%{%d/%b/%Y:%H:%M:%S %z}t`` with %I / %O, seed 43; ``strftime_zonetext``:
+``%Z`` zone names, seed 48; 65,536 generated lines each plus the strftime
+edge lines) -- and fails (non-zero exit, no result line) on the first
+phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the six kernels from logparser_tpu_torch/csrc, in parallel;
+2. build   -- the seven kernels from logparser_tpu_torch/csrc, in parallel;
 3. corpus  -- the generated lines + edge lines;
 4. one phase per kernel (split, span_stages, timestamp, pack_rows): the
    kernel and its plain PyTorch version on the same CUDA tensors must be
@@ -30,7 +33,16 @@ that fails:
    regrows the query-string slots on the card (16 -> 128: one edge line
    has more parameters than the cap) and must equal the CPU, then the
    same batch again at the grown slots; then the 8191-byte bucket;
-7. the kernels line, the card line, and the result line
+7. the strftime configurations: split, span_stages, timestamp (one
+   fixed segment with the %z tail; a fixed segment and the %Z zone
+   segment), zone_lookup (gated, on the %Z timestamp's rows; and alone
+   on every transition key +-1 minute, each zone's window edges and
+   65,536 random pairs) and pack_rows under each configuration's tables
+   against their plain versions, timed the same way; parse_batch end to
+   end for each, equal to the CPU, with no generated timestamp line in
+   needs_host; then the zone-text 8191-byte bucket.  Each end-to-end
+   line carries its path's bound: the sum of its kernels' bounds;
+8. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -51,6 +63,7 @@ REPLACES = {
     "pack_rows": "logparser_tpu/tpu/pipeline.py:888",
     "uri_split": "logparser_tpu/tpu/postproc.py:210",
     "csr_split": "logparser_tpu/tpu/postproc.py:640",
+    "zone_lookup": "logparser_tpu/dissectors/tztable.py:344",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -175,7 +188,8 @@ def main() -> int:
     # ---- 4. one phase per kernel ---------------------------------------
     rows = {}
 
-    def phase(name, run_kernel, run_plain, bytes_moved, ops, kernel=None, n=None):
+    def phase(name, run_kernel, run_plain, bytes_moved, ops, kernel=None, n=None,
+              width=None):
         """Kernel vs plain version on the same CUDA tensors, then timed.
         ``kernel`` names the kernels-line row when the phase name differs
         (a kernel re-run under the URI chain's tables keeps its slice-1
@@ -187,79 +201,59 @@ def main() -> int:
         err = max_abs_err(torch, got, want)
         ms = time_kernel(torch, run_kernel, KERNEL_REPS)
         plain_ms = time_kernel(torch, run_plain, PLAIN_REPS)
-        bound_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
-        bound_ops = ops / H100_CUDA_CORE_OPS_PER_S * 1e3
+        bound, bound_by = bound_ms(bytes_moved, ops)
         row = {
             "name": kernel or name, "route": "cuda",
             "source": SOURCES[kernel or name],
             "replaces": REPLACES[kernel or name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         }
+        phase.bounds[name] = bound
         if kernel is None:
             rows[name] = row
-        emit({"phase": name, "equal": True, "B": n or B, "L": L, "ms": ms,
+        emit({"phase": name, "equal": True, "B": n or B,
+              "L": L if width is None else width, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
               "bound_by": row["bound_by"], "bytes": bytes_moved, "card": smi})
         return got
 
-    T = unit.split.n_tok
-    n_planes = unit.split.n_planes + int(unit.split.has_esc)
-    C = (L + 31) // 32
+    phase.bounds = {}
     starts, ends, flags = phase(
         "split",
         lambda: kernels.split(unit.split, dbuf, dlen),
         lambda: pipeline.compute_split(unit.split.program, dbuf, dlen),
-        bytes_moved=B * L + 4 * B + 2 * T * 4 * B + 4 * B,
-        ops=B * C * 32 * (n_planes + 2),
+        *split_cost(unit.split, B, L),
     )
 
     stages = unit.stages
-    toks = sorted({t[1] for t in stages.tasks_py})
-    span_bytes = 0
-    for t in stages.tasks_py:
-        n = (ends[t[1]] - starts[t[1]]).clamp(0, L).to(torch.int64)
-        if t[0] == pipeline.TASK_LONG:
-            span_bytes += int(n.clamp(max=19).sum())
-        elif t[2] == pipeline.PART_DIRECT:
-            span_bytes += B + (int(n.clamp(max=12).sum()) if t[11] >= 0 else 0)
-    fl_toks = {t[1] for t in stages.tasks_py if t[0] == pipeline.TASK_SPAN and t[2]}
-    for tok in fl_toks:
-        span_bytes += int((ends[tok] - starts[tok]).clamp(0, L).to(torch.int64).sum())
     comps = phase(
         "span_stages",
         lambda: kernels.span_stages(stages, dbuf, starts, ends),
         lambda: pipeline.span_stages_plain(
             stages, dbuf, starts, ends,
             torch.empty((stages.n_out, B), dtype=torch.int32, device="cuda")),
-        bytes_moved=span_bytes + 2 * 4 * B * len(toks) + 4 * B * stages.n_out,
-        ops=4 * span_bytes,
+        *span_stages_cost(torch, pipeline, stages, starts, ends, B, L),
     )
 
     ts = unit.ts[0]
-    window = ts.seg_w + 6   # the segment + the ZZ offset tail
     ts_out = phase(
         "timestamp",
         lambda: kernels.timestamp(ts, dbuf, starts, ends),
         lambda: pipeline.timestamp_plain(
             ts, dbuf, starts, ends,
             torch.empty((4, B), dtype=torch.int32, device="cuda")),
-        bytes_moved=B * (window + 8 + 16),
-        ops=4 * B * window,
+        *timestamp_cost(torch, ts, starts, ends, B, L),
     )
 
     all_comps = torch.cat([comps, ts_out]).contiguous()
     flags_u = flags[None, :].contiguous()
     pack = ex.pack
-    n_slots = len(pack.slots_py)
     phase(
         "pack_rows",
         lambda: kernels.pack_rows(pack, flags_u, all_comps),
         lambda: pipeline.pack_rows_plain(pack, flags_u, all_comps),
-        bytes_moved=4 * B * (all_comps.shape[0] + 1 + ex.n_out_rows),
-        ops=3 * B * (n_slots + 8 * pack.V),
+        *pack_cost(ex, all_comps.shape[0], B),
     )
 
     # ---- 5. end to end -------------------------------------------------
@@ -281,6 +275,8 @@ def main() -> int:
         fail(f"only {n_valid} of {B} lines valid on device")
     emit({"phase": "end_to_end", "B": B, "L": L, "equal_to_cpu": True,
           "valid": n_valid, "needs_host": len(res.needs_host),
+          "path_bound_ms": sum(phase.bounds[k] for k in
+                               ("split", "span_stages", "timestamp", "pack_rows")),
           "stage_seconds": res.stage_seconds, "wall_seconds": wall,
           "lines_per_s": B / wall,
           "device_lines_per_s": B / res.stage_seconds["kernels"],
@@ -302,12 +298,69 @@ def main() -> int:
     uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                smi, URI_CHAIN_FIELDS, generate_combined_lines, uri_edge_lines)
 
-    # ---- 7. result -----------------------------------------------------
+    # ---- 7. the strftime configurations ---------------------------------
+    strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
+                    rows, smi)
+
+    # ---- 8. result -----------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [rows[k] for k in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def bound_ms(bytes_moved, ops):
+    """(least milliseconds, "bytes" or "operations"): the larger of the
+    bytes over the HBM rate and the operations over the CUDA-core rate."""
+    by_bytes = bytes_moved / H100_HBM_BYTES_PER_S * 1e3
+    by_ops = ops / H100_CUDA_CORE_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def split_cost(split, B, L):
+    """(bytes, operations) of the split: the [B, L] bytes and lengths in,
+    the token cursors and flags out; a compare per plane per byte."""
+    n_planes = split.n_planes + int(split.has_esc)
+    C = (L + 31) // 32
+    return (B * L + 4 * B + 2 * split.n_tok * 4 * B + 4 * B,
+            B * C * 32 * (n_planes + 2))
+
+
+def span_stages_cost(torch, pipeline, stages, starts, ends, B, L):
+    """(bytes, operations) of span_stages: the span bytes its tasks read
+    (a long's first 19, a view field's first 12, a first line whole), the
+    cursors in, the component rows out."""
+    toks = sorted({t[1] for t in stages.tasks_py})
+    n_read = 0
+    for t in stages.tasks_py:
+        n = (ends[t[1]] - starts[t[1]]).clamp(0, L).to(torch.int64)
+        if t[0] == pipeline.TASK_LONG:
+            n_read += int(n.clamp(max=19).sum())
+        elif t[2] == pipeline.PART_DIRECT:
+            n_read += B + (int(n.clamp(max=12).sum()) if t[11] >= 0 else 0)
+    fl_toks = {t[1] for t in stages.tasks_py if t[0] == pipeline.TASK_SPAN and t[2]}
+    for tok in fl_toks:
+        n_read += int((ends[tok] - starts[tok]).clamp(0, L).to(torch.int64).sum())
+    return n_read + 2 * 4 * B * len(toks) + 4 * B * stages.n_out, 4 * n_read
+
+
+def pack_cost(ex, n_comp_rows, B):
+    """(bytes, operations) of pack_rows: the component rows and flags in,
+    the packed rows out; a shift, mask and or per slot."""
+    return (4 * B * (n_comp_rows + 1 + ex.n_out_rows),
+            3 * B * (len(ex.pack.slots_py) + 8 * ex.pack.V))
+
+
+def timestamp_cost(torch, ts, starts, ends, B, L):
+    """(bytes, operations) of timestamp: the span bytes inside the
+    layout's windows, the cursors in, 4 rows out (and the zone row of a
+    %Z layout)."""
+    dl = ts.layout
+    window = (dl.seg_widths[0] + 6 if dl.one_shot(L)
+              else sum(dl.windows()) + (6 if dl.tail else 0))
+    n_read = span_bytes(torch, starts[ts.token_index], ends[ts.token_index], window)
+    return n_read + B * (8 + 16 + (4 if ts.zone is not None else 0)), 4 * n_read
 
 
 def span_bytes(torch, s, e, cap):
@@ -403,9 +456,13 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     phase("pack_rows_uri",
           lambda: kernels.pack_rows(ex.pack, flags_u, block),
           lambda: pipeline.pack_rows_plain(ex.pack, flags_u, block),
-          bytes_moved=4 * B * (block.shape[0] + 1 + ex.n_out_rows),
-          ops=3 * B * (len(ex.pack.slots_py) + 8 * ex.pack.V),
-          kernel="pack_rows", n=B)
+          *pack_cost(ex, block.shape[0], B), kernel="pack_rows", n=B)
+    # The least time of one device pass at 16 slots (split and timestamp
+    # as on the headline path, bounded on this batch).
+    path_bound = (bound_ms(*split_cost(t.split, B, L))[0]
+                  + bound_ms(*timestamp_cost(torch, t.ts[0], starts, ends, B, L))[0]
+                  + sum(phase.bounds[k] for k in
+                        ("span_stages_uri", "uri_split", "csr_split", "pack_rows_uri")))
 
     # End to end: the regrow happens on the card inside parse_batch.
     gpu.parse_batch(lines[:min(4096, N_LINES)])  # warm the allocator, no edge lines
@@ -414,8 +471,9 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     res = gpu.parse_batch(lines)
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("split", "span_stages", "timestamp", "uri_split", "csr_split",
+                 "pack_rows"):
+        if launches[name] < 1:
             fail(f"kernel {name} was not launched on the URI chain's path")
     for name in ("uri_split", "csr_split"):
         rows[name]["launches"] = launches[name]
@@ -435,6 +493,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
         fail(f"only {n_valid} of {B} URI lines valid on device")
     emit({"phase": "end_to_end_uri", "B": B, "L": L, "equal_to_cpu": True,
           "valid": n_valid, "needs_host": len(res.needs_host),
+          "path_bound_ms_16_slots": path_bound,
           "csr_slots": gpu.csr_slots, "csr_regrows": res.csr_regrows,
           "stage_seconds": res.stage_seconds, "wall_seconds": wall,
           "lines_per_s": B / wall,
@@ -469,6 +528,178 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
         fail("the 200-parameter or the 5,000-byte URI line is not in needs_host")
     emit({"phase": "wide_bucket_uri", "B": len(wide), "L": 8191,
           "equal_to_cpu": True, "csr_slots": gpu_w.csr_slots, "needs_host": host})
+
+
+def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
+                    rows, smi):
+    """Section 7: each strftime configuration's kernels against their
+    plain versions under its tables (zone_lookup also alone on every
+    transition), end to end, and the zone-text 8191-byte bucket."""
+    from logparser_tpu_torch.dissectors.tztable import SPAN_MINUTES, default_zone_table
+    from logparser_tpu_torch.tools import demolog
+
+    table = default_zone_table()
+    if not table.zones:
+        fail("the zone vocabulary is empty")
+    configs = [
+        ("strftime", demolog.COMBINEDIO_STRFTIME_FORMAT,
+         demolog.COMBINEDIO_STRFTIME_FIELDS, demolog.combinedio_strftime_lines),
+        ("zonetext", demolog.ZONETEXT_FORMAT, demolog.ZONETEXT_FIELDS,
+         demolog.zonetext_lines),
+    ]
+    edge = demolog.strftime_edge_lines()
+    for tag, fmt, fields, gen in configs:
+        lines = gen(N_LINES) + edge
+        buf, lengths, overflow = runtime.encode_batch(lines)
+        B, L = buf.shape
+        if overflow:
+            fail(f"{tag} corpus overflows its bucket: {overflow}")
+        emit({"phase": f"corpus_{tag}", "B": B, "L": L, "bytes": int(buf.nbytes)})
+        gpu = TorchBatchParser(fmt, fields)
+        ex = gpu.executor
+        (t,) = ex.unit_tables
+        (ts,) = t.ts
+        zone = ts.zone is not None
+        dbuf = torch.from_numpy(buf).cuda()
+        dlen = torch.from_numpy(lengths).cuda()
+        starts, ends, flags = phase(
+            f"split_{tag}", lambda: kernels.split(t.split, dbuf, dlen),
+            lambda: pipeline.compute_split(t.split.program, dbuf, dlen),
+            *split_cost(t.split, B, L), kernel="split", n=B, width=L)
+        comps = phase(
+            f"span_stages_{tag}",
+            lambda: kernels.span_stages(t.stages, dbuf, starts, ends),
+            lambda: pipeline.span_stages_plain(
+                t.stages, dbuf, starts, ends,
+                torch.empty((t.stages.n_out, B), dtype=torch.int32, device="cuda")),
+            *span_stages_cost(torch, pipeline, t.stages, starts, ends, B, L),
+            kernel="span_stages", n=B, width=L)
+        zone_out = torch.empty(B, dtype=torch.int32, device="cuda")
+
+        def ts_kernel():
+            out = kernels.timestamp(ts, dbuf, starts, ends, zone_out=zone_out)
+            return (out, zone_out) if zone else out
+
+        def ts_plain():
+            out = torch.empty((4, B), dtype=torch.int32, device="cuda")
+            z = torch.empty(B, dtype=torch.int32, device="cuda")
+            pipeline.timestamp_plain(ts, dbuf, starts, ends, out, z)
+            return (out, z) if zone else out
+
+        got = phase(f"timestamp_{tag}", ts_kernel, ts_plain,
+                    *timestamp_cost(torch, ts, starts, ends, B, L),
+                    kernel="timestamp", n=B, width=L)
+        ts_rows = got[0].clone() if zone else got
+        path_phases = [f"split_{tag}", f"span_stages_{tag}", f"timestamp_{tag}",
+                       f"pack_rows_{tag}"]
+        if zone:
+            zones = got[1].clone()
+
+            def gated_kernel():
+                return kernels.zone_lookup(ts.zone, zones, ts_rows[2], gate=ts_rows[3])
+
+            def gated_plain():
+                return pipeline.zone_lookup_plain(
+                    ts.zone, zones, ts_rows[2], ts_rows[3],
+                    torch.empty((2, B), dtype=torch.int32, device="cuda"))
+
+            final = phase("zone_lookup_gated", gated_kernel, gated_plain,
+                          B * 20 + zone_table_bytes(torch, ts.zone, zones, ts_rows[2]),
+                          10 * B, kernel="zone_lookup", n=B, width=L)
+            ts_rows = torch.cat([ts_rows[:2], final])
+            path_phases.append("zone_lookup_gated")
+            zone_lookup_phase(torch, kernels, pipeline, phase, ts.zone, SPAN_MINUTES)
+        all_comps = torch.cat([comps, ts_rows]).contiguous()
+        flags_u = flags[None, :].contiguous()
+        phase(f"pack_rows_{tag}",
+              lambda: kernels.pack_rows(ex.pack, flags_u, all_comps),
+              lambda: pipeline.pack_rows_plain(ex.pack, flags_u, all_comps),
+              *pack_cost(ex, all_comps.shape[0], B), kernel="pack_rows", n=B, width=L)
+
+        # End to end, the counts zeroed just before and read just after.
+        gpu.parse_batch(lines[:4096])   # warm the caching allocator
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = gpu.parse_batch(lines)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        for name in ["split", "span_stages", "timestamp", "pack_rows"] + (
+                ["zone_lookup"] if zone else []):
+            if launches[name] < 1:
+                fail(f"kernel {name} was not launched on the {tag} path")
+        if zone:
+            rows["zone_lookup"]["launches"] = launches["zone_lookup"]
+        ref = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
+        compare_results(res, ref, f"end_to_end_{tag}")
+        host_generated = [int(i) for i in res.needs_host if i < N_LINES]
+        if any("[" in lines[i] for i in host_generated):
+            fail(f"{tag}: a generated timestamp line is in needs_host: "
+                 f"{lines[host_generated[0]]!r}")
+        n_valid = int(res.valid.sum())
+        if n_valid < 0.98 * N_LINES:
+            fail(f"only {n_valid} of {B} {tag} lines valid on device")
+        emit({"phase": f"end_to_end_{tag}", "B": B, "L": L, "equal_to_cpu": True,
+              "valid": n_valid, "needs_host": len(res.needs_host),
+              "needs_host_generated": len(host_generated),
+              "path_bound_ms": sum(phase.bounds[k] for k in path_phases),
+              "stage_seconds": res.stage_seconds, "wall_seconds": wall,
+              "lines_per_s": B / wall,
+              "device_lines_per_s": B / res.stage_seconds["kernels"],
+              "d2h_bytes": res.d2h_bytes, "launches": launches, "card": smi})
+
+    # The zone-text configuration at the widest bucket.
+    _, fmt, fields, gen = configs[1]
+    wide = gen(256) + edge
+    pad = 8191 - len(wide[0].encode())
+    wide += [wide[0].replace('"GET ', '"GET /' + "w" * (pad - 1), 1),   # exactly 8191
+             wide[0].replace('"GET ', '"GET /' + "w" * (pad + 999), 1)]  # past the cap
+    res_w = TorchBatchParser(fmt, fields).parse_batch(wide)
+    if res_w.buf.shape[1] != 8191:
+        fail(f"the wide zone-text batch took bucket {res_w.buf.shape[1]}, not 8191")
+    compare_results(res_w, TorchBatchParser(fmt, fields, device="cpu").parse_batch(wide),
+                    "wide_bucket_zonetext")
+    if len(wide) - 1 not in res_w.needs_host.tolist():
+        fail("the over-long zone-text line was not routed to the host")
+    emit({"phase": "wide_bucket_zonetext", "B": len(wide), "L": 8191,
+          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
+
+
+def zone_table_bytes(torch, zt, zones, minutes):
+    """Table bytes a lookup of these pairs must read, each entry once: the
+    buckets and packed rows it touches, and the window table."""
+    m = minutes.to(torch.int64).clamp(0, (1 << 26) - 1)
+    key = zones.to(torch.int64) * (1 << 26) + m
+    bucket = key >> 14
+    idx = zt.buckets.to(torch.int64)[bucket]
+    rows = torch.cat([idx + k for k in range(zt.chain + 1)]).clamp(max=zt.packed.shape[0] - 1)
+    return (4 * int(torch.unique(bucket).numel()) + 8 * int(torch.unique(rows).numel())
+            + 4 * zt.valid_until.numel())
+
+
+def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
+    """The standalone lookup on every transition key +-1 minute, each
+    zone's window edges and the clip edges, plus N_LINES random pairs."""
+    import numpy as np
+
+    table = zt.table
+    keys = table.keys.astype(np.int64)
+    z = np.repeat(keys // span, 3)
+    m = (keys[:, None] % span + np.array([-1, 0, 1])[None, :]).ravel()
+    vu = table.valid_until.astype(np.int64)
+    Z = len(vu)
+    edges = np.stack([vu - 1, vu, np.full(Z, -1), np.zeros(Z), np.full(Z, span)], 1)
+    rng = np.random.default_rng(17)
+    z = np.concatenate([z, np.repeat(np.arange(Z), 5), rng.integers(0, Z, N_LINES)])
+    m = np.concatenate([m, edges.ravel(), rng.integers(-10, span + 10, N_LINES)])
+    zones = torch.from_numpy(z.astype(np.int32)).cuda()
+    minutes = torch.from_numpy(m.astype(np.int32)).cuda()
+    n = len(z)
+    phase("zone_lookup",
+          lambda: kernels.zone_lookup(zt, zones, minutes),
+          lambda: pipeline.zone_lookup_plain(
+              zt, zones, minutes, None, torch.empty((2, n), dtype=torch.int32, device="cuda")),
+          bytes_moved=16 * n + zone_table_bytes(torch, zt, zones, minutes),
+          ops=10 * n, n=n, width=0)
 
 
 def compare_results(got, want, what) -> None:

@@ -1,11 +1,21 @@
-"""The timestamp layout of Apache's ``[%t]`` (the port's own copy of what
-it needs from the reference package's ``dissectors/timelayout.py``).
+"""Timestamp layouts (the port's own copy of what it needs from the
+reference package's ``dissectors/timelayout.py``).
 
-A layout is a flat list of items, each matching a fixed slice of the
-input.  :data:`APACHE_LAYOUT` is ``dd/MMM/yyyy:HH:mm:ss ZZ`` in the
-English locale, the items the reference's ``compile_java_pattern``
-produces for that pattern.  Other patterns, other locales and the
-per-line host parser are later slices.
+A layout is a flat list of items; an item is a tuple whose first element
+is its kind:
+
+- ``("lit", text)``
+- ``("num", field, min_width, max_width, space_padded)``
+- ``("text", field, style)`` -- field ``monthname`` / ``dayname`` / ``ampm``
+- ``("offset",)`` -- ``+HHMM`` / ``+HH:MM`` (pattern ``ZZ``, strftime ``%z``)
+- ``("offset_colon",)`` -- ``+HH:MM``, ``Z`` for zero (pattern ``XXX``)
+- ``("zonetext",)`` -- a zone abbreviation or region id (strftime ``%Z``)
+
+:data:`APACHE_LAYOUT` is ``dd/MMM/yyyy:HH:mm:ss ZZ`` in the English
+locale, the items the reference's ``compile_java_pattern`` produces for
+that pattern; ``dissectors/strftime_stamp.py`` compiles strftime
+layouts.  Other locales, the Java pattern compiler and the per-line host
+parser are later slices.
 """
 from __future__ import annotations
 
@@ -43,9 +53,24 @@ class LocaleData:
 
 EN = LocaleData("en", MONTHS_SHORT, MONTHS_FULL, DAYS_SHORT, DAYS_FULL)
 
+# Curated zone-abbreviation table for %Z zone text: abbreviation -> the
+# tzdata zone it resolves through (the host checks it, case-folded,
+# before treating a token as a region id).  Its order is the device's
+# match order.
+_ZONE_ABBREVIATIONS = {
+    "UTC": "UTC", "GMT": "UTC", "Z": "UTC", "UT": "UTC",
+    "CET": "CET", "CEST": "CET", "MET": "MET", "MEST": "MET",
+    "WET": "WET", "WEST": "WET", "EET": "EET", "EEST": "EET",
+    "EST": "EST5EDT", "EDT": "EST5EDT",
+    "CST": "CST6CDT", "CDT": "CST6CDT",
+    "MST": "MST7MDT", "MDT": "MST7MDT",
+    "PST": "PST8PDT", "PDT": "PST8PDT",
+}
+
 
 class TimeLayout:
-    """A compiled timestamp layout: items + default zone + locale."""
+    """A compiled timestamp layout: items + default zone (the zone of a
+    layout without an offset or zone item; None = UTC) + locale."""
 
     def __init__(self, items: List[Item], default_zone: Optional[str] = None,
                  locale: Optional[LocaleData] = None):

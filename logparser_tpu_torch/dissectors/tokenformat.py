@@ -12,6 +12,8 @@ Casts are plain strings here (``"STRING"``, ``"LONG"``, ``"DOUBLE"``).
 """
 from __future__ import annotations
 
+import hashlib
+import re
 from typing import FrozenSet, List, Optional, Sequence
 
 # ---------------------------------------------------------------------------
@@ -79,6 +81,9 @@ class Token:
         self.length = length
         self.prio = prio
         self.output_fields: List[TokenOutputField] = []
+        # A parameterized token's (output type, parameter): the type its
+        # custom dissector (e.g. a strftime layout) consumes.
+        self.parameter: Optional[tuple] = None
 
     def add_output_fields(self, fields: Sequence[TokenOutputField]) -> "Token":
         self.output_fields.extend(fields)
@@ -142,6 +147,36 @@ class FixedStringTokenParser(TokenParser):
         return FixedStringToken(
             self.regex, pos, len(self.log_format_token), self.prio
         )
+
+
+class ParameterizedTokenParser(TokenParser):
+    """A token whose ``{parameter}`` configures a dissector of its own
+    (``%{strftime format}t``): the output TYPE is the parameter cleaned to
+    ``[A-Za-z0-9]`` plus its MD5, upper-cased, so each distinct parameter
+    gets its own type.  The token records ``(type, parameter)``."""
+
+    def __init__(self, pattern: str, value_name: str, value_type: str,
+                 casts: FrozenSet[str], regex: str, prio: int):
+        super().__init__("", regex=regex, prio=prio)
+        self.pattern = re.compile(pattern)
+        self.add_output_field(value_type, value_name, casts)
+
+    def token_parameter_to_type_name(self, parameter: str) -> str:
+        md5 = hashlib.md5(parameter.encode("utf-8")).hexdigest()
+        cleaned = re.sub("[^A-Za-z0-9]", "", parameter)
+        return (self.output_fields[0].type + cleaned + "_" + md5).upper()
+
+    def get_next_token(self, log_format: str, start_offset: int) -> Optional[Token]:
+        m = self.pattern.search(log_format[start_offset:])
+        if m is None:
+            return None
+        parameter = m.group(1) if m.re.groups > 0 else ""
+        token = Token(self.regex, start_offset + m.start(), m.end() - m.start(), self.prio)
+        field_type = self.token_parameter_to_type_name(parameter)
+        for f in self.output_fields:
+            token.output_fields.append(TokenOutputField(field_type, f.name, f.casts))
+        token.parameter = (field_type, parameter)
+        return token
 
 
 def tokenize(cleaned: str, token_parsers: Sequence[TokenParser]) -> List[Token]:

@@ -1,11 +1,13 @@
-"""The Apache HTTPD ``%``-token table, cut to the tokens of ``common`` and
-``combined`` plus the typed cookie headers (the port's own copy of the
-reference package's ``httpd/apache.py``).
+"""The Apache HTTPD ``%``-token table, cut to the tokens of ``common``,
+``combined`` and ``combinedio`` (``%I`` / ``%O``), the strftime
+timestamps ``%{format}t`` / ``%{begin:format}t`` / ``%{end:format}t``,
+and the typed cookie headers (the port's own copy of the reference
+package's ``httpd/apache.py``).
 
 Same format cleanup (``%!200,304{...}`` modifiers stripped, header names
-lower-cased, ``%t`` -> ``[%t]``), the same ``<`` / ``>`` original/last
-twin outputs per token, and the same named-format aliases for the two
-formats.  Any other directive raises
+lower-cased, ``%t`` -> ``[%t]``, ``%{...}t`` left alone), the same ``<`` /
+``>`` original/last twin outputs per token, and the same named-format
+aliases for the three formats.  Any other directive raises
 :class:`~logparser_tpu_torch.dissectors.tokenformat.UnsupportedFormatError`
 from the tokenizer.
 """
@@ -20,6 +22,7 @@ from ..dissectors.tokenformat import (
     FORMAT_STANDARD_TIME_US,
     FORMAT_STRING,
     STRING_ONLY,
+    ParameterizedTokenParser,
     STRING_OR_LONG,
     FixedStringTokenParser,
     Token,
@@ -37,6 +40,7 @@ _ORIGINAL_DEFAULT_TOKENS = {
 NAMED_FORMATS = {
     "common": '%h %l %u %t "%r" %>s %b',
     "combined": '%h %l %u %t "%r" %>s %b "%{Referer}i" "%{User-Agent}i"',
+    "combinedio": '%h %l %u %t "%r" %>s %b "%{Referer}i" "%{User-Agent}i" %I %O',
 }
 
 _MODIFIER_RE = re.compile("%!?[0-9]{3}(?:,[0-9]{3})*")
@@ -94,6 +98,20 @@ def create_token_parsers() -> List[TokenParser]:
                              STRING_ONLY, FORMAT_NO_SPACE_STRING, 0))
     p.extend(_first_and_last("%t", "request.receive.time", "TIME.STAMP",
                              STRING_ONLY, FORMAT_STANDARD_TIME_US))
+    # %{format}t strftime timestamps (begin: / end: prefixed at prio 0
+    # beat the plain form at prio -1); each distinct format is a type.
+    for pattern, name, prio in (
+        (r"\%\{([^\}]*%[^\}]*)\}t", "request.receive.time", -1),
+        (r"\%\{begin:([^\}]*%[^\}]*)\}t", "request.receive.time.begin", 0),
+        (r"\%\{end:([^\}]*%[^\}]*)\}t", "request.receive.time.end", 0),
+    ):
+        p.append(ParameterizedTokenParser(pattern, name, "TIME.STRFTIME_",
+                                          STRING_ONLY, FORMAT_STRING, prio))
+    # %I / %O bytes received / sent (mod_logio).
+    p.extend(_first_and_last("%I", "request.bytes", "BYTES",
+                             STRING_OR_LONG, FORMAT_CLF_NUMBER))
+    p.extend(_first_and_last("%O", "response.bytes", "BYTES",
+                             STRING_OR_LONG, FORMAT_CLF_NUMBER))
     p.extend(_first_and_last("%u", "connection.client.user", "STRING",
                              STRING_ONLY, FORMAT_NO_SPACE_STRING))
     p.extend(_first_and_last("%{user-agent}i", "request.user-agent",
@@ -116,6 +134,9 @@ class ApacheLogFormat:
         self.log_format_tokens: List[Token] = tokenize(
             cleanup_log_format(self.log_format), create_token_parsers()
         )
+        # {TIME.STRFTIME_... type: its strftime format}
+        self.strftime_types = dict(t.parameter for t in self.log_format_tokens
+                                   if t.parameter is not None)
 
     def get_log_format(self) -> Optional[str]:
         return self.log_format

@@ -10,6 +10,7 @@ bytes, quoted user agents, and a configurable fraction of hostile lines.
 from __future__ import annotations
 
 import random
+import re
 from typing import List
 
 _METHODS = ["GET"] * 8 + ["POST", "HEAD"]
@@ -153,3 +154,90 @@ def uri_edge_lines(max_len: int = 384) -> List[str]:
     n = (max_len - base + 1) // 2
     lines.append(line("/p?" + "&".join("a" * n)))
     return lines
+
+
+# The two strftime benchmark configurations of the reference package's
+# bench.py: mod_logio's ``combinedio`` with a strftime timestamp, and zone
+# names in place of numeric offsets.
+COMBINEDIO_STRFTIME_FORMAT = (
+    '%h %l %u [%{%d/%b/%Y:%H:%M:%S %z}t] "%r" %>s %b '
+    '"%{Referer}i" "%{User-Agent}i" %I %O'
+)
+COMBINEDIO_STRFTIME_FIELDS = [
+    "IP:connection.client.host",
+    "TIME.EPOCH:request.receive.time.epoch",
+    "TIME.YEAR:request.receive.time.year",
+    "STRING:request.status.last",
+    "BYTES:request.bytes",
+    "BYTES:response.bytes",
+]
+ZONETEXT_FORMAT = '%h %l %u [%{%d/%b/%Y:%H:%M:%S %Z}t] "%r" %>s %b'
+ZONETEXT_FIELDS = [
+    "IP:connection.client.host",
+    "TIME.EPOCH:request.receive.time.epoch",
+    "TIME.HOUR:request.receive.time.hour_utc",
+    "STRING:request.status.last",
+]
+# Zone names of the zone-text corpus, in turn: DST abbreviations, fixed
+# zones and region ids, all in the device vocabulary.
+ZONETEXT_ZONES = ["CET", "EST", "UTC", "Europe/Paris", "America/New_York",
+                  "Asia/Tokyo", "PST", "GMT", "Australia/Sydney", "CEST"]
+
+
+def combinedio_strftime_lines(n: int) -> List[str]:
+    """Generated ``combined`` lines (seed 43, 1% garbage) with the %I and
+    %O byte counts appended."""
+    return [f"{ln} {100 + i} {5000 + i}" for i, ln in
+            enumerate(generate_combined_lines(n, seed=43, garbage_fraction=0.01))]
+
+
+def zonetext_lines(n: int) -> List[str]:
+    """Generated ``combined`` lines (seed 48, 1% garbage) cut after %b, the
+    numeric offset replaced by the zone names of ZONETEXT_ZONES in turn."""
+    out = []
+    for i, ln in enumerate(generate_combined_lines(n, seed=48, garbage_fraction=0.01)):
+        try:
+            ln = ln[:ln.rindex(' "', 0, ln.rindex(' "'))]
+        except ValueError:
+            pass
+        out.append(re.sub(r"([+-]\d{4})\]", ZONETEXT_ZONES[i % len(ZONETEXT_ZONES)] + "]",
+                          ln, count=1))
+    return out
+
+
+def strftime_edge_lines() -> List[str]:
+    """Crafted lines for the two strftime configurations: the clock hour
+    24 and 25, Feb 29 in a leap and a common year, second 60, offsets at
+    and past +-24 h, %I / %O dashes and a 20-digit count; zone names that
+    are not tokens of the vocabulary (UTCX, a region id in the wrong
+    case), the CET DST gap and overlap, CEST in winter, 1969, a DST zone
+    past its table (2040 CET) against a fixed one (2040 UTC), 2096 in a
+    zone without DST, a zone token that ends the line, and garbage."""
+    def io(ts: str, tail: str = "100 5000") -> str:
+        return f'1.2.3.4 - - [{ts}] "GET /x HTTP/1.1" 200 5 "-" "u" {tail}'
+
+    def zt(ts: str) -> str:
+        return f'1.2.3.4 - - [{ts}] "GET /x HTTP/1.1" 200 5'
+
+    return [
+        io("01/Jan/2024:24:00:00 +0000"), io("01/Jan/2024:25:00:00 +0000"),
+        io("01/Jan/2024:00:00:00 +0000"), io("29/Feb/2024:12:00:00 +0000"),
+        io("29/Feb/2023:12:00:00 +0000"), io("31/Dec/2024:23:59:60 +0000"),
+        io("01/Jan/2024:10:00:00 +2359"), io("01/Jan/2024:10:00:00 -2400"),
+        io("01/Jan/2024:10:00:00 +24:00"), io("01/Jan/2024:10:00:00 +05:30"),
+        io("01/jan/2024:10:00:00 -0930"), io("01/Jan/2024:10:00:00 UTC"),
+        io("01/Jan/2024:10:00:00 +0000", "- -"),
+        io("01/Jan/2024:10:00:00 +0000", "12345678901234567890 7"),
+        zt("01/Jan/2024:24:00:00 UTC"), zt("01/Jan/2024:25:00:00 UTC"),
+        zt("01/Jan/2024:10:00:00 UTCX"), zt("01/Jan/2024:10:00:00 europe/paris"),
+        zt("01/Jan/2024:10:00:00 Europe/Paris"), zt("01/Jan/2024:10:00:00 utc"),
+        zt("01/Jan/2024:10:00:00 CEST"), zt("31/Mar/2024:02:30:00 CET"),
+        zt("27/Oct/2024:02:30:00 CET"), zt("31/Dec/1969:23:00:00 UTC"),
+        zt("01/Jul/2040:10:00:00 CET"), zt("01/Jul/2040:10:00:00 UTC"),
+        zt("01/Jul/2096:10:00:00 Asia/Kolkata"), zt("29/Feb/2096:10:00:00 Z"),
+        zt("01/Jan/2024:10:00:00 America/Argentina/Buenos_Aires"),
+        zt("01/Jan/2024:10:00:00 Mars/Olympus"), zt("01/Jan/2024:10:00:00 +0100"),
+        zt("01/Jan/2024:10:00:00 ") + "]", "1.2.3.4 - - [01/Jan/2024:10:00:00 UTC",
+        "1.2.3.4 - - [01/Jan/2024:10:00:00 Europe/Paris] garbage",
+        "completely broken line", "",
+    ]

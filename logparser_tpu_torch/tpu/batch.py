@@ -6,7 +6,8 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
 - plan resolution chases each token output through the consumer edges
   the port runs (direct token outputs, the first-line split, the
   protocol-version split, the URI split, the query-string wildcard, the
-  timestamp bundle, the CLF -> number conversion); a field reached any
+  timestamp bundle of ``%t`` and of each strftime ``%{format}t`` type,
+  the CLF -> number conversion); a field reached any
   other way, or by more than one path, raises
   :class:`UnsupportedFieldError` naming the ROADMAP item that brings it;
 - the batch goes host -> device once (pinned buffer, ``non_blocking`` on
@@ -32,7 +33,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..dissectors.timelayout import APACHE_LAYOUT
+from ..dissectors.strftime_stamp import UnsupportedStrfField, compile_strftime
+from ..dissectors.timelayout import APACHE_LAYOUT, TimeLayout
 from ..dissectors.tokenformat import UnsupportedFormatError
 from ..dissectors.uri import _BAD_ESCAPE_PATTERN, _encode_bad_uri_chars, _percent_decode
 from ..dissectors.utils import resilient_url_decode
@@ -75,6 +77,8 @@ def cleanup_field_value(field_value: str) -> str:
 # ---------------------------------------------------------------------------
 # The consumer edges of the reference's dissector graph reachable from the
 # tokens of this port: input type -> [(consumer, [(out type, out name)])].
+# A strftime token's TIME.STRFTIME_... type gets _STRFTIME_CONSUMERS when
+# its format compiles to a layout (TorchBatchParser._consumers_of).
 # ---------------------------------------------------------------------------
 
 _TIME_OUTPUTS = [
@@ -115,13 +119,30 @@ _CONSUMERS: Dict[str, List[Tuple[str, List[Tuple[str, str]]]]] = {
     "BYTESCLF": [("clf_to_number", [("BYTES", "")])],
     "BYTES": [("number_to_clf", [("BYTESCLF", "")])],
 }
+_STRFTIME_CONSUMERS = [
+    ("timestamp", _TIME_OUTPUTS),
+    # The raw value re-emitted as TIME.LOCALIZEDSTRING (keeps the path).
+    ("localized", [("TIME.LOCALIZEDSTRING", "")]),
+]
 _SETCOOKIE_ATTRS = ("value", "path", "domain", "comment", "expires")
+
+
+def _strftime_layout(strfformat: str) -> Optional[TimeLayout]:
+    """A %{format}t token's layout; None when the format does not compile
+    (the token then has no timestamp consumers, as in the reference)."""
+    try:
+        return compile_strftime(strfformat)
+    except UnsupportedStrfField:
+        return None
+
 
 # Where each unported edge lands in ROADMAP.md.
 _LATER = {
     "cookies": "the cookie CSR split (ROADMAP queue A item 5)",
     "setcookies": "the Set-Cookie CSR split, split_setcookie_csr (ROADMAP queue A item 5)",
     "number_to_clf": "the zero->null CLF conversion (ROADMAP queue A item 5)",
+    "localized": "TIME.LOCALIZEDSTRING values of strftime timestamps "
+                 "(ROADMAP queue A item 1)",
     "timestamp": "the host oracle port (ROADMAP queue A item 3)",
     "multi": "the host oracle port (ROADMAP queue A item 3): more than one producer",
     "none": "no producer in this LogFormat",
@@ -154,8 +175,12 @@ class TorchBatchParser:
         self.requested = list(dict.fromkeys(cleanup_field_value(f) for f in fields))
         self.csr_slots = CSR_SLOTS
         self.units: List[FormatUnit] = []
+        self._strftime: Dict[str, Optional[TimeLayout]] = {}
         for fmt in _split_formats(log_format):
-            prog = compile_device_program(ApacheLogFormat(fmt))
+            apache = ApacheLogFormat(fmt)
+            for ftype, strf in apache.strftime_types.items():
+                self._strftime[ftype] = _strftime_layout(strf)
+            prog = compile_device_program(apache)
             plans = [self._resolve(prog, fid) for fid in self.requested]
             self.units.append(FormatUnit(prog, plans,
                                          PackedLayout.for_plans(plans, self.csr_slots)))
@@ -230,9 +255,15 @@ class TorchBatchParser:
         return FieldPlan(field_id, parse, tok.index, steps,
                          null_mode=null_mode, scale=scale)
 
-    @staticmethod
-    def _step_spec(consumer: str, oname: str, vctx, steps, device_ok, why):
-        """(kind, vctx, steps, device_ok, why[, comp, meta]) of one edge."""
+    def _consumers_of(self, t: str):
+        if t in self._strftime:
+            return _STRFTIME_CONSUMERS if self._strftime[t] is not None else ()
+        return _CONSUMERS.get(t, ())
+
+    def _step_spec(self, t: str, consumer: str, oname: str, vctx, steps, device_ok,
+                   why):
+        """(kind, vctx, steps, device_ok, why[, comp, meta]) of the edge
+        from type ``t`` through ``consumer`` to output ``oname``."""
         parse = vctx[0]
         if consumer == "clf_to_number" and parse == "":
             return ("value", ("long", "dash_zero", vctx[2]), steps, device_ok, why)
@@ -250,7 +281,11 @@ class TorchBatchParser:
         if consumer == "timestamp" and parse == "":
             dl = None
             if oname in timefields.DEVICE_COMPONENTS:
-                dl = compile_layout_for_device(APACHE_LAYOUT)
+                layout = APACHE_LAYOUT if t == "TIME.STAMP" else self._strftime[t]
+                try:
+                    dl = compile_layout_for_device(layout)
+                except ValueError:
+                    dl = None   # a format the layout compiler rejects: host
             return ("ts", vctx, steps, device_ok and dl is not None,
                     why or _LATER["timestamp"], oname, dl)
         return ("value", vctx, steps, False, why or _LATER.get(consumer, _LATER["timestamp"]))
@@ -270,7 +305,7 @@ class TorchBatchParser:
             return [_host(field_id, "multi")]
         visited = visited | {(t, name)}
         plans: List[FieldPlan] = []
-        for consumer, outputs in _CONSUMERS.get(t, ()):
+        for consumer, outputs in self._consumers_of(t):
             for ot, oname in outputs:
                 if oname == "*":
                     plans.extend(self._wildcard(field_id, ftype, path, tok, consumer,
@@ -279,7 +314,7 @@ class TorchBatchParser:
                 new_name = (name + "." + oname if name else oname) if oname else name
                 if not (path == new_name or path.startswith(new_name + ".")):
                     continue
-                spec = self._step_spec(consumer, oname, vctx, steps, device_ok, why)
+                spec = self._step_spec(t, consumer, oname, vctx, steps, device_ok, why)
                 if spec[0] == "ts":
                     _, _, nsteps, ndev, nwhy, comp, meta = spec
                     if path == new_name and ot == ftype:
@@ -719,7 +754,7 @@ def _split_formats(log_format: str) -> List[str]:
         if "%" not in fmt and fmt.lower() not in NAMED_FORMATS:
             raise UnsupportedFormatError(
                 f"{fmt!r}: only Apache LogFormats are on this slice "
-                "(nginx: ROADMAP queue A item 5)"
+                "(nginx: ROADMAP queue A item 1)"
             )
         formats.append(fmt)
     return formats

@@ -4,8 +4,9 @@ This system has no weights: what plays their part is the compiled state
 of a parser -- per format unit the split program (ops, tokens, charset
 table), the field plans (a ``qscsr`` plan's ``meta`` is its mode string),
 the packed bit-slot layout with its CSR slot count, and the timestamp
-layouts.  :func:`unit_to_plain` writes that state as plain Python and
-numpy data (tuples, dicts, ``np.ndarray``); :func:`units_from_reference`
+layouts (a zone-text layout by reference to the default zone table).
+:func:`unit_to_plain` writes that state as plain Python and numpy data
+(tuples, dicts, ``np.ndarray``); :func:`units_from_reference`
 rebuilds the port's :class:`~.pipeline.FormatUnit` objects from it.  The
 same plain schema extracted from the reference package's units (which the
 tests do, without this package importing JAX) lets both packages run the
@@ -18,6 +19,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 
 from ..dissectors.timelayout import LocaleData
+from ..dissectors.tztable import default_zone_table
 from .pipeline import FieldPlan, FormatUnit, PackedLayout
 from .program import DeviceProgram, SplitOp, TokenSpec
 from .timeparse import DeviceTimeLayout, _DevItem
@@ -84,8 +86,8 @@ def unit_to_plain(unit) -> Plain:
 
 
 def _time_layout_from_plain(d: Plain) -> DeviceTimeLayout:
-    if d["zone_table"]:
-        raise ValueError("zone-text timestamp layouts are a later slice")
+    """A %Z layout (``zone_table`` True) resolves through the port's own
+    default zone table, whose zone indices its items carry."""
     loc = d["locale"]
     return DeviceTimeLayout(
         segments=tuple(tuple(_DevItem(*it) for it in seg) for seg in d["segments"]),
@@ -94,6 +96,7 @@ def _time_layout_from_plain(d: Plain) -> DeviceTimeLayout:
         default_offset_seconds=d["default_offset_seconds"],
         locale=None if loc is None else LocaleData(**loc),
         min_prefix=d["min_prefix"],
+        zone_table=default_zone_table() if d["zone_table"] else None,
     )
 
 

@@ -2,13 +2,13 @@
 
 Sources live in ``logparser_tpu_torch/csrc``; at first use on a CUDA
 tensor they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library per source (all four ``nvcc`` processes run at once) under
+library per source (all ``nvcc`` processes run at once) under
 ``csrc/_build/<hash of the sources>/`` and loaded with ``ctypes``.  The
 C entry points take raw device pointers and PyTorch's current stream, and
 return ``cudaGetLastError()`` after the launch.
 
-Each wrapper (``split``, ``span_stages``, ``timestamp``, ``uri_split``,
-``csr_split``, ``pack_rows``):
+Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
+``uri_split``, ``csr_split``, ``pack_rows``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import pipeline, timeparse
+from . import pipeline
 from .pipeline import (
     CsrTables,
     PackTables,
@@ -39,16 +39,18 @@ from .pipeline import (
     StageTables,
     TsTables,
     UriTables,
+    ZoneTables,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("split", "span_stages", "timestamp", "uri_split", "csr_split", "pack_rows")
+KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
+           "csr_split", "pack_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Line buckets the kernels take: the widest window a stage gathers (the
-# 27-byte timestamp) must fit, and span fields hold 13 bits.
+# 31-byte %Z zone window) must fit, and span fields hold 13 bits.
 MIN_LINE_LEN = 32
 MAX_LINE_LEN = 8191
 
@@ -59,8 +61,9 @@ _SIGNATURES = {
     "split": [_P, _P, _INT, _INT, _P, _P, _INT, _P, _INT, _INT, _INT, _INT,
               _P, _P, _P, _P],
     "span_stages": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P],
-    "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P, _INT, _INT, _INT,
-                  _INT, _P, _P],
+    "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P, _INT, _INT,
+                  _INT, _INT, _INT, _INT, _P, _P, _P],
+    "zone_lookup": [_INT, _P, _P, _P, _P, _P, _P, _INT, _INT, _P, _P, _P],
     "uri_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
                   _INT, _P, _INT, _INT, _INT, _P],
     "csr_split": [_P, _INT, _INT, _P, _INT, _INT, _INT, _P, _INT, _INT, _INT,
@@ -276,24 +279,63 @@ def span_stages(
 def timestamp(
     tables: TsTables, buf: torch.Tensor, starts: torch.Tensor,
     ends: torch.Tensor, out: Optional[torch.Tensor] = None,
+    zone_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel 3: one timestamp group's (c1, c2, off, ok), [4, B] int32."""
+    """Kernel 3: one timestamp group's (c1, c2, off, ok), [4, B] int32.
+    For a %Z layout rows 2 and 3 hold the wall minute and the verdict so
+    far, and ``zone_out`` [B] (allocated when not given) the zone index:
+    :func:`zone_lookup` finishes the bundle."""
     B, L = _check_buf(buf)
     dev = buf.device
     _check_tables(tables, dev)
     _check_cursors(tables.token_index, buf, starts, ends)
-    if tables.seg_w + timeparse.TAIL_WIDTH > L:
-        raise ValueError(f"line bucket {L} narrower than the timestamp window")
+    dl = tables.layout
+    if any(w > L for w in dl.windows()):
+        raise ValueError(f"line bucket {L} narrower than a timestamp segment")
     out = _out(out, (4, B), dev)
+    zone = tables.zone is not None
+    if zone:
+        zone_out = _out(zone_out, (B,), dev)
     if not _route(buf):
-        return pipeline.timestamp_plain(tables, buf, starts, ends, out)
+        return pipeline.timestamp_plain(tables, buf, starts, ends, out, zone_out)
     if B:
         _launch("timestamp", dev, _ptr(buf), B, L, _ptr(starts[tables.token_index]),
-                _ptr(ends[tables.token_index]), _ptr(tables.items),
-                tables.items.shape[0], _ptr(tables.text), _ptr(tables.names),
-                tables.names.shape[0], tables.name_width, tables.seg_w,
-                tables.layout.min_prefix, _ptr(out))
+                _ptr(ends[tables.token_index]), _ptr(tables.segs),
+                tables.segs.shape[0], _ptr(tables.items), _ptr(tables.text),
+                _ptr(tables.entries), tables.entry_width, tables.tail,
+                int(dl.one_shot(L)), dl.default_offset_seconds, dl.min_prefix,
+                int(zone), _ptr(out), _ptr(zone_out) if zone else None)
         timestamp.launches += 1
+    return out
+
+
+def zone_lookup(
+    tables: ZoneTables, zone_idx: torch.Tensor, minutes: torch.Tensor,
+    gate: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 7: (zone index, wall minute) -> (offset seconds, ok), [2, B]
+    int32, through the tzdata tables.  With ``gate`` (a %Z timestamp
+    bundle's verdict so far) ok becomes the bundle's final verdict.
+    ``out`` may be the rows ``minutes`` and ``gate`` lie in (each line
+    reads its inputs before it writes)."""
+    if minutes.dim() != 1:
+        raise ValueError(f"minutes must be [B], got {tuple(minutes.shape)}")
+    B = minutes.shape[0]
+    dev = minutes.device
+    _check("minutes", minutes, _I32, (B,), dev)
+    _check("zone_idx", zone_idx, _I32, (B,), dev)
+    if gate is not None:
+        _check("gate", gate, _I32, (B,), dev)
+    _check_tables(tables, dev)
+    out = _out(out, (2, B), dev)
+    if not _route(minutes):
+        return pipeline.zone_lookup_plain(tables, zone_idx, minutes, gate, out)
+    if B:
+        _launch("zone_lookup", dev, B, _ptr(zone_idx), _ptr(minutes),
+                _ptr(gate) if gate is not None else None, _ptr(tables.buckets),
+                _ptr(tables.packed), _ptr(tables.valid_until),
+                tables.packed.shape[0], tables.chain, _ptr(out[0]), _ptr(out[1]))
+        zone_lookup.launches += 1
     return out
 
 
@@ -379,7 +421,8 @@ def pack_rows(
 
 
 WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
-            "uri_split": uri_split, "csr_split": csr_split, "pack_rows": pack_rows}
+            "zone_lookup": zone_lookup, "uri_split": uri_split,
+            "csr_split": csr_split, "pack_rows": pack_rows}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

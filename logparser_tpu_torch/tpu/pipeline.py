@@ -3,15 +3,19 @@
 The port of the reference package's ``tpu/pipeline.py`` for the Apache
 ``combined`` main path and the URI chain.  Host data (field plans, the
 packed bit-slot layout, format units) is copied; the device computation
-is six hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``)
+is seven hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``)
 run by :class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
 
 1. ``split``       — the split program: token cursors, valid, plausible,
                      esc_hit (:func:`compute_split` is its plain version);
 2. ``span_stages`` — CLF dash, first-line and protocol splits, ``%b``
                      limb frame, view prefix words (:func:`span_stages_plain`);
-3. ``timestamp``   — the ``DeviceTimeLayout`` items
-                     (``timeparse.parse_device_timestamp``);
+3. ``timestamp``   — the ``DeviceTimeLayout`` segments at a per-row
+                     cursor, the offset tail, the resolver and range
+                     checks (``timeparse.parse_timestamp_fields``); for a
+                     %Z layout it stops at the zone and wall minute, and
+   ``zone_lookup`` — resolves them through the tzdata tables
+                     (``timeparse.resolve_zone_offset``);
 4. ``uri_split``   — one URI split per (token, steps) group: sub-spans,
                      fix / amp flags, line constraints, the port long
                      (:func:`uri_split_plain`);
@@ -473,7 +477,11 @@ CONS_REQUIRE = 0       # valid &= comp != 0
 CONS_CSR_OVERFLOW = 1  # o = comp != 0 & valid; valid &= ~o; bit 2 |= o
 CONS_URI_OVERFLOW = 2  # o = comp != 0;         valid &= ~o; bit 2 |= o
 
-ITEM_LIT, ITEM_NUM, ITEM_NAME = 0, 1, 2
+# timestamp item kinds; a table item's entries are rows of ``entries``.
+ITEM_LIT, ITEM_NUM, ITEM_MONTH, ITEM_DOW, ITEM_AMPM, ITEM_ZONE = range(6)
+_TABLE_KIND = {("name", "month"): ITEM_MONTH, ("name", "dayofweek"): ITEM_DOW,
+               ("ampm", "ampm"): ITEM_AMPM, ("zone", "zone"): ITEM_ZONE}
+TAIL_KIND = {"": 0, "offset": 1, "offset_colon": 2}
 MAX_UNITS = 8
 
 
@@ -795,36 +803,59 @@ class StageTables(nn.Module):
         self.register_buffer("tasks", _i32(self.tasks_py, TASKW))
 
 
+class ZoneTables(nn.Module):
+    """A ``ZoneDeviceTable`` for the ``zone_lookup`` kernel: ``buckets``
+    [Z << 12], ``packed`` [T, 2] (key, offset + bias, uint32 bit
+    patterns) and ``valid_until`` [Z]."""
+
+    def __init__(self, table):
+        super().__init__()
+        self.table = table
+        self.chain = table.chain
+        self.register_buffer("buckets", torch.from_numpy(table.buckets.astype(np.int32)))
+        self.register_buffer("packed", torch.from_numpy(table.packed().copy()))
+        self.register_buffer("valid_until", torch.from_numpy(
+            table.valid_until.astype(np.int32)))
+
+
 class TsTables(nn.Module):
-    """One timestamp group: the DeviceTimeLayout's items as rows (kind,
-    offset, width, arg) -- arg is the literal's offset into ``text`` or
-    the numeric field's index in ``timeparse.NUM_FIELDS`` -- and the month
-    name table as rows (length, bytes...)."""
+    """One timestamp group: the DeviceTimeLayout as tables.
+
+    ``segs`` rows (width or -1, first item, item count); ``items`` rows
+    (kind, offset, width, arg, count) -- arg is a literal's offset into
+    ``text``, a numeric field's index in ``timeparse.NUM_FIELDS`` or a
+    table's first row of ``entries``, count its entry count; ``entries``
+    rows (length, case-folded, zone index, bytes...).  A %Z layout also
+    carries its :class:`ZoneTables` (``zone``)."""
 
     def __init__(self, token_index: int, dl: timeparse.DeviceTimeLayout):
         super().__init__()
-        if len(dl.segments) != 1 or dl.seg_widths[0] < 0 or dl.tail != "offset":
-            raise ValueError("only a fixed-width timestamp with a ZZ offset is on this slice")
         self.token_index = token_index
         self.layout = dl
-        self.seg_w = dl.seg_widths[0]
-        items, text, names = [], [], []
-        for it in dl.segments[0]:
-            if it.kind == "lit":
-                items.append((ITEM_LIT, it.offset, it.width, len(text)))
-                text.extend(it.text)
-            elif it.kind == "num" and it.field in timeparse.NUM_FIELDS:
-                items.append((ITEM_NUM, it.offset, it.width,
-                              timeparse.NUM_FIELDS.index(it.field)))
-            elif it.kind == "name" and it.field == "month" and not names:
-                items.append((ITEM_NAME, it.offset, it.width, 0))
-                names = [(len(e),) + tuple(e) for e in it.table]
-            else:
-                raise ValueError(f"timestamp item {it} is not on this slice")
-        self.name_width = 1 + max((len(n) - 1 for n in names), default=0)
-        self.register_buffer("items", _i32(items, 4))
+        segs, items, text, entries = [], [], [], []
+        for seg, seg_w in zip(dl.segments, dl.seg_widths):
+            segs.append((seg_w, len(items), len(seg)))
+            for it in seg:
+                if it.kind == "lit":
+                    items.append((ITEM_LIT, it.offset, it.width, len(text), 0))
+                    text.extend(it.text)
+                elif it.kind == "num":
+                    items.append((ITEM_NUM, it.offset, it.width,
+                                  timeparse.NUM_FIELDS.index(it.field), 0))
+                else:
+                    items.append((_TABLE_KIND[it.kind, it.field], it.offset, it.width,
+                                  len(entries), len(it.table)))
+                    for k, e in enumerate(it.table):
+                        fold = it.fold_flags[k] if it.kind == "zone" else True
+                        zone = it.zone_idx[k] if it.kind == "zone" else 0
+                        entries.append((len(e), int(fold), zone) + tuple(e))
+        self.entry_width = 3 + max((len(e) - 3 for e in entries), default=0)
+        self.tail = TAIL_KIND[dl.tail]
+        self.register_buffer("segs", _i32(segs, 3))
+        self.register_buffer("items", _i32(items, 5))
         self.register_buffer("text", torch.tensor(text or [0], dtype=torch.int32))
-        self.register_buffer("names", _i32(names or [(0,)], self.name_width))
+        self.register_buffer("entries", _i32(entries or [(0, 0, 0)], self.entry_width))
+        self.zone = ZoneTables(dl.zone_table) if dl.zone_table is not None else None
 
 
 class UriTables(nn.Module):
@@ -997,11 +1028,13 @@ def span_stages_plain(
 
 def timestamp_plain(
     tables: TsTables, buf: torch.Tensor, starts: torch.Tensor,
-    ends: torch.Tensor, out: torch.Tensor,
+    ends: torch.Tensor, out: torch.Tensor, zone_out: torch.Tensor = None,
 ) -> torch.Tensor:
-    """Fill ``out`` [4, B] with the packed timestamp bundle: c1, c2, off,
-    ok (the ts branch of the reference's compute_rows)."""
-    comp, ok = timeparse.parse_device_timestamp(
+    """Fill ``out`` [4, B] with the packed timestamp bundle (the ts branch
+    of the reference's compute_rows): c1, c2, offset, ok.  For a %Z
+    layout rows 2 and 3 hold the wall minute and the verdict so far, and
+    ``zone_out`` [B] the zone index, for :func:`zone_lookup_plain`."""
+    comp, ok = timeparse.parse_timestamp_fields(
         buf, starts[tables.token_index], ends[tables.token_index], tables.layout
     )
     c1 = (comp["year"].to(torch.int64) | (comp["month"].to(torch.int64) << 14)
@@ -1011,8 +1044,28 @@ def timestamp_plain(
           | (comp["milli"].to(torch.int64) << 12))
     out[0] = postproc.wrap_i32(c1)
     out[1] = postproc.wrap_i32(c2)
-    out[2] = comp["offset_seconds"]
+    if "zone_idx" in comp:
+        out[2] = comp["minutes"]
+        zone_out.copy_(comp["zone_idx"])
+    else:
+        out[2] = comp["offset_seconds"]
     out[3] = ok.to(torch.int32)
+    return out
+
+
+def zone_lookup_plain(
+    tables: ZoneTables, zone_idx: torch.Tensor, minutes: torch.Tensor,
+    gate: torch.Tensor, out: torch.Tensor,
+) -> torch.Tensor:
+    """Fill ``out`` [2, B] with (offset seconds, ok) of ``ZoneDeviceTable
+    .lookup``; with a ``gate`` row (a timestamp bundle's verdict so far)
+    ok is the bundle's final verdict (``timeparse.resolve_zone_offset``)."""
+    if gate is None:
+        off, ok = tables.table.lookup(zone_idx, minutes)
+    else:
+        off, ok = timeparse.resolve_zone_offset(tables.table, zone_idx, minutes, gate != 0)
+    out[0] = off
+    out[1] = ok.to(torch.int32)
     return out
 
 
@@ -1198,9 +1251,10 @@ class UnitsExecutor(nn.Module):
 
     Holds every per-parser table as a buffer, so ``.to(device)`` uploads
     them once.  Per unit it launches split, span_stages, one timestamp
-    kernel per timestamp group, one uri_split per URI group and one
-    csr_split per query-string group, then one pack_rows over all
-    units.  The CUDA grid replaces the reference's 16k-row tiling."""
+    kernel per timestamp group (followed by one zone_lookup for a %Z
+    layout), one uri_split per URI group and one csr_split per
+    query-string group, then one pack_rows over all units.  The CUDA
+    grid replaces the reference's 16k-row tiling."""
 
     def __init__(self, units: Sequence[FormatUnit], view_specs: ViewSpecs = ()):
         super().__init__()
@@ -1237,7 +1291,13 @@ class UnitsExecutor(nn.Module):
             if a:
                 kernels.span_stages(t.stages, buf, starts, ends, out=block[:a])
             for g, ts in enumerate(t.ts):
-                kernels.timestamp(ts, buf, starts, ends, out=block[a + 4 * g:a + 4 * g + 4])
+                rows = block[a + 4 * g:a + 4 * g + 4]
+                if ts.zone is None:
+                    kernels.timestamp(ts, buf, starts, ends, out=rows)
+                    continue
+                zone = torch.empty(B, dtype=torch.int32, device=buf.device)
+                kernels.timestamp(ts, buf, starts, ends, out=rows, zone_out=zone)
+                kernels.zone_lookup(ts.zone, zone, rows[2], gate=rows[3], out=rows[2:4])
             for u in t.uri:
                 kernels.uri_split(u, buf, starts, ends, block)
             for c in t.csr:

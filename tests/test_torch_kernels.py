@@ -12,11 +12,19 @@ import pytest
 import torch
 
 from logparser_tpu_torch import TorchBatchParser
+from logparser_tpu_torch.dissectors.tztable import SPAN_MINUTES, default_zone_table
 from logparser_tpu_torch.tools.demolog import (
+    COMBINEDIO_STRFTIME_FIELDS,
+    COMBINEDIO_STRFTIME_FORMAT,
     HEADLINE_FIELDS,
     URI_CHAIN_FIELDS,
+    ZONETEXT_FIELDS,
+    ZONETEXT_FORMAT,
+    combinedio_strftime_lines,
     generate_combined_lines,
+    strftime_edge_lines,
     uri_edge_lines,
+    zonetext_lines,
 )
 from logparser_tpu_torch.tpu import kernels, pipeline
 from logparser_tpu_torch.tpu.runtime import encode_batch
@@ -110,6 +118,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     gpu = TorchBatchParser("combined", HEADLINE_FIELDS).parse_batch(lines)
     counts = kernels.launch_counts()
     assert counts.pop("uri_split") == 0 and counts.pop("csr_split") == 0
+    assert counts.pop("zone_lookup") == 0
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -217,3 +226,97 @@ def test_uri_chain_on_the_card_equals_the_cpu(cuda_device):
     assert gpu.to_dict() == cpu.to_dict()
     assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
     assert len(uri_edge_lines()) - 1 in gpu.needs_host.tolist()
+
+
+STRFTIME = {
+    "combinedio_strftime": (COMBINEDIO_STRFTIME_FORMAT, COMBINEDIO_STRFTIME_FIELDS,
+                            combinedio_strftime_lines),
+    "strftime_zonetext": (ZONETEXT_FORMAT, ZONETEXT_FIELDS, zonetext_lines),
+    "full_month_12h": ('%h [%{%d/%B/%Y:%I:%M:%S %p %z}t] %>s',
+                       ["TIME.EPOCH:request.receive.time.epoch"], None),
+}
+
+
+def _strftime_lines(name, seed=3):
+    fmt, _, gen = STRFTIME[name]
+    if gen is None:
+        rng = np.random.default_rng(seed)
+        months = ["January", "May", "september", "JULY", "Feb", "Mayo"]
+        return [f"1.2.3.4 [{int(rng.integers(0, 33)):02d}/{rng.choice(months)}/2024:"
+                f"{int(rng.integers(0, 14)):02d}:07:08 {rng.choice(['AM', 'pm', 'XM'])} "
+                f"{rng.choice(['+0100', '-05:30', '+2400', 'Z'])}] 200" for _ in range(2000)]
+    rng = np.random.default_rng(seed)
+    lines = gen(3000) + strftime_edge_lines()
+    for ln in gen(300):   # one byte replaced near the timestamp
+        b = bytearray(ln.encode())
+        at = ln.find("[") + int(rng.integers(0, 40))
+        if 0 <= at < len(b):
+            b[at] = int(rng.choice(list(b"0123456789:/+- ]ZzCc")))
+        lines.append(bytes(b))
+    return lines
+
+
+@pytest.mark.parametrize("name", sorted(STRFTIME))
+@pytest.mark.parametrize("line_len", [0, 8191])
+def test_strftime_kernels_equal_plain_versions(cuda_device, name, line_len):
+    """timestamp (every segment kind, both tails) and, for the %Z layout,
+    zone_lookup on the timestamp's rows, against their plain versions;
+    then the whole executor against the CPU's."""
+    fmt, fields, _ = STRFTIME[name]
+    ex = TorchBatchParser(fmt, fields, device=cuda_device).executor
+    buf, lengths, _ = encode_batch(_strftime_lines(name), line_len=line_len)
+    buf = torch.from_numpy(buf).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    B = buf.shape[0]
+    (t,) = ex.unit_tables
+    starts, ends, _ = kernels.split(t.split, buf, lengths)
+    for ts in t.ts:
+        zone = torch.empty(B, dtype=torch.int32, device=cuda_device)
+        want_zone = torch.empty_like(zone)
+        out = kernels.timestamp(ts, buf, starts, ends, zone_out=zone)
+        want = pipeline.timestamp_plain(ts, buf, starts, ends, torch.empty_like(out),
+                                        want_zone)
+        assert torch.equal(out, want)
+        if ts.zone is not None:
+            assert torch.equal(zone, want_zone)
+            got = kernels.zone_lookup(ts.zone, zone, out[2], gate=out[3])
+            assert torch.equal(got, pipeline.zone_lookup_plain(
+                ts.zone, zone, out[2], out[3], torch.empty_like(got)))
+    cpu = TorchBatchParser(fmt, fields, device="cpu").executor
+    assert np.array_equal(ex(buf, lengths).cpu().numpy(),
+                          cpu(buf.cpu(), lengths.cpu()).numpy())
+
+
+def test_zone_lookup_kernel_on_every_transition(cuda_device):
+    table = default_zone_table()
+    zones, minutes = [], []
+    for key in table.keys.astype(np.int64).tolist():
+        z, m = divmod(key, SPAN_MINUTES)
+        zones += [z] * 3
+        minutes += [m - 1, m, m + 1]
+    for z, vu in enumerate(table.valid_until.tolist()):
+        zones += [z] * 5
+        minutes += [vu - 1, vu, -1, 0, SPAN_MINUTES]
+    rng = np.random.default_rng(5)
+    zones += rng.integers(0, len(table.zones), size=65536).tolist()
+    minutes += rng.integers(-10, SPAN_MINUTES + 10, size=65536).tolist()
+    z = torch.tensor(zones, dtype=torch.int32, device=cuda_device)
+    m = torch.tensor(minutes, dtype=torch.int32, device=cuda_device)
+    zt = pipeline.ZoneTables(table).to(cuda_device)
+    got = kernels.zone_lookup(zt, z, m)
+    want = pipeline.zone_lookup_plain(zt, z, m, None, torch.empty_like(got))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["combinedio_strftime", "strftime_zonetext"])
+def test_strftime_parse_on_the_card_equals_the_cpu(cuda_device, name):
+    fmt, fields, gen = STRFTIME[name]
+    lines = gen(5000) + strftime_edge_lines()
+    kernels.reset_launch_counts()
+    gpu = TorchBatchParser(fmt, fields).parse_batch(lines)
+    counts = kernels.launch_counts()
+    assert counts["timestamp"] == 1
+    assert counts["zone_lookup"] == (1 if "%Z" in fmt else 0)
+    cpu = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
+    assert gpu.to_dict() == cpu.to_dict()
+    assert gpu.needs_host.tolist() == cpu.needs_host.tolist()

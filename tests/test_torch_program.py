@@ -18,11 +18,19 @@ from logparser_tpu_torch.dissectors.tokenformat import (
 )
 from logparser_tpu_torch.httpd.apache import ApacheLogFormat
 from logparser_tpu_torch.tools import demolog
-from logparser_tpu_torch.tools.demolog import URI_CHAIN_FIELDS
+from logparser_tpu_torch.tools.demolog import (
+    COMBINEDIO_STRFTIME_FIELDS,
+    COMBINEDIO_STRFTIME_FORMAT,
+    URI_CHAIN_FIELDS,
+    ZONETEXT_FIELDS,
+    ZONETEXT_FORMAT,
+)
 from logparser_tpu_torch.tpu.carry import unit_to_plain, units_from_reference
 from test_torch_harness import assert_plain_equal, jax_unit_plain, reference_parser
 
 HEADLINE = ref_demolog.HEADLINE_FIELDS
+STRFTIME_PAIR = ('%h [%{begin:%d/%B/%Y:%I:%M:%S %p}t] [%{end:%Y-%m-%dT%H:%M:%S%z}t] '
+                 '%>s')
 
 FIELD_SETS = [
     ("combined", HEADLINE),
@@ -47,10 +55,22 @@ FIELD_SETS = [
      ["HTTP.PATH:request.firstline.uri.path", "HTTP.REF:request.referer.ref",
       "HTTP.USERINFO:request.referer.userinfo", "STRING:request.referer.query.a.b",
       "HTTP.PROTOCOL:request.firstline.protocol"]),
+    # The strftime timestamps: %z, %Z zone text, begin: / end: tokens, full
+    # month names with a 12-hour clock, and mod_logio's %I / %O.
+    (COMBINEDIO_STRFTIME_FORMAT, COMBINEDIO_STRFTIME_FIELDS),
+    (ZONETEXT_FORMAT, ZONETEXT_FIELDS),
+    (STRFTIME_PAIR, ["TIME.EPOCH:request.receive.time.begin.epoch",
+                     "TIME.DATE:request.receive.time.end.date",
+                     "TIME.HOUR:request.receive.time.begin.hour_utc",
+                     "STRING:request.status.last"]),
+    ("combinedio", ["BYTES:request.bytes", "BYTES:response.bytes",
+                    "TIME.EPOCH:request.receive.time.epoch"]),
 ]
 
 
-@pytest.mark.parametrize("fmt", ["combined", "common", '[%t] "%r" %>s %%'])
+@pytest.mark.parametrize("fmt", ["combined", "common", '[%t] "%r" %>s %%',
+                                 "combinedio", COMBINEDIO_STRFTIME_FORMAT,
+                                 ZONETEXT_FORMAT, STRFTIME_PAIR + " %{%Y}t"])
 def test_tokenizer_matches_reference(fmt):
     ours = ApacheLogFormat(fmt).log_format_tokens
     ref = ApacheHttpdLogFormatDissector(fmt).log_format_tokens

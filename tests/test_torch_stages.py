@@ -176,8 +176,15 @@ def test_timestamp_on_corpus_spans():
 
 
 def test_layouts_outside_the_slice_do_not_compile():
+    """A layout the reference keeps on its host stays off the device here
+    too ("HH:mm:ss ZZ" has no date); the others compile to the
+    reference's device layout (XXX offsets, full month names, am/pm, zone
+    text, two-digit years and default zones joined the slice with the
+    strftime timestamps)."""
     from logparser_tpu.dissectors.timelayout import compile_java_pattern
     from logparser_tpu_torch.dissectors.timelayout import APACHE_LAYOUT, TimeLayout
+    from logparser_tpu_torch.tpu.carry import time_layout_to_plain
+    from test_torch_harness import assert_plain_equal
 
     ref = compile_java_pattern("dd/MMM/yyyy:HH:mm:ss ZZ")
     assert APACHE_LAYOUT.items == ref.items
@@ -185,5 +192,12 @@ def test_layouts_outside_the_slice_do_not_compile():
     for pattern in ("yyyy-MM-dd'T'HH:mm:ssXXX", "dd/MMMM/yyyy ZZ",
                     "hh:mm a dd/MM/yyyy ZZ", "dd/MM/yyyy z", "dd/MM/yy ZZ",
                     "HH:mm:ss ZZ", "dd/MM/yyyy"):
-        items = compile_java_pattern(pattern).items
-        assert timeparse.compile_layout_for_device(TimeLayout(items)) is None, pattern
+        layout = compile_java_pattern(pattern)
+        want = ref_timeparse.compile_layout_for_device(layout)
+        got = timeparse.compile_layout_for_device(
+            TimeLayout(layout.items, layout.default_zone))
+        assert (got is None) == (want is None), pattern
+        if got is not None:
+            assert_plain_equal(time_layout_to_plain(got), time_layout_to_plain(want))
+    items = compile_java_pattern("HH:mm:ss ZZ").items
+    assert timeparse.compile_layout_for_device(TimeLayout(items)) is None
