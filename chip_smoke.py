@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100 for sm_90a), ``nvcc`` (CUDA_HOME or
-/usr/local/cuda) and this checkout.  It drives the port's four paths --
+/usr/local/cuda) and this checkout.  It drives the port's eight paths --
 Apache ``combined`` with the headline fields (65,536 generated lines,
 seed 42, 1% garbage, plus crafted edge lines), the URI chain
 (``URI_CHAIN_FIELDS``: path, query parameters, the protocol split, the
@@ -12,8 +12,12 @@ referer's authority; 65,536 generated lines, seed 53, plus the URI edge
 lines), and the two strftime configurations (``combinedio_strftime``:
 ``%{%d/%b/%Y:%H:%M:%S %z}t`` with %I / %O, seed 43; ``strftime_zonetext``:
 ``%Z`` zone names, seed 48; 65,536 generated lines each plus the strftime
-edge lines) -- and fails (non-zero exit, no result line) on the first
-phase that fails:
+edge lines), GeoIP enrichment (``geoip_chain``: country, city and ASN of
+the client over the fixture databases, seed 45; ``geoip_synthetic``: the
+same over a synthetic City database of 131,072 networks written at first
+use, seed 46) and NGINX (``nginx_uri``, seed 44; ``nginx_timing``: $msec
+and $request_time, seed 49) -- and fails (non-zero exit, no result line)
+on the first phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
 2. build   -- the seven kernels from logparser_tpu_torch/csrc, in parallel;
@@ -42,7 +46,19 @@ phase that fails:
    end for each, equal to the CPU, with no generated timestamp line in
    needs_host; then the zone-text 8191-byte bucket.  Each end-to-end
    line carries its path's bound: the sum of its kernels' bounds;
-8. the kernels line, the card line, and the result line
+8. GeoIP: ipv4_spans and geo_lookup (both groups: City and ASN) and
+   pack_rows (the IPv6 constraint) against their plain versions on the
+   geoip_chain batch; geo_lookup alone on a seeded table of 4,194,304
+   ranges (262,146 keys: the start, end and both neighbours of every 64th
+   range, 0 and 0xFFFFFFFF; its bound counts the 32-byte sectors of starts
+   a host simulation of the same search touches) beside
+   torch.searchsorted, and on an empty table; parse_batch end to end on
+   both GeoIP configurations (the synthetic one also reports the seconds
+   to write the database and to build its table) and the 8191-byte bucket;
+9. NGINX: span_stages (the secmillis tasks) and pack_rows under the
+   nginx_timing tables against their plain versions; parse_batch end to
+   end on both NGINX configurations and the 8191-byte bucket;
+10. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -64,6 +80,8 @@ REPLACES = {
     "uri_split": "logparser_tpu/tpu/postproc.py:210",
     "csr_split": "logparser_tpu/tpu/postproc.py:640",
     "zone_lookup": "logparser_tpu/dissectors/tztable.py:344",
+    "ipv4_spans": "logparser_tpu/tpu/postproc.py:557",
+    "geo_lookup": "logparser_tpu/geoip/device.py:102",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -90,7 +108,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -189,11 +213,12 @@ def main() -> int:
     rows = {}
 
     def phase(name, run_kernel, run_plain, bytes_moved, ops, kernel=None, n=None,
-              width=None):
+              width=None, library=None):
         """Kernel vs plain version on the same CUDA tensors, then timed.
         ``kernel`` names the kernels-line row when the phase name differs
         (a kernel re-run under the URI chain's tables keeps its slice-1
-        row and reports here only)."""
+        row and reports here only); ``library`` is one PyTorch call
+        computing the same function, timed the same way."""
         got = run_kernel()
         want = run_plain()
         torch.cuda.synchronize()
@@ -201,13 +226,14 @@ def main() -> int:
         err = max_abs_err(torch, got, want)
         ms = time_kernel(torch, run_kernel, KERNEL_REPS)
         plain_ms = time_kernel(torch, run_plain, PLAIN_REPS)
+        library_ms = time_kernel(torch, library, KERNEL_REPS) if library else None
         bound, bound_by = bound_ms(bytes_moved, ops)
         row = {
             "name": kernel or name, "route": "cuda",
             "source": SOURCES[kernel or name],
             "replaces": REPLACES[kernel or name], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
         }
         phase.bounds[name] = bound
         if kernel is None:
@@ -215,7 +241,8 @@ def main() -> int:
         emit({"phase": name, "equal": True, "B": n or B,
               "L": L if width is None else width, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
-              "bound_by": row["bound_by"], "bytes": bytes_moved, "card": smi})
+              "bound_by": row["bound_by"], "library_ms": library_ms,
+              "bytes": bytes_moved, "card": smi})
         return got
 
     phase.bounds = {}
@@ -302,7 +329,13 @@ def main() -> int:
     strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
                     rows, smi)
 
-    # ---- 8. result -----------------------------------------------------
+    # ---- 8. GeoIP --------------------------------------------------------
+    geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi)
+
+    # ---- 9. NGINX --------------------------------------------------------
+    nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi)
+
+    # ---- 10. result ------------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [rows[k] for k in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -335,7 +368,7 @@ def span_stages_cost(torch, pipeline, stages, starts, ends, B, L):
     n_read = 0
     for t in stages.tasks_py:
         n = (ends[t[1]] - starts[t[1]]).clamp(0, L).to(torch.int64)
-        if t[0] == pipeline.TASK_LONG:
+        if t[0] in (pipeline.TASK_LONG, pipeline.TASK_SECMILLIS):
             n_read += int(n.clamp(max=19).sum())
         elif t[2] == pipeline.PART_DIRECT:
             n_read += B + (int(n.clamp(max=12).sum()) if t[11] >= 0 else 0)
@@ -649,19 +682,8 @@ def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
 
     # The zone-text configuration at the widest bucket.
     _, fmt, fields, gen = configs[1]
-    wide = gen(256) + edge
-    pad = 8191 - len(wide[0].encode())
-    wide += [wide[0].replace('"GET ', '"GET /' + "w" * (pad - 1), 1),   # exactly 8191
-             wide[0].replace('"GET ', '"GET /' + "w" * (pad + 999), 1)]  # past the cap
-    res_w = TorchBatchParser(fmt, fields).parse_batch(wide)
-    if res_w.buf.shape[1] != 8191:
-        fail(f"the wide zone-text batch took bucket {res_w.buf.shape[1]}, not 8191")
-    compare_results(res_w, TorchBatchParser(fmt, fields, device="cpu").parse_batch(wide),
-                    "wide_bucket_zonetext")
-    if len(wide) - 1 not in res_w.needs_host.tolist():
-        fail("the over-long zone-text line was not routed to the host")
-    emit({"phase": "wide_bucket_zonetext", "B": len(wide), "L": 8191,
-          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
+    run_wide(TorchBatchParser(fmt, fields), TorchBatchParser(fmt, fields, device="cpu"),
+             gen(256) + edge, "zonetext")
 
 
 def zone_table_bytes(torch, zt, zones, minutes):
@@ -700,6 +722,299 @@ def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
               zt, zones, minutes, None, torch.empty((2, n), dtype=torch.int32, device="cuda")),
           bytes_moved=16 * n + zone_table_bytes(torch, zt, zones, minutes),
           ops=10 * n, n=n, width=0)
+
+
+GEO_LARGE_RANGES = 1 << 22   # the order of a production City database's IPv4 networks
+GEO_LARGE_STRIDE = 64
+GEO_SYNTHETIC_SEED = 4
+
+
+def geo_search_bytes(np, starts, ends, keys, gate=None):
+    """(bytes, hits) of the geo_lookup join on these keys: a host
+    simulation of the kernel's upper-bound search counts the distinct
+    32-byte sectors of ``starts`` the keys' paths touch, plus the ``ends``
+    word of each distinct hit range."""
+    s = starts.astype(np.int64)
+    k = keys.astype(np.int64) & 0xFFFFFFFF
+    K, n = len(s), len(k)
+    active = np.ones(n, dtype=bool) if gate is None else gate != 0
+    if K == 0:
+        return 0, np.zeros(n, dtype=bool)
+    lo = np.zeros(n, dtype=np.int64)
+    hi = np.full(n, K, dtype=np.int64)
+    sectors = []
+    while True:
+        live = np.nonzero(active & (lo < hi))[0]
+        if live.size == 0:
+            break
+        mid = lo[live] + ((hi[live] - lo[live]) >> 1)
+        sectors.append(np.unique(mid >> 3))
+        le = s[mid] <= k[live]
+        lo[live] = np.where(le, mid + 1, lo[live])
+        hi[live] = np.where(le, hi[live], mid)
+    hits = active & (lo > 0) & (k <= ends.astype(np.int64)[np.maximum(lo - 1, 0)])
+    n_sectors = np.unique(np.concatenate(sectors)).size if sectors else 0
+    return 32 * n_sectors + 4 * np.unique(lo[hits]).size, hits
+
+
+def run_end_to_end(torch, kernels, gpu, cpu, lines, tag, must, path_bound, smi,
+                   **extra):
+    """parse_batch on the card with the launch counts zeroed just before
+    and read just after, held equal to the CPU; one result line."""
+    gpu.parse_batch(lines[:4096])   # warm the caching allocator
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gpu.parse_batch(lines)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in must:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the {tag} path")
+    compare_results(res, cpu.parse_batch(lines), tag)
+    n_valid = int(res.valid.sum())
+    if n_valid < 0.98 * N_LINES:
+        fail(f"only {n_valid} of {len(lines)} {tag} lines valid on device")
+    emit({"phase": tag, "B": len(lines), "L": int(res.buf.shape[1]),
+          "equal_to_cpu": True, "valid": n_valid, "needs_host": len(res.needs_host),
+          "path_bound_ms": path_bound, "stage_seconds": res.stage_seconds,
+          "wall_seconds": wall, "lines_per_s": len(lines) / wall,
+          "device_lines_per_s": len(lines) / res.stage_seconds["kernels"],
+          "d2h_bytes": res.d2h_bytes, "launches": launches, **extra, "card": smi})
+    return launches
+
+
+def run_wide(gpu, cpu, lines, tag):
+    """A small batch at the widest bucket: a line of exactly 8191 bytes
+    and one past the cap (which must go to the host), equal to the CPU."""
+    pad = 8191 - len(lines[0].encode())
+    lines = lines + [lines[0].replace('"GET ', '"GET /' + "w" * (pad - 1), 1),
+                     lines[0].replace('"GET ', '"GET /' + "w" * (pad + 999), 1)]
+    res = gpu.parse_batch(lines)
+    if res.buf.shape[1] != 8191:
+        fail(f"the wide {tag} batch took bucket {res.buf.shape[1]}, not 8191")
+    compare_results(res, cpu.parse_batch(lines), f"wide_bucket_{tag}")
+    if len(lines) - 1 not in res.needs_host.tolist():
+        fail(f"the over-long {tag} line was not routed to the host")
+    emit({"phase": f"wide_bucket_{tag}", "B": len(lines), "L": 8191,
+          "equal_to_cpu": True, "needs_host": res.needs_host.tolist()})
+
+
+def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
+    """Section 8: the GeoIP kernels on the geoip_chain batch, geo_lookup
+    on a large and an empty table, both GeoIP paths end to end, and the
+    8191-byte bucket."""
+    import os
+
+    import numpy as np
+
+    from logparser_tpu_torch.geoip import (
+        GeoDeviceTable,
+        GeoIPASNDissector,
+        GeoIPCityDissector,
+    )
+    from logparser_tpu_torch.tools import demolog, geoip_testdata
+
+    fixtures = geoip_testdata.ensure_test_databases()
+    asn = os.path.join(fixtures, "GeoLite2-ASN-Test.mmdb")
+
+    def parser(city, device=None):
+        return TorchBatchParser("combined", demolog.GEOIP_FIELDS, device=device,
+                                extra_dissectors=[GeoIPCityDissector(city),
+                                                  GeoIPASNDissector(asn)])
+
+    city = os.path.join(fixtures, "GeoIP2-City-Test.mmdb")
+    edge = demolog.geoip_edge_lines()
+    lines = demolog.geoip_chain_lines(N_LINES) + edge
+    buf, lengths, overflow = runtime.encode_batch(lines)
+    B, L = buf.shape
+    if overflow:
+        fail(f"geo corpus overflows its bucket: {overflow}")
+    emit({"phase": "corpus_geo", "B": B, "L": L, "bytes": int(buf.nbytes)})
+    gpu = parser(city)
+    ex = gpu.executor
+    (t,) = ex.unit_tables
+    if len(t.geo) != 2:
+        fail(f"geoip_chain has {len(t.geo)} geo groups, not 2 (City, ASN)")
+    dbuf = torch.from_numpy(buf).cuda()
+    dlen = torch.from_numpy(lengths).cuda()
+    starts, ends, flags = kernels.split(t.split, dbuf, dlen)
+    block = torch.zeros((t.n_comp, B), dtype=torch.int32, device="cuda")
+    a = t.stages.n_out
+    kernels.span_stages(t.stages, dbuf, starts, ends, out=block[:a])
+
+    base = block.clone()
+
+    def ip_kernel():
+        for g in t.geo:
+            kernels.ipv4_spans(g, dbuf, starts, ends, out=block[g.base:g.base + 4])
+        return block
+
+    def ip_plain():
+        out = base.clone()
+        for g in t.geo:
+            pipeline.ipv4_spans_plain(g, dbuf, starts, ends, out[g.base:g.base + 4])
+        return out
+
+    ip_bytes = sum(span_bytes(torch, starts[g.token_index], ends[g.token_index], 15)
+                   for g in t.geo)
+    phase("ipv4_spans", ip_kernel, ip_plain,
+          bytes_moved=ip_bytes + len(t.geo) * B * (8 + 16), ops=10 * ip_bytes, n=B)
+    ip_kernel()
+    torch.cuda.synchronize()
+
+    base = block.clone()
+    V, OK, ROW = pipeline.GEO_VALUE, pipeline.GEO_IP_OK, pipeline.GEO_ROW
+
+    def geo_kernel():
+        for g in t.geo:
+            kernels.geo_lookup(g, block[g.base + V], gate=block[g.base + OK],
+                               out=block[g.base + ROW])
+        return block
+
+    def geo_plain():
+        out = base.clone()
+        for g in t.geo:
+            pipeline.geo_lookup_plain(g, out[g.base + V], out[g.base + OK], out[g.base + ROW])
+        return out
+
+    mask = 0xFFFFFFFF
+    lib_in = [((g.starts.to(torch.int64) & mask), (base[g.base + V].to(torch.int64) & mask))
+              for g in t.geo]
+    g_bytes = 12 * B * len(t.geo)
+    for g in t.geo:
+        host = base[g.base:g.base + 2].cpu().numpy()
+        g_bytes += geo_search_bytes(np, g.table.starts, g.table.ends,
+                                    host[0].view(np.uint32), host[1])[0]
+    phase("geo_lookup", geo_kernel, geo_plain, bytes_moved=g_bytes, ops=4 * B * len(t.geo),
+          n=B, library=lambda: [torch.searchsorted(s, k, right=True) for s, k in lib_in])
+    geo_kernel()
+    flags_u = flags[None, :].contiguous()
+    phase("pack_rows_geo",
+          lambda: kernels.pack_rows(ex.pack, flags_u, block),
+          lambda: pipeline.pack_rows_plain(ex.pack, flags_u, block),
+          *pack_cost(ex, block.shape[0], B), kernel="pack_rows", n=B)
+    path_bound = (bound_ms(*split_cost(t.split, B, L))[0]
+                  + bound_ms(*span_stages_cost(torch, pipeline, t.stages, starts, ends,
+                                               B, L))[0]
+                  + sum(phase.bounds[k] for k in ("ipv4_spans", "geo_lookup",
+                                                  "pack_rows_geo")))
+
+    # geo_lookup alone on a table of a production database's size, and
+    # on an empty one.
+    rng = np.random.default_rng(21)
+    K = GEO_LARGE_RANGES
+    bounds = np.sort(rng.choice(1 << 32, size=2 * K, replace=False)).astype(np.uint32)
+    large = GeoDeviceTable.from_ranges(bounds[0::2], bounds[1::2])
+    gl = pipeline.GeoTables(pipeline._GeoGroup("large", 0, large)).cuda()
+    pick = np.arange(0, K, GEO_LARGE_STRIDE)
+    s64, e64 = large.starts[pick].astype(np.int64), large.ends[pick].astype(np.int64)
+    keys_np = (np.concatenate([s64, e64, s64 - 1, e64 + 1, [0, mask]]) & mask).astype(np.uint32)
+    keys = torch.from_numpy(keys_np.view(np.int32)).cuda()
+    n = len(keys_np)
+    table_bytes, hits = geo_search_bytes(np, large.starts, large.ends, keys_np)
+    lib_s = gl.starts.to(torch.int64) & mask
+    lib_k = keys.to(torch.int64) & mask
+    got = phase("geo_lookup_large", lambda: kernels.geo_lookup(gl, keys),
+                lambda: pipeline.geo_lookup_plain(gl, keys, None, torch.empty_like(keys)),
+                bytes_moved=8 * n + table_bytes, ops=4 * 22 * n, kernel="geo_lookup",
+                n=n, width=0, library=lambda: torch.searchsorted(lib_s, lib_k, right=True))
+    if int((got > 0).sum()) != int(hits.sum()) or int(hits.sum()) < 2 * len(pick):
+        fail(f"geo_lookup_large: {int((got > 0).sum())} hits, the simulation "
+             f"{int(hits.sum())}")
+    emit({"phase": "geo_lookup_large_table", "ranges": K, "table_bytes": 8 * K,
+          "keys": n, "hits": int(hits.sum()), "search_bytes": table_bytes})
+    empty = pipeline.GeoTables(pipeline._GeoGroup("empty", 0, GeoDeviceTable.from_ranges(
+        np.zeros(0, np.uint32), np.zeros(0, np.uint32)))).cuda()
+    got = kernels.geo_lookup(empty, keys)
+    want = pipeline.geo_lookup_plain(empty, keys, None, torch.empty_like(keys))
+    torch.cuda.synchronize()
+    require_equal(torch, "geo_lookup_empty", got, want)
+    if int(got.abs().sum()) != 0:
+        fail("geo_lookup on an empty table found a row")
+    emit({"phase": "geo_lookup_empty", "equal": True, "keys": n, "rows": 0})
+
+    # End to end: the fixture databases, then a synthetic City database.
+    launches = run_end_to_end(
+        torch, kernels, gpu, parser(city, "cpu"), lines, "end_to_end_geo",
+        ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"), path_bound, smi)
+    for name in ("ipv4_spans", "geo_lookup"):
+        rows[name]["launches"] = launches[name]
+    syn_dir = os.path.join(os.path.dirname(fixtures), ".geoip-synthetic-torch")
+    path = os.path.join(syn_dir, f"Synthetic-City-{geoip_testdata.SYNTHETIC_NETWORKS}"
+                                 f"-s{GEO_SYNTHETIC_SEED}.mmdb")
+    existed = os.path.exists(path)
+    t0 = time.perf_counter()
+    syn = geoip_testdata.ensure_synthetic_city_database(seed=GEO_SYNTHETIC_SEED)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu_syn = parser(syn)
+    build_s = time.perf_counter() - t0
+    nets = geoip_testdata.synthetic_networks(geoip_testdata.SYNTHETIC_NETWORKS,
+                                             GEO_SYNTHETIC_SEED)
+    syn_lines = demolog.geoip_synthetic_lines(N_LINES, nets) + edge
+    ranges = len(gpu_syn.executor.unit_tables[0].geo[0].table)
+    run_end_to_end(torch, kernels, gpu_syn, parser(syn, "cpu"), syn_lines,
+                   "end_to_end_geo_synthetic",
+                   ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"),
+                   None, smi, db_write_seconds=None if existed else write_s,
+                   table_build_seconds=build_s, ranges=ranges)
+    run_wide(gpu, parser(city, "cpu"), demolog.geoip_chain_lines(256) + edge, "geo")
+
+
+def nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
+    """Section 9: the secmillis tasks of span_stages under the
+    nginx_timing tables, both NGINX paths end to end, and the 8191-byte
+    bucket."""
+    from logparser_tpu_torch.tools import demolog
+
+    edge = demolog.nginx_edge_lines()
+    configs = [
+        ("nginx_uri", demolog.NGINX_URI_FORMAT, demolog.NGINX_URI_FIELDS,
+         demolog.nginx_uri_lines),
+        ("nginx_timing", demolog.NGINX_TIMING_FORMAT, demolog.NGINX_TIMING_FIELDS,
+         demolog.nginx_timing_lines),
+    ]
+    for tag, fmt, fields, gen in configs:
+        lines = gen(N_LINES) + edge
+        buf, lengths, overflow = runtime.encode_batch(lines)
+        B, L = buf.shape
+        if overflow:
+            fail(f"{tag} corpus overflows its bucket: {overflow}")
+        emit({"phase": f"corpus_{tag}", "B": B, "L": L, "bytes": int(buf.nbytes)})
+        gpu = TorchBatchParser(fmt, fields)
+        (t,) = gpu.executor.unit_tables
+        dbuf = torch.from_numpy(buf).cuda()
+        dlen = torch.from_numpy(lengths).cuda()
+        starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+        path_bound = (bound_ms(*split_cost(t.split, B, L))[0]
+                      + bound_ms(*pack_cost(gpu.executor, t.n_comp, B))[0])
+        if tag == "nginx_timing":
+            if not any(x[0] == pipeline.TASK_SECMILLIS for x in t.stages.tasks_py):
+                fail("nginx_timing has no secmillis task")
+            comps = phase(
+                "span_stages_nginx_timing",
+                lambda: kernels.span_stages(t.stages, dbuf, starts, ends),
+                lambda: pipeline.span_stages_plain(
+                    t.stages, dbuf, starts, ends,
+                    torch.empty((t.stages.n_out, B), dtype=torch.int32, device="cuda")),
+                *span_stages_cost(torch, pipeline, t.stages, starts, ends, B, L),
+                kernel="span_stages", n=B, width=L)
+            path_bound += phase.bounds["span_stages_nginx_timing"]
+        else:
+            comps = kernels.span_stages(t.stages, dbuf, starts, ends)
+            path_bound += bound_ms(*span_stages_cost(torch, pipeline, t.stages, starts,
+                                                     ends, B, L))[0]
+        for u in t.uri:   # the first-line URI: its span from span_stages' rows
+            s = comps[u.src[0]]
+            u_bytes = span_bytes(torch, s, s + comps[u.src[1]], u.window) + 12 * B
+            u_rows = 2 + 6 * len(u.parts_py) + 3 * sum(p[-1] >= 0 for p in u.parts_py)
+            path_bound += bound_ms(u_bytes + 4 * B * u_rows, 10 * u_bytes)[0]
+        must = ("split", "span_stages", "uri_split", "pack_rows")
+        run_end_to_end(torch, kernels, gpu, TorchBatchParser(fmt, fields, device="cpu"),
+                       lines, f"end_to_end_{tag}", must, path_bound, smi)
+    _, fmt, fields, gen = configs[1]
+    run_wide(TorchBatchParser(fmt, fields), TorchBatchParser(fmt, fields, device="cpu"),
+             gen(256) + edge, "nginx_timing")
 
 
 def compare_results(got, want, what) -> None:

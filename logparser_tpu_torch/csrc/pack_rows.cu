@@ -10,7 +10,8 @@
 // order, as (component, kind) rows: kind 0 requires the component, kind
 // 1 (a query-string overflow) fails the line and raises bit 2 only where
 // the line is still valid at that point, kind 2 (a URI over its window)
-// fails it and raises bit 2 unmasked; row 0 = valid | plausible<<1 |
+// fails it and raises bit 2 unmasked, kind 3 fails the line where the
+// component is set (a geo token holding a ':'); row 0 = valid | plausible<<1 |
 // overflow<<2 | (esc_hit & valid)<<3.  Per output row: OR of its slots, (comp & (2^bits - 1)) <<
 // shift (bits 0 = the full word).  Views: the winner is the first unit
 // whose row 0 is valid (0 when none), un-claimed when an earlier unit is
@@ -46,6 +47,10 @@ __global__ void pack_rows_kernel(
         const int kind = cons[2 * i + 1];
         if (kind == 0) {          // require
           valid = valid && hit;
+          continue;
+        }
+        if (kind == 3) {          // forbid (an IPv6 literal on a geo token)
+          valid = valid && !hit;
           continue;
         }
         if (kind == 1) hit = hit && valid;   // CSR overflow: masked so far

@@ -2,15 +2,17 @@
 //
 // Replaces, from logparser_tpu/tpu: pipeline.py compute_rows.clf_dash,
 // postproc.py gather_span_bytes (as a plain gather), split_firstline,
-// split_protocol_version and parse_long_spans (CLF mode), and
-// pipeline.py span_prefix_words.
+// split_protocol_version, parse_long_spans (CLF mode) and
+// parse_secmillis_spans (NGINX $msec / $request_time), and pipeline.py
+// span_prefix_words.
 //
 // One thread per line runs the unit's task table.  Task rows (TASKW
-// ints): kind (0 span, 1 long), token, part (span: 0 direct, 1 method,
+// ints): kind (0 span, 1 long, 2 secmillis), token, part (span: 0 direct, 1 method,
 // 2 uri, 3 protocol, 4 / 5 the protocol / version halves of the
 // protocol split at its first '/'), clf (long), then output rows --
 // span: start, len, ok, null, -, -, -, prefix row (3 words, or -1);
-// long: hi, lo, d18, ndig, ok, null, big.  Outputs are int32 rows
+// long: hi, lo, d18, ndig, ok, null, big; secmillis: the same seven for
+// the seconds part, then the millis row.  Outputs are int32 rows
 // [n_out, B], coalesced across threads.
 //
 // Bound: the bytes it must read are the spans it scans (the request
@@ -123,6 +125,31 @@ __global__ void span_stages_kernel(
                 lp::prefix_word(row, start, end - start, ok && !null, false, w)));
           }
         }
+      } else if (task[0] == 2) {
+        // "<seconds>.<3 digits>": the seconds frame over the span before
+        // the last four bytes, the dot and millis from one width-4 window
+        // at max(end - 4, 0); millis from whatever bytes are there.
+        const int w = e - s;
+        const int n = max(e - 4, s) - s;
+        const lp::LongFrame lf = lp::long_frame(row, s, n);
+        const int ws = max(e - 4, 0);
+        int millis = 0;
+        bool m_ok = true;
+        for (int k = 1; k <= 3; ++k) {
+          const int d = (row.at(ws, k) - '0') & 0xFF;
+          m_ok = m_ok && d <= 9;
+          millis = millis * 10 + d;
+        }
+        const bool ok = w >= 5 && w <= 19 && n > 0 && lf.digits_ok && n <= 19 &&
+                        m_ok && row.at(ws, 0) == '.';
+        put(task[4], static_cast<int>(lf.hi));
+        put(task[5], static_cast<int>(lf.lo));
+        put(task[6], static_cast<int>(lf.d18));
+        put(task[7], min(max(n, 0), 19));
+        put(task[8], ok ? 1 : 0);
+        put(task[9], 0);
+        put(task[10], 0);
+        put(task[11], millis);
       } else {
         // 19-digit left-aligned limb frame (the reference's
         // parse_long_spans); int32 sums wrap, as there.

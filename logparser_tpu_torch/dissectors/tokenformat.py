@@ -51,6 +51,7 @@ FORMAT_NUMBER_OPTIONAL_DECIMAL = FORMAT_NUMBER + "(?:\\." + FORMAT_NUMBER + ")?"
 
 STRING_ONLY: FrozenSet[str] = frozenset({"STRING"})
 STRING_OR_LONG: FrozenSet[str] = frozenset({"STRING", "LONG"})
+STRING_OR_LONG_OR_DOUBLE: FrozenSet[str] = frozenset({"STRING", "LONG", "DOUBLE"})
 
 
 class UnsupportedFormatError(ValueError):
@@ -98,13 +99,21 @@ class FixedStringToken(Token):
 
 
 class TokenParser:
-    """One format-token definition: literal token -> outputs + value regex."""
+    """One format-token definition: literal token -> outputs + value regex.
 
-    def __init__(self, log_format_token: str, regex: str = "", prio: int = 0):
+    With ``value_name`` it carries one output (type, name, casts) and its
+    priority defaults to 10, else to 0 (the reference's two constructors)."""
+
+    def __init__(self, log_format_token: str, value_name: Optional[str] = None,
+                 value_type: Optional[str] = None,
+                 casts: Optional[FrozenSet[str]] = None, regex: str = "",
+                 prio: Optional[int] = None):
         self.log_format_token = log_format_token
         self.regex = regex
-        self.prio = prio
+        self.prio = (10 if value_name is not None else 0) if prio is None else prio
         self.output_fields: List[TokenOutputField] = []
+        if value_name is not None:
+            self.add_output_field(value_type, value_name, casts)
 
     def add_output_field(
         self, ftype: str, name: str, casts: FrozenSet[str]
@@ -149,6 +158,45 @@ class FixedStringTokenParser(TokenParser):
         )
 
 
+class NotImplementedTokenParser(TokenParser):
+    """A known variable that is not meant for logging: its output is
+    ``<prefix>_<token mangled>`` of type NOT_IMPLEMENTED."""
+
+    def __init__(self, log_format_token: str, field_prefix: str, regex: str = ".*",
+                 prio: int = 0):
+        name = field_prefix + "_" + re.sub("[^a-z0-9_]", "_", log_format_token.lower())
+        super().__init__(log_format_token, name, "NOT_IMPLEMENTED", STRING_ONLY,
+                         regex, prio)
+
+
+class NamedTokenParser(TokenParser):
+    """A token pattern whose group names the field (``$http_<name>``):
+    each output's name is its prefix plus the captured name."""
+
+    def __init__(self, log_format_token_pattern: str, value_name_prefix: str,
+                 value_type: str, casts: FrozenSet[str], regex: str, prio: int = 0):
+        super().__init__(log_format_token_pattern, value_name_prefix, value_type,
+                         casts, regex)
+        self.prio = prio
+        self.pattern = re.compile(log_format_token_pattern)
+
+    def set_warning_message_when_used(self, message: str) -> "NamedTokenParser":
+        """Accepted for the reference's table; the port's tokenizer does
+        not warn."""
+        return self
+
+    def get_next_token(self, log_format: str, start_offset: int) -> Optional[Token]:
+        m = self.pattern.search(log_format[start_offset:])
+        if m is None:
+            return None
+        field_name = m.group(1) if m.re.groups > 0 else ""
+        token = Token(self.regex, start_offset + m.start(), m.end() - m.start(), self.prio)
+        for f in self.output_fields:
+            token.output_fields.append(TokenOutputField(f.type, f.name + field_name,
+                                                        f.casts))
+        return token
+
+
 class ParameterizedTokenParser(TokenParser):
     """A token whose ``{parameter}`` configures a dissector of its own
     (``%{strftime format}t``): the output TYPE is the parameter cleaned to
@@ -179,13 +227,16 @@ class ParameterizedTokenParser(TokenParser):
         return token
 
 
-def tokenize(cleaned: str, token_parsers: Sequence[TokenParser]) -> List[Token]:
+def tokenize(cleaned: str, token_parsers: Sequence[TokenParser],
+             directive: Optional[str] = "%") -> List[Token]:
     """Scan the cleaned format with every token parser, resolve overlaps
     by priority/length and fill the holes with fixed-string separators.
 
-    A hole holding a ``%`` is a directive no parser of this port knows:
-    it raises :class:`UnsupportedFormatError` instead of becoming a
-    literal separator the line would never contain."""
+    A hole holding the ``directive`` character (Apache's ``%``) is a
+    directive no parser of this port knows: it raises
+    :class:`UnsupportedFormatError` instead of becoming a literal
+    separator the line would never contain.  NGINX passes None: its
+    table ends in a catch-all for unknown ``$variables``."""
     tokens: List[Token] = []
     for tp in token_parsers:
         new_tokens = tp.get_tokens(cleaned)
@@ -221,7 +272,7 @@ def tokenize(cleaned: str, token_parsers: Sequence[TokenParser]) -> List[Token]:
 
     def separator(begin: int, end: int) -> FixedStringToken:
         text = cleaned[begin:end]
-        if "%" in text:
+        if directive is not None and directive in text:
             raise UnsupportedFormatError(
                 f"unported LogFormat directive in {text!r} of {cleaned!r}"
             )

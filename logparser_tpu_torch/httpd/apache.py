@@ -43,6 +43,15 @@ NAMED_FORMATS = {
     "combinedio": '%h %l %u %t "%r" %>s %b "%{Referer}i" "%{User-Agent}i" %I %O',
 }
 
+
+
+def looks_like_apache_format(log_format: str) -> bool:
+    """Chosen before NGINX: any ``%`` or a named Apache format."""
+    if "%" in log_format:
+        return True
+    return log_format.lower() in NAMED_FORMATS
+
+
 _MODIFIER_RE = re.compile("%!?[0-9]{3}(?:,[0-9]{3})*")
 _HEADER_NAME_RE = re.compile(r"%\{([^}]*)\}([^t])")
 

@@ -241,3 +241,162 @@ def strftime_edge_lines() -> List[str]:
         "1.2.3.4 - - [01/Jan/2024:10:00:00 Europe/Paris] garbage",
         "completely broken line", "",
     ]
+
+
+# ---------------------------------------------------------------------------
+# GeoIP enrichment: the reference package's bench.py ``geoip_chain``
+# config, and the same fields over a synthetic City database of realistic
+# size.
+# ---------------------------------------------------------------------------
+
+GEOIP_FIELDS = [
+    "IP:connection.client.host",
+    "STRING:connection.client.host.country.name",
+    "STRING:connection.client.host.city.name",
+    "ASN:connection.client.host.asn.number",
+    "STRING:request.status.last",
+]
+# Addresses inside the fixture databases' 80.100.47.0/24 test range.
+GEOIP_KNOWN_IPS = ["80.100.47.45", "80.100.47.1", "80.100.47.254", "80.100.47.13"]
+
+
+def _set_host(line: str, host: str) -> str:
+    return host + line[line.index(" "):] if " " in line else line
+
+
+def geoip_chain_lines(n: int) -> List[str]:
+    """Generated ``combined`` lines (seed 45, 1% garbage), every third
+    host replaced by one of GEOIP_KNOWN_IPS in turn."""
+    base = generate_combined_lines(n, seed=45, garbage_fraction=0.01)
+    return [_set_host(ln, GEOIP_KNOWN_IPS[i % len(GEOIP_KNOWN_IPS)]) if i % 3 == 0 else ln
+            for i, ln in enumerate(base)]
+
+
+def geoip_synthetic_lines(n: int, networks) -> List[str]:
+    """Generated ``combined`` lines (seed 46, 1% garbage) whose hosts are
+    drawn (numpy, seed 46) half from inside ``networks`` (the sorted /24
+    starts of the synthetic database: a network's first address, its last
+    or one between, a third each) and half from outside them."""
+    import numpy as np
+
+    rng = np.random.default_rng(46)
+    nets = np.asarray(networks, dtype=np.uint32)
+    inside = nets[rng.integers(0, len(nets), size=n)].astype(np.int64)
+    kind = rng.integers(0, 3, size=n)
+    inside += np.where(kind == 0, 0, np.where(kind == 1, 255, rng.integers(1, 255, size=n)))
+    taken = set((nets >> np.uint32(8)).tolist())
+    outside = rng.integers(0, 1 << 32, size=2 * n + 64, dtype=np.int64)
+    outside = outside[[int(a) >> 8 not in taken for a in outside]][:n]
+    hosts = np.where(np.arange(n) % 2 == 0, inside, outside)
+    base = generate_combined_lines(n, seed=46, garbage_fraction=0.01)
+    return [_set_host(ln, ".".join(str((int(h) >> s) & 255) for s in (24, 16, 8, 0)))
+            for ln, h in zip(base, hosts)]
+
+
+def geoip_edge_lines() -> List[str]:
+    """Crafted ``combined`` lines for the GeoIP paths: the fixture range's
+    first and last address and its neighbours, 0.0.0.0, 255.255.255.255
+    and 128.0.0.0 (negative as int32), leading zeros, an octet over 255,
+    empty octets, three and five octets, a trailing dot, a port after the
+    address (a ':' at byte 7, flagged; at byte 15, not), IPv6 literals
+    (the host looks them up), a hostname, '-', and garbage."""
+    def line(host: str) -> str:
+        return f'{host} - - [01/Jan/2024:00:00:00 +0000] "GET /x HTTP/1.1" 200 5 "-" "u"'
+
+    hosts = ["80.100.47.0", "80.100.47.255", "80.100.46.255", "80.100.48.0",
+             "0.0.0.0", "255.255.255.255", "128.0.0.0", "080.100.47.1",
+             "80.100.47.256", "80..47.1", "80.100.47", "80.100.47.1.2",
+             "80.100.47.1.", "1.2.3.4:80", "123.123.123.123:8080",
+             "2001:980::1", "::ffff:80.100.47.1", "example.com", "-",
+             "80.100.47.001", "1234567890123456", ""]
+    return [line(h) for h in hosts] + ["completely broken line", ""]
+
+
+# ---------------------------------------------------------------------------
+# NGINX: the reference package's bench.py ``nginx_uri`` config, and the
+# latency / billing format NGINX sites log ($msec, $request_time).
+# ---------------------------------------------------------------------------
+
+NGINX_URI_FORMAT = ('$remote_addr - $remote_user [$time_local] "$request" $status '
+                    '$body_bytes_sent "$http_referer" "$http_user_agent"')
+NGINX_URI_FIELDS = [
+    "IP:connection.client.host", "TIME.STAMP:request.receive.time",
+    "HTTP.METHOD:request.firstline.method",
+    "HTTP.PATH:request.firstline.uri.path",
+    "HTTP.QUERYSTRING:request.firstline.uri.query",
+    "STRING:request.status.last", "BYTES:response.body.bytes",
+]
+NGINX_TIMING_FORMAT = ('$remote_addr - $remote_user $msec "$request" $status '
+                       '$body_bytes_sent "$http_referer" "$http_user_agent" $request_time')
+NGINX_TIMING_FIELDS = [
+    "IP:connection.client.host",
+    "TIME.EPOCH:request.receive.time.epoch",
+    "MILLISECONDS:response.server.processing.time",
+    "MICROSECONDS:response.server.processing.time",
+    "STRING:request.status.last",
+    "HTTP.PATH:request.firstline.uri.path",
+    "BYTES:response.body.bytes",
+]
+
+
+def _digits_bytes(line: str) -> str:
+    """NGINX's $body_bytes_sent is digits: the CLF '-' becomes 0."""
+    return re.sub(r'" (\d{3}) - ', r'" \1 0 ', line)
+
+
+def nginx_uri_lines(n: int) -> List[str]:
+    """Generated ``combined`` lines (seed 44, 1% garbage), byte counts
+    as digits."""
+    return [_digits_bytes(ln) for ln in generate_combined_lines(n, seed=44, garbage_fraction=0.01)]
+
+
+def nginx_timing_lines(n: int) -> List[str]:
+    """Generated ``combined`` lines (seed 49, 1% garbage), byte counts as
+    digits, the ``[...]`` timestamp replaced by its epoch seconds and
+    three seeded millisecond digits ($msec), and a seeded $request_time
+    (0.000 to 9.999) appended."""
+    import calendar
+
+    rng = random.Random(49)
+    out = []
+    stamp = re.compile(r"\[(\d\d)/(\w\w\w)/(\d{4}):(\d\d):(\d\d):(\d\d) ([+-])(\d\d)(\d\d)\]")
+    for ln in generate_combined_lines(n, seed=49, garbage_fraction=0.01):
+        ln = _digits_bytes(ln)
+        m = stamp.search(ln)
+        if m:
+            day, mon, year, hh, mm, ss, sign, oh, om = m.groups()
+            offset = (int(oh) * 3600 + int(om) * 60) * (1 if sign == "+" else -1)
+            epoch = calendar.timegm((int(year), _MONTHS.index(mon) + 1, int(day), int(hh),
+                                     int(mm), int(ss))) - offset
+            ln = f"{ln[:m.start()]}{epoch}.{rng.randint(0, 999):03d}{ln[m.end():]}"
+            ln = f"{ln} {rng.randint(0, 9)}.{rng.randint(0, 999):03d}"
+        out.append(ln)
+    return out
+
+
+def nginx_edge_lines() -> List[str]:
+    """Crafted lines for both NGINX formats: $msec and $request_time
+    values the device takes (15-digit seconds, 0.000) and those it sends
+    to the host ('0.5', '12', a four-digit fraction, 20 digits, '-'), a
+    '-' byte count and user, an IPv6 client, a referer with a space, and
+    garbage."""
+    def timing(msec: str = "1704067200.123", rt: str = "0.042", host: str = "1.2.3.4",
+               size: str = "5", ref: str = "-") -> str:
+        return (f'{host} - - {msec} "GET /p?a=1 HTTP/1.1" 200 {size} "{ref}" "u" {rt}')
+
+    def uri(size: str = "5", ts: str = "01/Jan/2024:00:00:00 +0000", user: str = "-",
+            ref: str = "-", req: str = "GET /p?a=1 HTTP/1.1") -> str:
+        return f'1.2.3.4 - {user} [{ts}] "{req}" 200 {size} "{ref}" "u"'
+
+    return [
+        timing(), timing(rt="0.000"), timing(rt="0.5"), timing(rt="12"),
+        timing(rt="12.345"), timing(rt="1.2345"), timing(rt="123456789012345.678"),
+        timing(rt="1234567890123456.789"), timing(msec="000.000"),
+        timing(msec="1704067200"), timing(msec="99999999999999999999.999"),
+        timing(msec="-"), timing(rt="-"), timing(size="-"), timing(host="2001:980::1"),
+        timing(ref="http://a b/"), timing(rt="7.5e3"),
+        uri(), uri(size="-"), uri(user="bob"), uri(ts="01/jan/2024:00:00:00 -0930"),
+        uri(ts="29/Feb/2023:00:00:00 +0000"), uri(ref="http://a b/"),
+        uri(req="GET /a%20b?x=%zz&y HTTP/1.0"), uri(req="GET /x"),
+        "completely broken line", "",
+    ]

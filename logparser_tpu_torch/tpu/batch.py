@@ -3,13 +3,17 @@ parse on the card -> columnar :class:`BatchResult`.
 
 The port of the reference package's ``tpu/batch.py`` for this slice:
 
+- Apache LogFormats and NGINX log_formats (one per line; Apache is
+  chosen first, as in the reference);
 - plan resolution chases each token output through the consumer edges
   the port runs (direct token outputs, the first-line split, the
   protocol-version split, the URI split, the query-string wildcard, the
-  timestamp bundle of ``%t`` and of each strftime ``%{format}t`` type,
-  the CLF -> number conversion); a field reached any
-  other way, or by more than one path, raises
-  :class:`UnsupportedFieldError` naming the ROADMAP item that brings it;
+  timestamp bundle of ``%t`` / ``$time_local`` and of each strftime
+  ``%{format}t`` type, the CLF -> number conversion, NGINX's
+  seconds-with-millis and milli -> micro conversions, and the GeoIP
+  dissectors given as ``extra_dissectors``); a field reached any other
+  way, or by more than one path, raises :class:`UnsupportedFieldError`
+  naming the ROADMAP item that brings it;
 - the batch goes host -> device once (pinned buffer, ``non_blocking`` on
   the current stream), through the kernels (``UnitsExecutor``), and back
   once as the packed ``[K + 4V, B]`` int32; a batch whose row 0 carries
@@ -18,7 +22,9 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
 - materialization decides, per line, the winning format, validity and
   plausibility, and decodes span / long / timestamp columns on the host
   (int64 numpy), including the Long-overflow patch of ``%b``, the
-  per-row URI repair of ``fix`` spans and the query-string parameters.
+  per-row URI repair of ``fix`` spans, the query-string parameters,
+  ``seconds * 1000 + millis`` (times the scale) and the GeoIP columns
+  (vocabulary strings, NaN / -1 -> None).
 
 Lines the reference sends to its host oracle (device-invalid but still
 plausible, contested, truncated) are returned in ``needs_host`` with all
@@ -38,7 +44,11 @@ from ..dissectors.timelayout import APACHE_LAYOUT, TimeLayout
 from ..dissectors.tokenformat import UnsupportedFormatError
 from ..dissectors.uri import _BAD_ESCAPE_PATTERN, _encode_bad_uri_chars, _percent_decode
 from ..dissectors.utils import resilient_url_decode
-from ..httpd.apache import NAMED_FORMATS, ApacheLogFormat
+from ..geoip.device import _EXTRACTORS, GeoDeviceTable
+from ..geoip.dissectors import AbstractGeoIPDissector
+from ..geoip.mmdb import MMDBReader
+from ..httpd.apache import ApacheLogFormat, looks_like_apache_format
+from ..httpd.nginx import NginxLogFormat, additional_consumers, looks_like_nginx_format
 from . import postproc, timefields
 from .pipeline import (
     CSR_OVERFLOW_BIT,
@@ -51,6 +61,7 @@ from .pipeline import (
     _SPAN_BITS,
     assign_row_offsets,
     csr_group_key,
+    geo_group_key,
     ts_group_key,
 )
 from .program import CS_CLF_DIGITS, CS_DIGITS, DeviceProgram, compile_device_program
@@ -118,6 +129,8 @@ _CONSUMERS: Dict[str, List[Tuple[str, List[Tuple[str, str]]]]] = {
     "HTTP.SETCOOKIES": [("setcookies", [("HTTP.SETCOOKIE", "*")])],
     "BYTESCLF": [("clf_to_number", [("BYTES", "")])],
     "BYTES": [("number_to_clf", [("BYTESCLF", "")])],
+    # The parser's second timestamp dissector (yyyy-MM-dd'T'HH:mm:ssXXX).
+    "TIME.ISO8601": [("iso8601", _TIME_OUTPUTS)],
 }
 _STRFTIME_CONSUMERS = [
     ("timestamp", _TIME_OUTPUTS),
@@ -146,6 +159,15 @@ _LATER = {
     "timestamp": "the host oracle port (ROADMAP queue A item 3)",
     "multi": "the host oracle port (ROADMAP queue A item 3): more than one producer",
     "none": "no producer in this LogFormat",
+    "iso8601": "compile_java_pattern for TIME.ISO8601 (ROADMAP queue A item 1)",
+    "ulist": "the NGINX upstream-list split, the ulist plan (ROADMAP queue A item 5)",
+    "binary_ip": "the host oracle port (ROADMAP queue A item 3): "
+                 "BinaryIPDissector (IP_BINARY)",
+    "geo": "the host oracle port (ROADMAP queue A item 3): "
+           "a GeoIP output without a device table",
+    "millis_to_micros": "the host oracle port (ROADMAP queue A item 3): "
+                        "a scaled plain long",
+    "extra": "the host oracle port (ROADMAP queue A item 3): an extra dissector",
 }
 
 
@@ -159,10 +181,13 @@ class TorchBatchParser:
 
     ``device`` defaults to ``"cuda"`` and raises when CUDA is absent; the
     CPU runs the kernels' plain versions and must be asked for
-    (``device="cpu"``)."""
+    (``device="cpu"``).  ``extra_dissectors`` are the reference's keyword:
+    GeoIP dissectors over an ``IP`` token resolve to device range joins
+    (one flattened table per database)."""
 
     def __init__(self, log_format: str, fields: Sequence[str],
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 extra_dissectors: Optional[Sequence[Any]] = None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -176,16 +201,20 @@ class TorchBatchParser:
         self.csr_slots = CSR_SLOTS
         self.units: List[FormatUnit] = []
         self._strftime: Dict[str, Optional[TimeLayout]] = {}
-        for fmt in _split_formats(log_format):
-            apache = ApacheLogFormat(fmt)
-            for ftype, strf in apache.strftime_types.items():
+        self._geo_tables: Dict[Tuple[str, str], Optional[GeoDeviceTable]] = {}
+        formats = _log_formats(log_format)
+        if not formats:
+            raise UnsupportedFormatError(f"no LogFormat in {log_format!r}")
+        self._consumers = _consumer_table(
+            any(isinstance(f, NginxLogFormat) for f in formats), extra_dissectors or ())
+        for fmt in formats:
+            for ftype, strf in fmt.strftime_types.items():
                 self._strftime[ftype] = _strftime_layout(strf)
-            prog = compile_device_program(apache)
+        for fmt in formats:
+            prog = compile_device_program(fmt)
             plans = [self._resolve(prog, fid) for fid in self.requested]
             self.units.append(FormatUnit(prog, plans,
                                          PackedLayout.for_plans(plans, self.csr_slots)))
-        if not self.units:
-            raise UnsupportedFormatError(f"no LogFormat in {log_format!r}")
         assign_row_offsets(self.units)
         self.plan_by_id = {fid: self.units[0].plan_for(fid) for fid in self.requested}
         for fid, plan in self.plan_by_id.items():
@@ -256,17 +285,49 @@ class TorchBatchParser:
                          null_mode=null_mode, scale=scale)
 
     def _consumers_of(self, t: str):
+        """[(consumer, outputs, dissector or None)] of type ``t``."""
         if t in self._strftime:
-            return _STRFTIME_CONSUMERS if self._strftime[t] is not None else ()
-        return _CONSUMERS.get(t, ())
+            if self._strftime[t] is None:
+                return ()
+            return [(c, outs, None) for c, outs in _STRFTIME_CONSUMERS]
+        return self._consumers.get(t, ())
+
+    def _geo_table_for(self, d: AbstractGeoIPDissector) -> Optional[GeoDeviceTable]:
+        """The flattened device table of ``d``'s database (built once per
+        database and dissector class); None when it cannot be built."""
+        key = (type(d).__name__, d.database_file_name)
+        if key not in self._geo_tables:
+            try:
+                columns = [o.partition(":")[2] for o in d.get_possible_output()
+                           if o.partition(":")[2] in _EXTRACTORS]
+                self._geo_tables[key] = GeoDeviceTable(
+                    MMDBReader(d.database_file_name), columns)
+            except Exception:  # noqa: BLE001 -- any unreadable database
+                self._geo_tables[key] = None
+        return self._geo_tables[key]
 
     def _step_spec(self, t: str, consumer: str, oname: str, vctx, steps, device_ok,
-                   why):
+                   why, dissector=None):
         """(kind, vctx, steps, device_ok, why[, comp, meta]) of the edge
-        from type ``t`` through ``consumer`` to output ``oname``."""
+        from type ``t`` through ``consumer`` to output ``oname``; kinds
+        ``ts``, ``geo`` and ``ulist`` are terminal (comp, meta follow)."""
         parse = vctx[0]
         if consumer == "clf_to_number" and parse == "":
             return ("value", ("long", "dash_zero", vctx[2]), steps, device_ok, why)
+        if consumer == "secmillis" and parse == "":
+            return ("value", ("secmillis", "", vctx[2]), steps, device_ok, why)
+        if consumer == "millis_to_micros":
+            # Only a seconds-with-millis value scales on the device.
+            return ("value", (parse or "long", vctx[1], vctx[2] * 1000), steps,
+                    device_ok and parse == "secmillis", why or _LATER[consumer])
+        if consumer == "geo":
+            table = self._geo_table_for(dissector) if device_ok and parse == "" else None
+            if table is not None and oname in table.columns:
+                tag = f"{type(dissector).__name__}:{dissector.database_file_name}"
+                return ("geo", vctx, steps, device_ok, why, oname, (tag, oname, table))
+            return ("geo", vctx, steps, False, why or _LATER["geo"], oname, None)
+        if consumer == "ulist":
+            return ("ulist", vctx, steps, False, why or _LATER["ulist"], oname, None)
         if consumer == "firstline" and parse == "":
             return ("span", vctx, steps + (("fl", oname),), device_ok, why)
         if consumer == "protocol_version" and parse == "":
@@ -288,6 +349,8 @@ class TorchBatchParser:
                     dl = None   # a format the layout compiler rejects: host
             return ("ts", vctx, steps, device_ok and dl is not None,
                     why or _LATER["timestamp"], oname, dl)
+        if consumer == "iso8601":
+            return ("ts", vctx, steps, False, why or _LATER["iso8601"], oname, None)
         return ("value", vctx, steps, False, why or _LATER.get(consumer, _LATER["timestamp"]))
 
     def _chase(self, field_id, ftype, path, tok, t, name, vctx, steps,
@@ -305,7 +368,7 @@ class TorchBatchParser:
             return [_host(field_id, "multi")]
         visited = visited | {(t, name)}
         plans: List[FieldPlan] = []
-        for consumer, outputs in self._consumers_of(t):
+        for consumer, outputs, dissector in self._consumers_of(t):
             for ot, oname in outputs:
                 if oname == "*":
                     plans.extend(self._wildcard(field_id, ftype, path, tok, consumer,
@@ -314,12 +377,14 @@ class TorchBatchParser:
                 new_name = (name + "." + oname if name else oname) if oname else name
                 if not (path == new_name or path.startswith(new_name + ".")):
                     continue
-                spec = self._step_spec(t, consumer, oname, vctx, steps, device_ok, why)
-                if spec[0] == "ts":
-                    _, _, nsteps, ndev, nwhy, comp, meta = spec
+                spec = self._step_spec(t, consumer, oname, vctx, steps, device_ok, why,
+                                       dissector)
+                if spec[0] in ("ts", "geo", "ulist"):
+                    # Terminal values: nothing deeper.
+                    kind, _, nsteps, ndev, nwhy, comp, meta = spec
                     if path == new_name and ot == ftype:
                         plans.append(
-                            FieldPlan(field_id, "ts", tok.index, nsteps,
+                            FieldPlan(field_id, kind, tok.index, nsteps,
                                       comp=comp, meta=meta)
                             if ndev else FieldPlan(field_id, "host", meta=nwhy)
                         )
@@ -483,7 +548,18 @@ class TorchBatchParser:
                                                locale=plan.meta.locale)
                     col["values"] = np.where(sel, values, col["values"])
                     col["ok"] = np.where(sel, ok, col["ok"])
-                else:  # long
+                elif plan.kind == "geo":
+                    _, column, table = plan.meta
+                    key = geo_group_key(plan)
+                    arr = table.arrays[column][get(key, "row")]
+                    if column in table.vocabs:
+                        values = table.vocab_arrays[column][arr]
+                    else:   # float NaN / int -1: the miss
+                        values = arr.astype(object)
+                        values[np.isnan(arr) if arr.dtype.kind == "f" else arr < 0] = None
+                    col["values"] = np.where(sel, values, col["values"])
+                    col["ok"] = np.where(sel, get(key, "ok") != 0, col["ok"])
+                else:  # long / secmillis
                     is_null = get(fid, "null") != 0
                     big = get(fid, "big") != 0
                     hi_row = get(fid, "hi")
@@ -497,6 +573,10 @@ class TorchBatchParser:
                     if of_sel.any():
                         patches.append((fid, plan, of_sel & big, of_sel & ovf,
                                         wide, hi_row))
+                    if plan.kind == "secmillis":
+                        values = values * 1000 + get(fid, "milli")
+                    if plan.scale != 1:
+                        values = values * plan.scale
                     col["values"] = np.where(sel, values, col["values"])
                     col["null"] = np.where(sel, is_null, col["null"])
                     col["ok"] = np.where(sel, row_ok, col["ok"])
@@ -746,28 +826,55 @@ def _query_dict_slow(line, NL, HE, SS, VS, VL, DC, ND) -> Optional[Dict[str, str
     return d
 
 
-def _split_formats(log_format: str) -> List[str]:
-    formats: List[str] = []
+def _log_formats(log_format: str) -> List[Union[ApacheLogFormat, NginxLogFormat]]:
+    """One format per non-blank, first-seen line: Apache when it looks
+    like one (any ``%`` or a named format), else NGINX when it holds a
+    ``$``; a line that is neither is skipped, as the reference does."""
+    seen: List[str] = []
+    formats: List[Union[ApacheLogFormat, NginxLogFormat]] = []
     for fmt in log_format.splitlines():
-        if not fmt.strip() or fmt in formats:
+        if not fmt.strip() or fmt in seen:
             continue
-        if "%" not in fmt and fmt.lower() not in NAMED_FORMATS:
-            raise UnsupportedFormatError(
-                f"{fmt!r}: only Apache LogFormats are on this slice "
-                "(nginx: ROADMAP queue A item 1)"
-            )
-        formats.append(fmt)
+        seen.append(fmt)
+        if looks_like_apache_format(fmt):
+            formats.append(ApacheLogFormat(fmt))
+        elif looks_like_nginx_format(fmt):
+            formats.append(NginxLogFormat(fmt))
     return formats
+
+
+def _consumer_table(nginx: bool, extra_dissectors: Sequence[Any]):
+    """Input type -> [(consumer, outputs, dissector or None)]: the fixed
+    edges, an NGINX format's additional dissectors, and the extra
+    dissectors, one per (input type, class) in registration order as in
+    the reference's consumer registry."""
+    table: Dict[str, list] = {t: [(c, outs, None) for c, outs in edges]
+                              for t, edges in _CONSUMERS.items()}
+    if nginx:
+        for t, edges in additional_consumers().items():
+            table.setdefault(t, []).extend((c, outs, None) for c, outs in edges)
+    seen = set()
+    for d in extra_dissectors:
+        key = (d.get_input_type(), type(d))
+        if key in seen:
+            continue
+        seen.add(key)
+        outputs = [tuple(o.split(":", 1)) for o in d.get_possible_output()]
+        consumer = "geo" if isinstance(d, AbstractGeoIPDissector) else "extra"
+        table.setdefault(d.get_input_type(), []).append((consumer, outputs, d))
+    return table
 
 
 def _plan_group(plan: FieldPlan) -> str:
     """Merge group: plans in the same group share column arrays."""
     if plan.kind == "span":
         return "span"
-    if plan.kind == "long":
+    if plan.kind in ("long", "secmillis"):
         return "numeric"
     if plan.kind == "ts":
         return "numeric" if timefields.is_numeric_output(plan.comp) else "obj"
+    if plan.kind == "geo":
+        return "obj"
     if plan.kind == "qscsr":
         return "wild"
     return "host"

@@ -3,8 +3,9 @@
 This system has no weights: what plays their part is the compiled state
 of a parser -- per format unit the split program (ops, tokens, charset
 table), the field plans (a ``qscsr`` plan's ``meta`` is its mode string),
-the packed bit-slot layout with its CSR slot count, and the timestamp
-layouts (a zone-text layout by reference to the default zone table).
+the packed bit-slot layout with its CSR slot count, the timestamp
+layouts (a zone-text layout by reference to the default zone table), and
+a ``geo`` plan's database tag, column and range arrays.
 :func:`unit_to_plain` writes that state as plain Python and numpy data
 (tuples, dicts, ``np.ndarray``); :func:`units_from_reference`
 rebuilds the port's :class:`~.pipeline.FormatUnit` objects from it.  The
@@ -19,6 +20,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 
 from ..dissectors.timelayout import LocaleData
+from ..geoip.device import GeoDeviceTable
 from ..dissectors.tztable import default_zone_table
 from .pipeline import FieldPlan, FormatUnit, PackedLayout
 from .program import DeviceProgram, SplitOp, TokenSpec
@@ -52,6 +54,22 @@ def time_layout_to_plain(dl) -> Plain:
     }
 
 
+def geo_meta_to_plain(meta) -> tuple:
+    """(tag, column, GeoDeviceTable) -> (tag, column, starts, ends)."""
+    tag, column, table = meta
+    return (tag, column, np.asarray(table.starts, dtype=np.uint32),
+            np.asarray(table.ends, dtype=np.uint32))
+
+
+def _plan_meta_from_plain(kind: str, meta):
+    if kind == "ts":
+        return _time_layout_from_plain(meta)
+    if kind == "geo":
+        tag, column, starts, ends = meta
+        return (tag, column, GeoDeviceTable.from_ranges(starts, ends))
+    return meta
+
+
 def unit_to_plain(unit) -> Plain:
     """One unit's compiled state as plain data (works on any object with
     the FormatUnit / DeviceProgram / FieldPlan / PackedLayout attributes)."""
@@ -59,7 +77,8 @@ def unit_to_plain(unit) -> Plain:
     plans = []
     for p in unit.plans:
         meta = (time_layout_to_plain(p.meta) if p.kind == "ts"
-                else p.meta if p.kind == "qscsr" else None)
+                else p.meta if p.kind == "qscsr"
+                else geo_meta_to_plain(p.meta) if p.kind == "geo" else None)
         plans.append((p.field_id, p.kind, p.token_index, tuple(p.steps),
                       p.comp, meta, p.null_mode, p.scale, p.attr))
     return {
@@ -127,7 +146,7 @@ def units_from_reference(plain: Sequence[Plain]) -> List[FormatUnit]:
         for fid, kind, tok, steps, comp, meta, null_mode, scale, attr in d["plans"]:
             plans.append(FieldPlan(
                 fid, kind, tok, tuple(tuple(s) for s in steps), comp,
-                _time_layout_from_plain(meta) if kind == "ts" else meta,
+                _plan_meta_from_plain(kind, meta),
                 null_mode, scale, attr,
             ))
         lay = d["layout"]

@@ -8,7 +8,8 @@ C entry points take raw device pointers and PyTorch's current stream, and
 return ``cudaGetLastError()`` after the launch.
 
 Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
-``uri_split``, ``csr_split``, ``pack_rows``):
+``uri_split``, ``csr_split``, ``ipv4_spans``, ``geo_lookup``,
+``pack_rows``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -34,6 +35,7 @@ import torch
 from . import pipeline
 from .pipeline import (
     CsrTables,
+    GeoTables,
     PackTables,
     SplitTables,
     StageTables,
@@ -44,7 +46,7 @@ from .pipeline import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
-           "csr_split", "pack_rows")
+           "csr_split", "ipv4_spans", "geo_lookup", "pack_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,6 +72,8 @@ _SIGNATURES = {
                   _INT, _INT, _P],
     "pack_rows": [_INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _INT, _INT,
                   _P, _P],
+    "ipv4_spans": [_P, _INT, _INT, _P, _P, _P, _P],
+    "geo_lookup": [_INT, _P, _P, _P, _P, _INT, _P, _P],
 }
 
 
@@ -392,6 +396,56 @@ def csr_split(tables: CsrTables, buf: torch.Tensor, comps: torch.Tensor) -> torc
     return comps
 
 
+def ipv4_spans(
+    tables: GeoTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 8: one geo group's dotted-quad parse of its token, [4, B]
+    int32 rows (value as the uint32 bit pattern, ok, has_colon,
+    chain_ok)."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    _check_tables(tables, dev)
+    _check_cursors(tables.token_index, buf, starts, ends)
+    out = _out(out, (4, B), dev)
+    if not _route(buf):
+        return pipeline.ipv4_spans_plain(tables, buf, starts, ends, out)
+    if B:
+        _launch("ipv4_spans", dev, _ptr(buf), B, L, _ptr(starts[tables.token_index]),
+                _ptr(ends[tables.token_index]), _ptr(out))
+        ipv4_spans.launches += 1
+    return out
+
+
+def geo_lookup(
+    tables: GeoTables, keys: torch.Tensor, gate: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 9: each key's row in the group's flattened GeoIP table, [B]
+    int32 (0 = miss, row r = range r - 1); keys are uint32 bit patterns
+    in int32.  With ``gate`` a key whose gate is 0 gets row 0."""
+    if keys.dim() != 1:
+        raise ValueError(f"keys must be [B], got {tuple(keys.shape)}")
+    B = keys.shape[0]
+    dev = keys.device
+    _check("keys", keys, _I32, (B,), dev)
+    if gate is not None:
+        _check("gate", gate, _I32, (B,), dev)
+    _check_tables(tables, dev)
+    K = tables.starts.shape[0]
+    if tables.ends.shape[0] != K:
+        raise ValueError(f"starts has {K} entries, ends {tables.ends.shape[0]}")
+    out = _out(out, (B,), dev)
+    if not _route(keys):
+        return pipeline.geo_lookup_plain(tables, keys, gate, out)
+    if B:
+        _launch("geo_lookup", dev, B, _ptr(keys),
+                _ptr(gate) if gate is not None else None, _ptr(tables.starts),
+                _ptr(tables.ends), K, _ptr(out))
+        geo_lookup.launches += 1
+    return out
+
+
 def pack_rows(
     tables: PackTables, flags: torch.Tensor, comps: torch.Tensor,
 ) -> torch.Tensor:
@@ -422,7 +476,8 @@ def pack_rows(
 
 WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
             "zone_lookup": zone_lookup, "uri_split": uri_split,
-            "csr_split": csr_split, "pack_rows": pack_rows}
+            "csr_split": csr_split, "ipv4_spans": ipv4_spans,
+            "geo_lookup": geo_lookup, "pack_rows": pack_rows}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

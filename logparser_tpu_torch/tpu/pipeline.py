@@ -1,15 +1,16 @@
 """Device pipeline: split + typed post-stages -> ONE packed [K, B] int32.
 
 The port of the reference package's ``tpu/pipeline.py`` for the Apache
-``combined`` main path and the URI chain.  Host data (field plans, the
-packed bit-slot layout, format units) is copied; the device computation
-is seven hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``)
-run by :class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
+and NGINX paths of this slice.  Host data (field plans, the packed
+bit-slot layout, format units) is copied; the device computation is nine
+hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``) run by
+:class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
 
 1. ``split``       — the split program: token cursors, valid, plausible,
                      esc_hit (:func:`compute_split` is its plain version);
 2. ``span_stages`` — CLF dash, first-line and protocol splits, ``%b``
-                     limb frame, view prefix words (:func:`span_stages_plain`);
+                     limb frame, NGINX seconds-with-millis, view prefix
+                     words (:func:`span_stages_plain`);
 3. ``timestamp``   — the ``DeviceTimeLayout`` segments at a per-row
                      cursor, the offset tail, the resolver and range
                      checks (``timeparse.parse_timestamp_fields``); for a
@@ -21,6 +22,10 @@ run by :class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
                      (:func:`uri_split_plain`);
 5. ``csr_split``   — one query-string split per group: packed segment
                      words and overflow (:func:`csr_split_plain`);
+   ``ipv4_spans``  — one dotted-quad parse per GeoIP group (the value,
+                     ok, has_colon; :func:`ipv4_spans_plain`), then
+   ``geo_lookup``  — its range join into the flattened .mmdb table
+                     (:func:`geo_lookup_plain`);
 6. ``pack_rows``   — bit-packing of every component into ``[K, B]``, the
                      row-0 verdict bits and line constraints in plan
                      order, and the winner-merged view rows
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..geoip.device import lookup_rows_plain, u32_bits
 from . import postproc, timeparse
 from .program import CS_ANY, DeviceProgram
 
@@ -58,11 +64,13 @@ class FieldPlan:
     int64, ``null_mode`` handles the CLF '-'), ``ts`` (timestamp ->
     component bundle; ``comp`` names the output, ``meta`` carries the
     DeviceTimeLayout), ``qscsr`` (a query-string wildcard: ``comp`` is
-    the key or ``*``, ``meta`` the mode ``"query"``) or ``host`` (not
-    device-resolvable)."""
+    the key or ``*``, ``meta`` the mode ``"query"``), ``secmillis``
+    (``<seconds>.<millis>`` -> int64 milliseconds times ``scale``), ``geo``
+    (an IP's GeoIP column: ``comp`` the column, ``meta`` (database tag,
+    column, GeoDeviceTable)) or ``host`` (not device-resolvable)."""
 
     field_id: str                 # cleaned "TYPE:path"
-    kind: str                     # span | long | ts | qscsr | host
+    kind: str                     # span | long | ts | qscsr | secmillis | geo | host
     token_index: int = -1
     steps: Tuple[Tuple[str, str], ...] = ()
     comp: str = ""
@@ -121,6 +129,12 @@ def csr_group_key(plan: FieldPlan) -> str:
     return f"@qs:{plan.token_index}:{plan.meta}:{plan.steps!r}"
 
 
+def geo_group_key(plan: FieldPlan) -> str:
+    """All geo plans over the same token+steps+database share one range
+    join (``plan.meta[0]`` is the database's tag)."""
+    return f"@geo:{plan.token_index}:{plan.meta[0]}:{plan.steps!r}"
+
+
 @dataclass
 class PackedLayout:
     """Bit-slot map for the packed [K, B] int32 output (row 0 = validity).
@@ -155,7 +169,7 @@ class PackedLayout:
                     "amp": (r, 2 * _SPAN_BITS + 2, 1),
                     "fix": (r, 2 * _SPAN_BITS + 3, 1),
                 }
-            elif kind == "long":
+            elif kind in ("long", "secmillis"):
                 rhi, rlo = layout.n_rows, layout.n_rows + 1
                 layout.n_rows += 2
                 layout.slots[plan.field_id] = {
@@ -171,6 +185,8 @@ class PackedLayout:
                     # start|len<<_SPAN_BITS for the host byte-patch.
                     (plan.field_id, "big", 1),
                 ]
+                if kind == "secmillis":
+                    aux_needs.append((plan.field_id, "milli", 10))
             elif kind == "ts":
                 key = ts_group_key(plan)
                 if key not in layout.slots:
@@ -181,6 +197,12 @@ class PackedLayout:
                         "c2": (r + 1, 0, 0),
                         "off": (r + 2, 0, 0),
                     }
+                    aux_needs.append((key, "ok", 1))
+            elif kind == "geo":
+                key = geo_group_key(plan)
+                if key not in layout.slots:
+                    layout.slots[key] = {"row": (layout.n_rows, 0, 0)}
+                    layout.n_rows += 1
                     aux_needs.append((key, "ok", 1))
             elif kind == "qscsr":
                 key = csr_group_key(plan)
@@ -457,7 +479,7 @@ OPW = 9          # split op table width
 MAX_PLANES = 31  # byte-class planes per program (bits of one uint32)
 MAX_TOKENS = 64
 
-TASK_SPAN, TASK_LONG = 0, 1
+TASK_SPAN, TASK_LONG, TASK_SECMILLIS = 0, 1, 2
 PART_DIRECT, PART_METHOD, PART_URI, PART_PROTOCOL = 0, 1, 2, 3
 PART_PV_PROTOCOL, PART_PV_VERSION = 4, 5   # "pv" sub-steps of the fl protocol
 _FL_PART = {"method": PART_METHOD, "uri": PART_URI, "protocol": PART_PROTOCOL}
@@ -476,6 +498,11 @@ URIW = 10        # uri_split part table width: part, clf, out0..out6, prefix row
 CONS_REQUIRE = 0       # valid &= comp != 0
 CONS_CSR_OVERFLOW = 1  # o = comp != 0 & valid; valid &= ~o; bit 2 |= o
 CONS_URI_OVERFLOW = 2  # o = comp != 0;         valid &= ~o; bit 2 |= o
+CONS_FORBID = 3        # valid &= comp == 0 (an IPv6 literal on a geo token)
+
+# Rows of one geo group in its unit's component block: ipv4_spans writes
+# the first four, geo_lookup the fifth.
+GEO_VALUE, GEO_IP_OK, GEO_COLON, GEO_CHAIN_OK, GEO_ROW = range(5)
 
 # timestamp item kinds; a table item's entries are rows of ``entries``.
 ITEM_LIT, ITEM_NUM, ITEM_MONTH, ITEM_DOW, ITEM_AMPM, ITEM_ZONE = range(6)
@@ -596,15 +623,28 @@ class _CsrGroup:
 
 
 @dataclass
+class _GeoGroup:
+    """One GeoIP range join (one per ``geo_group_key``): its token, its
+    GeoDeviceTable and its first component row (GEO_VALUE .. GEO_ROW)."""
+
+    key: str
+    token: int
+    table: object
+    base: int = -1
+
+
+@dataclass
 class _UnitComps:
     """Component rows of one unit: span_stages tasks (rows [0,
-    n_stage_rows)), then 4 rows (c1, c2, off, ok) per timestamp group,
-    then the URI and CSR groups' rows; the line constraints in the order
-    pack_rows applies them and the slot every component is packed into."""
+    n_stage_rows)), then 4 rows (c1, c2, off, ok) per timestamp group and
+    5 per geo group, then the URI and CSR groups' rows; the line
+    constraints in the order pack_rows applies them and the slot every
+    component is packed into."""
 
     tasks: List[Tuple] = dataclass_field(default_factory=list)
     n_stage_rows: int = 0
     ts_groups: List[Tuple[str, int, object]] = dataclass_field(default_factory=list)
+    geo_groups: List[_GeoGroup] = dataclass_field(default_factory=list)
     uri_groups: List[_UriGroup] = dataclass_field(default_factory=list)
     csr_groups: List[_CsrGroup] = dataclass_field(default_factory=list)
     need_authority: bool = False
@@ -687,6 +727,19 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
             long_ok[fid] = outs[4]
             clf = int(plan.null_mode in ("dash_null", "dash_zero"))
             uc.tasks.append((TASK_LONG, tok, 0, clf, *outs, -1))
+        elif plan.kind == "secmillis":
+            if plan.steps or plan.null_mode:
+                raise ValueError(f"secmillis plan {plan} is not on this slice")
+            comps = ("hi", "lo", "d18", "lo_digits", "ok", "null", "big", "milli")
+            outs = [row(fid, c) for c in comps]
+            long_ok[fid] = outs[4]
+            uc.tasks.append((TASK_SECMILLIS, tok, 0, 0, *outs))
+        elif plan.kind == "geo":
+            if plan.steps:
+                raise ValueError(f"geo chain {plan.steps} is not on this slice")
+            key = geo_group_key(plan)
+            if all(g.key != key for g in uc.geo_groups):
+                uc.geo_groups.append(_GeoGroup(key, tok, plan.meta[2]))
         elif plan.kind == "ts":
             if plan.steps:
                 raise ValueError(f"ts chain {plan.steps} is not on this slice")
@@ -699,6 +752,12 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
     for key, _, _ in uc.ts_groups:
         for comp in ("c1", "c2", "off", "ok"):
             row(key, comp)
+    for g in uc.geo_groups:
+        g.base = row(None, "geo_value")
+        row(None, "geo_ip_ok")
+        row(None, "geo_colon")
+        row(g.key, "ok")
+        row(g.key, "row")
 
     # Pass 2: URI and CSR groups, in plan order.
     uri_groups: Dict[tuple, _UriGroup] = {}
@@ -763,9 +822,14 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
     # Pass 3: line constraints in plan order (the reference's running
     # `valid`), the URI constraints last (its line_constraints).
     seen = set()
+    geo_base = {g.key: g.base for g in uc.geo_groups}
     for plan in plans:
-        if plan.kind == "long" and not plan.steps:
+        if plan.kind in ("long", "secmillis") and not plan.steps:
             uc.constraints.append((long_ok[plan.field_id], CONS_REQUIRE))
+        elif plan.kind == "geo" and geo_group_key(plan) not in seen:
+            # An IPv6 literal: the host looks it up, the table is IPv4.
+            seen.add(geo_group_key(plan))
+            uc.constraints.append((geo_base[geo_group_key(plan)] + GEO_COLON, CONS_FORBID))
         elif plan.kind == "ts" and ts_group_key(plan) not in seen:
             seen.add(ts_group_key(plan))
             g = [k for k, _, _ in uc.ts_groups].index(ts_group_key(plan))
@@ -794,7 +858,8 @@ class StageTables(nn.Module):
     out6, prefix row) with output rows relative to the kernel's output.
     A span task writes (start, len, ok, null) and, when its field emits
     view rows, 3 prefix words from ``prefix row``; a long task writes
-    (hi, lo, d18, ndig, ok, null, big)."""
+    (hi, lo, d18, ndig, ok, null, big); a secmillis task the same seven
+    for the seconds part and the millis into its last column's row."""
 
     def __init__(self, uc: _UnitComps):
         super().__init__()
@@ -858,6 +923,21 @@ class TsTables(nn.Module):
         self.zone = ZoneTables(dl.zone_table) if dl.zone_table is not None else None
 
 
+class GeoTables(nn.Module):
+    """One GeoIP group for ``ipv4_spans`` and ``geo_lookup``: the token,
+    the first of its 5 component rows, and the table's ``starts`` /
+    ``ends`` as int32 buffers (uint32 bit patterns), uploaded once."""
+
+    def __init__(self, g: _GeoGroup):
+        super().__init__()
+        self.key = g.key
+        self.token_index = g.token
+        self.base = g.base
+        self.table = g.table
+        self.register_buffer("starts", u32_bits(g.table.starts))
+        self.register_buffer("ends", u32_bits(g.table.ends))
+
+
 class UriTables(nn.Module):
     """One URI group for the ``uri_split`` kernel: the input (token, or
     the span_stages rows of its start / len / ok), the CLF dash flag,
@@ -904,6 +984,7 @@ class UnitTables(nn.Module):
         self.split = SplitTables(unit.program)
         self.stages = StageTables(uc)
         self.ts = nn.ModuleList(TsTables(tok, dl) for _, tok, dl in uc.ts_groups)
+        self.geo = nn.ModuleList(GeoTables(g) for g in uc.geo_groups)
         window = URI_WINDOW_PER_SLOT * unit.layout.csr_slots
         self.uri = nn.ModuleList(UriTables(g, uc.need_authority, window)
                                  for g in uc.uri_groups)
@@ -1011,6 +1092,12 @@ def span_stages_plain(
                 words = postproc.span_prefix_words(buf, start, end, ok & ~null)
                 for k in range(3):
                     out[pfx + k] = words[k]
+        elif kind == TASK_SECMILLIS:
+            (hi, lo, d18, ndig), milli, is_null, ok = postproc.parse_secmillis_spans(
+                buf, s, e)
+            for o, v in zip(task[4:12], (hi, lo, d18, ndig, ok, is_null,
+                                         torch.zeros_like(ok), milli)):
+                out[o] = v.to(torch.int32)
         else:
             (hi, lo, d18, ndig), is_null, ok, big = postproc.parse_long_spans(
                 buf, s, e, clf=bool(clf)
@@ -1066,6 +1153,35 @@ def zone_lookup_plain(
         off, ok = timeparse.resolve_zone_offset(tables.table, zone_idx, minutes, gate != 0)
     out[0] = off
     out[1] = ok.to(torch.int32)
+    return out
+
+
+def ipv4_spans_plain(
+    tables: GeoTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, out: torch.Tensor,
+) -> torch.Tensor:
+    """Fill ``out`` [4, B] with a geo group's (value, ip_ok, has_colon,
+    chain_ok) of its token's spans (``parse_ipv4_spans``; a token's own
+    span is always there, chain_ok 1)."""
+    value, ok, colon = postproc.parse_ipv4_spans(
+        buf, starts[tables.token_index], ends[tables.token_index])
+    out[0] = value
+    out[1] = ok.to(torch.int32)
+    out[2] = colon.to(torch.int32)
+    out[3] = 1
+    return out
+
+
+def geo_lookup_plain(
+    tables: GeoTables, keys: torch.Tensor, gate: torch.Tensor, out: torch.Tensor,
+) -> torch.Tensor:
+    """Fill ``out`` [B] with the row of each key in the flattened table
+    (``GeoDeviceTable.lookup_rows``); with a ``gate`` row, 0 where the
+    gate is 0 (the reference's ``where(ip_ok & chain_ok, rows, 0)``)."""
+    rows = lookup_rows_plain(tables.starts, tables.ends, keys)
+    if gate is not None:
+        rows = torch.where(gate != 0, rows, 0)
+    out.copy_(rows)
     return out
 
 
@@ -1188,6 +1304,9 @@ def pack_rows_plain(
             if kind == CONS_REQUIRE:
                 valid = valid & hit
                 continue
+            if kind == CONS_FORBID:
+                valid = valid & ~hit
+                continue
             if kind == CONS_CSR_OVERFLOW:
                 hit = hit & valid
             valid = valid & ~hit
@@ -1252,8 +1371,9 @@ class UnitsExecutor(nn.Module):
     Holds every per-parser table as a buffer, so ``.to(device)`` uploads
     them once.  Per unit it launches split, span_stages, one timestamp
     kernel per timestamp group (followed by one zone_lookup for a %Z
-    layout), one uri_split per URI group and one csr_split per
-    query-string group, then one pack_rows over all units.  The CUDA
+    layout), one ipv4_spans and one geo_lookup per GeoIP group, one
+    uri_split per URI group and one csr_split per query-string group,
+    then one pack_rows over all units.  The CUDA
     grid replaces the reference's 16k-row tiling."""
 
     def __init__(self, units: Sequence[FormatUnit], view_specs: ViewSpecs = ()):
@@ -1298,6 +1418,11 @@ class UnitsExecutor(nn.Module):
                 zone = torch.empty(B, dtype=torch.int32, device=buf.device)
                 kernels.timestamp(ts, buf, starts, ends, out=rows, zone_out=zone)
                 kernels.zone_lookup(ts.zone, zone, rows[2], gate=rows[3], out=rows[2:4])
+            for g in t.geo:
+                kernels.ipv4_spans(g, buf, starts, ends, out=block[g.base:g.base + 4])
+                kernels.geo_lookup(g, block[g.base + GEO_VALUE],
+                                   gate=block[g.base + GEO_IP_OK],
+                                   out=block[g.base + GEO_ROW])
             for u in t.uri:
                 kernels.uri_split(u, buf, starts, ends, block)
             for c in t.csr:

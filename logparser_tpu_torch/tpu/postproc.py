@@ -18,6 +18,11 @@ Apache ``combined`` main path and the URI chain run:
   :func:`split_csr` (with :func:`csr_class_table`) — the URI chain: the
   plain versions of the ``pv`` parts of ``span_stages`` and of the
   ``uri_split`` / ``csr_split`` kernels.
+- :func:`parse_secmillis_spans` -- NGINX ``$msec`` / ``$request_time``
+  (``<seconds>.<3 digits>``): the plain version of the ``secmillis``
+  task of ``span_stages``.
+- :func:`parse_ipv4_spans` -- strict dotted quads -> uint32: the plain
+  version of the ``ipv4_spans`` kernel.
 
 Every function reproduces the reference's int32 arithmetic, wraparound
 included, so its outputs equal the reference bit for bit on any bytes.
@@ -514,3 +519,80 @@ def split_csr(
         cursor = s_end + 1
     out["overflow"] = (gat(suffix_sep, cursor, L, L) < L) | (cursor < end)
     return out
+
+
+def parse_secmillis_spans(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``"<seconds>.<3-digit millis>"`` spans -> ((hi, lo, d18, ndig),
+    millis, is_null, ok).
+
+    The seconds part goes through :func:`parse_long_spans` (the sub-span
+    before the last four bytes), the dot and the three millis digits come
+    from one width-4 window at ``max(end - 4, 0)``; the host combines
+    ``seconds * 1000 + millis``.  ``millis`` is computed from the window's
+    bytes whatever they are (int32, as the reference).  ok needs
+    ``5 <= width <= 19``, a seconds part of digits, a '.' and three
+    digits."""
+    w = end - start
+    sec_limbs, _, sec_ok, sec_big = parse_long_spans(
+        buf, start, torch.maximum(end - 4, start), clf=False)
+    win = gather_span_bytes(buf, (end - 4).clamp(min=0), 4).to(torch.int32)
+    md = (win[:, 1:4] - ord("0")) & 0xFF   # uint8 wrap
+    m_ok = (md <= 9).all(dim=1)
+    millis = md[:, 0] * 100 + md[:, 1] * 10 + md[:, 2]
+    ok = ((w >= 5) & (w <= 19) & sec_ok & ~sec_big & m_ok
+          & (win[:, 0] == ord(".")))
+    is_null = torch.zeros_like(ok)
+    return sec_limbs, millis, is_null, ok
+
+
+MAX_IP = 15   # 255.255.255.255
+
+
+def parse_ipv4_spans(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dotted-quad spans -> (value, ok, has_colon).
+
+    ``value`` is the address as int32 (the uint32 bit pattern); ok follows
+    ``ipaddress.ip_address`` for IPv4 (exactly four octets, 0-255, no
+    leading zeros, width 7 to 15).  ``has_colon`` flags a ':' within the
+    first 15 bytes of the span (an IPv6 literal, which the host does look
+    up).  Octets accumulate in int32 and the value in uint32 with the
+    reference's wraparound, so a rejected span's value is the reference's
+    too."""
+    B = buf.shape[0]
+    dev = buf.device
+    b = gather_span_bytes(buf, start, MAX_IP).to(torch.int32)
+    w = end - start
+    octet = torch.zeros(B, dtype=torch.int32, device=dev)
+    ndig = torch.zeros(B, dtype=torch.int32, device=dev)
+    ndots = torch.zeros(B, dtype=torch.int32, device=dev)
+    value = torch.zeros(B, dtype=torch.int64, device=dev)
+    lead0 = torch.zeros(B, dtype=torch.bool, device=dev)
+    good = torch.ones(B, dtype=torch.bool, device=dev)
+    has_colon = torch.zeros(B, dtype=torch.bool, device=dev)
+    for i in range(MAX_IP):
+        in_span = i < w
+        byte = b[:, i]
+        has_colon = has_colon | (in_span & (byte == ord(":")))
+        d = (byte - ord("0")) & 0xFF
+        is_digit = d <= 9
+        is_dot = byte == ord(".")
+        lead0 = lead0 | (in_span & is_digit & (ndig == 1) & (octet == 0))
+        octet = torch.where(in_span & is_digit, wrap_i32(octet.to(torch.int64) * 10 + d),
+                            octet)
+        ndig = torch.where(in_span & is_digit, ndig + 1, ndig)
+        good = good & (~in_span | is_digit | is_dot)
+        good = good & ~(in_span & (octet > 255))
+        close = in_span & is_dot
+        good = good & ~(close & (ndig == 0))
+        u_oct = octet.to(torch.int64) & 0xFFFFFFFF
+        value = torch.where(close, ((value << 8) | u_oct) & 0xFFFFFFFF, value)
+        ndots = torch.where(close, ndots + 1, ndots)
+        octet = torch.where(close, 0, octet)
+        ndig = torch.where(close, 0, ndig)
+    value = ((value << 8) | (octet.to(torch.int64) & 0xFFFFFFFF)) & 0xFFFFFFFF
+    ok = good & (w >= 7) & (w <= MAX_IP) & (ndots == 3) & (ndig > 0) & ~lead0
+    return wrap_i32(value), ok, has_colon

@@ -128,6 +128,10 @@ def jax_unit_plain(unit):
             }
         elif p.kind == "qscsr":
             meta = p.meta
+        elif p.kind == "geo":
+            tag, column, table = p.meta
+            meta = (tag, column, np.asarray(table.starts, dtype=np.uint32),
+                    np.asarray(table.ends, dtype=np.uint32))
         plans.append((p.field_id, p.kind, p.token_index, tuple(p.steps),
                       p.comp, meta, p.null_mode, p.scale, p.attr))
     return {

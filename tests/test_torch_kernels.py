@@ -16,12 +16,22 @@ from logparser_tpu_torch.dissectors.tztable import SPAN_MINUTES, default_zone_ta
 from logparser_tpu_torch.tools.demolog import (
     COMBINEDIO_STRFTIME_FIELDS,
     COMBINEDIO_STRFTIME_FORMAT,
+    GEOIP_FIELDS,
     HEADLINE_FIELDS,
+    NGINX_TIMING_FIELDS,
+    NGINX_TIMING_FORMAT,
+    NGINX_URI_FIELDS,
+    NGINX_URI_FORMAT,
     URI_CHAIN_FIELDS,
     ZONETEXT_FIELDS,
     ZONETEXT_FORMAT,
     combinedio_strftime_lines,
     generate_combined_lines,
+    geoip_chain_lines,
+    geoip_edge_lines,
+    nginx_edge_lines,
+    nginx_timing_lines,
+    nginx_uri_lines,
     strftime_edge_lines,
     uri_edge_lines,
     zonetext_lines,
@@ -119,6 +129,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     counts = kernels.launch_counts()
     assert counts.pop("uri_split") == 0 and counts.pop("csr_split") == 0
     assert counts.pop("zone_lookup") == 0
+    assert counts.pop("ipv4_spans") == 0 and counts.pop("geo_lookup") == 0
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -318,5 +329,123 @@ def test_strftime_parse_on_the_card_equals_the_cpu(cuda_device, name):
     assert counts["timestamp"] == 1
     assert counts["zone_lookup"] == (1 if "%Z" in fmt else 0)
     cpu = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
+    assert gpu.to_dict() == cpu.to_dict()
+    assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
+
+
+def _geo_parser(device, city=None):
+    import os
+
+    from logparser_tpu_torch.geoip import GeoIPASNDissector, GeoIPCityDissector
+    from logparser_tpu_torch.tools.geoip_testdata import ensure_test_databases
+
+    fixtures = ensure_test_databases()
+    city = city or os.path.join(fixtures, "GeoIP2-City-Test.mmdb")
+    return TorchBatchParser(
+        "combined", GEOIP_FIELDS, device=device,
+        extra_dissectors=[GeoIPCityDissector(city),
+                          GeoIPASNDissector(os.path.join(fixtures, "GeoLite2-ASN-Test.mmdb"))])
+
+
+def _ip_lines(seed=6):
+    """GeoIP corpus lines, edge lines, and hosts of random dotted-quad-ish
+    bytes."""
+    rng = np.random.default_rng(seed)
+    lines = geoip_chain_lines(3000) + geoip_edge_lines()
+    alpha = list("0123456789.:")
+    for ln in generate_combined_lines(500, seed=seed):
+        host = "".join(rng.choice(alpha, size=int(rng.integers(1, 18))))
+        lines.append(host + ln[ln.index(" "):])
+    return lines
+
+
+@pytest.mark.parametrize("line_len", [0, 8191])
+def test_geo_kernels_equal_plain_versions(cuda_device, line_len):
+    ex = _geo_parser(cuda_device).executor
+    buf, lengths, _ = encode_batch(_ip_lines(), line_len=line_len)
+    buf = torch.from_numpy(buf).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    (t,) = ex.unit_tables
+    starts, ends, _ = kernels.split(t.split, buf, lengths)
+    assert len(t.geo) == 2
+    for g in t.geo:
+        rows = kernels.ipv4_spans(g, buf, starts, ends)
+        want = pipeline.ipv4_spans_plain(g, buf, starts, ends, torch.empty_like(rows))
+        assert torch.equal(rows, want)
+        for gate in (None, rows[1]):
+            got = kernels.geo_lookup(g, rows[0], gate=gate)
+            assert torch.equal(got, pipeline.geo_lookup_plain(g, rows[0], gate,
+                                                              torch.empty_like(got)))
+    cpu = _geo_parser("cpu").executor
+    assert np.array_equal(ex(buf, lengths).cpu().numpy(),
+                          cpu(buf.cpu(), lengths.cpu()).numpy())
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 1000, 1 << 20])
+def test_geo_lookup_kernel_on_seeded_tables(cuda_device, K):
+    """Disjoint ranges across the whole uint32 space (half of them above
+    2^31, negative as int32): every start, end and their neighbours, 0,
+    0xFFFFFFFF and random keys."""
+    from logparser_tpu_torch.geoip import GeoDeviceTable
+
+    rng = np.random.default_rng(K)
+    bounds = np.sort(rng.choice(1 << 32, size=2 * K, replace=False)).astype(np.uint32)
+    starts, ends = bounds[0::2], bounds[1::2]
+    table = GeoDeviceTable.from_ranges(starts, ends)
+    g = pipeline.GeoTables(pipeline._GeoGroup("k", 0, table)).to(cuda_device)
+    keys = np.concatenate([starts.astype(np.int64), ends, starts.astype(np.int64) - 1,
+                           ends.astype(np.int64) + 1, [0, 0xFFFFFFFF],
+                           rng.integers(0, 1 << 32, size=100000)])
+    keys = torch.from_numpy((keys & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+    keys = keys.to(cuda_device)
+    got = kernels.geo_lookup(g, keys)
+    want = pipeline.geo_lookup_plain(g, keys, None, torch.empty_like(got))
+    assert torch.equal(got, want)
+    if K:
+        assert int((got[:K] == torch.arange(1, K + 1, device=cuda_device)).sum()) == K
+
+
+@pytest.mark.parametrize("line_len", [0, 8191])
+def test_secmillis_task_equals_plain_version(cuda_device, line_len):
+    ex = TorchBatchParser(NGINX_TIMING_FORMAT, NGINX_TIMING_FIELDS, device=cuda_device).executor
+    rng = np.random.default_rng(8)
+    lines = nginx_timing_lines(3000) + nginx_edge_lines()
+    for ln in nginx_timing_lines(500):   # one byte replaced in the last token
+        b = bytearray(ln.encode())
+        b[-int(rng.integers(1, 6))] = int(rng.choice(list(b"0123456789.-x ")))
+        lines.append(bytes(b))
+    buf, lengths, _ = encode_batch(lines, line_len=line_len)
+    buf = torch.from_numpy(buf).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    (t,) = ex.unit_tables
+    assert any(task[0] == pipeline.TASK_SECMILLIS for task in t.stages.tasks_py)
+    starts, ends, _ = kernels.split(t.split, buf, lengths)
+    got = kernels.span_stages(t.stages, buf, starts, ends)
+    want = pipeline.span_stages_plain(t.stages, buf, starts, ends, torch.empty_like(got))
+    assert torch.equal(got, want)
+    cpu = TorchBatchParser(NGINX_TIMING_FORMAT, NGINX_TIMING_FIELDS, device="cpu").executor
+    assert np.array_equal(ex(buf, lengths).cpu().numpy(),
+                          cpu(buf.cpu(), lengths.cpu()).numpy())
+
+
+@pytest.mark.parametrize("name", ["geoip_chain", "nginx_uri", "nginx_timing"])
+def test_geo_and_nginx_parse_on_the_card_equals_the_cpu(cuda_device, name):
+    if name == "geoip_chain":
+        lines = geoip_chain_lines(5000) + geoip_edge_lines()
+        gpu_parser, cpu_parser = _geo_parser(cuda_device), _geo_parser("cpu")
+    else:
+        fmt, fields, gen = {
+            "nginx_uri": (NGINX_URI_FORMAT, NGINX_URI_FIELDS, nginx_uri_lines),
+            "nginx_timing": (NGINX_TIMING_FORMAT, NGINX_TIMING_FIELDS, nginx_timing_lines),
+        }[name]
+        lines = gen(5000) + nginx_edge_lines()
+        gpu_parser = TorchBatchParser(fmt, fields)
+        cpu_parser = TorchBatchParser(fmt, fields, device="cpu")
+    kernels.reset_launch_counts()
+    gpu = gpu_parser.parse_batch(lines)
+    counts = kernels.launch_counts()
+    geo = 2 if name == "geoip_chain" else 0
+    assert counts["ipv4_spans"] == geo and counts["geo_lookup"] == geo
+    cpu = cpu_parser.parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
     assert gpu.needs_host.tolist() == cpu.needs_host.tolist()

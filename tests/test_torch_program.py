@@ -128,8 +128,9 @@ def test_generator_copy_emits_the_same_lines(seed):
 @pytest.mark.parametrize("fmt", [
     "%h %D",                               # an Apache token not on this slice
     '%h %{X-Forwarded-For}i "%r"',         # generic request header
-    "$remote_addr $status",                # nginx
+    "$remote_addr$status",                 # nginx: adjacent value tokens
     "%h%u",                                # adjacent value tokens
+    "neither apache nor nginx",            # no format at all
 ])
 def test_unported_formats_raise(fmt):
     with pytest.raises(UnsupportedFormatError):
