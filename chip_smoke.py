@@ -16,11 +16,13 @@ edge lines), GeoIP enrichment (``geoip_chain``: country, city and ASN of
 the client over the fixture databases, seed 45; ``geoip_synthetic``: the
 same over a synthetic City database of 131,072 networks written at first
 use, seed 46) and NGINX (``nginx_uri``, seed 44; ``nginx_timing``: $msec
-and $request_time, seed 49) -- and fails (non-zero exit, no result line)
-on the first phase that fails:
+and $request_time, seed 49) -- then the analytics pushdown (the dashboard
+aggregate over the headline fields, 65,536 lines, seed 42, plus crafted
+fold lines), and fails (non-zero exit, no result line) on the first
+phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the seven kernels from logparser_tpu_torch/csrc, in parallel;
+2. build   -- the twelve kernels from logparser_tpu_torch/csrc, in parallel;
 3. corpus  -- the generated lines + edge lines;
 4. one phase per kernel (split, span_stages, timestamp, pack_rows): the
    kernel and its plain PyTorch version on the same CUDA tensors must be
@@ -58,7 +60,21 @@ on the first phase that fails:
 9. NGINX: span_stages (the secmillis tasks) and pack_rows under the
    nginx_timing tables against their plain versions; parse_batch end to
    end on both NGINX configurations and the 8191-byte bucket;
-10. the kernels line, the card line, and the result line
+10. the analytics pushdown: agg_lanes (cls and lanes), agg_reduce
+   (n_device, sum tiles, histogram bins; beside a reshaped sum of the tile
+   halves) and agg_group (one launch per grouping lane; groups compared as
+   {key bytes: count} with no key split; the int lane beside
+   torch.unique) against their plain versions on the dashboard batch,
+   timed the same way; then the dashboard aggregate end to end (counts
+   zeroed just before, read just after), equal to the CPU's
+   AggregateState, needs_host and row accounting, with at least 10x fewer
+   D2H bytes than parse_batch on the same batch and the crafted lines
+   folded, then aggregate and parse_batch in turns for lines/s.  Each of
+   sections 5 to 9 also runs its configuration's representative_spec
+   (the reference bench's parity sweep) on the card against the CPU
+   (phases ``agg_parity_*``), and the URI chain a count_by over the query
+   key ``q`` passed as an AggregateSpec (phase ``agg_query_key``);
+11. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -82,6 +98,9 @@ REPLACES = {
     "zone_lookup": "logparser_tpu/dissectors/tztable.py:344",
     "ipv4_spans": "logparser_tpu/tpu/postproc.py:557",
     "geo_lookup": "logparser_tpu/geoip/device.py:102",
+    "agg_lanes": "logparser_tpu/analytics/device.py:374",
+    "agg_reduce": "logparser_tpu/analytics/device.py:352",
+    "agg_group": "logparser_tpu/analytics/device.py:233",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -213,17 +232,22 @@ def main() -> int:
     rows = {}
 
     def phase(name, run_kernel, run_plain, bytes_moved, ops, kernel=None, n=None,
-              width=None, library=None):
+              width=None, library=None, compare=None):
         """Kernel vs plain version on the same CUDA tensors, then timed.
         ``kernel`` names the kernels-line row when the phase name differs
         (a kernel re-run under the URI chain's tables keeps its slice-1
         row and reports here only); ``library`` is one PyTorch call
-        computing the same function, timed the same way."""
+        computing the same function, timed the same way; ``compare``
+        (got, want) -> max abs error replaces the exact tensor comparison
+        (it calls fail itself)."""
         got = run_kernel()
         want = run_plain()
         torch.cuda.synchronize()
-        require_equal(torch, name, got, want)
-        err = max_abs_err(torch, got, want)
+        if compare is None:
+            require_equal(torch, name, got, want)
+            err = max_abs_err(torch, got, want)
+        else:
+            err = compare(got, want)
         ms = time_kernel(torch, run_kernel, KERNEL_REPS)
         plain_ms = time_kernel(torch, run_plain, PLAIN_REPS)
         library_ms = time_kernel(torch, library, KERNEL_REPS) if library else None
@@ -308,6 +332,7 @@ def main() -> int:
           "lines_per_s": B / wall,
           "device_lines_per_s": B / res.stage_seconds["kernels"],
           "d2h_bytes": res.d2h_bytes, "launches": launches, "card": smi})
+    agg_parity(torch, kernels, gpu, cpu, lines, "agg_parity_headline", smi)
 
     wide = generate_combined_lines(256, seed=7, garbage_fraction=0.05)
     wide.append(EDGE_PREFIX + ' "x" "' + "w" * (8191 - len(EDGE_PREFIX) - 7) + '"')
@@ -335,7 +360,10 @@ def main() -> int:
     # ---- 9. NGINX --------------------------------------------------------
     nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi)
 
-    # ---- 10. result ------------------------------------------------------
+    # ---- 10. the analytics pushdown --------------------------------------
+    agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi)
+
+    # ---- 11. result ------------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [rows[k] for k in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -545,6 +573,16 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
           "device_lines_per_s": B / res2.stage_seconds["kernels"],
           "d2h_bytes": res2.d2h_bytes, "launches": kernels.launch_counts(),
           "card": smi})
+    agg_parity(torch, kernels, gpu, cpu, lines, "agg_parity_uri", smi)
+    # The query-key lane: an AggregateSpec instance (validate_for would
+    # refuse a count_by over a query key), as the reference reaches it.
+    from logparser_tpu_torch.analytics import AggregateSpec
+
+    key_spec = AggregateSpec.parse(
+        [{"op": "count_by", "field": "STRING:request.firstline.uri.query.q"}])
+    out = agg_parity(torch, kernels, gpu, cpu, lines, "agg_query_key", smi, key_spec)
+    if not out.state.data[0]:
+        fail("agg_query_key: no query key counted")
 
     wide = generate_combined_lines(256, seed=7, garbage_fraction=0.05) + edge + [
         edge[0].replace("/x/y?", "/p?" + "&".join(f"k{i}" for i in range(200)) + "&"),
@@ -662,7 +700,8 @@ def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
                 fail(f"kernel {name} was not launched on the {tag} path")
         if zone:
             rows["zone_lookup"]["launches"] = launches["zone_lookup"]
-        ref = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
+        cpu = TorchBatchParser(fmt, fields, device="cpu")
+        ref = cpu.parse_batch(lines)
         compare_results(res, ref, f"end_to_end_{tag}")
         host_generated = [int(i) for i in res.needs_host if i < N_LINES]
         if any("[" in lines[i] for i in host_generated):
@@ -679,6 +718,7 @@ def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
               "lines_per_s": B / wall,
               "device_lines_per_s": B / res.stage_seconds["kernels"],
               "d2h_bytes": res.d2h_bytes, "launches": launches, "card": smi})
+        agg_parity(torch, kernels, gpu, cpu, lines, f"agg_parity_{tag}", smi)
 
     # The zone-text configuration at the widest bucket.
     _, fmt, fields, gen = configs[1]
@@ -934,11 +974,13 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     emit({"phase": "geo_lookup_empty", "equal": True, "keys": n, "rows": 0})
 
     # End to end: the fixture databases, then a synthetic City database.
+    cpu = parser(city, "cpu")
     launches = run_end_to_end(
-        torch, kernels, gpu, parser(city, "cpu"), lines, "end_to_end_geo",
+        torch, kernels, gpu, cpu, lines, "end_to_end_geo",
         ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"), path_bound, smi)
     for name in ("ipv4_spans", "geo_lookup"):
         rows[name]["launches"] = launches[name]
+    agg_parity(torch, kernels, gpu, cpu, lines, "agg_parity_geo", smi)
     syn_dir = os.path.join(os.path.dirname(fixtures), ".geoip-synthetic-torch")
     path = os.path.join(syn_dir, f"Synthetic-City-{geoip_testdata.SYNTHETIC_NETWORKS}"
                                  f"-s{GEO_SYNTHETIC_SEED}.mmdb")
@@ -953,11 +995,13 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                                              GEO_SYNTHETIC_SEED)
     syn_lines = demolog.geoip_synthetic_lines(N_LINES, nets) + edge
     ranges = len(gpu_syn.executor.unit_tables[0].geo[0].table)
-    run_end_to_end(torch, kernels, gpu_syn, parser(syn, "cpu"), syn_lines,
+    cpu_syn = parser(syn, "cpu")
+    run_end_to_end(torch, kernels, gpu_syn, cpu_syn, syn_lines,
                    "end_to_end_geo_synthetic",
                    ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"),
                    None, smi, db_write_seconds=None if existed else write_s,
                    table_build_seconds=build_s, ranges=ranges)
+    agg_parity(torch, kernels, gpu_syn, cpu_syn, syn_lines, "agg_parity_geo_synthetic", smi)
     run_wide(gpu, parser(city, "cpu"), demolog.geoip_chain_lines(256) + edge, "geo")
 
 
@@ -1010,11 +1054,247 @@ def nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, row
             u_rows = 2 + 6 * len(u.parts_py) + 3 * sum(p[-1] >= 0 for p in u.parts_py)
             path_bound += bound_ms(u_bytes + 4 * B * u_rows, 10 * u_bytes)[0]
         must = ("split", "span_stages", "uri_split", "pack_rows")
-        run_end_to_end(torch, kernels, gpu, TorchBatchParser(fmt, fields, device="cpu"),
-                       lines, f"end_to_end_{tag}", must, path_bound, smi)
+        cpu = TorchBatchParser(fmt, fields, device="cpu")
+        run_end_to_end(torch, kernels, gpu, cpu, lines, f"end_to_end_{tag}", must,
+                       path_bound, smi)
+        agg_parity(torch, kernels, gpu, cpu, lines, f"agg_parity_{tag}", smi)
     _, fmt, fields, gen = configs[1]
     run_wide(TorchBatchParser(fmt, fields), TorchBatchParser(fmt, fields, device="cpu"),
              gen(256) + edge, "nginx_timing")
+
+
+def compare_aggregates(got, want, what) -> None:
+    """The card's AggregateOutcome against the CPU's: state, needs_host
+    and the row accounting."""
+    if got.state != want.state:
+        diff = [(a["op"], a.get("field")) for a, b in
+                zip(got.state.summary(), want.state.summary()) if a != b]
+        fail(f"{what}: the card's aggregate state differs from the CPU's in {diff}")
+    if got.needs_host.tolist() != want.needs_host.tolist():
+        fail(f"{what}: needs_host differs: {got.needs_host[:10]} vs {want.needs_host[:10]}")
+    acct = ("good_lines", "bad_lines", "device_rows", "fold_rows")
+    if [getattr(got, k) for k in acct] != [getattr(want, k) for k in acct]:
+        fail(f"{what}: row accounting differs: "
+             f"{[getattr(got, k) for k in acct]} vs {[getattr(want, k) for k in acct]}")
+
+
+def agg_parity(torch, kernels, gpu, cpu, lines, tag, smi, spec=None):
+    """One aggregate of ``spec`` (the reference bench's representative_spec
+    of the parser when None) on the card, the launch counts zeroed just
+    before and read just after, held equal to the same on the CPU."""
+    from logparser_tpu_torch.tools.demolog import representative_spec
+
+    spec = spec or representative_spec(gpu)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gpu.aggregate_batch(lines, spec)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("agg_lanes", "agg_reduce"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the {tag} path")
+    compare_aggregates(out, cpu.aggregate_batch(lines, spec), tag)
+    emit({"phase": tag, "B": len(lines), "equal_to_cpu": True,
+          "ops": [op.as_dict() for op in spec.ops],
+          "groups": [len(d) for d in out.state.data if isinstance(d, dict)],
+          "device_rows": out.device_rows, "fold_rows": out.fold_rows,
+          "needs_host": len(out.needs_host), "stage_seconds": out.stage_seconds,
+          "wall_seconds": wall, "lines_per_s": len(lines) / wall,
+          "d2h_bytes": out.d2h_bytes, "row_path_d2h_bytes": out.row_path_d2h_bytes,
+          "launches": launches, "card": smi})
+    return out
+
+
+def canonical_groups(groups, n, buf, spans):
+    """{raw key bytes or bucket: count} of one agg_group output; a key seen
+    twice fails (a split group)."""
+    out = {}
+    for row in groups[:int(n[0])].cpu().tolist():
+        if spans:
+            cnt, r, s, ln = row
+            key = bytes(buf[r, s:s + ln])
+        else:
+            key, cnt = row
+        if key in out:
+            fail(f"agg_group split the key {key!r}")
+        out[key] = cnt
+    return out
+
+
+def agg_lanes_cost(agg, t, B):
+    """(bytes, operations) of agg_lanes: the packed rows its tables name
+    (each unit's row 0, each lane's slots, the overflow slots) read once,
+    the host_kill byte in, the class byte and the lane rows out; a few
+    operations a slot, ~150 a limbs lane (19 digits), ~60 a time lane."""
+    rows = set(t.units_py)
+    for d in t.udesc_py:
+        if d[0] == agg.UNIT_SLOTS:
+            rows.update(d[k] for k in range(2, len(d), 3))
+        elif d[0] == agg.UNIT_QS:
+            rows.update([d[2]] + [d[5] + j for j in range(2 * d[6])])
+    for o in t.ovf_py:
+        rows.update(o[k] for k in (1, 4, 7, 10))
+    per_lane = {agg.LANE_SPAN: 10, agg.LANE_LIMBS: 150, agg.LANE_TIME: 60}
+    ops = 10 * len(t.units_py) + 10 * len(t.ovf_py) + sum(per_lane[x[0]] for x in t.lanes_py)
+    return B * (4 * len(rows) + 2 + 4 * t.n_lane_rows), B * ops
+
+
+def agg_reduce_cost(t, B, ntiles):
+    """(bytes, operations) of agg_reduce: the class byte and each limbs
+    lane a sum or histogram reads (12 bytes a row) in, the counts and
+    tiles out; an add per limb half, three compares per edge."""
+    lanes = set(t.sums_py) | {h[0] for h in t.hists_py}
+    out = 4 * (1 + t.n_bins) + 24 * ntiles * len(t.sums_py)
+    ops = 1 + 9 * len(t.sums_py) + sum(3 * h[2] + 1 for h in t.hists_py)
+    return B * (1 + 12 * len(lanes)) + out, B * ops
+
+
+def agg_group_cost(torch, agg, lane, spans, n_groups):
+    """(bytes, operations) of agg_group on this lane: the lane in, the key
+    bytes of the selected rows (spans), the groups and their count out;
+    a hash step per key byte and a few operations per row."""
+    B = lane.shape[0]
+    if spans:
+        sel = lane != -1
+        key_bytes = int(((lane >> 13) & 8191)[sel].to(torch.int64).sum())
+    else:
+        sel = lane != agg.INT32_MAX
+        key_bytes = 0
+    n_sel = int(sel.sum())
+    return (4 * B + key_bytes + (16 if spans else 8) * n_groups + 4,
+            2 * key_bytes + 10 * n_sel)
+
+
+def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
+    """Section 10: the three aggregate kernels against their plain versions
+    on the dashboard batch, then the dashboard aggregate end to end beside
+    parse_batch on the same batch."""
+    import numpy as np
+
+    from logparser_tpu_torch.analytics import AggregateSpec
+    from logparser_tpu_torch.analytics import device as agg
+    from logparser_tpu_torch.tools import demolog
+
+    lines = (demolog.generate_combined_lines(N_LINES, seed=42, garbage_fraction=0.01)
+             + demolog.aggregate_edge_lines())
+    buf, lengths, overflow = runtime.encode_batch(lines)
+    B, L = buf.shape
+    if overflow:
+        fail(f"dashboard corpus overflows its bucket: {overflow}")
+    emit({"phase": "corpus_agg", "B": B, "L": L, "bytes": int(buf.nbytes)})
+    spec = AggregateSpec.parse(demolog.DASHBOARD_OPS)
+    gpu = TorchBatchParser("combined", demolog.HEADLINE_FIELDS)
+    ex = gpu._agg_executor(spec)
+    t = ex.tables
+    dbuf = torch.from_numpy(buf).cuda()
+    dlen = torch.from_numpy(lengths).cuda()
+    kill = torch.zeros(B, dtype=torch.uint8, device="cuda")
+    packed = ex.units(dbuf, dlen)
+    torch.cuda.synchronize()
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="cuda")
+
+    cls, lanes = phase(
+        "agg_lanes", lambda: kernels.agg_lanes(t, packed, dbuf, B, kill),
+        lambda: agg.agg_lanes_plain(t, packed, dbuf, B, kill, empty(B, dtype=torch.uint8),
+                                    empty(t.n_lane_rows, B)),
+        *agg_lanes_cost(agg, t, B), n=B)
+
+    tile, ntiles = agg.sum_tiling(B)
+    sel_rows = [lanes[r] != -1 for r in t.sums_py]
+    halves = torch.stack([
+        torch.nn.functional.pad(torch.where(sel, lanes[r + j], 0) >> (16 * h) & 0xFFFF,
+                                (0, ntiles * tile - B))
+        for r, sel in zip(t.sums_py, sel_rows) for j in range(3) for h in range(2)])
+    phase("agg_reduce", lambda: kernels.agg_reduce(t, cls, lanes),
+          lambda: agg.agg_reduce_plain(t, cls, lanes, empty(1 + t.n_bins),
+                                       empty(len(t.sums_py), ntiles, 3, 2)),
+          *agg_reduce_cost(t, B, ntiles), n=B,
+          library=lambda: halves.view(-1, ntiles, tile).sum(2))
+
+    labels = {}
+    for p, part in zip(t.op_plans, t.op_partial):
+        if p.op.op in ("count_by", "top_k", "time_bucket"):
+            labels.setdefault(part, p.op.field.split(":")[1].replace(".", "_"))
+    for gi, (row, spans) in enumerate(t.groups_py):
+        lane = lanes[row]
+
+        def compare(got, want, spans=spans, label=labels[gi]):
+            a = canonical_groups(*got, buf, spans)
+            if a != canonical_groups(*want, buf, spans) or int(got[1][0]) != len(a):
+                fail(f"agg_group on {label}: {len(a)} groups differ from the "
+                     "plain version's")
+            return 0.0
+
+        def run_kernel(lane=lane, spans=spans):
+            return kernels.agg_group(lane, dbuf, spans)
+
+        def run_plain(lane=lane, spans=spans):
+            return agg.agg_group_plain(lane, dbuf, spans, empty(B, 4 if spans else 2),
+                                       empty(1))
+
+        n_groups = int(run_plain()[1][0])
+        vals = lane[lane != agg.INT32_MAX]
+        # The kernels line's agg_group row is the int (time_bucket)
+        # grouping, the one a single PyTorch call also computes.
+        phase("agg_group" if not spans else f"agg_group_{labels[gi]}", run_kernel,
+              run_plain, *agg_group_cost(torch, agg, lane, spans, n_groups),
+              kernel=None if not spans else "agg_group", n=B, compare=compare,
+              library=None if spans else lambda vals=vals: torch.unique(
+                  vals, return_counts=True))
+
+    # End to end: the dashboard aggregate, the counts zeroed just before
+    # and read just after; then aggregate and parse_batch in turns.
+    gpu.aggregate_batch(lines[:4096], spec)   # warm the caching allocator
+    gpu.parse_batch(lines[:4096])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gpu.aggregate_batch(lines, spec)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("split", "span_stages", "timestamp", "pack_rows", "agg_lanes",
+                 "agg_reduce", "agg_group"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the dashboard aggregate path")
+    for name in ("agg_lanes", "agg_reduce", "agg_group"):
+        rows[name]["launches"] = launches[name]
+    walls = {"aggregate": [wall], "parse_batch": []}
+    res = None
+    for which in ("parse_batch", "aggregate", "aggregate", "parse_batch"):
+        t0 = time.perf_counter()
+        if which == "aggregate":
+            again = gpu.aggregate_batch(lines, spec)
+        else:
+            res = gpu.parse_batch(lines)
+        walls[which].append(time.perf_counter() - t0)
+    compare_aggregates(again, out, "agg_dashboard_repeat")
+    cpu = TorchBatchParser("combined", demolog.HEADLINE_FIELDS, device="cpu")
+    compare_aggregates(out, cpu.aggregate_batch(lines, spec), "end_to_end_agg")
+    if out.d2h_bytes * 10 > res.d2h_bytes:
+        fail(f"the aggregate copied {out.d2h_bytes} bytes back, parse_batch "
+             f"{res.d2h_bytes}: not 10x fewer")
+    esc_request = len(lines) - len(demolog.aggregate_edge_lines()) + 2
+    if out.fold_rows < 4 or esc_request not in out.needs_host.tolist():
+        fail(f"the crafted fold lines did not fold: {out.fold_rows} folded, "
+             f"needs_host {out.needs_host.tolist()}")
+    agg_s, parse_s = (float(np.median(walls[k])) for k in ("aggregate", "parse_batch"))
+    emit({"phase": "end_to_end_agg", "B": B, "L": L, "equal_to_cpu": True,
+          "ops": demolog.DASHBOARD_OPS,
+          "summary": [{**d, "buckets": len(d["buckets"])} if "buckets" in d else d
+                      for d in out.state.summary()],
+          "device_rows": out.device_rows, "fold_rows": out.fold_rows,
+          "needs_host": out.needs_host.tolist(),
+          "aggregate_wall_seconds": walls["aggregate"],
+          "parse_batch_wall_seconds": walls["parse_batch"],
+          "aggregate_lines_per_s": B / agg_s, "parse_batch_lines_per_s": B / parse_s,
+          "aggregate_over_parse": parse_s / agg_s,
+          "aggregate_stage_seconds": out.stage_seconds,
+          "parse_batch_stage_seconds": res.stage_seconds,
+          "d2h_bytes": out.d2h_bytes, "parse_batch_d2h_bytes": res.d2h_bytes,
+          "d2h_ratio": res.d2h_bytes / out.d2h_bytes,
+          "device_lines_per_s": B / out.stage_seconds["kernels"],
+          "launches": launches, "card": smi})
 
 
 def compare_results(got, want, what) -> None:

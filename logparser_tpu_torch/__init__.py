@@ -1,8 +1,9 @@
 """logparser_tpu_torch: the PyTorch / CUDA port of logparser_tpu.
 
 Parses Apache and NGINX access-log lines into typed columns (GeoIP
-enrichment included) on an NVIDIA H100 through hand-written CUDA kernels (``tpu/kernels.py``, sources in
-``csrc/``).  The JAX package ``logparser_tpu`` stays the reference the
+enrichment included), or aggregates them on the card (``analytics``), on
+an NVIDIA H100 through hand-written CUDA kernels (``tpu/kernels.py``,
+sources in ``csrc/``).  The JAX package ``logparser_tpu`` stays the reference the
 port is held against; this package imports nothing from it and never
 imports ``jax``.
 """

@@ -400,3 +400,70 @@ def nginx_edge_lines() -> List[str]:
         uri(req="GET /a%20b?x=%zz&y HTTP/1.0"), uri(req="GET /x"),
         "completely broken line", "",
     ]
+
+
+# The analytics pushdown's dashboard query (the reference bench's
+# dashboard_spec): status mix, top endpoints, bytes served and their size
+# histogram, traffic per hour, over HEADLINE_FIELDS.
+DASHBOARD_OPS = [
+    {"op": "count"},
+    {"op": "count_by", "field": "STRING:request.status.last"},
+    {"op": "top_k", "field": "HTTP.URI:request.firstline.uri", "k": 5},
+    {"op": "sum", "field": "BYTES:response.body.bytes"},
+    {"op": "histogram", "field": "BYTES:response.body.bytes",
+     "edges": [1000, 100000, 10000000]},
+    {"op": "time_bucket", "field": "TIME.EPOCH:request.receive.time.epoch",
+     "width_s": 3600},
+]
+
+
+def representative_spec(parser):
+    """The reference bench's parity-sweep spec, derived from whatever the
+    parser requests: count + count_by / top_k on the first string-group
+    field + sum on the first numeric non-time field + an hourly
+    time_bucket on the first epoch field (on the headline fields the
+    string field is the client IP, nearly unique per line)."""
+    from ..analytics.spec import parse_aggregate_config
+
+    ops = [{"op": "count"}]
+    str_f = num_f = ts_f = None
+    for fid in parser.requested:
+        plan = parser.plan_by_id.get(fid)
+        if plan is None:
+            continue
+        group = parser._plan_group(plan)
+        if str_f is None and group in ("span", "obj", "host"):
+            str_f = fid
+        if num_f is None and group == "numeric" and not fid.startswith("TIME."):
+            num_f = fid
+        if ts_f is None and fid.startswith("TIME.EPOCH:"):
+            ts_f = fid
+    if str_f is not None:
+        ops.append({"op": "count_by", "field": str_f})
+        ops.append({"op": "top_k", "field": str_f, "k": 5})
+    if num_f is not None:
+        ops.append({"op": "sum", "field": num_f})
+    if ts_f is not None:
+        ops.append({"op": "time_bucket", "field": ts_f, "width_s": 3600})
+    return parse_aggregate_config(ops)
+
+
+def aggregate_edge_lines() -> List[str]:
+    """Crafted ``combined`` lines the aggregate must fold to the row path:
+    a 20-digit byte count (Long overflow), a year-2050 timestamp (outside
+    the device's 1902-2037 window), an escaped quote in the request (the
+    row path sends it to the host) and in the user agent (decoded on the
+    device), a %-repaired URI path and a '?&' query; plus a '-' byte
+    count, an hour boundary and garbage."""
+    def line(req: str = "GET /x HTTP/1.1", ts: str = "01/Jan/2026:10:00:00 +0000",
+             size: str = "512", ua: str = "ua") -> str:
+        return f'1.2.3.4 - - [{ts}] "{req}" 200 {size} "-" "{ua}"'
+
+    return [
+        line(size="9" * 20), line(ts="01/Jan/2050:00:00:00 +0000"),
+        line(req='GET /p\\" HTTP/1.0'), line(ua='esc \\" quote'),
+        line(req="GET /a%zzb/c?q=1 HTTP/1.1"), line(req="GET /s?&a=1 HTTP/1.1"),
+        line(size="-"), line(ts="01/Jan/2026:10:59:59 +0000"),
+        line(ts="01/Jan/2026:11:00:00 +0000"), line(ts="31/Dec/1969:23:59:59 +0000"),
+        "completely broken line",
+    ]

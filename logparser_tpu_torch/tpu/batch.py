@@ -30,6 +30,12 @@ Lines the reference sends to its host oracle (device-invalid but still
 plausible, contested, truncated) are returned in ``needs_host`` with all
 fields None and ``valid`` False: the per-line oracle is a later slice.
 Definitely-bad lines (implausible for every format) are plain invalid.
+
+``aggregate_batch`` / ``aggregate_batch_stream`` are the analytics
+pushdown (the reference's, at stream depth 1): the same kernels, then the
+aggregate kernels over the packed rows on the card, and only the partials
+come back; every row the device cannot finish exactly replays through
+``parse_batch`` and is folded in from its delivered values.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from .pipeline import (
     CSR_OVERFLOW_BIT,
     CSR_SLOTS,
     CSR_SLOTS_MAX,
+    VIEW_ROWS_PER_FIELD,
     FieldPlan,
     FormatUnit,
     PackedLayout,
@@ -62,6 +69,7 @@ from .pipeline import (
     assign_row_offsets,
     csr_group_key,
     geo_group_key,
+    packed_row_count,
     ts_group_key,
 )
 from .program import CS_CLF_DIGITS, CS_DIGITS, DeviceProgram, compile_device_program
@@ -229,6 +237,14 @@ class TorchBatchParser:
             for fid in self.requested if _plan_group(self.plan_by_id[fid]) == "span"
         ]
         self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
+        # canonical spec -> (CSR slots it was built at, AggregateExecutor)
+        self._agg_executors: Dict[str, Tuple[int, Any]] = {}
+
+    @staticmethod
+    def _plan_group(plan: FieldPlan) -> str:
+        """A plan's merge group (AggregateSpec.validate_for reads it, as
+        it reads the reference's TpuBatchParser._plan_group)."""
+        return _plan_group(plan)
 
     def _grow_csr_slots(self) -> bool:
         """Adaptive CSR: double the query-string slot count (bounded by
@@ -479,6 +495,132 @@ class TorchBatchParser:
         add("kernels", ev[1].elapsed_time(ev[2]) / 1e3)
         add("d2h", ev[2].elapsed_time(ev[3]) / 1e3)
         return host_out.numpy()
+
+    # -- analytics pushdown ----------------------------------------------
+
+    def _resolve_agg_spec(self, spec):
+        """An ``AggregateSpec`` passes through as it is; an op list or a
+        JSON string is parsed and validated against this parser's fields
+        (the reference's rule)."""
+        from ..analytics.spec import AggregateSpec, parse_aggregate_config
+
+        if isinstance(spec, AggregateSpec):
+            return spec
+        parsed = parse_aggregate_config(spec)
+        if parsed is None:
+            raise ValueError("aggregate: need a spec (op list, JSON string, "
+                             "or AggregateSpec)")
+        parsed.validate_for(self)
+        return parsed
+
+    def aggregate_batch(self, lines: Sequence[Union[bytes, str]], spec):
+        """Parse and aggregate one batch on the device: an
+        :class:`~logparser_tpu_torch.analytics.state.AggregateOutcome`
+        whose ``state`` holds this batch's partial aggregates (merge
+        across batches with ``AggregateState.merge``).  ``spec`` is an
+        ``AggregateSpec``, an op list or a JSON string."""
+        return self._aggregate(lines, self._resolve_agg_spec(spec))
+
+    def aggregate_batch_stream(self, batches, spec):
+        """One AggregateOutcome per batch, in order (one batch at a time:
+        no overlap of host and device work)."""
+        spec = self._resolve_agg_spec(spec)
+        for lines in batches:
+            yield self._aggregate(lines, spec)
+
+    def _agg_executor(self, spec):
+        """The aggregate executor of this parser and spec, cached per
+        (canonical spec, CSR slot count): a regrow rebuilds the layouts,
+        so the executor rebuilds with them."""
+        from ..analytics.device import AggregateExecutor
+
+        key = spec.canonical_key()
+        cached = self._agg_executors.get(key)
+        if cached is not None and cached[0] == self.csr_slots:
+            return cached[1]
+        ex = AggregateExecutor(self, spec).to(self.device)
+        self._agg_executors[key] = (self.csr_slots, ex)
+        return ex
+
+    def _aggregate(self, lines, spec):
+        from ..analytics.device import accumulate_partials
+        from ..analytics.state import AggregateOutcome, AggregateState
+
+        lines = list(lines)
+        t0 = time.perf_counter()
+        buf, lengths, overflow = encode_batch(lines)
+        stage = {"encode": time.perf_counter() - t0}
+        B = len(lines)
+        # Truncated lines: the device saw a prefix only; they fold.
+        host_kill = np.zeros(B, dtype=np.uint8)
+        host_kill[overflow] = 1
+        ex = self._agg_executor(spec)
+        fetched, nbytes = self._run_aggregate(ex, buf, lengths, host_kill, stage)
+        t1 = time.perf_counter()
+        state = AggregateState(spec)
+        accumulate_partials(state, spec, fetched, buf)
+        stage["accumulate"] = time.perf_counter() - t1
+        cls = fetched["cls"]
+        n_device = int(np.count_nonzero(cls == 0))
+        fold_rows = np.nonzero(cls == 1)[0]
+        bad_rows = np.nonzero(cls == 2)[0]
+        needs_host = np.zeros(0, dtype=np.int64)
+        good = n_device
+        if len(fold_rows):
+            # Exactness fold: every flagged row replays the row path and is
+            # aggregated from its delivered values; rows that path leaves to
+            # the host oracle are reported, not counted.
+            t2 = time.perf_counter()
+            sub = self.parse_batch([lines[int(i)] for i in fold_rows])
+            state.update_from_result(sub)
+            stage["fold"] = time.perf_counter() - t2
+            needs_host = fold_rows[sub.needs_host].astype(np.int64)
+            sub_bad = ~sub.valid
+            sub_bad[sub.needs_host] = False
+            good += int(sub.valid.sum())
+            bad_rows = np.sort(np.concatenate([bad_rows, fold_rows[sub_bad]]))
+        row_bytes = 4 * B * (packed_row_count(self.units)
+                             + VIEW_ROWS_PER_FIELD * len(self.view_specs))
+        return AggregateOutcome(
+            state, B, good, len(bad_rows), needs_host, bad_rows.astype(np.int64),
+            device_rows=n_device, fold_rows=len(fold_rows), d2h_bytes=nbytes,
+            row_path_d2h_bytes=row_bytes, stage_seconds=stage,
+        )
+
+    def _run_aggregate(self, ex, buf: np.ndarray, lengths: np.ndarray,
+                       host_kill: np.ndarray, stage: Dict[str, float]):
+        """One H2D copy, the kernels, the D2H copy of the partials only.
+        On the card the copy in and the kernels are timed with CUDA
+        events."""
+        from ..analytics.device import fetch_partials
+
+        B = buf.shape[0]
+        if self.device.type == "cpu":
+            t0 = time.perf_counter()
+            out = ex(torch.from_numpy(buf), torch.from_numpy(lengths), B,
+                     torch.from_numpy(host_kill))
+            stage["kernels"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fetched = fetch_partials(out, ex.tables, B)
+            stage["d2h"] = time.perf_counter() - t0
+            return fetched
+        t0 = time.perf_counter()
+        host = [torch.from_numpy(a).pin_memory() for a in (buf, lengths, host_kill)]
+        stage["pin"] = time.perf_counter() - t0
+        with torch.cuda.device(self.device):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            dbuf, dlen, dkill = (h.to(self.device, non_blocking=True) for h in host)
+            ev[1].record()
+            out = ex(dbuf, dlen, B, dkill)
+            ev[2].record()
+            ev[2].synchronize()
+            t0 = time.perf_counter()
+            fetched = fetch_partials(out, ex.tables, B)
+            stage["d2h"] = time.perf_counter() - t0
+        stage["h2d"] = ev[0].elapsed_time(ev[1]) / 1e3
+        stage["kernels"] = ev[1].elapsed_time(ev[2]) / 1e3
+        return fetched
 
     def _materialize(self, lines, buf, lengths, overflow, packed) -> "BatchResult":
         """Per-line verdicts (the reference's _fetch_packed) and the span /

@@ -9,7 +9,8 @@ return ``cudaGetLastError()`` after the launch.
 
 Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
 ``uri_split``, ``csr_split``, ``ipv4_spans``, ``geo_lookup``,
-``pack_rows``):
+``pack_rows``, and the aggregate pushdown's ``agg_lanes``, ``agg_reduce``
+and ``agg_group``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -32,6 +33,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..analytics import device as agg_device
+from ..analytics.device import AggTables
 from . import pipeline
 from .pipeline import (
     CsrTables,
@@ -46,7 +49,8 @@ from .pipeline import (
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
-           "csr_split", "ipv4_spans", "geo_lookup", "pack_rows")
+           "csr_split", "ipv4_spans", "geo_lookup", "pack_rows", "agg_lanes",
+           "agg_reduce", "agg_group")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,6 +78,11 @@ _SIGNATURES = {
                   _P, _P],
     "ipv4_spans": [_P, _INT, _INT, _P, _P, _P, _P],
     "geo_lookup": [_INT, _P, _P, _P, _P, _INT, _P, _P],
+    "agg_lanes": [_INT, _INT, _INT, _P, _INT, _P, _P, _INT, _P, _P, _INT, _P, _P,
+                  _INT, _P, _P, _P, _P],
+    "agg_reduce": [_INT, _P, _P, _P, _INT, _P, _INT, _P, _INT, _P, _P, _INT, _INT,
+                   _P],
+    "agg_group": [_INT, _INT, _P, _P, _INT, _INT, _P, _P, _P, _P, _P],
 }
 
 
@@ -474,10 +483,107 @@ def pack_rows(
     return out
 
 
+def agg_lanes(
+    tables: AggTables, packed: torch.Tensor, buf: torch.Tensor, n_rows: int,
+    host_kill: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 10: the aggregate's per-row pass over the packed rows: (cls
+    [B] uint8, lanes [n_lane_rows, B] int32); rows at or past ``n_rows``
+    are padding, ``host_kill`` [B] uint8 marks truncated lines."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    if packed.dim() != 2 or packed.shape[1] != B:
+        raise ValueError(f"packed must be [R, {B}], got {tuple(packed.shape)}")
+    _check("packed", packed, _I32, packed.shape, dev)
+    need = max([r for r in tables.units_py]
+               + [d[k] for d in tables.udesc_py for k in range(2, len(d), 3)
+                  if d[0] == agg_device.UNIT_SLOTS]
+               + [d[5] + 2 * d[6] - 1 for d in tables.udesc_py
+                  if d[0] == agg_device.UNIT_QS]
+               + [d[k] for d in tables.ovf_py for k in range(1, len(d), 3)])
+    if packed.shape[0] <= need:
+        raise ValueError(f"packed has {packed.shape[0]} rows, tables read row {need}")
+    _check("host_kill", host_kill, torch.uint8, (B,), dev)
+    _check_tables(tables, dev)
+    cls = torch.empty(B, dtype=torch.uint8, device=dev)
+    lanes = torch.empty((tables.n_lane_rows, B), dtype=_I32, device=dev)
+    if not _route(buf):
+        return agg_device.agg_lanes_plain(tables, packed, buf, n_rows, host_kill,
+                                          cls, lanes)
+    if B:
+        _launch("agg_lanes", dev, B, L, min(n_rows, B), _ptr(packed), packed.shape[0],
+                _ptr(buf), _ptr(host_kill), len(tables.units_py), _ptr(tables.units),
+                _ptr(tables.lanes), len(tables.lanes_py), _ptr(tables.udesc),
+                _ptr(tables.ovf), len(tables.ovf_py), _ptr(tables.keys), _ptr(cls),
+                _ptr(lanes))
+        agg_lanes.launches += 1
+    return cls, lanes
+
+
+def agg_reduce(
+    tables: AggTables, cls: torch.Tensor, lanes: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 11: (counts [1 + n_bins] int32: n_device then every
+    histogram's bins, tiles [n_sums, ntiles, 3, 2] int32: per 4096-row
+    tile and limb the sums of the low and high 16 bits) over the class
+    plane and the lanes."""
+    if cls.dim() != 1:
+        raise ValueError(f"cls must be [B], got {tuple(cls.shape)}")
+    B = cls.shape[0]
+    dev = cls.device
+    _check("cls", cls, torch.uint8, (B,), dev)
+    _check("lanes", lanes, _I32, (tables.n_lane_rows, B), dev)
+    _check_tables(tables, dev)
+    tile, ntiles = agg_device.sum_tiling(B)
+    counts = torch.empty(1 + tables.n_bins, dtype=_I32, device=dev)
+    tiles = torch.empty((len(tables.sums_py), ntiles, 3, 2), dtype=_I32, device=dev)
+    if not _route(cls):
+        return agg_device.agg_reduce_plain(tables, cls, lanes, counts, tiles)
+    _launch("agg_reduce", dev, B, _ptr(cls), _ptr(lanes), _ptr(tables.sums),
+            len(tables.sums_py), _ptr(tables.hists), len(tables.hists_py),
+            _ptr(tables.edges), counts.shape[0], _ptr(counts), _ptr(tiles), tile,
+            ntiles)
+    agg_reduce.launches += 1
+    return counts, tiles
+
+
+def group_capacity(B: int) -> int:
+    """agg_group's hash-table slots: the least power of two >= 2B."""
+    cap = 2
+    while cap < 2 * B:
+        cap *= 2
+    return cap
+
+
+def agg_group(
+    lane: torch.Tensor, buf: torch.Tensor, spans: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 12: distinct-value grouping of one lane row: (groups [B, 4]
+    (count, rep_row, rep_start, rep_len) for a span lane or [B, 2]
+    (bucket, count) for a time lane, the first n rows filled in no
+    particular order; n_groups [1]) int32."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    _check("lane", lane, _I32, (B,), dev)
+    groups = torch.empty((B, 4 if spans else 2), dtype=_I32, device=dev)
+    n_groups = torch.empty(1, dtype=_I32, device=dev)
+    if not _route(buf):
+        return agg_device.agg_group_plain(lane, buf, spans, groups, n_groups)
+    cap = group_capacity(B)
+    table = torch.empty(cap, dtype=_I32, device=dev)
+    counts = torch.empty(cap, dtype=_I32, device=dev)
+    _launch("agg_group", dev, B, L, _ptr(lane), _ptr(buf), int(spans), cap,
+            _ptr(table), _ptr(counts), _ptr(groups), _ptr(n_groups))
+    agg_group.launches += 1
+    return groups, n_groups
+
+
 WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
             "zone_lookup": zone_lookup, "uri_split": uri_split,
             "csr_split": csr_split, "ipv4_spans": ipv4_spans,
-            "geo_lookup": geo_lookup, "pack_rows": pack_rows}
+            "geo_lookup": geo_lookup, "pack_rows": pack_rows,
+            "agg_lanes": agg_lanes, "agg_reduce": agg_reduce,
+            "agg_group": agg_group}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

@@ -281,6 +281,12 @@ class FormatUnit:
         return FieldPlan(field_id, "host")
 
 
+def packed_row_count(units: Sequence[FormatUnit]) -> int:
+    """Stacked packed rows of one executor pass over ``units`` (without
+    the view rows): the D2H footprint the aggregate path compares with."""
+    return sum(u.layout.n_rows for u in units)
+
+
 def assign_row_offsets(units: Sequence[FormatUnit]) -> int:
     """Set each unit's row_offset; returns the stacked row count K."""
     off = 0

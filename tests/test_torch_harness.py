@@ -13,8 +13,11 @@ import numpy as np
 import jax.numpy as jnp
 
 from _shared_parsers import shared_parser
+from logparser_tpu.analytics.spec import AggregateSpec as RefAggregateSpec
 from logparser_tpu.tpu import pipeline as ref_pipeline
 from logparser_tpu.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
+from logparser_tpu_torch.analytics import AggregateSpec
+from logparser_tpu_torch.tpu.runtime import encode_batch
 
 _EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
 
@@ -246,3 +249,37 @@ def test_jax_unit_plain_covers_the_headline_units():
     kinds = [p[1] for p in plain["plans"]]
     assert kinds.count("span") == 7 and "ts" in kinds and "long" in kinds
     assert plain["layout"]["n_rows"] == parser.units[0].layout.n_rows
+
+
+def assert_aggregate_matches_reference(ref, ours, lines, spec):
+    """The port's outcome equals the reference's aggregate over the lines
+    outside the port's needs_host, and needs_host is exactly the folded
+    rows the reference's row path sends to its oracle (row results do not
+    depend on the batch, so the full batch's oracle rows stand for those of
+    the reference's fold replay).  An AggregateSpec instance goes to both
+    as an instance (no validate_for), an op list as a list."""
+    out = ours.aggregate_batch(lines, spec)
+    instance = isinstance(spec, AggregateSpec)
+    ref_spec = RefAggregateSpec.parse(
+        [op.as_dict() for op in spec.ops] if instance else spec)
+    buf, lengths, overflow = encode_batch(lines)
+    B = ref._bucket(len(lines))
+    host_kill = np.zeros(B, dtype=bool)
+    host_kill[overflow] = True
+    fn = ref._agg_executor(ref_spec)
+    cls = np.asarray(fn(jnp.asarray(np.pad(buf, ((0, B - len(lines)), (0, 0)))),
+                        jnp.asarray(np.pad(lengths, (0, B - len(lines)))),
+                        jnp.int32(len(lines)), jnp.asarray(host_kill))["cls"])[:len(lines)]
+    oracle = ref.parse_batch(lines).oracle_row_ids
+    oracle = set() if oracle is None else set(oracle.tolist())
+    folded = np.nonzero(cls == 1)[0].tolist()
+    assert out.needs_host.tolist() == [i for i in folded if i in oracle]
+    host = set(out.needs_host.tolist())
+    keep = [ln for i, ln in enumerate(lines) if i not in host]
+    want = ref.aggregate_batch(keep, ref_spec if instance else spec)
+    assert out.state.summary() == want.state.summary()
+    assert out.state.to_ipc_bytes() == want.state.to_ipc_bytes()
+    assert out.device_rows == int((cls == 0).sum())
+    assert out.fold_rows == len(folded)
+    assert out.good_lines + out.bad_lines + len(host) == len(lines)
+    return out

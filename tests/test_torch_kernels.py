@@ -12,9 +12,12 @@ import pytest
 import torch
 
 from logparser_tpu_torch import TorchBatchParser
+from logparser_tpu_torch.analytics import AggregateSpec
+from logparser_tpu_torch.analytics import device as agg_device
 from logparser_tpu_torch.dissectors.tztable import SPAN_MINUTES, default_zone_table
 from logparser_tpu_torch.tools.demolog import (
     COMBINEDIO_STRFTIME_FIELDS,
+    DASHBOARD_OPS,
     COMBINEDIO_STRFTIME_FORMAT,
     GEOIP_FIELDS,
     HEADLINE_FIELDS,
@@ -25,6 +28,7 @@ from logparser_tpu_torch.tools.demolog import (
     URI_CHAIN_FIELDS,
     ZONETEXT_FIELDS,
     ZONETEXT_FORMAT,
+    aggregate_edge_lines,
     combinedio_strftime_lines,
     generate_combined_lines,
     geoip_chain_lines,
@@ -32,6 +36,7 @@ from logparser_tpu_torch.tools.demolog import (
     nginx_edge_lines,
     nginx_timing_lines,
     nginx_uri_lines,
+    representative_spec,
     strftime_edge_lines,
     uri_edge_lines,
     zonetext_lines,
@@ -130,6 +135,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     assert counts.pop("uri_split") == 0 and counts.pop("csr_split") == 0
     assert counts.pop("zone_lookup") == 0
     assert counts.pop("ipv4_spans") == 0 and counts.pop("geo_lookup") == 0
+    assert all(counts.pop(k) == 0 for k in ("agg_lanes", "agg_reduce", "agg_group"))
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -449,3 +455,107 @@ def test_geo_and_nginx_parse_on_the_card_equals_the_cpu(cuda_device, name):
     cpu = cpu_parser.parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
     assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
+
+
+# ---------------------------------------------------------------------------
+# The aggregate pushdown: agg_lanes, agg_reduce, agg_group.
+# ---------------------------------------------------------------------------
+
+QUERY_KEY_OPS = [{"op": "count_by", "field": "STRING:request.firstline.uri.query.q"},
+                 {"op": "count_by", "field": "HTTP.PATH:request.firstline.uri.path"},
+                 {"op": "sum", "field": "HTTP.PORT:request.referer.port"}]
+
+
+def _agg_case(name, device):
+    """(parser, spec, lines) of one aggregate case."""
+    if name == "uri_query_key":
+        parser = TorchBatchParser("combined", URI_CHAIN_FIELDS, device=device)
+        lines = generate_combined_lines(3000, seed=53) + uri_edge_lines()
+        return parser, AggregateSpec.parse(QUERY_KEY_OPS), lines + aggregate_edge_lines()
+    parser = TorchBatchParser("combined", HEADLINE_FIELDS, device=device)
+    spec = (AggregateSpec.parse(DASHBOARD_OPS) if name == "dashboard"
+            else representative_spec(parser))
+    lines = generate_combined_lines(5000, seed=42, garbage_fraction=0.01)
+    return parser, spec, lines + aggregate_edge_lines() + EDGE_LINES
+
+
+def _canonical_groups(groups, n, buf, spans):
+    """{raw key bytes or bucket: count}; a key seen twice fails."""
+    out = {}
+    for row in groups[:int(n[0])].cpu().tolist():
+        if spans:
+            cnt, r, s, ln = row
+            key = bytes(buf[r, s:s + ln].cpu().numpy())
+        else:
+            key, cnt = row
+        assert key not in out, f"group {key!r} split"
+        out[key] = cnt
+    return out
+
+
+@pytest.mark.parametrize("name", ["dashboard", "representative", "uri_query_key"])
+@pytest.mark.parametrize("line_len", [0, 8191])
+def test_agg_kernels_equal_plain_versions(cuda_device, name, line_len):
+    parser, spec, lines = _agg_case(name, cuda_device)
+    ex = parser._agg_executor(spec)
+    buf, lengths, overflow = encode_batch(lines, line_len=line_len)
+    kill = np.zeros(len(lines), dtype=np.uint8)
+    kill[overflow] = 1
+    buf = torch.from_numpy(buf).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    kill = torch.from_numpy(kill).to(cuda_device)
+    packed = ex.units(buf, lengths)
+    n_rows = len(lines) - 7          # the last rows are padding
+    t = ex.tables
+    cls, lanes = kernels.agg_lanes(t, packed, buf, n_rows, kill)
+    want = agg_device.agg_lanes_plain(t, packed, buf, n_rows, kill, torch.empty_like(cls),
+                                      torch.empty_like(lanes))
+    assert torch.equal(cls, want[0]) and torch.equal(lanes, want[1])
+    counts, tiles = kernels.agg_reduce(t, cls, lanes)
+    want = agg_device.agg_reduce_plain(t, cls, lanes, torch.empty_like(counts),
+                                       torch.empty_like(tiles))
+    assert torch.equal(counts, want[0]) and torch.equal(tiles, want[1])
+    for row, spans in t.groups_py:
+        got = kernels.agg_group(lanes[row], buf, spans)
+        ref = agg_device.agg_group_plain(lanes[row], buf, spans, torch.empty_like(got[0]),
+                                         torch.empty_like(got[1]))
+        a = _canonical_groups(*got, buf, spans)
+        assert a == _canonical_groups(*ref, buf, spans)
+        assert int(got[1][0]) == len(a)
+
+
+@pytest.mark.parametrize("B", [1, 31, 4097])
+def test_agg_group_kernel_on_seeded_lanes(cuda_device, B):
+    rng = np.random.default_rng(B)
+    buf = torch.from_numpy(rng.integers(0, 4, size=(B, 64), dtype=np.uint8)).to(cuda_device)
+    starts = rng.integers(0, 8, size=B)
+    lens = rng.integers(0, 5, size=B)
+    word = np.where(rng.random(B) < 0.2, -1, starts | (lens << 13)).astype(np.int32)
+    ints = np.where(rng.random(B) < 0.2, agg_device.INT32_MAX,
+                    rng.integers(-3, 3, size=B)).astype(np.int32)
+    for lane, spans in ((word, True), (ints, False)):
+        lane = torch.from_numpy(lane).to(cuda_device)
+        got = kernels.agg_group(lane, buf, spans)
+        ref = agg_device.agg_group_plain(lane, buf, spans, torch.empty_like(got[0]),
+                                         torch.empty_like(got[1]))
+        a = _canonical_groups(*got, buf, spans)
+        assert a == _canonical_groups(*ref, buf, spans)
+        assert sum(a.values()) == int((lane != (-1 if spans else agg_device.INT32_MAX)).sum())
+
+
+@pytest.mark.parametrize("name", ["dashboard", "representative", "uri_query_key"])
+def test_aggregate_batch_on_the_card_equals_the_cpu(cuda_device, name):
+    gpu_parser, spec, lines = _agg_case(name, cuda_device)
+    cpu_parser, _, _ = _agg_case(name, "cpu")
+    kernels.reset_launch_counts()
+    gpu = gpu_parser.aggregate_batch(lines, spec)
+    counts = kernels.launch_counts()
+    assert counts["agg_lanes"] == 1 and counts["agg_reduce"] == 1
+    assert counts["agg_group"] == len(gpu_parser._agg_executor(spec).tables.groups_py)
+    cpu = cpu_parser.aggregate_batch(lines, spec)
+    assert gpu.state == cpu.state
+    assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
+    assert (gpu.device_rows, gpu.fold_rows) == (cpu.device_rows, cpu.fold_rows)
+    # Partials only: far under the packed rows (the dashboard's groups are
+    # few; the near-unique client IP ships one group a line).
+    assert gpu.d2h_bytes * (10 if name == "dashboard" else 1) <= gpu.row_path_d2h_bytes
