@@ -18,11 +18,12 @@ same over a synthetic City database of 131,072 networks written at first
 use, seed 46) and NGINX (``nginx_uri``, seed 44; ``nginx_timing``: $msec
 and $request_time, seed 49) -- then the analytics pushdown (the dashboard
 aggregate over the headline fields, 65,536 lines, seed 42, plus crafted
-fold lines), and fails (non-zero exit, no result line) on the first
+fold lines) and ``cookies_uniqueid`` (request cookies, Set-Cookie lists
+and mod_unique_id tokens, seed 50), and fails (non-zero exit, no result line) on the first
 phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the twelve kernels from logparser_tpu_torch/csrc, in parallel;
+2. build   -- the fourteen kernels from logparser_tpu_torch/csrc, in parallel;
 3. corpus  -- the generated lines + edge lines;
 4. one phase per kernel (split, span_stages, timestamp, pack_rows): the
    kernel and its plain PyTorch version on the same CUDA tensors must be
@@ -74,7 +75,19 @@ phase that fails:
    (the reference bench's parity sweep) on the card against the CPU
    (phases ``agg_parity_*``), and the URI chain a count_by over the query
    key ``q`` passed as an AggregateSpec (phase ``agg_query_key``);
-11. the kernels line, the card line, and the result line
+11. cookies, Set-Cookie and mod_unique_id (``cookies_uniqueid``: 65,536
+   generated lines, seed 50, plus the cookie edge lines): parse_batch end
+   to end on a fresh parser, which regrows 16 -> 128 slots on the card,
+   equal to the CPU (phase ``end_to_end_cookies``, then
+   ``end_to_end_cookies_grown``); under the grown tables setcookie_split,
+   csr_split in cookie mode (``csr_split_cookie``) and muid against their
+   plain versions, timed the same way; split on a NUL-separated format
+   (``split_nul``, then ``end_to_end_nul``); small legs, card = CPU only:
+   a multi-format parser with a plausibility-only probe unit, NGINX
+   upstream-list elements, BYTESCLF over ``%B``, the cookie path's
+   8191-byte bucket.  Every end-to-end comparison in sections 5 to 11
+   holds needs_host, to_dict() and to_arrow(strings="copy") equal;
+12. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -101,6 +114,8 @@ REPLACES = {
     "agg_lanes": "logparser_tpu/analytics/device.py:374",
     "agg_reduce": "logparser_tpu/analytics/device.py:352",
     "agg_group": "logparser_tpu/analytics/device.py:233",
+    "setcookie_split": "logparser_tpu/tpu/postproc.py:843",
+    "muid": "logparser_tpu/tpu/postproc.py:957",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -363,7 +378,10 @@ def main() -> int:
     # ---- 10. the analytics pushdown --------------------------------------
     agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi)
 
-    # ---- 11. result ------------------------------------------------------
+    # ---- 11. cookies, Set-Cookie, mod_unique_id, NUL separators ----------
+    cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi)
+
+    # ---- 12. result ------------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [rows[k] for k in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1297,7 +1315,216 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
           "launches": launches, "card": smi})
 
 
+def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
+    """Section 11: slice 6.  cookies_uniqueid end to end (the slots regrow
+    on the card), then, under its grown tables, setcookie_split, muid and
+    csr_split in cookie mode against their plain versions; split on a
+    NUL-separated format; the small legs (a probe unit, an upstream-list
+    element, BYTESCLF over %B, the 8191-byte bucket)."""
+    from logparser_tpu_torch.tools import demolog
+
+    edge = demolog.cookie_edge_lines()
+    lines = demolog.cookie_lines(N_LINES) + edge
+    buf, lengths, overflow = runtime.encode_batch(lines)
+    B, L = buf.shape
+    if overflow:
+        fail(f"cookie corpus overflows its bucket: {overflow}")
+    emit({"phase": "corpus_cookies", "B": B, "L": L, "bytes": int(buf.nbytes)})
+    args = (demolog.COOKIE_FORMAT, demolog.COOKIE_FIELDS)
+    remap = {"type_remappings": demolog.COOKIE_REMAPPINGS}
+    gpu = TorchBatchParser(*args, **remap)
+    cpu = TorchBatchParser(*args, device="cpu", **remap)
+    must = ("split", "span_stages", "timestamp", "csr_split", "setcookie_split",
+            "muid", "pack_rows")
+    gpu.parse_batch(lines[:4096])   # warm the allocator (and grow the slots)
+    gpu_fresh = TorchBatchParser(*args, **remap)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gpu_fresh.parse_batch(lines)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in must:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the cookies path")
+    ref = cpu.parse_batch(lines)
+    compare_results(res, ref, "end_to_end_cookies")
+    if gpu_fresh.csr_slots != 128 or res.csr_regrows != 3:
+        fail(f"cookies: {gpu_fresh.csr_slots} slots after {res.csr_regrows} regrows")
+    if len(lines) - 1 not in res.needs_host.tolist():
+        fail("cookies: the line past the 128-slot cap is not in needs_host")
+    n_valid = int(res.valid.sum())
+    if n_valid < 0.98 * N_LINES:
+        fail(f"only {n_valid} of {B} cookie lines valid on device")
+    if 1798761600000 not in res.to_pylist("TIME.EPOCH:response.cookies.sid.expires"):
+        fail("cookies: no sid expires reads Thu, 01-Jan-2027 00:00:00 GMT")
+    emit({"phase": "end_to_end_cookies", "B": B, "L": L, "equal_to_cpu": True,
+          "valid": n_valid, "needs_host": len(res.needs_host),
+          "csr_slots": gpu_fresh.csr_slots, "csr_regrows": res.csr_regrows,
+          "stage_seconds": res.stage_seconds, "wall_seconds": wall,
+          "lines_per_s": B / wall,
+          "device_lines_per_s": B / res.stage_seconds["kernels"],
+          "d2h_bytes": res.d2h_bytes, "launches": launches, "card": smi})
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res2 = gpu_fresh.parse_batch(lines)
+    wall2 = time.perf_counter() - t0
+    compare_results(res2, ref, "end_to_end_cookies_grown")
+    emit({"phase": "end_to_end_cookies_grown", "B": B, "L": L, "equal_to_cpu": True,
+          "csr_slots": gpu_fresh.csr_slots, "csr_regrows": res2.csr_regrows,
+          "stage_seconds": res2.stage_seconds, "wall_seconds": wall2,
+          "lines_per_s": B / wall2,
+          "device_lines_per_s": B / res2.stage_seconds["kernels"],
+          "d2h_bytes": res2.d2h_bytes, "launches": kernels.launch_counts(),
+          "card": smi})
+
+    # The kernels under the grown (128-slot) tables, on the same batch.
+    (t,) = gpu_fresh.executor.unit_tables
+    dbuf = torch.from_numpy(buf).cuda()
+    dlen = torch.from_numpy(lengths).cuda()
+    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    block = torch.zeros((t.n_comp, B), dtype=torch.int32, device="cuda")
+    cookie = [c for c in t.csr if c.mode == "cookie"]
+    setcookie = [c for c in t.csr if c.mode == "setcookie"]
+    if not (cookie and setcookie and len(t.muid) == 1):
+        fail("cookies: expected a cookie, a Set-Cookie and a muid group")
+    state = {"base": block.clone()}   # the block before the phase's kernel
+
+    def group_bytes(groups, cap, extra_rows):
+        n = sum(span_bytes(torch, starts[c.token_index], ends[c.token_index], cap(c))
+                for c in groups)
+        return n, n + sum(8 * B + 4 * B * (2 * c.slots + extra_rows) for c in groups)
+
+    def in_block(run):
+        def go():
+            for c in run[0]:
+                run[1](c, block)
+            return block
+        return go
+
+    def plain_block(run):
+        def go():
+            out = state["base"].clone()
+            for c in run[0]:
+                run[2](c, out)
+            return out
+        return go
+
+    sc = (setcookie, lambda c, out: kernels.setcookie_split(c, dbuf, starts, ends, out),
+          lambda c, out: pipeline.setcookie_split_plain(c, dbuf, starts, ends, out))
+    n_read, n_bytes = group_bytes(setcookie, lambda c: L, 3)
+    phase("setcookie_split", in_block(sc), plain_block(sc), bytes_moved=n_bytes,
+          ops=10 * n_read, n=B, width=L)
+    state["base"] = block.clone()
+    ck = (cookie, lambda c, out: kernels.csr_split(c, dbuf, out, starts, ends),
+          lambda c, out: pipeline.csr_split_plain(c, dbuf, out, starts, ends))
+    n_read, n_bytes = group_bytes(cookie, lambda c: c.window, 2)
+    phase("csr_split_cookie", in_block(ck), plain_block(ck), bytes_moved=n_bytes,
+          ops=6 * n_read, kernel="csr_split", n=B, width=L)
+    (m,) = t.muid
+    phase("muid",
+          lambda: kernels.muid(m, dbuf, starts, ends),
+          lambda: pipeline.muid_plain(
+              m, dbuf, starts, ends, torch.empty((6, B), dtype=torch.int32, device="cuda")),
+          bytes_moved=(24 + 8 + 24) * B, ops=10 * 24 * B, n=B, width=L)
+    for name in ("setcookie_split", "muid"):
+        rows[name]["launches"] = launches[name]
+
+    nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi)
+
+    # Small legs, correctness only: card = CPU.
+    small = [
+        ("probe_unit", "%h %u %>s\n%h%l %u %>s",
+         ["IP:connection.client.host", "STRING:connection.client.user",
+          "STRING:request.status.last"],
+         ["1.2.3.4 frank 200", "1.2.3.4- frank 200", "1.2.3.4 - frank 200", "x"]
+         + [f"10.0.{i % 256}.{i // 256} u{i} {200 + i % 3}" for i in range(2000)]),
+        ("ulist", '$remote_addr "$upstream_addr" $status',
+         ["UPSTREAM_ADDR:nginxmodule.upstream.addr.0.value",
+          "UPSTREAM_ADDR:nginxmodule.upstream.addr.1.value",
+          "UPSTREAM_ADDR:nginxmodule.upstream.addr.0.redirected"],
+         ['1.2.3.4 "10.0.0.1:80" 200', '1.2.3.4 "-" 200',
+          '1.2.3.4 "10.0.0.1:80, 10.0.0.2:80" 502', '1.2.3.4 "unix:/s" 200']
+         + [f'9.9.9.{i % 250} "10.1.{i % 256}.{i // 256}:8080" 200' for i in range(2000)]),
+        ("bytesclf", "%h %B",
+         ["BYTESCLF:response.body.bytes", "BYTES:response.body.bytes"],
+         ["1.2.3.4 0", "1.2.3.4 00", "1.2.3.4 007", "1.2.3.4 123",
+          "1.2.3.4 12345678901234567890", "1.2.3.4 -"]
+         + [f"1.2.3.{i % 250} {i * 7919 % 100000}" for i in range(2000)]),
+    ]
+    for tag, fmt, fields, leg in small:
+        res_s = TorchBatchParser(fmt, fields).parse_batch(leg)
+        compare_results(res_s, TorchBatchParser(fmt, fields, device="cpu").parse_batch(leg),
+                        tag)
+        emit({"phase": f"leg_{tag}", "B": len(leg), "equal_to_cpu": True,
+              "valid": int(res_s.valid.sum()), "needs_host": len(res_s.needs_host)})
+    wide = demolog.cookie_lines(256) + edge
+    pad = 8191 - len(wide[0].encode())
+    wide += [wide[0].replace('"GET ', '"GET /' + "w" * (pad - 1), 1),
+             wide[0].replace('"GET ', '"GET /' + "w" * (pad + 999), 1)]
+    res_w = TorchBatchParser(*args, **remap).parse_batch(wide)
+    if res_w.buf.shape[1] != 8191:
+        fail(f"the wide cookie batch took bucket {res_w.buf.shape[1]}, not 8191")
+    compare_results(res_w, TorchBatchParser(*args, device="cpu", **remap).parse_batch(wide),
+                    "wide_bucket_cookies")
+    if len(wide) - 1 not in res_w.needs_host.tolist():
+        fail("the over-long cookie line was not routed to the host")
+    emit({"phase": "wide_bucket_cookies", "B": len(wide), "L": 8191,
+          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
+
+
+def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
+    """split on a format whose separators are NUL bytes, with lines that
+    end in NULs and are padded with zeros, against its plain version
+    (which the CPU tests hold to the reference's compute_split_dense),
+    then that format end to end."""
+    import numpy as np
+
+    from logparser_tpu_torch.tools.demolog import generate_combined_lines
+
+    rng = np.random.default_rng(61)
+    base = [ln.split(" ") for ln in
+            generate_combined_lines(N_LINES, seed=62, garbage_fraction=0.01)]
+    lines = []
+    for parts in base:
+        if len(parts) < 9:
+            lines.append(" ".join(parts).encode())
+            continue
+        line = f"{parts[0]}\x00{parts[2]}\x00{parts[8]}".encode()
+        r = rng.random()
+        if r < 0.05:
+            line += b"\x00" * int(rng.integers(1, 4))
+        elif r < 0.1:
+            line = line.replace(b"\x00", b" ", 1)
+        lines.append(line)
+    buf, lengths, _ = runtime.encode_batch(lines)
+    B, L = buf.shape
+    fields = ["IP:connection.client.host", "STRING:connection.client.user",
+              "STRING:request.status.last"]
+    gpu = TorchBatchParser("%h\x00%u\x00%>s", fields)
+    (t,) = gpu.executor.unit_tables
+    if 0 not in {b for lit in t.split.program.ops for b in lit.lit}:
+        fail("split_nul: the program has no NUL separator")
+    dbuf = torch.from_numpy(buf).cuda()
+    dlen = torch.from_numpy(lengths).cuda()
+    phase("split_nul",
+          lambda: kernels.split(t.split, dbuf, dlen),
+          lambda: pipeline.compute_split(t.split.program, dbuf, dlen),
+          *split_cost(t.split, B, L), kernel="split", n=B, width=L)
+    kernels.reset_launch_counts()
+    res = gpu.parse_batch(lines)
+    launches = kernels.launch_counts()
+    compare_results(res, TorchBatchParser("%h\x00%u\x00%>s", fields,
+                                          device="cpu").parse_batch(lines), "end_to_end_nul")
+    if launches["split"] < 1 or int(res.valid.sum()) < 0.8 * B:
+        fail(f"split_nul: {launches['split']} split launches, {int(res.valid.sum())} valid")
+    emit({"phase": "end_to_end_nul", "B": B, "L": L, "equal_to_cpu": True,
+          "valid": int(res.valid.sum()), "needs_host": len(res.needs_host),
+          "launches": launches, "card": smi})
+
+
 def compare_results(got, want, what) -> None:
+    """needs_host, to_dict() and to_arrow(strings="copy") of the card's
+    result equal the CPU's."""
     if got.needs_host.tolist() != want.needs_host.tolist():
         fail(f"{what}: needs_host differs: {got.needs_host[:10]} vs {want.needs_host[:10]}")
     got_d, want_d = got.to_dict(), want.to_dict()
@@ -1305,6 +1532,11 @@ def compare_results(got, want, what) -> None:
         if got_d[fid] != want_d[fid]:
             i = next(i for i, (a, b) in enumerate(zip(got_d[fid], want_d[fid])) if a != b)
             fail(f"{what}: {fid} row {i}: {got_d[fid][i]!r} != {want_d[fid][i]!r}")
+    got_t, want_t = got.to_arrow(strings="copy"), want.to_arrow(strings="copy")
+    if not got_t.equals(want_t):
+        bad = [n for n in want_t.column_names
+               if n not in got_t.column_names or not got_t.column(n).equals(want_t.column(n))]
+        fail(f"{what}: to_arrow differs in {bad[:5]}")
 
 
 if __name__ == "__main__":

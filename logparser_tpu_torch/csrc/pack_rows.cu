@@ -11,7 +11,9 @@
 // 1 (a query-string overflow) fails the line and raises bit 2 only where
 // the line is still valid at that point, kind 2 (a URI over its window)
 // fails it and raises bit 2 unmasked, kind 3 fails the line where the
-// component is set (a geo token holding a ':'); row 0 = valid | plausible<<1 |
+// component is set (a geo token holding a ':', a Set-Cookie quirk, a
+// leading zero under the number -> CLF conversion), kind 4 fails it
+// always (a plausibility-only unit); row 0 = valid | plausible<<1 |
 // overflow<<2 | (esc_hit & valid)<<3.  Per output row: OR of its slots, (comp & (2^bits - 1)) <<
 // shift (bits 0 = the full word).  Views: the winner is the first unit
 // whose row 0 is valid (0 when none), un-claimed when an earlier unit is
@@ -43,13 +45,17 @@ __global__ void pack_rows_kernel(
       const int f = flags[static_cast<size_t>(u) * B + b];
       bool valid = (f & 1) != 0, over = false;
       for (int i = units[3 * u + 1], end = i + units[3 * u + 2]; i < end; ++i) {
-        bool hit = comp(cons[2 * i]) != 0;
         const int kind = cons[2 * i + 1];
+        if (kind == 4) {          // never (a plausibility-only probe unit)
+          valid = false;
+          continue;
+        }
+        bool hit = comp(cons[2 * i]) != 0;
         if (kind == 0) {          // require
           valid = valid && hit;
           continue;
         }
-        if (kind == 3) {          // forbid (an IPv6 literal on a geo token)
+        if (kind == 3) {          // forbid (an IPv6 literal on a geo token, ...)
           valid = valid && !hit;
           continue;
         }

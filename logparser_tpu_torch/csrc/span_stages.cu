@@ -9,11 +9,15 @@
 // One thread per line runs the unit's task table.  Task rows (TASKW
 // ints): kind (0 span, 1 long, 2 secmillis), token, part (span: 0 direct, 1 method,
 // 2 uri, 3 protocol, 4 / 5 the protocol / version halves of the
-// protocol split at its first '/'), clf (long), then output rows --
+// protocol split at its first '/', 6 / 7 an NGINX upstream list's
+// element 0 (the span, not ok on a CLF dash) / a higher, absent element;
+// long: 0 plain, 1 the number -> CLF conversion of pipeline.py
+// compute_rows' zero_null mode -- no >19-digit patch, ok false there,
+// and a leading-zero row), clf (long), then output rows --
 // span: start, len, ok, null, -, -, -, prefix row (3 words, or -1);
-// long: hi, lo, d18, ndig, ok, null, big; secmillis: the same seven for
-// the seconds part, then the millis row.  Outputs are int32 rows
-// [n_out, B], coalesced across threads.
+// long: hi, lo, d18, ndig, ok, null, big, leading-zero row (part 1);
+// secmillis: the same seven for the seconds part, then the millis row.
+// Outputs are int32 rows [n_out, B], coalesced across threads.
 //
 // Bound: the bytes it must read are the spans it scans (the request
 // line, 19 bytes of the byte count, 12 bytes per view prefix) plus the
@@ -94,6 +98,11 @@ __global__ void span_stages_kernel(
         if (part == 0) {
           // Token-level CLF null: the span is a lone '-'.
           null = (e - s) == 1 && row.at(s, 0) == '-';
+        } else if (part == 6) {
+          ok = !((e - s) == 1 && row.at(s, 0) == '-');
+        } else if (part == 7) {
+          end = s;
+          ok = false;
         } else {
           if (fl_tok != tok) {
             fl = firstline(row, s, e);
@@ -159,8 +168,14 @@ __global__ void span_stages_kernel(
         const bool window_digits = lf.digits_ok;
         const bool clf = task[3] != 0;
         const bool is_dash = n == 1 && row.at(s, 0) == '-';
-        const bool big = n > 19;
-        const bool ok = (n > 0 && window_digits) || (clf && is_dash);
+        const bool zero_null = part == 1;
+        bool big = n > 19;
+        bool ok = (n > 0 && window_digits) || (clf && is_dash);
+        if (zero_null) {
+          put(task[11], (n > 1 && row.at(s, 0) == '0') ? 1 : 0);
+          ok = ok && !big;
+          big = false;
+        }
         if (big) {
           // >19 digits: the hi row carries start | len<<13 for the host.
           hi = static_cast<uint32_t>(s | (min(n, 8191) << 13));

@@ -1,8 +1,9 @@
 """The Apache HTTPD ``%``-token table, cut to the tokens of ``common``,
-``combined`` and ``combinedio`` (``%I`` / ``%O``), the strftime
+``combined`` and ``combinedio`` (``%I`` / ``%O``), ``%B``, the strftime
 timestamps ``%{format}t`` / ``%{begin:format}t`` / ``%{end:format}t``,
-and the typed cookie headers (the port's own copy of the reference
-package's ``httpd/apache.py``).
+the typed cookie headers, one request cookie ``%{name}C`` and an
+environment variable ``%{name}e`` (mod_unique_id's ``%{UNIQUE_ID}e``)
+(the port's own copy of the reference package's ``httpd/apache.py``).
 
 Same format cleanup (``%!200,304{...}`` modifiers stripped, header names
 lower-cased, ``%t`` -> ``[%t]``, ``%{...}t`` left alone), the same ``<`` /
@@ -19,12 +20,14 @@ from typing import FrozenSet, List, Optional
 from ..dissectors.tokenformat import (
     FORMAT_CLF_NUMBER,
     FORMAT_NO_SPACE_STRING,
+    FORMAT_NUMBER,
     FORMAT_STANDARD_TIME_US,
     FORMAT_STRING,
     STRING_ONLY,
     ParameterizedTokenParser,
     STRING_OR_LONG,
     FixedStringTokenParser,
+    NamedTokenParser,
     Token,
     TokenOutputField,
     TokenParser,
@@ -89,6 +92,9 @@ def _first_and_last(
 
 def create_token_parsers() -> List[TokenParser]:
     p: List[TokenParser] = [FixedStringTokenParser("%%", "%")]
+    # %B bytes (0 rather than '-').
+    p.extend(_first_and_last("%B", "response.body.bytes", "BYTES",
+                             STRING_OR_LONG, FORMAT_NUMBER))
     # %b CLF bytes ('-' rather than 0), plus its deprecated BYTES twin.
     bytes_clf = _first_and_last("%b", "response.body.bytes", "BYTESCLF",
                                 STRING_OR_LONG, FORMAT_CLF_NUMBER)
@@ -96,6 +102,11 @@ def create_token_parsers() -> List[TokenParser]:
         TokenOutputField("BYTES", "response.body.bytesclf", STRING_OR_LONG)
     )
     p.extend(bytes_clf)
+    # %{Foobar}C one request cookie, %{FOOBAR}e one environment variable.
+    p.append(NamedTokenParser(r"\%\{([a-z0-9\-_]*)\}C", "request.cookies.",
+                              "HTTP.COOKIE", STRING_ONLY, FORMAT_STRING))
+    p.append(NamedTokenParser(r"\%\{([a-z0-9\-_]*)\}e", "server.environment.",
+                              "VARIABLE", STRING_ONLY, FORMAT_STRING))
     p.extend(_first_and_last("%h", "connection.client.host", "IP",
                              STRING_ONLY, FORMAT_NO_SPACE_STRING))
     p.extend(_first_and_last("%l", "connection.client.logname", "NUMBER",

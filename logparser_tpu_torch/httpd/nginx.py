@@ -54,18 +54,20 @@ class NginxLogFormat:
         return self.log_format
 
 
-def additional_consumers() -> Dict[str, List[Tuple[str, List[Tuple[str, str]]]]]:
+def additional_consumers() -> Dict[str, List[Tuple[str, List[Tuple[str, str]], object]]]:
     """The consumer edges an NGINX format adds to the parser: input type
-    -> [(consumer, [(output type, output name)])]; "" keeps the input's
-    name."""
-    edges: Dict[str, List[Tuple[str, List[Tuple[str, str]]]]] = {
-        "IP_BINARY": [("binary_ip", [("IP", "")])],
-        "SECOND_MILLIS": [("secmillis", [("MILLISECONDS", "")])],
-        "TIME.EPOCH_SECOND_MILLIS": [("secmillis", [("TIME.EPOCH", "")])],
-        "MILLISECONDS": [("millis_to_micros", [("MICROSECONDS", "")])],
+    -> [(consumer, [(output type, output name)], dissector or None)]; ""
+    keeps the input's name.  An upstream list's edge carries its
+    dissector (the element outputs' casts decide what the device
+    delivers)."""
+    edges: Dict[str, List[Tuple[str, List[Tuple[str, str]], object]]] = {
+        "IP_BINARY": [("binary_ip", [("IP", "")], None)],
+        "SECOND_MILLIS": [("secmillis", [("MILLISECONDS", "")], None)],
+        "TIME.EPOCH_SECOND_MILLIS": [("secmillis", [("TIME.EPOCH", "")], None)],
+        "MILLISECONDS": [("millis_to_micros", [("MICROSECONDS", "")], None)],
     }
     for module_cls in ALL_MODULES:
         for d in module_cls().get_dissectors():
             outputs = [tuple(o.split(":", 1)) for o in d.get_possible_output()]
-            edges.setdefault(d.get_input_type(), []).append(("ulist", outputs))
+            edges.setdefault(d.get_input_type(), []).append(("ulist", outputs, d))
     return edges

@@ -9,9 +9,12 @@ bytes, quoted user agents, and a configurable fraction of hostile lines.
 """
 from __future__ import annotations
 
+import base64
 import random
 import re
 from typing import List
+
+import numpy as np
 
 _METHODS = ["GET"] * 8 + ["POST", "HEAD"]
 _PATHS = [
@@ -467,3 +470,148 @@ def aggregate_edge_lines() -> List[str]:
         line(ts="01/Jan/2026:11:00:00 +0000"), line(ts="31/Dec/1969:23:59:59 +0000"),
         "completely broken line",
     ]
+
+
+# Slice 6: request cookies, Set-Cookie and mod_unique_id.  Sites join
+# access logs to sessions through the Cookie / Set-Cookie headers and to
+# application logs through mod_unique_id's %{UNIQUE_ID}e.
+COOKIE_FORMAT = ('%h %l %u %t "%r" %>s %b "%{Referer}i" "%{User-Agent}i" '
+                 '"%{Cookie}i" "%{Set-Cookie}o" %{UNIQUE_ID}e')
+COOKIE_REMAPPINGS = {"server.environment.unique_id": "MOD_UNIQUE_ID"}
+COOKIE_FIELDS = [
+    "IP:connection.client.host",
+    "TIME.EPOCH:request.receive.time.epoch",
+    "STRING:request.status.last",
+    "HTTP.COOKIE:request.cookies.*",
+    "HTTP.COOKIE:request.cookies.sid",
+    "HTTP.SETCOOKIE:response.cookies.*",
+    "HTTP.SETCOOKIE:response.cookies.sid",
+    "STRING:response.cookies.sid.path",
+    "TIME.EPOCH:response.cookies.sid.expires",
+    "MOD_UNIQUE_ID:server.environment.unique_id",
+    "TIME.EPOCH:server.environment.unique_id.epoch",
+    "IP:server.environment.unique_id.ip",
+    "PROCESSID:server.environment.unique_id.processid",
+    "COUNTER:server.environment.unique_id.counter",
+    "THREAD_INDEX:server.environment.unique_id.threadindex",
+]
+_COOKIE_NAMES = ["sid", "_ga", "_gid", "theme", "lang", "cart", "consent",
+                 "ab_bucket", "csrftoken", "sessionid", "_fbp", "remember_me",
+                 "currency", "tz", "locale", "cookie_notice", "PHPSESSID",
+                 "JSESSIONID", "_hjid", "utm_source"]
+_COOKIE_VALUE_BYTES = np.frombuffer(
+    b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789_.-",
+    dtype=np.uint8)
+_EXPIRES = "expires=Thu, 01-Jan-2027 00:00:00 GMT"
+
+
+def _cookie_value(rng) -> str:
+    """8 to 40 bytes; 5% hold a %XX escape or a '+'."""
+    v = bytes(rng.choice(_COOKIE_VALUE_BYTES, size=int(rng.integers(8, 41)))).decode()
+    if rng.random() < 0.05:
+        at = int(rng.integers(0, len(v)))
+        v = v[:at] + str(rng.choice(["%2F", "%3D", "%20", "%C3%A9", "+"])) + v[at + 3:]
+    return v
+
+
+def _unique_id(rng) -> str:
+    """A mod_unique_id token: 32-bit seconds, IPv4, pid, 16-bit counter and
+    32-bit thread index, base64 with '-' / '_' for '+' / '/'; 2% hold an
+    '@' (which nothing decodes)."""
+    raw = (int(rng.integers(1_700_000_000, 1_800_000_000)).to_bytes(4, "big")
+           + bytes(rng.integers(1, 255, size=4, dtype=np.uint8).tolist())
+           + int(rng.integers(1, 1 << 22)).to_bytes(4, "big")
+           + int(rng.integers(0, 1 << 16)).to_bytes(2, "big")
+           + int(rng.integers(0, 1 << 32)).to_bytes(4, "big"))
+    token = base64.urlsafe_b64encode(raw).decode()
+    if rng.random() < 0.02:
+        at = int(rng.integers(0, 24))
+        token = token[:at] + "@" + token[at + 1:]
+    return token
+
+
+def cookie_lines(n: int, seed: int = 50) -> List[str]:
+    """``COOKIE_FORMAT`` lines: the generated ``combined`` lines (1%
+    garbage, left as they are) with a Cookie header (10% '-', else 1 to 12
+    cookies from 20 real names, values of 8 to 40 bytes), a Set-Cookie
+    list (60% '-', else 1 to 3 cookies with ``path=/``, half of them with
+    an ``expires=`` date holding ", ", some with ``domain=`` and
+    ``HttpOnly``) and a UNIQUE_ID token, each from a numpy generator
+    seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ln in generate_combined_lines(n, seed=seed, garbage_fraction=0.01):
+        if ln.count('"') != 6:
+            out.append(ln)   # garbage
+            continue
+        if rng.random() < 0.1:
+            cookie = "-"
+        else:
+            names = rng.choice(_COOKIE_NAMES, size=int(rng.integers(1, 13)))
+            cookie = "; ".join(f"{name}={_cookie_value(rng)}" for name in names)
+        if rng.random() < 0.6:
+            setcookie = "-"
+        else:
+            parts = []
+            for k in range(int(rng.integers(1, 4))):
+                name = "sid" if k == 0 and rng.random() < 0.5 else str(rng.choice(_COOKIE_NAMES))
+                part = f"{name}={_cookie_value(rng)}; path=/"
+                if rng.random() < 0.5:
+                    part += "; " + _EXPIRES
+                if rng.random() < 0.3:
+                    part += "; domain=.example.com"
+                if rng.random() < 0.3:
+                    part += "; HttpOnly"
+                parts.append(part)
+            setcookie = ", ".join(parts)
+        out.append(f'{ln} "{cookie}" "{setcookie}" {_unique_id(rng)}')
+    return out
+
+
+def cookie_edge_lines() -> List[str]:
+    """The reference's crafted values in ``COOKIE_FORMAT`` lines: Cookie
+    headers (trimming, escapes, '-', 21 cookies), Set-Cookie lists (the
+    expires rejoin, a held last part, the double hold and the
+    ``set-cookie:`` prefix the host takes, 24 cookies: 16 -> 32 slots,
+    the per-cookie attribute cases), mod_unique_id tokens (known decodes,
+    the alphabet's ends, wrong lengths, '@', '+', '=', '-'), and a Cookie
+    header past the 128-slot cap."""
+    def line(cookie: str = "sid=abc123; theme=dark", setcookie: str = "sid=abc; path=/",
+             uid: str = "VaGTKApid0AAALpaNo0AAAAC") -> str:
+        return ('1.1.1.1 - - [07/Mar/2026:10:00:00 +0000] "GET /x HTTP/1.1" 200 5 '
+                f'"-" "u" "{cookie}" "{setcookie}" {uid}')
+
+    cookies = [
+        "sid=abc123; theme=dark", "sid=x%20y; a=b+c", "-", "", "single",
+        "sid=1;bad=nospace", "  sid = padded ; x=y", "sid=%u0041",
+        "sid=%zz", "a=1; " * 20 + "z=2", "Name=Mixed; UP=1",
+    ]
+    setcookies = [
+        "sid=abc; path=/", "sid=a, theme=b",
+        "sid=1; expires=Thu, 01-Jan-2026 00:00:00 GMT; path=/, theme=d",
+        "sid=1; Expires=Thu, 01 Jan 2026 00:00:00 GMT",
+        "sid=1; expires=Thu, ", "x=expires=foo, y=2", "a=1, b=2, c=3",
+        "a=x=y; path=/, b=2", "=nameless, b=2", " sid = padded , t=1",
+        "-", "", "justaname", "UP=Mixed; Path=/",
+        "sid=1; expires=Thu, 01-Jan-2026 00:00:00 GMT, "
+        "t2=2; expires=Fri, 02-Jan-2026 00:00:00 GMT",
+        "a=1; expires=Thu, b=2; expires=Fri, 03-Jan-2026 00:00:00 GMT",
+        "set-cookie: sid=5; path=/", "Set-Cookie2: sid=6",
+        "sid=abc; path=/; expires=Thu, 01-Jan-2026 00:00:00 GMT, t=1",
+        ", ".join(f"c{i}={i}" for i in range(24)),
+        "sid=abc; path=/shop; expires=Thu, 01-Jan-2027 00:00:00 GMT; "
+        "domain=ex.com; comment=hi",
+        "sid=plain", "sid=1; Expires=Thu, 01 Jan 2027 00:00:00 GMT",
+        "sid=1; expires=Thu, 01 Jan 2027 00:00:00 GMT", "sid=1; expires=garbage",
+        "other=1; path=/x", "sid=a; path=/1, sid=b; domain=d2", "sid=a; max-age=3600",
+        "sid=v; path = /sp ; domain= d.e", "SID=case; path=/c",
+    ]
+    uids = [
+        "VaGTKApid0AAALpaNo0AAAAC", "Ucdv38CoEJwAAEusp6EAAADz",
+        "AAAAAAAAAAAAAAAAAAAAAAAA", "____________------------", "short",
+        "VaGTKApid0AAALpaNo0AAA@C", "VaGTKApid0AAALpaNo0AAA+C",
+        "VaGTKApid0AAALpaNo0AAA=C", "-",
+    ]
+    return ([line(cookie=c) for c in cookies] + [line(setcookie=c) for c in setcookies]
+            + [line(uid=u) for u in uids]
+            + [line(cookie="a=1; " * 130 + "z=2")])

@@ -7,13 +7,16 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
   chosen first, as in the reference);
 - plan resolution chases each token output through the consumer edges
   the port runs (direct token outputs, the first-line split, the
-  protocol-version split, the URI split, the query-string wildcard, the
-  timestamp bundle of ``%t`` / ``$time_local`` and of each strftime
-  ``%{format}t`` type, the CLF -> number conversion, NGINX's
-  seconds-with-millis and milli -> micro conversions, and the GeoIP
-  dissectors given as ``extra_dissectors``); a field reached any other
-  way, or by more than one path, raises :class:`UnsupportedFieldError`
-  naming the ROADMAP item that brings it;
+  protocol-version split, the URI split, the query-string, cookie and
+  Set-Cookie wildcards with the Set-Cookie attributes, the timestamp
+  bundle of ``%t`` / ``$time_local`` and of each strftime ``%{format}t``
+  type, the CLF <-> number conversions, NGINX's seconds-with-millis and
+  milli -> micro conversions and upstream-list elements, mod_unique_id,
+  the ``type_remappings`` edges, and the GeoIP dissectors given as
+  ``extra_dissectors``); a field reached any other way, or by more than
+  one path, raises :class:`UnsupportedFieldError` naming the ROADMAP item
+  that brings it; a format the split cannot run becomes a
+  plausibility-only probe unit;
 - the batch goes host -> device once (pinned buffer, ``non_blocking`` on
   the current stream), through the kernels (``UnitsExecutor``), and back
   once as the packed ``[K + 4V, B]`` int32; a batch whose row 0 carries
@@ -23,8 +26,10 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
   plausibility, and decodes span / long / timestamp columns on the host
   (int64 numpy), including the Long-overflow patch of ``%b``, the
   per-row URI repair of ``fix`` spans, the query-string parameters,
-  ``seconds * 1000 + millis`` (times the scale) and the GeoIP columns
-  (vocabulary strings, NaN / -1 -> None).
+  cookies and Set-Cookie cookies and attributes, ``seconds * 1000 +
+  millis`` (times the scale), the mod_unique_id words and the GeoIP
+  columns (vocabulary strings, NaN / -1 -> None); ``to_arrow`` builds
+  the reference's Arrow columns.
 
 Lines the reference sends to its host oracle (device-invalid but still
 plausible, contested, truncated) are returned in ``needs_host`` with all
@@ -45,9 +50,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..dissectors.cookies import parse_attrs
 from ..dissectors.strftime_stamp import UnsupportedStrfField, compile_strftime
 from ..dissectors.timelayout import APACHE_LAYOUT, TimeLayout
-from ..dissectors.tokenformat import UnsupportedFormatError
+from ..dissectors.tokenformat import STRING_ONLY, UnsupportedFormatError
 from ..dissectors.uri import _BAD_ESCAPE_PATTERN, _encode_bad_uri_chars, _percent_decode
 from ..dissectors.utils import resilient_url_decode
 from ..geoip.device import _EXTRACTORS, GeoDeviceTable
@@ -69,10 +75,17 @@ from .pipeline import (
     assign_row_offsets,
     csr_group_key,
     geo_group_key,
+    muid_group_key,
     packed_row_count,
     ts_group_key,
 )
-from .program import CS_CLF_DIGITS, CS_DIGITS, DeviceProgram, compile_device_program
+from .program import (
+    CS_CLF_DIGITS,
+    CS_DIGITS,
+    DeviceProgram,
+    compile_device_program,
+    compile_plausibility_program,
+)
 from .runtime import encode_batch
 from .timeparse import compile_layout_for_device
 
@@ -137,6 +150,10 @@ _CONSUMERS: Dict[str, List[Tuple[str, List[Tuple[str, str]]]]] = {
     "HTTP.SETCOOKIES": [("setcookies", [("HTTP.SETCOOKIE", "*")])],
     "BYTESCLF": [("clf_to_number", [("BYTES", "")])],
     "BYTES": [("number_to_clf", [("BYTESCLF", "")])],
+    "MOD_UNIQUE_ID": [("muid", [
+        ("TIME.EPOCH", "epoch"), ("IP", "ip"), ("PROCESSID", "processid"),
+        ("COUNTER", "counter"), ("THREAD_INDEX", "threadindex"),
+    ])],
     # The parser's second timestamp dissector (yyyy-MM-dd'T'HH:mm:ssXXX).
     "TIME.ISO8601": [("iso8601", _TIME_OUTPUTS)],
 }
@@ -146,6 +163,8 @@ _STRFTIME_CONSUMERS = [
     ("localized", [("TIME.LOCALIZEDSTRING", "")]),
 ]
 _SETCOOKIE_ATTRS = ("value", "path", "domain", "comment", "expires")
+# The CSR mode of each wildcard consumer (csr_group_key's meta).
+_CSR_MODE = {"querystring": "query", "cookies": "cookie", "setcookies": "setcookie"}
 
 
 def _strftime_layout(strfformat: str) -> Optional[TimeLayout]:
@@ -159,23 +178,23 @@ def _strftime_layout(strfformat: str) -> Optional[TimeLayout]:
 
 # Where each unported edge lands in ROADMAP.md.
 _LATER = {
-    "cookies": "the cookie CSR split (ROADMAP queue A item 5)",
-    "setcookies": "the Set-Cookie CSR split, split_setcookie_csr (ROADMAP queue A item 5)",
-    "number_to_clf": "the zero->null CLF conversion (ROADMAP queue A item 5)",
     "localized": "TIME.LOCALIZEDSTRING values of strftime timestamps "
-                 "(ROADMAP queue A item 1)",
-    "timestamp": "the host oracle port (ROADMAP queue A item 3)",
-    "multi": "the host oracle port (ROADMAP queue A item 3): more than one producer",
+                 "(ROADMAP queue A item 5)",
+    "timestamp": "the host oracle port (ROADMAP queue A item 6)",
+    "multi": "the host oracle port (ROADMAP queue A item 6): more than one producer",
     "none": "no producer in this LogFormat",
-    "iso8601": "compile_java_pattern for TIME.ISO8601 (ROADMAP queue A item 1)",
-    "ulist": "the NGINX upstream-list split, the ulist plan (ROADMAP queue A item 5)",
-    "binary_ip": "the host oracle port (ROADMAP queue A item 3): "
+    "iso8601": "compile_java_pattern for TIME.ISO8601 (ROADMAP queue A item 5)",
+    "ulist": "the host oracle port (ROADMAP queue A item 6): "
+             "a numeric upstream-list element",
+    "binary_ip": "the host oracle port (ROADMAP queue A item 6): "
                  "BinaryIPDissector (IP_BINARY)",
-    "geo": "the host oracle port (ROADMAP queue A item 3): "
+    "geo": "the host oracle port (ROADMAP queue A item 6): "
            "a GeoIP output without a device table",
-    "millis_to_micros": "the host oracle port (ROADMAP queue A item 3): "
+    "millis_to_micros": "the host oracle port (ROADMAP queue A item 6): "
                         "a scaled plain long",
-    "extra": "the host oracle port (ROADMAP queue A item 3): an extra dissector",
+    "extra": "the host oracle port (ROADMAP queue A item 6): an extra dissector",
+    "wild": "the host oracle port (ROADMAP queue A item 6): "
+            "a wildcard over a converted value",
 }
 
 
@@ -191,11 +210,15 @@ class TorchBatchParser:
     CPU runs the kernels' plain versions and must be asked for
     (``device="cpu"``).  ``extra_dissectors`` are the reference's keyword:
     GeoIP dissectors over an ``IP`` token resolve to device range joins
-    (one flattened table per database)."""
+    (one flattened table per database).  ``type_remappings`` are the
+    reference's keyword too: {field path: type or types}; the chase
+    re-types that path's value (mod_unique_id's ``%{UNIQUE_ID}e`` as
+    ``MOD_UNIQUE_ID``)."""
 
     def __init__(self, log_format: str, fields: Sequence[str],
                  device: Union[str, torch.device, None] = None,
-                 extra_dissectors: Optional[Sequence[Any]] = None):
+                 extra_dissectors: Optional[Sequence[Any]] = None,
+                 type_remappings: Optional[Dict[str, Any]] = None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -206,6 +229,12 @@ class TorchBatchParser:
             raise ValueError(f"unsupported device {self.device}")
         self.log_format = log_format
         self.requested = list(dict.fromkeys(cleanup_field_value(f) for f in fields))
+        self._remaps: Dict[str, Tuple[str, ...]] = {}
+        for path, types in (type_remappings or {}).items():
+            types = [types] if isinstance(types, str) else types
+            key = path.strip().lower()
+            self._remaps[key] = tuple(sorted(set(self._remaps.get(key, ()))
+                                             | {t.strip().upper() for t in types}))
         self.csr_slots = CSR_SLOTS
         self.units: List[FormatUnit] = []
         self._strftime: Dict[str, Optional[TimeLayout]] = {}
@@ -219,21 +248,33 @@ class TorchBatchParser:
             for ftype, strf in fmt.strftime_types.items():
                 self._strftime[ftype] = _strftime_layout(strf)
         for fmt in formats:
-            prog = compile_device_program(fmt)
+            try:
+                prog = compile_device_program(fmt)
+            except UnsupportedFormatError:
+                # A format the split cannot run still contests the others'
+                # lines: a separator-order probe, its valid bit never set.
+                self.units.append(FormatUnit(
+                    compile_plausibility_program(fmt), [],
+                    PackedLayout.for_plans([], self.csr_slots), plausibility_only=True))
+                continue
             plans = [self._resolve(prog, fid) for fid in self.requested]
             self.units.append(FormatUnit(prog, plans,
                                          PackedLayout.for_plans(plans, self.csr_slots)))
         assign_row_offsets(self.units)
-        self.plan_by_id = {fid: self.units[0].plan_for(fid) for fid in self.requested}
+        decoding = [u for u in self.units if not u.plausibility_only]
+        if not decoding:
+            raise UnsupportedFormatError(
+                f"no format of {log_format!r} compiles to a device split")
+        self.plan_by_id = {fid: decoding[0].plan_for(fid) for fid in self.requested}
         for fid, plan in self.plan_by_id.items():
-            groups = {_plan_group(u.plan_for(fid)) for u in self.units}
+            groups = {_plan_group(u.plan_for(fid)) for u in decoding}
             if len(groups) != 1:
                 raise UnsupportedFieldError(
                     f"{fid}: decoded differently per format ({sorted(groups)}); "
                     f"needs {_LATER['timestamp']}"
                 )
         self.view_specs = [
-            (fid, tuple(range(len(self.units))))
+            (fid, tuple(i for i, u in enumerate(self.units) if not u.plausibility_only))
             for fid in self.requested if _plan_group(self.plan_by_id[fid]) == "span"
         ]
         self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
@@ -330,6 +371,11 @@ class TorchBatchParser:
         parse = vctx[0]
         if consumer == "clf_to_number" and parse == "":
             return ("value", ("long", "dash_zero", vctx[2]), steps, device_ok, why)
+        if consumer == "number_to_clf" and parse == "":
+            return ("value", ("long", "zero_null", vctx[2]), steps, device_ok, why)
+        if consumer == "muid":
+            return ("muid", vctx, steps, device_ok and parse == "",
+                    why or _LATER["timestamp"], oname, None)
         if consumer == "secmillis" and parse == "":
             return ("value", ("secmillis", "", vctx[2]), steps, device_ok, why)
         if consumer == "millis_to_micros":
@@ -343,7 +389,15 @@ class TorchBatchParser:
                 return ("geo", vctx, steps, device_ok, why, oname, (tag, oname, table))
             return ("geo", vctx, steps, False, why or _LATER["geo"], oname, None)
         if consumer == "ulist":
-            return ("ulist", vctx, steps, False, why or _LATER["ulist"], oname, None)
+            # An indexed upstream-list element; only a STRING-only output
+            # is delivered from the span (numeric lists type their values
+            # through the host's casts).
+            index, _, which = oname.partition(".")
+            casts = (dissector.output_original_casts if which == "value"
+                     else dissector.output_redirected_casts)
+            ok = parse == "" and index.isdigit() and casts == STRING_ONLY
+            return ("ulist", vctx, steps, device_ok and ok, why or _LATER["ulist"],
+                    oname, (int(index), which) if index.isdigit() else None)
         if consumer == "firstline" and parse == "":
             return ("span", vctx, steps + (("fl", oname),), device_ok, why)
         if consumer == "protocol_version" and parse == "":
@@ -370,10 +424,12 @@ class TorchBatchParser:
         return ("value", vctx, steps, False, why or _LATER.get(consumer, _LATER["timestamp"]))
 
     def _chase(self, field_id, ftype, path, tok, t, name, vctx, steps,
-               device_ok, why, depth, visited) -> List[FieldPlan]:
+               device_ok, why, depth, visited, remapped=False) -> List[FieldPlan]:
         """Every way (t:name), reached from ``tok`` via ``steps``, leads to
         the requested (ftype:path) -- the mirror of the reference's
-        TpuBatchParser._chase over the edges above."""
+        TpuBatchParser._chase over the edges above.  A type remapping of
+        ``name`` re-delivers the value under each mapped type (once: the
+        remapped chase does not remap again)."""
         if t == ftype and name == path:
             return [self._terminal_plan(field_id, tok, vctx, steps, device_ok, why)]
         if (t, name) in visited:
@@ -384,6 +440,12 @@ class TorchBatchParser:
             return [_host(field_id, "multi")]
         visited = visited | {(t, name)}
         plans: List[FieldPlan] = []
+        if not remapped:
+            for ntype in self._remaps.get(name, ()):
+                if ntype != t:
+                    plans.extend(self._chase(
+                        field_id, ftype, path, tok, ntype, name, vctx, steps,
+                        device_ok, why, depth - 1, visited, remapped=True))
         for consumer, outputs, dissector in self._consumers_of(t):
             for ot, oname in outputs:
                 if oname == "*":
@@ -395,7 +457,7 @@ class TorchBatchParser:
                     continue
                 spec = self._step_spec(t, consumer, oname, vctx, steps, device_ok, why,
                                        dissector)
-                if spec[0] in ("ts", "geo", "ulist"):
+                if spec[0] in ("ts", "geo", "ulist", "muid"):
                     # Terminal values: nothing deeper.
                     kind, _, nsteps, ndev, nwhy, comp, meta = spec
                     if path == new_name and ot == ftype:
@@ -419,22 +481,28 @@ class TorchBatchParser:
     @staticmethod
     def _wildcard(field_id, ftype, path, tok, consumer, ot, name, vctx, steps,
                   device_ok, why) -> List[FieldPlan]:
-        """Plans through a wildcard output: a query-string parameter is a
-        ``qscsr`` plan (``comp`` = the key or ``*``); cookies and Set-Cookie
-        attributes are later slices."""
+        """Plans through a wildcard output: a query-string parameter, a
+        cookie or a Set-Cookie cookie is a ``qscsr`` plan (``comp`` = the
+        name or ``*``, ``meta`` the mode); a Set-Cookie cookie's attribute
+        (``<name>.path``, ...) is one too, with ``attr`` set."""
         if not path.startswith(name + "."):
             return []
         rest = path[len(name) + 1:]
+        device = vctx[0] == "" and device_ok
+        mode = _CSR_MODE[consumer]
         if ot == ftype:
-            if consumer == "querystring" and vctx[0] == "" and device_ok:
+            if device:
                 return [FieldPlan(field_id, "qscsr", tok.index, steps, comp=rest,
-                                  meta="query")]
-            return [FieldPlan(field_id, "host", meta=why or _LATER[consumer])]
+                                  meta=mode)]
+            return [FieldPlan(field_id, "host", meta=why or _LATER["wild"])]
         cname, _, attr = rest.rpartition(".")
         typed = ((ftype == "STRING" and attr in _SETCOOKIE_ATTRS)
                  or (ftype == "TIME.EPOCH" and attr == "expires"))
         if consumer == "setcookies" and cname and typed:
-            return [FieldPlan(field_id, "host", meta=why or _LATER[consumer])]
+            if device:
+                return [FieldPlan(field_id, "qscsr", tok.index, steps, comp=cname,
+                                  meta=mode, attr=attr)]
+            return [FieldPlan(field_id, "host", meta=why or _LATER["wild"])]
         return []
 
     # -- parsing ---------------------------------------------------------
@@ -671,7 +739,7 @@ class TorchBatchParser:
                 def get(key, comp, _u=u, _block=block):
                     return _u.layout.get(_block, key, comp)[:B]
 
-                if plan.kind == "span":
+                if plan.kind in ("span", "ulist"):
                     starts = get(fid, "start")
                     col["starts"] = np.where(sel, starts, col["starts"])
                     col["ends"] = np.where(sel, starts + get(fid, "len"), col["ends"])
@@ -688,6 +756,22 @@ class TorchBatchParser:
                     comp, ok, derive_memo = ts_cache[key]
                     values = timefields.derive(comp, plan.comp, derive_memo,
                                                locale=plan.meta.locale)
+                    col["values"] = np.where(sel, values, col["values"])
+                    col["ok"] = np.where(sel, ok, col["ok"])
+                elif plan.kind == "muid":
+                    key = muid_group_key(plan)
+                    ok = get(key, "ok") != 0
+                    row = {"epoch": "time", "ip": "ip", "processid": "pid",
+                           "counter": "counter", "threadindex": "thread"}[plan.comp]
+                    u32 = get(key, row).astype(np.int64) & 0xFFFFFFFF
+                    if plan.comp == "ip":
+                        dot = np.full(B, ".", dtype=object)
+                        values = (_OCTETS[u32 >> 24] + dot + _OCTETS[(u32 >> 16) & 255]
+                                  + dot + _OCTETS[(u32 >> 8) & 255] + dot
+                                  + _OCTETS[u32 & 255])
+                        values = np.where(ok, values, None)
+                    else:
+                        values = u32 * 1000 if plan.comp == "epoch" else u32
                     col["values"] = np.where(sel, values, col["values"])
                     col["ok"] = np.where(sel, ok, col["ok"])
                 elif plan.kind == "geo":
@@ -719,6 +803,8 @@ class TorchBatchParser:
                         values = values * 1000 + get(fid, "milli")
                     if plan.scale != 1:
                         values = values * plan.scale
+                    if plan.null_mode == "zero_null":
+                        is_null = is_null | (values == 0)
                     col["values"] = np.where(sel, values, col["values"])
                     col["null"] = np.where(sel, is_null, col["null"])
                     col["ok"] = np.where(sel, row_ok, col["ok"])
@@ -729,13 +815,14 @@ class TorchBatchParser:
         # so the reference delivers the exact integer): 19-digit values
         # beyond Long.MAX from the uint64 frame, >19-digit runs
         # byte-patched from the buffer; a run whose unchecked tail is not
-        # all digits, and any overflow of a chained long (the URI port),
-        # goes to the host like a device reject.
+        # all digits, and any overflow of a chained long (the URI port)
+        # or of the number -> CLF conversion, goes to the host like a
+        # device reject.
         overrides: Dict[str, Dict[int, Any]] = {fid: {} for fid in columns}
         demoted = set()
         span_mask = (1 << _SPAN_BITS) - 1
         for fid, plan, big_rows, ovf_rows, wide, hi_row in patches:
-            if plan.steps:
+            if plan.steps or plan.null_mode == "zero_null":
                 demoted.update(int(i) for i in np.nonzero(big_rows | ovf_rows)[0])
                 continue
             ov = overrides[fid]
@@ -770,16 +857,22 @@ class TorchBatchParser:
                            needs_host, winner)
 
     def _materialize_csr(self, packed, winner, valid, columns, overrides, buf, B) -> set:
-        """Query-string parameters from the packed segment tables (the
-        reference's _materialize_csr in ``query`` mode), for the rows each
-        unit claims.  A concrete key fills its span column with the value
-        of the last segment of that name (an override when that value was
-        decoded); a ``.*`` field gets one dict per row.  Rows with a name
-        that needs %-repair take the reference's per-row path (repair,
-        then resilientUrlDecode of flagged values); the others decode
-        flagged values with the left-to-right '+' / %XX rule.  Returns the
-        rows whose value decode failed."""
+        """Query-string parameters, cookies and Set-Cookie cookies from the
+        packed segment tables (the reference's _materialize_csr), for the
+        rows each unit claims.  A concrete name fills its span column with
+        the value of the last segment of that name (an override when that
+        value was decoded); a ``.*`` field gets one dict per row; a
+        Set-Cookie attribute parses the last matching cookie's text.
+        Segments that need per-value Python take the reference's per-row
+        path: a URI query name that needs %-repair, a flagged value of a
+        query string over a token, a cookie with a flagged value or a
+        whitespace / non-ASCII byte at a name or value edge (the host
+        trims), a Set-Cookie name with such an edge.  The other rows
+        decode flagged URI query values with the left-to-right '+' / %XX
+        rule.  Returns the rows whose value decode failed."""
         failed: set = set()
+        L = buf.shape[1]
+        flat_buf = buf.reshape(-1)
         for ui, u in enumerate(self.units):
             qs = [(fid, u.plan_for(fid)) for fid in self.requested
                   if u.plan_for(fid).kind == "qscsr"]
@@ -791,6 +884,8 @@ class TorchBatchParser:
             for fid, p in qs:
                 by_key.setdefault(csr_group_key(p), []).append((fid, p))
             for key, flist in by_key.items():
+                mode = flist[0][1].meta
+                uri_chain = bool(flist[0][1].steps)
                 slots = u.layout.slots[key]
                 K = u.layout.csr_slots
                 # Each slot packs into two rows (start... and vstart...):
@@ -807,24 +902,57 @@ class TorchBatchParser:
                 SS, NL, VS, VL = mat("start"), mat("nlen"), mat("vstart"), mat("vlen")
                 HE, DC, ND = (mat(c).astype(bool) for c in ("eq", "dec", "ndec"))
                 emit = (NL > 0) & ok[None, :]
-                slow = (ND & emit).any(axis=0)
-                fast = rows[~slow]
-                segs = _QuerySegments(buf, fast, emit[:, ~slow], SS[:, ~slow],
-                                      NL[:, ~slow], VS[:, ~slow],
-                                      np.where(HE, VL, 0)[:, ~slow], DC[:, ~slow])
+
+                def edge(S, N, _rows=rows):
+                    # A byte <= 0x20 or >= 0x80 at either end of a span.
+                    a = _rows[None, :] * L + S
+                    first = flat_buf[np.where(N > 0, a, 0)]
+                    last = flat_buf[np.where(N > 0, a + N - 1, 0)]
+                    return (N > 0) & ((first <= 0x20) | (first >= 0x80)
+                                      | (last <= 0x20) | (last >= 0x80))
+
+                if mode == "setcookie":
+                    emit &= HE
+                    flag = edge(SS, NL)
+                    VLe = VL
+                elif mode == "cookie":
+                    flag = DC | edge(SS, NL) | edge(VS, VL)
+                    VLe = np.where(HE, VL, 0)
+                else:
+                    flag = ND if uri_chain else DC
+                    VLe = np.where(HE, VL, 0)
+                slow = (flag & emit).any(axis=0)
+                fast = ~slow
+                segs = _QuerySegments(buf, rows[fast], emit[:, fast], SS[:, fast],
+                                      NL[:, fast], VS[:, fast], VLe[:, fast],
+                                      DC[:, fast] & uri_chain)
                 slow_dicts = {}
                 for j in np.nonzero(slow)[0].tolist():
                     i = int(rows[j])
-                    d = _query_dict_slow(buf[i], NL[:, j], HE[:, j], SS[:, j],
-                                         VS[:, j], VL[:, j], DC[:, j], ND[:, j])
+                    d = _csr_dict_slow(buf[i], mode, uri_chain, NL[:, j], HE[:, j],
+                                       SS[:, j], VS[:, j], VL[:, j], DC[:, j], ND[:, j])
                     if d is None:
                         failed.add(i)
                     slow_dicts[i] = d
+                attrs_memo: Dict[str, dict] = {}
                 for fid, p in flist:
                     ov = overrides[fid]
                     if p.comp == "*":
                         ov.update(segs.dicts())
                         ov.update((i, d) for i, d in slow_dicts.items() if d is not None)
+                    elif p.attr:
+                        akey = ("expires_epoch" if p.attr == "expires"
+                                and fid.startswith("TIME.EPOCH:") else p.attr)
+                        texts = segs.last_values(p.comp)
+                        texts.update((i, d.get(p.comp)) for i, d in slow_dicts.items() if d)
+                        for i, text in texts.items():
+                            if not text:
+                                continue
+                            attrs = attrs_memo.get(text)
+                            if attrs is None:
+                                attrs = attrs_memo[text] = parse_attrs(text)
+                            if akey in attrs:
+                                ov[i] = attrs[akey]
                     else:
                         segs.fill_column(columns[fid], ov, p.comp)
                         ov.update((i, d.get(p.comp) if d else None)
@@ -843,6 +971,9 @@ def _fix_uri_part(value: str, mode: str) -> str:
         value = _percent_decode(value)
     return value
 
+
+# Octet -> its decimal text, for dotted quads.
+_OCTETS = np.array([str(i) for i in range(256)], dtype=object)
 
 # Hex digit -> value (255 = not a hex digit).
 _HEX_VAL = np.full(256, 255, dtype=np.uint8)
@@ -920,6 +1051,11 @@ class _QuerySegments:
                 self._dicts[r][name] = value
         return self._dicts
 
+    def last_values(self, comp: str) -> Dict[int, str]:
+        """{row: value of the row's last segment named ``comp``}."""
+        return {r: v for r, n, v in zip(self.seg_row.tolist(), self.names, self.values)
+                if n == comp}
+
     def fill_column(self, col, ov, comp: str) -> None:
         """A concrete key: the span of the last segment of that name, None
         where there is none; a decoded value goes to the overrides."""
@@ -938,19 +1074,31 @@ class _QuerySegments:
             ov[int(self.seg_row[j])] = self.values[j]
 
 
-def _query_dict_slow(line, NL, HE, SS, VS, VL, DC, ND) -> Optional[Dict[str, str]]:
-    """One row's parameters the reference's per-row way: a flagged name is
-    repaired, a flagged value repaired then resilientUrlDecode'd (None when
-    that raises: the host fails the line)."""
+def _csr_dict_slow(line, mode, uri_chain, NL, HE, SS, VS, VL, DC, ND
+                   ) -> Optional[Dict[str, str]]:
+    """One row's segments the reference's per-row way: a Set-Cookie
+    cookie's name trimmed and lower-cased, its whole text the value; else
+    a flagged URI query name repaired, a cookie's name and value trimmed,
+    a flagged value (repaired first on a URI query) resilientUrlDecode'd
+    -- None when that raises: the host fails the line."""
     d: Dict[str, str] = {}
     for k in range(len(NL)):
         nlen, has_eq = int(NL[k]), bool(HE[k])
+        if mode == "setcookie":
+            s0 = int(SS[k])
+            name = bytes(line[s0:s0 + nlen]).decode("utf-8", "replace").strip().lower()
+            if has_eq and name:
+                v0 = int(VS[k])
+                d[name] = bytes(line[v0:v0 + int(VL[k])]).decode("utf-8", "replace")
+            continue
         if nlen == 0 and not has_eq:
             continue
         s0 = int(SS[k])
         name = bytes(line[s0:s0 + nlen]).decode("utf-8", "replace")
-        if ND[k]:
+        if uri_chain and ND[k]:
             name = _fix_uri_part(name, "")
+        if mode == "cookie":
+            name = name.strip()
         name = name.lower()
         if name == "":
             continue
@@ -959,9 +1107,12 @@ def _query_dict_slow(line, NL, HE, SS, VS, VL, DC, ND) -> Optional[Dict[str, str
             continue
         v0 = int(VS[k])
         value = bytes(line[v0:v0 + int(VL[k])]).decode("utf-8", "replace")
+        if mode == "cookie":
+            value = value.strip()
         if DC[k]:
             try:
-                value = resilient_url_decode(_fix_uri_part(value, ""))
+                value = resilient_url_decode(_fix_uri_part(value, "") if uri_chain
+                                             else value)
             except ValueError:
                 return None
         d[name] = value
@@ -994,7 +1145,7 @@ def _consumer_table(nginx: bool, extra_dissectors: Sequence[Any]):
                               for t, edges in _CONSUMERS.items()}
     if nginx:
         for t, edges in additional_consumers().items():
-            table.setdefault(t, []).extend((c, outs, None) for c, outs in edges)
+            table.setdefault(t, []).extend(edges)
     seen = set()
     for d in extra_dissectors:
         key = (d.get_input_type(), type(d))
@@ -1009,8 +1160,10 @@ def _consumer_table(nginx: bool, extra_dissectors: Sequence[Any]):
 
 def _plan_group(plan: FieldPlan) -> str:
     """Merge group: plans in the same group share column arrays."""
-    if plan.kind == "span":
+    if plan.kind in ("span", "ulist"):
         return "span"
+    if plan.kind == "muid":
+        return "obj" if plan.comp == "ip" else "numeric"
     if plan.kind in ("long", "secmillis"):
         return "numeric"
     if plan.kind == "ts":
@@ -1098,19 +1251,65 @@ class BatchResult:
     def to_dict(self) -> Dict[str, List[Any]]:
         return {fid: self.to_pylist(fid) for fid in self._columns}
 
-    def to_arrow(self):
-        """A pyarrow Table: string columns for spans and text outputs,
-        int64 for numbers (the zero-copy string_view tier is a later
-        slice)."""
+    def to_arrow(self, include_validity: bool = True, strings: str = "view"):
+        """A pyarrow Table with the reference's column rules
+        (``arrow_bridge.batch_to_arrow``): int64 numbers (null where the
+        row is invalid, not ok, a CLF null, or outside int64), a
+        ``map<string, string>`` per wildcard field, span columns as
+        ``string`` (``strings="copy"``) or ``string_view``
+        (``strings="view"``, built by copying: the zero-copy views over
+        the batch buffer are a later slice), other columns typed from
+        their values; with ``include_validity`` a last ``__valid__: bool``
+        column."""
         import pyarrow as pa
 
-        arrays = []
-        for fid, col in self._columns.items():
-            values = self.to_pylist(fid)
-            if col["kind"] == "span":
-                arrays.append(pa.array(values, type=pa.string()))
-            elif col["kind"] == "numeric":
-                arrays.append(pa.array(values, type=pa.int64()))
-            else:
-                arrays.append(pa.array(values))
-        return pa.table(arrays, names=list(self._columns))
+        if strings not in ("view", "copy"):
+            raise ValueError(f"strings must be 'view' or 'copy', not {strings!r}")
+        arrays = {fid: self._arrow_column(pa, fid, col, strings)
+                  for fid, col in self._columns.items()}
+        if include_validity:
+            arrays["__valid__"] = pa.array(np.asarray(self.valid, dtype=bool))
+        return pa.table(arrays)
+
+    def _arrow_column(self, pa, fid: str, col, strings: str):
+        B = self.lines_read
+        overrides = self._overrides.get(fid, {})
+        if fid.endswith(".*"):
+            return pa.array([None if v is None else list(v.items())
+                             for v in self.to_pylist(fid)],
+                            type=pa.map_(pa.string(), pa.string()))
+        kind = col["kind"]
+        if kind == "numeric" and not any(isinstance(v, (str, dict))
+                                         for v in overrides.values()):
+            values = col["values"][:B].astype(np.int64)
+            null, null_zero = col["null"][:B], col["null_zero"][:B]
+            values[null & null_zero] = 0
+            mask = ~(self.valid[:B] & col["ok"][:B]) | (null & ~null_zero)
+            for i, v in overrides.items():
+                if v is None or not -2**63 <= v < 2**63:
+                    mask[i] = True   # the reference's Long.parseLong null
+                else:
+                    values[i] = v
+                    mask[i] = False
+            return pa.array(values, mask=mask, type=pa.int64())
+        values = self.to_pylist(fid)
+        if kind == "obj":
+            arr = pa.array(values, from_pandas=True)
+            if not (pa.types.is_null(arr.type) or pa.types.is_boolean(arr.type)):
+                return arr
+        non_null = [v for v in values if v is not None]
+        if kind == "span" and not overrides:
+            arr = pa.array(values, type=pa.string())
+        elif non_null and all(isinstance(v, int) and not isinstance(v, bool)
+                              for v in non_null):
+            return pa.array(values, type=pa.int64())
+        elif non_null and all(isinstance(v, (int, float)) and not isinstance(v, bool)
+                              for v in non_null):
+            return pa.array([None if v is None else float(v) for v in values],
+                            type=pa.float64())
+        else:
+            arr = pa.array([None if v is None else str(v) for v in values],
+                           type=pa.string())
+        if kind == "span" and strings == "view":
+            arr = arr.cast(pa.string_view())
+        return arr

@@ -4,8 +4,10 @@ This system has no weights: what plays their part is the compiled state
 of a parser -- per format unit the split program (ops, tokens, charset
 table), the field plans (a ``qscsr`` plan's ``meta`` is its mode string),
 the packed bit-slot layout with its CSR slot count, the timestamp
-layouts (a zone-text layout by reference to the default zone table), and
-a ``geo`` plan's database tag, column and range arrays.
+layouts (a zone-text layout by reference to the default zone table), a
+``geo`` plan's database tag, column and range arrays, an upstream-list
+element's (index, part), and whether the unit is a plausibility-only
+probe.
 :func:`unit_to_plain` writes that state as plain Python and numpy data
 (tuples, dicts, ``np.ndarray``); :func:`units_from_reference`
 rebuilds the port's :class:`~.pipeline.FormatUnit` objects from it.  The
@@ -77,7 +79,7 @@ def unit_to_plain(unit) -> Plain:
     plans = []
     for p in unit.plans:
         meta = (time_layout_to_plain(p.meta) if p.kind == "ts"
-                else p.meta if p.kind == "qscsr"
+                else p.meta if p.kind in ("qscsr", "ulist")
                 else geo_meta_to_plain(p.meta) if p.kind == "geo" else None)
         plans.append((p.field_id, p.kind, p.token_index, tuple(p.steps),
                       p.comp, meta, p.null_mode, p.scale, p.attr))
@@ -134,13 +136,10 @@ def program_from_plain(p: Plain) -> DeviceProgram:
 
 def units_from_reference(plain: Sequence[Plain]) -> List[FormatUnit]:
     """Plain per-unit data (``unit_to_plain``'s schema) -> the port's
-    FormatUnits, query-string (``qscsr``) plans, chained longs and the
-    layout's CSR slot count included.  Plausibility-only probe units are
-    a later slice."""
+    FormatUnits: every plan kind, the layout's CSR slot count and
+    plausibility-only probe units included."""
     units: List[FormatUnit] = []
     for d in plain:
-        if d["plausibility_only"]:
-            raise ValueError("plausibility-only units are a later slice")
         program = program_from_plain(d["program"])
         plans = []
         for fid, kind, tok, steps, comp, meta, null_mode, scale, attr in d["plans"]:
@@ -155,5 +154,6 @@ def units_from_reference(plain: Sequence[Plain]) -> List[FormatUnit]:
                    for k, v in lay["slots"].items()},
             n_rows=lay["n_rows"], csr_slots=lay["csr_slots"],
         )
-        units.append(FormatUnit(program, plans, layout, d["row_offset"]))
+        units.append(FormatUnit(program, plans, layout, d["row_offset"],
+                                d["plausibility_only"]))
     return units

@@ -9,8 +9,8 @@ return ``cudaGetLastError()`` after the launch.
 
 Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
 ``uri_split``, ``csr_split``, ``ipv4_spans``, ``geo_lookup``,
-``pack_rows``, and the aggregate pushdown's ``agg_lanes``, ``agg_reduce``
-and ``agg_group``):
+``pack_rows``, the aggregate pushdown's ``agg_lanes``, ``agg_reduce``
+and ``agg_group``, and ``setcookie_split`` and ``muid``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -37,8 +37,10 @@ from ..analytics import device as agg_device
 from ..analytics.device import AggTables
 from . import pipeline
 from .pipeline import (
+    CONS_NEVER,
     CsrTables,
     GeoTables,
+    MuidTables,
     PackTables,
     SplitTables,
     StageTables,
@@ -50,7 +52,7 @@ from .pipeline import (
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
            "csr_split", "ipv4_spans", "geo_lookup", "pack_rows", "agg_lanes",
-           "agg_reduce", "agg_group")
+           "agg_reduce", "agg_group", "setcookie_split", "muid")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -72,8 +74,10 @@ _SIGNATURES = {
     "zone_lookup": [_INT, _P, _P, _P, _P, _P, _P, _INT, _INT, _P, _P, _P],
     "uri_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
                   _INT, _P, _INT, _INT, _INT, _P],
-    "csr_split": [_P, _INT, _INT, _P, _INT, _INT, _INT, _P, _INT, _INT, _INT,
-                  _INT, _INT, _P],
+    "csr_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _P, _INT, _INT,
+                  _INT, _INT, _INT, _INT, _INT, _INT, _P],
+    "setcookie_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P],
+    "muid": [_P, _INT, _INT, _P, _P, _P, _P],
     "pack_rows": [_INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _INT, _INT,
                   _P, _P],
     "ipv4_spans": [_P, _INT, _INT, _P, _P, _P, _P],
@@ -385,24 +389,84 @@ def uri_split(
     return comps
 
 
-def csr_split(tables: CsrTables, buf: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
-    """Kernel 6: one query-string group's rows (2 packed words per slot,
-    ok, overflow) of the unit component block ``comps`` [n, B] int32,
-    filled in place from the query span rows of the same block."""
+def csr_split(
+    tables: CsrTables, buf: torch.Tensor, comps: torch.Tensor,
+    starts: Optional[torch.Tensor] = None, ends: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 6: one query-string or cookie group's rows (2 packed words
+    per slot, ok, overflow) of the unit component block ``comps`` [n, B]
+    int32, filled in place from the query span rows of the same block or,
+    for a group over a token, from the token cursors ``starts`` /
+    ``ends``."""
     B, L = _check_buf(buf)
     dev = buf.device
     _check_tables(tables, dev)
+    if tables.mode == "setcookie":
+        raise ValueError("a Set-Cookie group runs setcookie_split")
     need = max(tables.words + 2 * tables.slots - 1, tables.ok, tables.over, *tables.src)
     _check_block(comps, B, need, dev)
+    direct = tables.src[0] < 0
+    if direct:
+        _check_cursors(tables.token_index, buf, starts, ends)
     if not _route(buf):
-        return pipeline.csr_split_plain(tables, buf, comps)
+        return pipeline.csr_split_plain(tables, buf, comps, starts, ends)
     if B:
-        src = tables.src
-        _launch("csr_split", dev, _ptr(buf), B, L, _ptr(comps), src[0], src[1],
-                src[2], _ptr(tables.cls), tables.slots, tables.window,
+        src, sep = tables.src, tables.sep
+        _launch("csr_split", dev, _ptr(buf), B, L, _ptr(comps),
+                _ptr(starts[tables.token_index]) if direct else None,
+                _ptr(ends[tables.token_index]) if direct else None,
+                src[0], src[1], src[2], _ptr(tables.cls), len(sep), sep[0],
+                sep[1] if len(sep) > 1 else -1, tables.slots, tables.window,
                 tables.words, tables.ok, tables.over)
         csr_split.launches += 1
     return comps
+
+
+def setcookie_split(
+    tables: CsrTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, comps: torch.Tensor,
+) -> torch.Tensor:
+    """Kernel 13: one Set-Cookie group's rows (2 packed words per slot,
+    ok, overflow, bad) of the unit component block ``comps`` [n, B]
+    int32, filled in place from its token's cursors."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    _check_tables(tables, dev)
+    if tables.mode != "setcookie":
+        raise ValueError(f"a {tables.mode} group runs csr_split")
+    _check_cursors(tables.token_index, buf, starts, ends)
+    need = max(tables.words + 2 * tables.slots - 1, tables.ok, tables.over, tables.bad)
+    _check_block(comps, B, need, dev)
+    if not _route(buf):
+        return pipeline.setcookie_split_plain(tables, buf, starts, ends, comps)
+    if B:
+        _launch("setcookie_split", dev, _ptr(buf), B, L,
+                _ptr(starts[tables.token_index]), _ptr(ends[tables.token_index]),
+                _ptr(comps), tables.slots, tables.words, tables.ok, tables.bad,
+                tables.over)
+        setcookie_split.launches += 1
+    return comps
+
+
+def muid(
+    tables: MuidTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel 14: one mod_unique_id group's token decoded, [6, B] int32
+    rows (pipeline.MUID_ROWS: time, ip, pid, thread as uint32 bit
+    patterns, counter, ok)."""
+    B, L = _check_buf(buf)
+    dev = buf.device
+    _check_tables(tables, dev)
+    _check_cursors(tables.token_index, buf, starts, ends)
+    out = _out(out, (6, B), dev)
+    if not _route(buf):
+        return pipeline.muid_plain(tables, buf, starts, ends, out)
+    if B:
+        _launch("muid", dev, _ptr(buf), B, L, _ptr(starts[tables.token_index]),
+                _ptr(ends[tables.token_index]), _ptr(out))
+        muid.launches += 1
+    return out
 
 
 def ipv4_spans(
@@ -466,7 +530,8 @@ def pack_rows(
     _check("comps", comps, _I32, comps.shape, dev)
     _check("flags", flags, _I32, (tables.U, B), dev)
     _check_tables(tables, dev)
-    need = max([c for c, _, _ in tables.slots_py] + [c for c, _ in tables.cons_py]
+    need = max([c for c, _, _ in tables.slots_py]
+               + [c for c, kind in tables.cons_py if kind != CONS_NEVER]
                + [p + 2 for *_, p in tables.views_py], default=-1)
     if comps.shape[0] <= need:
         raise ValueError(f"comps has {comps.shape[0]} rows, tables read row {need}")
@@ -583,7 +648,8 @@ WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
             "csr_split": csr_split, "ipv4_spans": ipv4_spans,
             "geo_lookup": geo_lookup, "pack_rows": pack_rows,
             "agg_lanes": agg_lanes, "agg_reduce": agg_reduce,
-            "agg_group": agg_group}
+            "agg_group": agg_group, "setcookie_split": setcookie_split,
+            "muid": muid}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

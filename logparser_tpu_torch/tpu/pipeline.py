@@ -2,15 +2,16 @@
 
 The port of the reference package's ``tpu/pipeline.py`` for the Apache
 and NGINX paths of this slice.  Host data (field plans, the packed
-bit-slot layout, format units) is copied; the device computation is nine
-hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``) run by
-:class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
+bit-slot layout, format units) is copied; the device computation is
+eleven hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``)
+run by :class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
 
 1. ``split``       — the split program: token cursors, valid, plausible,
                      esc_hit (:func:`compute_split` is its plain version);
 2. ``span_stages`` — CLF dash, first-line and protocol splits, ``%b``
-                     limb frame, NGINX seconds-with-millis, view prefix
-                     words (:func:`span_stages_plain`);
+                     limb frame (and the number -> CLF conversion), NGINX
+                     seconds-with-millis and upstream-list elements, view
+                     prefix words (:func:`span_stages_plain`);
 3. ``timestamp``   — the ``DeviceTimeLayout`` segments at a per-row
                      cursor, the offset tail, the resolver and range
                      checks (``timeparse.parse_timestamp_fields``); for a
@@ -20,8 +21,12 @@ hand-written CUDA kernels (``kernels.py``, sources in ``csrc/``) run by
 4. ``uri_split``   — one URI split per (token, steps) group: sub-spans,
                      fix / amp flags, line constraints, the port long
                      (:func:`uri_split_plain`);
-5. ``csr_split``   — one query-string split per group: packed segment
-                     words and overflow (:func:`csr_split_plain`);
+5. ``csr_split``   — one query-string or cookie split per group: packed
+                     segment words and overflow (:func:`csr_split_plain`);
+   ``setcookie_split`` — one Set-Cookie split per group, with the expires
+                     rejoin and its bad rows (:func:`setcookie_split_plain`);
+   ``muid``        — one mod_unique_id decode per group
+                     (:func:`muid_plain`);
    ``ipv4_spans``  — one dotted-quad parse per GeoIP group (the value,
                      ok, has_colon; :func:`ipv4_spans_plain`), then
    ``geo_lookup``  — its range join into the flattened .mmdb table
@@ -63,19 +68,24 @@ class FieldPlan:
     ``kind``: ``span`` (the sub-span itself), ``long`` (digit span ->
     int64, ``null_mode`` handles the CLF '-'), ``ts`` (timestamp ->
     component bundle; ``comp`` names the output, ``meta`` carries the
-    DeviceTimeLayout), ``qscsr`` (a query-string wildcard: ``comp`` is
-    the key or ``*``, ``meta`` the mode ``"query"``), ``secmillis``
-    (``<seconds>.<millis>`` -> int64 milliseconds times ``scale``), ``geo``
-    (an IP's GeoIP column: ``comp`` the column, ``meta`` (database tag,
-    column, GeoDeviceTable)) or ``host`` (not device-resolvable)."""
+    DeviceTimeLayout), ``qscsr`` (a query-string, cookie or Set-Cookie
+    wildcard: ``comp`` is the name or ``*``, ``meta`` the mode ``"query"``
+    / ``"cookie"`` / ``"setcookie"``, ``attr`` a Set-Cookie attribute),
+    ``secmillis`` (``<seconds>.<millis>`` -> int64 milliseconds times
+    ``scale``), ``geo`` (an IP's GeoIP column: ``comp`` the column,
+    ``meta`` (database tag, column, GeoDeviceTable)), ``muid`` (a
+    mod_unique_id output, ``comp`` its name), ``ulist`` (an NGINX
+    upstream-list element, ``meta`` (index, "value" / "redirected")) or
+    ``host`` (not device-resolvable).  ``null_mode`` ``zero_null`` is
+    the number -> CLF conversion (0 reads null)."""
 
     field_id: str                 # cleaned "TYPE:path"
-    kind: str                     # span | long | ts | qscsr | secmillis | geo | host
+    kind: str                     # span | long | ts | qscsr | secmillis | geo | muid | ulist | host
     token_index: int = -1
     steps: Tuple[Tuple[str, str], ...] = ()
     comp: str = ""
     meta: object = None
-    null_mode: str = ""           # "" | dash_null | dash_zero
+    null_mode: str = ""           # "" | dash_null | dash_zero | zero_null
     scale: int = 1
     attr: str = ""
 
@@ -135,6 +145,15 @@ def geo_group_key(plan: FieldPlan) -> str:
     return f"@geo:{plan.token_index}:{plan.meta[0]}:{plan.steps!r}"
 
 
+def muid_group_key(plan: FieldPlan) -> str:
+    """All mod_unique_id plans over the same token+steps share one decode."""
+    return f"@muid:{plan.token_index}:{plan.steps!r}"
+
+
+# The separator of each CSR mode (a Set-Cookie list has its own split).
+CSR_SEPARATORS = {"query": b"&", "cookie": b"; "}
+
+
 @dataclass
 class PackedLayout:
     """Bit-slot map for the packed [K, B] int32 output (row 0 = validity).
@@ -158,7 +177,7 @@ class PackedLayout:
             kind = plan.kind
             if kind == "host":
                 continue
-            if kind == "span":
+            if kind in ("span", "ulist"):
                 r = layout.n_rows
                 layout.n_rows += 1
                 layout.slots[plan.field_id] = {
@@ -204,6 +223,14 @@ class PackedLayout:
                     layout.slots[key] = {"row": (layout.n_rows, 0, 0)}
                     layout.n_rows += 1
                     aux_needs.append((key, "ok", 1))
+            elif kind == "muid":
+                key = muid_group_key(plan)
+                if key not in layout.slots:
+                    r = layout.n_rows
+                    layout.n_rows += 4
+                    layout.slots[key] = {"time": (r, 0, 0), "ip": (r + 1, 0, 0),
+                                         "pid": (r + 2, 0, 0), "thread": (r + 3, 0, 0)}
+                    aux_needs += [(key, "ok", 1), (key, "counter", 16)]
             elif kind == "qscsr":
                 key = csr_group_key(plan)
                 if key not in layout.slots:
@@ -273,6 +300,10 @@ class FormatUnit:
     plans: List[FieldPlan]
     layout: PackedLayout
     row_offset: int = 0
+    # An uncompilable format's separator-order probe: its one row carries
+    # only the plausibility bit, so it never claims a line, only contests
+    # later formats' claims.
+    plausibility_only: bool = False
 
     def plan_for(self, field_id: str) -> FieldPlan:
         for p in self.plans:
@@ -488,6 +519,12 @@ MAX_TOKENS = 64
 TASK_SPAN, TASK_LONG, TASK_SECMILLIS = 0, 1, 2
 PART_DIRECT, PART_METHOD, PART_URI, PART_PROTOCOL = 0, 1, 2, 3
 PART_PV_PROTOCOL, PART_PV_VERSION = 4, 5   # "pv" sub-steps of the fl protocol
+# Upstream-list elements: element 0 is the token's span (ok unless a CLF
+# dash), a higher index is absent.
+PART_ULIST0, PART_ULIST_ABSENT = 6, 7
+# A long task's part: the plain long, or the number -> CLF conversion
+# (no >19-digit patch; the task's last column is its leading-zero row).
+LONG_PLAIN, LONG_ZERO_NULL = 0, 1
 _FL_PART = {"method": PART_METHOD, "uri": PART_URI, "protocol": PART_PROTOCOL}
 _PV_PART = {"protocol": PART_PV_PROTOCOL, "version": PART_PV_VERSION}
 TASKW = 12       # span_stages task table width
@@ -504,11 +541,16 @@ URIW = 10        # uri_split part table width: part, clf, out0..out6, prefix row
 CONS_REQUIRE = 0       # valid &= comp != 0
 CONS_CSR_OVERFLOW = 1  # o = comp != 0 & valid; valid &= ~o; bit 2 |= o
 CONS_URI_OVERFLOW = 2  # o = comp != 0;         valid &= ~o; bit 2 |= o
-CONS_FORBID = 3        # valid &= comp == 0 (an IPv6 literal on a geo token)
+CONS_FORBID = 3        # valid &= comp == 0 (an IPv6 literal on a geo token,
+                       # a Set-Cookie quirk, a zero_null leading zero)
+CONS_NEVER = 4         # valid = False (a plausibility-only probe unit)
 
 # Rows of one geo group in its unit's component block: ipv4_spans writes
 # the first four, geo_lookup the fifth.
 GEO_VALUE, GEO_IP_OK, GEO_COLON, GEO_CHAIN_OK, GEO_ROW = range(5)
+
+# Rows of one muid group, in the order the muid kernel writes them.
+MUID_ROWS = ("time", "ip", "pid", "thread", "counter", "ok")
 
 # timestamp item kinds; a table item's entries are rows of ``entries``.
 ITEM_LIT, ITEM_NUM, ITEM_MONTH, ITEM_DOW, ITEM_AMPM, ITEM_ZONE = range(6)
@@ -617,15 +659,29 @@ class _UriGroup:
 
 @dataclass
 class _CsrGroup:
-    """One query-string CSR split: its input span (the rows of a URI
-    query part), the first of its 2 x slots packed segment words, and its
-    ok and overflow rows."""
+    """One CSR split: its mode (``query`` / ``cookie`` / ``setcookie``),
+    its input span (the rows of a URI query part, or ``src`` all -1: the
+    cursors of ``token``), the first of its 2 x slots packed segment
+    words, and its ok, overflow and (Set-Cookie) bad rows."""
 
     key: str
+    mode: str
+    token: int
     src: Tuple[int, int, int]
     words: int
     ok: int
     over: int
+    bad: int = -1
+
+
+@dataclass
+class _MuidGroup:
+    """One mod_unique_id decode: its token and the first of its 6 rows
+    (MUID_ROWS)."""
+
+    key: str
+    token: int
+    base: int
 
 
 @dataclass
@@ -651,6 +707,7 @@ class _UnitComps:
     n_stage_rows: int = 0
     ts_groups: List[Tuple[str, int, object]] = dataclass_field(default_factory=list)
     geo_groups: List[_GeoGroup] = dataclass_field(default_factory=list)
+    muid_groups: List[_MuidGroup] = dataclass_field(default_factory=list)
     uri_groups: List[_UriGroup] = dataclass_field(default_factory=list)
     csr_groups: List[_CsrGroup] = dataclass_field(default_factory=list)
     need_authority: bool = False
@@ -679,9 +736,13 @@ def _uri_chained(plan: FieldPlan) -> bool:
 def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
     """Assign component rows for one unit (the reference's compute_rows
     as tables): span_stages rows first, in plan order, then the
-    timestamp groups, then one URI group per (token, steps) prefix and
-    one CSR group per ``csr_group_key``."""
+    timestamp, geo and muid groups, then one URI group per (token, steps)
+    prefix and one CSR group per ``csr_group_key``.  A plausibility-only
+    unit has no rows and one constraint that clears its valid bit."""
     uc = _UnitComps()
+    if unit.plausibility_only:
+        uc.constraints.append((0, CONS_NEVER))
+        return uc
     plans = [p for p in unit.plans if p.kind != "host"]
     slots = unit.layout.slots
     view_set = set(view_fields)
@@ -702,17 +763,17 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
 
     chain: Dict[tuple, Tuple[int, int, int]] = {}
     long_ok: Dict[str, int] = {}
+    lead0: Dict[str, int] = {}
 
-    def stage_span(fid, key, tok, steps) -> Tuple[int, int, int]:
+    def stage_span(fid, key, tok, part) -> Tuple[int, int, int]:
         outs = [row(key, c) for c in ("start", "len", "ok", "null")]
         pfx = prefix_rows(fid) if key is not None else -1
-        uc.tasks.append((TASK_SPAN, tok, _stage_part(steps), 0, *outs, 0, 0, 0, pfx))
-        chain.setdefault((tok, steps), tuple(outs[:3]))
+        uc.tasks.append((TASK_SPAN, tok, part, 0, *outs, 0, 0, 0, pfx))
         return tuple(outs[:3])
 
-    # Pass 1: span_stages tasks (direct / fl / pv spans, direct longs, and
-    # the first-line URI span every URI split over it reads) and the
-    # timestamp groups.
+    # Pass 1: span_stages tasks (direct / fl / pv spans, upstream-list
+    # elements, direct longs, and the first-line URI span every URI split
+    # over it reads) and the timestamp, geo and muid groups.
     for plan in plans:
         fid, tok = plan.field_id, plan.token_index
         if plan.kind in ("span", "long", "qscsr") and _uri_chained(plan):
@@ -720,19 +781,29 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
             if prefix not in ((), (("fl", "uri"),)):
                 raise ValueError(f"URI chain {plan.steps} is not on this slice")
             if prefix and (tok, prefix) not in chain:
-                stage_span(fid, None, tok, prefix)
+                chain[(tok, prefix)] = stage_span(fid, None, tok, _stage_part(prefix))
         elif plan.kind == "span":
-            stage_span(fid, fid, tok, plan.steps)
+            src = stage_span(fid, fid, tok, _stage_part(plan.steps))
+            chain.setdefault((tok, plan.steps), src)
+        elif plan.kind == "ulist":
+            if plan.steps:
+                raise ValueError(f"ulist chain {plan.steps} is not on this slice")
+            stage_span(fid, fid, tok,
+                       PART_ULIST0 if plan.meta[0] == 0 else PART_ULIST_ABSENT)
         elif plan.kind == "long":
             if plan.steps or plan.scale != 1 or plan.null_mode not in (
-                "", "dash_null", "dash_zero"
+                "", "dash_null", "dash_zero", "zero_null"
             ):
                 raise ValueError(f"long plan {plan} is not on this slice")
             comps = ("hi", "lo", "d18", "lo_digits", "ok", "null", "big")
             outs = [row(fid, c) for c in comps]
             long_ok[fid] = outs[4]
             clf = int(plan.null_mode in ("dash_null", "dash_zero"))
-            uc.tasks.append((TASK_LONG, tok, 0, clf, *outs, -1))
+            if plan.null_mode == "zero_null":
+                lead0[fid] = row(None, "lead0")
+                uc.tasks.append((TASK_LONG, tok, LONG_ZERO_NULL, clf, *outs, lead0[fid]))
+            else:
+                uc.tasks.append((TASK_LONG, tok, LONG_PLAIN, clf, *outs, -1))
         elif plan.kind == "secmillis":
             if plan.steps or plan.null_mode:
                 raise ValueError(f"secmillis plan {plan} is not on this slice")
@@ -752,7 +823,13 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
             key = ts_group_key(plan)
             if all(k != key for k, _, _ in uc.ts_groups):
                 uc.ts_groups.append((key, tok, plan.meta))
-        else:
+        elif plan.kind == "muid":
+            if plan.steps:
+                raise ValueError(f"muid chain {plan.steps} is not on this slice")
+            key = muid_group_key(plan)
+            if all(g.key != key for g in uc.muid_groups):
+                uc.muid_groups.append(_MuidGroup(key, tok, -1))
+        elif plan.kind != "qscsr" or plan.steps:
             raise ValueError(f"plan {plan.kind} {plan.steps} is not on this slice")
     uc.n_stage_rows = len(names)
     for key, _, _ in uc.ts_groups:
@@ -764,6 +841,10 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
         row(None, "geo_colon")
         row(g.key, "ok")
         row(g.key, "row")
+    for g in uc.muid_groups:
+        g.base = len(names)
+        for comp in MUID_ROWS:
+            row(g.key, comp)
 
     # Pass 2: URI and CSR groups, in plan order.
     uri_groups: Dict[tuple, _UriGroup] = {}
@@ -790,7 +871,24 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
         if part == "query" and g.query[0] < 0:
             g.query = tuple(outs[:3])
 
+    def csr_group(plan, src) -> None:
+        key = csr_group_key(plan)
+        words = len(names)
+        for k in range(unit.layout.csr_slots):
+            row(key, f"@n{k}")
+            row(key, f"@v{k}")
+        cg = _CsrGroup(key, plan.meta, plan.token_index, src, words=words,
+                       ok=row(key, "ok"), over=row(None, "csr_over"))
+        if plan.meta == "setcookie":
+            cg.bad = row(None, "setcookie_bad")
+        csr_groups[key] = cg
+        uc.csr_groups.append(cg)
+
     for plan in plans:
+        if plan.kind == "qscsr" and not plan.steps:
+            if csr_group_key(plan) not in csr_groups:
+                csr_group(plan, (-1, -1, -1))
+            continue
         if not _uri_chained(plan):
             continue
         fid, tok = plan.field_id, plan.token_index
@@ -808,21 +906,13 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
             clf = int(plan.null_mode in ("dash_null", "dash_zero"))
             g.parts.append((URI_PORT, clf, *outs, -1))
         else:  # qscsr
-            key = csr_group_key(plan)
             if plan.meta != "query" or part != "query":
                 raise ValueError(f"{plan.meta} CSR {plan.steps} is not on this slice")
-            if key in csr_groups:
+            if csr_group_key(plan) in csr_groups:
                 continue
             if g.query[0] < 0:
                 uri_span(g, fid, None, "query")
-            words = len(names)
-            for k in range(unit.layout.csr_slots):
-                row(key, f"@n{k}")
-                row(key, f"@v{k}")
-            cg = _CsrGroup(key, g.query, words=words, ok=row(key, "ok"),
-                           over=row(None, "csr_over"))
-            csr_groups[key] = cg
-            uc.csr_groups.append(cg)
+            csr_group(plan, g.query)
     uc.n_rows = len(names)
 
     # Pass 3: line constraints in plan order (the reference's running
@@ -832,6 +922,8 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
     for plan in plans:
         if plan.kind in ("long", "secmillis") and not plan.steps:
             uc.constraints.append((long_ok[plan.field_id], CONS_REQUIRE))
+            if plan.field_id in lead0:
+                uc.constraints.append((lead0[plan.field_id], CONS_FORBID))
         elif plan.kind == "geo" and geo_group_key(plan) not in seen:
             # An IPv6 literal: the host looks it up, the table is IPv4.
             seen.add(geo_group_key(plan))
@@ -842,8 +934,10 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
             uc.constraints.append((uc.n_stage_rows + 4 * g + 3, CONS_REQUIRE))
         elif plan.kind == "qscsr" and csr_group_key(plan) not in seen:
             seen.add(csr_group_key(plan))
-            uc.constraints.append((csr_groups[csr_group_key(plan)].over,
-                                   CONS_CSR_OVERFLOW))
+            cg = csr_groups[csr_group_key(plan)]
+            if cg.bad >= 0:   # Set-Cookie host quirks: the oracle decides
+                uc.constraints.append((cg.bad, CONS_FORBID))
+            uc.constraints.append((cg.over, CONS_CSR_OVERFLOW))
     for g in uc.uri_groups:
         uc.constraints += [(g.cons, CONS_REQUIRE), (g.over, CONS_URI_OVERFLOW)]
 
@@ -964,21 +1058,38 @@ class UriTables(nn.Module):
 
 
 class CsrTables(nn.Module):
-    """One query-string group for the ``csr_split`` kernel: the rows of
-    its input span (a URI query part, so the split starts past a leading
-    '?' and the URI encode set flags names and values), the slot count
-    and scan window, and its output rows (2 packed words per slot, ok,
-    overflow)."""
+    """One CSR group: for ``csr_split`` a query string or a Cookie header
+    -- the rows of its input span (a URI query part: the split starts
+    past a leading '?' and the URI encode set flags names and values) or
+    its token's cursors (a CLF dash reads not-ok) -- its separator, slot
+    count and scan window; for ``setcookie_split`` a Set-Cookie list over
+    its token's cursors.  Output rows: 2 packed words per slot, ok,
+    overflow and, for a Set-Cookie list, bad."""
 
     def __init__(self, g: _CsrGroup, slots: int):
         super().__init__()
         self.key = g.key
+        self.mode = g.mode
+        self.token_index = g.token
         self.src = g.src
         self.slots = slots
         self.window = CSR_WINDOW_PER_SLOT * slots
-        self.words, self.ok, self.over = g.words, g.ok, g.over
+        self.words, self.ok, self.over, self.bad = g.words, g.ok, g.over, g.bad
+        self.sep = CSR_SEPARATORS.get(g.mode, b"")
+        self.uri_encoded = g.src[0] >= 0
         self.register_buffer("cls", torch.from_numpy(
-            postproc.csr_class_table(uri_encoded=True).astype(np.int32)))
+            postproc.csr_class_table(self.uri_encoded, self.sep or b"&").astype(np.int32)))
+
+
+class MuidTables(nn.Module):
+    """One mod_unique_id group for the ``muid`` kernel: its token and the
+    first of its 6 rows of the unit block."""
+
+    def __init__(self, g: _MuidGroup):
+        super().__init__()
+        self.key = g.key
+        self.token_index = g.token
+        self.base = g.base
 
 
 class UnitTables(nn.Module):
@@ -991,6 +1102,7 @@ class UnitTables(nn.Module):
         self.stages = StageTables(uc)
         self.ts = nn.ModuleList(TsTables(tok, dl) for _, tok, dl in uc.ts_groups)
         self.geo = nn.ModuleList(GeoTables(g) for g in uc.geo_groups)
+        self.muid = nn.ModuleList(MuidTables(g) for g in uc.muid_groups)
         window = URI_WINDOW_PER_SLOT * unit.layout.csr_slots
         self.uri = nn.ModuleList(UriTables(g, uc.need_authority, window)
                                  for g in uc.uri_groups)
@@ -1060,8 +1172,8 @@ def span_stages_plain(
     ends: torch.Tensor, out: torch.Tensor,
 ) -> torch.Tensor:
     """Fill ``out`` [n_out, B] int32 with every span / long task's
-    components (the span-chain and numeric branches of the reference's
-    compute_rows, plus span_prefix_words for view fields)."""
+    components (the span-chain, upstream-list and numeric branches of the
+    reference's compute_rows, plus span_prefix_words for view fields)."""
     B = buf.shape[0]
     fl_cache: Dict[int, Dict[str, torch.Tensor]] = {}
     false_b = torch.zeros(B, dtype=torch.bool, device=buf.device)
@@ -1075,6 +1187,10 @@ def span_stages_plain(
                 start, end = s, e
                 ok = torch.ones(B, dtype=torch.bool, device=buf.device)
                 null = _clf_dash(buf, s, e)
+            elif part == PART_ULIST0:
+                start, end, ok, null = s, e, ~_clf_dash(buf, s, e), false_b
+            elif part == PART_ULIST_ABSENT:
+                start, end, ok, null = s, s, false_b, false_b
             else:
                 fl = fl_cache.get(tok)
                 if fl is None:
@@ -1108,12 +1224,20 @@ def span_stages_plain(
             (hi, lo, d18, ndig), is_null, ok, big = postproc.parse_long_spans(
                 buf, s, e, clf=bool(clf)
             )
-            # >19-digit runs stay device-valid: the hi row carries the
-            # span (start | len<<13) for the host byte-patch.
-            blen = (e - s).clamp(max=_SPAN_MASK)
-            hi = torch.where(big, s | (blen << _SPAN_BITS), hi)
-            lo = torch.where(big, 0, lo)
-            d18 = torch.where(big, 0, d18)
+            if part == LONG_ZERO_NULL:
+                # No byte-patch for the CLF conversion (it compares the
+                # string to "0"): a >19-digit run fails, and a leading
+                # zero ("00", "007") goes to the host.
+                ok, big = ok & ~big, false_b
+                first = postproc.gather_span_bytes(buf, s, 1)[:, 0]
+                out[task[11]] = (((e - s) > 1) & (first == ord("0"))).to(torch.int32)
+            else:
+                # >19-digit runs stay device-valid: the hi row carries the
+                # span (start | len<<13) for the host byte-patch.
+                blen = (e - s).clamp(max=_SPAN_MASK)
+                hi = torch.where(big, s | (blen << _SPAN_BITS), hi)
+                lo = torch.where(big, 0, lo)
+                d18 = torch.where(big, 0, d18)
             for o, v in zip(task[4:11], (hi, lo, d18, ndig, ok, is_null, big)):
                 out[o] = v.to(torch.int32)
     return out
@@ -1271,16 +1395,21 @@ def csr_words(csr: Dict[str, object], k: int) -> Tuple[torch.Tensor, torch.Tenso
 
 def csr_split_plain(
     tables: CsrTables, buf: torch.Tensor, comps: torch.Tensor,
+    starts: torch.Tensor = None, ends: torch.Tensor = None,
 ) -> torch.Tensor:
-    """Fill one query-string group's rows of the unit block ``comps``
-    (the qscsr branch of the reference's compute_rows: the split starts
-    past a leading '?', split_csr over the window, 2 packed words per
-    slot, ok, and ``overflow & chain_ok``)."""
-    s, e, chain_ok = _src_span(tables.src, -1, None, None, comps)
-    first = postproc.gather_span_bytes(buf, s, 1)[:, 0]
-    s = torch.where((s < e) & (first == ord("?")), s + 1, s)
-    csr = postproc.split_csr(buf, s, e, tables.slots, uri_encoded=True,
-                             window=tables.window)
+    """Fill one query-string or cookie group's rows of the unit block
+    ``comps`` (the qscsr branch of the reference's compute_rows: a URI
+    query part starts past a leading '?', a token's span is not ok when
+    it is a CLF dash, split_csr with the group's separator over the
+    window, 2 packed words per slot, ok, and ``overflow & chain_ok``)."""
+    s, e, chain_ok = _src_span(tables.src, tables.token_index, starts, ends, comps)
+    if tables.src[0] >= 0:
+        first = postproc.gather_span_bytes(buf, s, 1)[:, 0]
+        s = torch.where((s < e) & (first == ord("?")), s + 1, s)
+    else:
+        chain_ok = chain_ok & ~_clf_dash(buf, s, e)
+    csr = postproc.split_csr(buf, s, e, tables.slots, uri_encoded=tables.uri_encoded,
+                             window=tables.window, sep=tables.sep)
     for k in range(tables.slots):
         n_word, v_word = csr_words(csr, k)
         comps[tables.words + 2 * k] = n_word
@@ -1288,6 +1417,49 @@ def csr_split_plain(
     comps[tables.ok] = chain_ok.to(torch.int32)
     comps[tables.over] = (csr["overflow"] & chain_ok).to(torch.int32)
     return comps
+
+
+def setcookie_split_plain(
+    tables: CsrTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, comps: torch.Tensor,
+) -> torch.Tensor:
+    """Fill one Set-Cookie group's rows of the unit block ``comps`` (the
+    setcookie branch of the reference's compute_rows: not ok on a CLF
+    dash, split_setcookie_csr, per slot the emitted part as start | nlen
+    (to the name's end) | eq=emit and the whole part as the value, ok,
+    ``bad & ok`` and ``overflow & ok``)."""
+    s, e = starts[tables.token_index], ends[tables.token_index]
+    ok = ~_clf_dash(buf, s, e)
+    sc = postproc.split_setcookie_csr(buf, s, e, tables.slots)
+    i32 = torch.int32
+    for k in range(tables.slots):
+        emit = sc["emit"][k]
+        seg_s = torch.where(emit, sc["seg_start"][k], 0)
+        nlen = torch.where(emit, sc["name_end"][k] - sc["seg_start"][k], 0)
+        vlen = torch.where(emit, sc["seg_end"][k] - sc["seg_start"][k], 0)
+        comps[tables.words + 2 * k] = ((seg_s & _SPAN_MASK)
+                                       | ((nlen & _SPAN_MASK) << _SPAN_BITS)
+                                       | (emit.to(i32) << 26)).to(i32)
+        comps[tables.words + 2 * k + 1] = ((seg_s & _SPAN_MASK)
+                                           | ((vlen & _SPAN_MASK) << _SPAN_BITS)).to(i32)
+    comps[tables.ok] = ok.to(i32)
+    comps[tables.bad] = (sc["bad"] & ok).to(i32)
+    comps[tables.over] = (sc["overflow"] & ok).to(i32)
+    return comps
+
+
+def muid_plain(
+    tables: MuidTables, buf: torch.Tensor, starts: torch.Tensor,
+    ends: torch.Tensor, out: torch.Tensor,
+) -> torch.Tensor:
+    """Fill ``out`` [6, B] with one mod_unique_id group's rows (MUID_ROWS:
+    the parse_mod_unique_id words and ok)."""
+    words, ok = postproc.parse_mod_unique_id(
+        buf, starts[tables.token_index], ends[tables.token_index])
+    for r, name in enumerate(MUID_ROWS[:-1]):
+        out[r] = words[name]
+    out[5] = ok.to(torch.int32)
+    return out
 
 
 def pack_rows_plain(
@@ -1306,6 +1478,9 @@ def pack_rows_plain(
         valid = (f & SPLIT_VALID) != 0
         over = torch.zeros_like(valid)
         for c, kind in tables.cons_py[c0:c0 + nc]:
+            if kind == CONS_NEVER:
+                valid = torch.zeros_like(valid)
+                continue
             hit = comps[c] != 0
             if kind == CONS_REQUIRE:
                 valid = valid & hit
@@ -1377,9 +1552,10 @@ class UnitsExecutor(nn.Module):
     Holds every per-parser table as a buffer, so ``.to(device)`` uploads
     them once.  Per unit it launches split, span_stages, one timestamp
     kernel per timestamp group (followed by one zone_lookup for a %Z
-    layout), one ipv4_spans and one geo_lookup per GeoIP group, one
-    uri_split per URI group and one csr_split per query-string group,
-    then one pack_rows over all units.  The CUDA
+    layout), one ipv4_spans and one geo_lookup per GeoIP group, one muid
+    per mod_unique_id group, one uri_split per URI group, one csr_split
+    per query-string or cookie group and one setcookie_split per
+    Set-Cookie group, then one pack_rows over all units.  The CUDA
     grid replaces the reference's 16k-row tiling."""
 
     def __init__(self, units: Sequence[FormatUnit], view_specs: ViewSpecs = ()):
@@ -1431,6 +1607,11 @@ class UnitsExecutor(nn.Module):
                                    out=block[g.base + GEO_ROW])
             for u in t.uri:
                 kernels.uri_split(u, buf, starts, ends, block)
+            for m in t.muid:
+                kernels.muid(m, buf, starts, ends, out=block[m.base:m.base + 6])
             for c in t.csr:
-                kernels.csr_split(c, buf, block)
+                if c.mode == "setcookie":
+                    kernels.setcookie_split(c, buf, starts, ends, block)
+                else:
+                    kernels.csr_split(c, buf, block, starts, ends)
         return kernels.pack_rows(self.pack, flags, comps)

@@ -23,6 +23,11 @@ Apache ``combined`` main path and the URI chain run:
   task of ``span_stages``.
 - :func:`parse_ipv4_spans` -- strict dotted quads -> uint32: the plain
   version of the ``ipv4_spans`` kernel.
+- :func:`split_setcookie_csr` -- Set-Cookie lists with the expires
+  rejoin, and :func:`parse_mod_unique_id` -- the 24-character
+  mod_unique_id token: the plain versions of the ``setcookie_split`` and
+  ``muid`` kernels; :func:`split_csr` with ``sep=b"; "`` is the cookie
+  mode of ``csr_split``.
 
 Every function reproduces the reference's int32 arithmetic, wraparound
 included, so its outputs equal the reference bit for bit on any bytes.
@@ -418,9 +423,10 @@ def split_uri_fast(
 CSR_DEC, CSR_PCT, CSR_HIGH, CSR_KV, CSR_SEP = 1, 2, 4, 8, 16
 
 
-def csr_class_table(uri_encoded: bool) -> np.ndarray:
-    """256-entry uint8 byte-class table of :func:`split_csr` (separator
-    ``&``, key / value byte ``=``)."""
+def csr_class_table(uri_encoded: bool, sep: bytes = b"&") -> np.ndarray:
+    """256-entry uint8 byte-class table of :func:`split_csr` (key / value
+    byte ``=``; the separator's class bit only for a one-byte
+    separator)."""
     from ..dissectors.uri import ENCODE_PRINTABLE
 
     t = np.zeros(256, dtype=np.uint8)
@@ -431,20 +437,24 @@ def csr_class_table(uri_encoded: bool) -> np.ndarray:
         for ch in ENCODE_PRINTABLE:
             t[ch] |= CSR_DEC | CSR_PCT
     t[ord("=")] |= CSR_KV
-    t[ord("&")] |= CSR_SEP
+    if len(sep) == 1:
+        t[sep[0]] |= CSR_SEP
     return t
 
 
 def split_csr(
     buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
     max_segments: int, uri_encoded: bool = False, window: Optional[int] = None,
+    sep: bytes = b"&",
 ) -> Dict[str, object]:
-    """Query span -> up to ``max_segments`` ``&``-delimited segments, each
-    with its first ``=`` and its decode / name-escape / name-high
-    flags, plus ``overflow`` (more segments than slots, or, windowed, a
-    span longer than the window) -- the reference's split_csr.  Per-slot
-    outputs are lists of [B] tensors.  Both of the reference's count
-    layouts are kept: one packed 10-bit-field prefix count below
+    """Query string or cookie header span -> up to ``max_segments``
+    ``sep``-delimited segments (``&``; cookies ``"; "``), each with its
+    first ``=`` and its decode / name-escape / name-high flags, plus
+    ``overflow`` (more segments than slots, or, windowed, a span longer
+    than the window) -- the reference's split_csr.  Per-slot outputs are
+    lists of [B] tensors.  A two-byte separator is the AND of the shifted
+    byte planes, both bytes inside the span.  Both of the reference's
+    count layouts are kept: one packed 10-bit-field prefix count below
     L = 1024, three prefix counts from there on; they give the same
     flags."""
     B, L = buf.shape
@@ -454,7 +464,7 @@ def split_csr(
         res = split_csr(
             _window(buf, start, W), torch.zeros_like(start),
             torch.minimum(span, torch.full_like(span, W)), max_segments,
-            uri_encoded=uri_encoded,
+            uri_encoded=uri_encoded, sep=sep,
         )
         for name in ("seg_start", "seg_end", "eq_pos"):
             res[name] = [v + start for v in res[name]]
@@ -463,8 +473,14 @@ def split_csr(
     dev = buf.device
     pos = torch.arange(L, device=dev, dtype=torch.int32)[None, :]
     in_span = (pos >= start[:, None]) & (pos < end[:, None])
-    cls = torch.from_numpy(csr_class_table(uri_encoded)).to(dev)[buf.long()]
-    is_sep = ((cls & CSR_SEP) != 0) & in_span
+    cls = torch.from_numpy(csr_class_table(uri_encoded, sep)).to(dev)[buf.long()]
+    if len(sep) == 1:
+        is_sep = (cls & CSR_SEP) != 0
+    else:
+        is_sep = buf == sep[0]
+        for k in range(1, len(sep)):
+            is_sep = is_sep & (shift_zero(buf, k) == sep[k])
+    is_sep = is_sep & in_span & (pos + len(sep) <= end[:, None])
     is_kv = ((cls & CSR_KV) != 0) & in_span
     is_dec = ((cls & CSR_DEC) != 0) & in_span
     is_pct = ((cls & CSR_PCT) != 0) & in_span
@@ -516,9 +532,127 @@ def split_csr(
         out["decode"].append(dec_cnt > 0)
         out["name_pct"].append(np_cnt > 0)
         out["name_high"].append(nh_cnt > 0)
-        cursor = s_end + 1
+        cursor = s_end + len(sep)
     out["overflow"] = (gat(suffix_sep, cursor, L, L) < L) | (cursor < end)
     return out
+
+
+def _ci_literal_mask(buf: torch.Tensor, lit: bytes, in_span: torch.Tensor) -> torch.Tensor:
+    """[B, L] bool: ``lit`` starts here, letters matched case-insensitively
+    (``byte | 0x20``), bytes past L read 0; only positions in the span."""
+    m = None
+    for k, ch in enumerate(lit):
+        col = shift_zero(buf, k)
+        part = (col | 0x20) == ch if ord("a") <= ch <= ord("z") else col == ch
+        m = part if m is None else m & part
+    return m & in_span
+
+
+def split_setcookie_csr(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor, max_segments: int,
+) -> Dict[str, object]:
+    """Set-Cookie header span -> up to ``max_segments`` ``", "``-separated
+    cookies with the reference's expires-comma rejoin: a part whose first
+    case-insensitive ``expires=`` (its 8 bytes inside the part) starts
+    within ``_MINIMAL_EXPIRES_LENGTH`` bytes of the part's end is glued to
+    the next part, which is not checked again; a held last part is
+    dropped (``emit`` False); a glued part whose second half holds too,
+    or an emitted part starting with a case-insensitive ``set-cookie``,
+    sets ``bad``.  Per slot: seg_start, seg_end, name_end (the first '='
+    before the first ';', else the first ';', else the end) and emit;
+    ``overflow``: a separator at or after the final cursor, or the cursor
+    short of the end (the reference's split_setcookie_csr)."""
+    from ..dissectors.cookies import _MINIMAL_EXPIRES_LENGTH
+
+    B, L = buf.shape
+    pos = torch.arange(L, device=buf.device, dtype=torch.int32)[None, :]
+    in_span = (pos >= start[:, None]) & (pos < end[:, None])
+    is_sep = ((buf == ord(",")) & (shift_zero(buf, 1) == ord(" ")) & in_span
+              & (pos + 2 <= end[:, None]))
+    prefix_mask = _ci_literal_mask(buf, b"set-cookie", in_span)
+
+    # Every per-slot search is "the first occurrence at or after a cursor,
+    # if it lies below a bound": one suffix minimum per plane answers all
+    # slots with [B] gathers (the reference rebuilds a [B, L] mask per
+    # search; the answers are the same).
+    def suffix_first(mask):
+        m = torch.where(mask, pos, L)
+        return torch.flip(torch.cummin(torch.flip(m, [1]), dim=1).values, [1])
+
+    def gat(mat, idx):
+        v = torch.gather(mat, 1, idx.clamp(0, L - 1).to(torch.int64)[:, None])[:, 0]
+        return torch.where((idx >= L) | (idx < 0), L, v)
+
+    sep_at = suffix_first(is_sep)
+    exp_at = suffix_first(_ci_literal_mask(buf, b"expires=", in_span))
+    semi_at = suffix_first((buf == ord(";")) & in_span)
+    eq_at = suffix_first((buf == ord("=")) & in_span)
+
+    def expires(frm, lim):
+        q = gat(exp_at, frm)
+        return torch.where(q + 8 <= lim, q, L)
+
+    out = {k: [] for k in ("seg_start", "seg_end", "name_end", "emit")}
+    bad = torch.zeros(B, dtype=torch.bool, device=buf.device)
+    cursor = start
+    for _ in range(max_segments):
+        s_end = torch.minimum(gat(sep_at, cursor), end)
+        exp = expires(cursor, s_end)
+        hold = (exp < L) & (exp > s_end - _MINIMAL_EXPIRES_LENGTH)
+        last = s_end >= end
+        s_end2 = torch.minimum(gat(sep_at, s_end + 2), end)
+        exp2 = expires(s_end + 2, s_end2)
+        hold2 = (exp2 < L) & (exp2 > s_end2 - _MINIMAL_EXPIRES_LENGTH)
+        merged = hold & ~last
+        bad = bad | (merged & hold2)
+        seg_e = torch.where(merged, s_end2, s_end)
+        semi = gat(semi_at, cursor)
+        semi = torch.where(semi < seg_e, semi, L)
+        eq = gat(eq_at, cursor)
+        eq = torch.where(eq < torch.minimum(semi, seg_e), eq, L)
+        emit = (cursor < seg_e) & ~(hold & last)
+        at = torch.gather(prefix_mask, 1, cursor.clamp(0, L - 1).to(torch.int64)[:, None])[:, 0]
+        bad = bad | (emit & at & (cursor >= 0) & (cursor < L))
+        out["seg_start"].append(cursor)
+        out["seg_end"].append(seg_e)
+        out["name_end"].append(torch.minimum(torch.minimum(eq, semi), seg_e))
+        out["emit"].append(emit)
+        cursor = seg_e + 2
+    out["bad"] = bad
+    out["overflow"] = (gat(sep_at, cursor) < L) | (cursor < end)
+    return out
+
+
+def parse_mod_unique_id(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """mod_unique_id spans -> ({time, ip, pid, counter, thread}, ok): the
+    24 characters of ``[A-Za-z0-9_-]`` ('-' and '_' standing for base64's
+    '+' and '/') decode to 18 bytes -- 32-bit seconds, IPv4, pid, 16-bit
+    counter, 32-bit thread index.  The u32 words come back bit-cast to
+    int32 (the host re-widens them), the counter as int32; ``ok`` needs
+    exactly 24 characters of the alphabet (the reference's
+    parse_mod_unique_id)."""
+    b = gather_span_bytes(buf, start, 24).to(torch.int64)
+    w = end - start
+    upper = (b >= ord("A")) & (b <= ord("Z"))
+    lower = (b >= ord("a")) & (b <= ord("z"))
+    digit = _is_digit(b)
+    dash, under = b == ord("-"), b == ord("_")
+    ok = (w == 24) & (upper | lower | digit | dash | under).all(dim=1)
+    v = torch.where(upper, b - ord("A"), torch.where(
+        lower, b - ord("a") + 26, torch.where(
+            digit, b - ord("0") + 52, torch.where(dash, 62, 63))))
+    g = [(v[:, i] << 18) | (v[:, i + 1] << 12) | (v[:, i + 2] << 6) | v[:, i + 3]
+         for i in range(0, 24, 4)]
+    words = {
+        "time": (g[0] << 8) | (g[1] >> 16),
+        "ip": ((g[1] & 0xFFFF) << 16) | (g[2] >> 8),
+        "pid": ((g[2] & 0xFF) << 24) | g[3],
+        "counter": g[4] >> 8,
+        "thread": ((g[4] & 0xFF) << 24) | g[5],
+    }
+    return {k: wrap_i32(x) for k, x in words.items()}, ok
 
 
 def parse_secmillis_spans(

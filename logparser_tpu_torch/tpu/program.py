@@ -251,6 +251,44 @@ def compile_device_program(dissector) -> DeviceProgram:
     return _finish_program(dissector, ops, specs)
 
 
+def compile_plausibility_program(dissector) -> DeviceProgram:
+    """Separator-order program for a format compile_device_program
+    rejects, used only for the plausibility bit (the multi-format contest
+    and the definitely-bad filter), never for values: a run of adjacent
+    value tokens collapses into one ``CS_ANY`` capture, a single value
+    token keeps its charset, every literal separator stays in order, so
+    regex-accept still implies plausible.  An empty format compiles to no
+    ops (plausible everywhere)."""
+    tokens = dissector.log_format_tokens
+    ops: List[SplitOp] = []
+    specs: List[TokenSpec] = []
+    i = 0
+    n = len(tokens)
+    while i < n:
+        if isinstance(tokens[i], FixedStringToken):
+            ops.append(SplitOp("lit", tokens[i].regex.encode("utf-8")))
+            i += 1
+            continue
+        j = i
+        while j < n and not isinstance(tokens[j], FixedStringToken):
+            j += 1
+        if j - i == 1:
+            charset, min_len, max_len, narrow = _token_charset(tokens[i])
+        else:
+            charset, min_len, max_len, narrow = CS_ANY, 0, 0, False
+        spec = TokenSpec(len(specs), charset, min_len, max_len, narrow, [])
+        specs.append(spec)
+        if j < n:
+            ops.append(SplitOp("until_lit", tokens[j].regex.encode("utf-8"),
+                               spec.index, charset, min_len, max_len, narrow))
+            i = j + 1
+        else:
+            ops.append(SplitOp("to_end", b"", spec.index, charset, min_len,
+                               max_len, narrow))
+            i = j
+    return _finish_program(dissector, ops, specs)
+
+
 def _finish_program(
     dissector,
     ops: List[SplitOp],

@@ -85,7 +85,7 @@ def test_to_arrow_carries_the_columns():
     pa = pytest.importorskip("pyarrow")
     lines = generate_combined_lines(50, seed=2, garbage_fraction=0.1)
     res = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
-    table = res.to_arrow()
+    table = res.to_arrow(include_validity=False, strings="copy")
     assert table.num_rows == 50 and table.column_names == res.field_ids()
     assert table.schema.field("BYTES:response.body.bytes").type == pa.int64()
     assert table.schema.field("HTTP.URI:request.referer").type == pa.string()
@@ -100,18 +100,17 @@ def test_stage_seconds_are_recorded():
     assert res.d2h_bytes == (14 + 4 * 7) * 20 * 4
 
 
-COOKIE_FORMAT = '%h %t "%r" %>s "%{Cookie}i" "%{Set-Cookie}o"'
-
-
-@pytest.mark.parametrize("field", [
-    "HTTP.COOKIE:request.cookies.session",       # cookie CSR (ROADMAP A5)
-    "HTTP.SETCOOKIE:response.cookies.id",        # Set-Cookie CSR (ROADMAP A5)
-    "STRING:response.cookies.id.domain",         # a Set-Cookie attribute
+@pytest.mark.parametrize("fmt,field,item", [
+    # strftime TIME.LOCALIZEDSTRING (time layouts)
+    ("%h [%{%d/%b/%Y}t] %>s", "TIME.LOCALIZEDSTRING:request.receive.time", 5),
+    # NGINX $time_iso8601 (compile_java_pattern)
+    ("$remote_addr [$time_iso8601] $status", "TIME.EPOCH:request.receive.time.epoch", 5),
+    # an IP_BINARY output (the host oracle)
+    ("$binary_remote_addr $status", "IP:connection.client.host", 6),
 ])
-def test_unsupported_field_raises(field):
-    with pytest.raises(UnsupportedFieldError, match="ROADMAP queue A item 5"):
-        TorchBatchParser(COOKIE_FORMAT, ["IP:connection.client.host", field],
-                         device="cpu")
+def test_unsupported_field_raises(fmt, field, item):
+    with pytest.raises(UnsupportedFieldError, match=f"ROADMAP queue A item {item}"):
+        TorchBatchParser(fmt, ["STRING:request.status.last", field], device="cpu")
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -129,7 +129,7 @@ def jax_unit_plain(unit):
                 },
                 "zone_table": dl.zone_table is not None,
             }
-        elif p.kind == "qscsr":
+        elif p.kind in ("qscsr", "ulist"):
             meta = p.meta
         elif p.kind == "geo":
             tag, column, table = p.meta
@@ -182,6 +182,26 @@ def reference_packed(units, view_specs, buf, lengths) -> np.ndarray:
         entry = _REFERENCE_FNS[key] = (
             ref_pipeline.build_units_jnp_fn(units, view_specs or None), list(units))
     return np.asarray(entry[0](jnp.asarray(buf), jnp.asarray(lengths)))
+
+
+def packed_mismatch(ref, lines):
+    """first_mismatch of the port's executor over ``ref``'s units (carried
+    as plain data) against ``ref``'s own view-emitting executor (the one
+    its parse_batch runs, so the two share a compile), on ``lines``."""
+    import torch
+
+    from logparser_tpu_torch.tpu.carry import units_from_reference
+    from logparser_tpu_torch.tpu.pipeline import UnitsExecutor
+
+    buf, lengths, _ = encode_batch(lines)
+    specs = ref._view_specs()
+    units = units_from_reference([jax_unit_plain(u) for u in ref.units])
+    got = UnitsExecutor(units, specs)(torch.from_numpy(buf), torch.from_numpy(lengths))
+    B = len(lines)
+    pad = ref._bucket(B) - B    # parse_batch's padded batch shape
+    want = ref.device_views_fn()(jnp.asarray(np.pad(buf, ((0, pad), (0, 0)))),
+                                 jnp.asarray(np.pad(lengths, (0, pad))))
+    return first_mismatch(ref.units, specs, got.numpy(), np.asarray(want)[:, :B])
 
 
 def slot_names(units, view_specs):

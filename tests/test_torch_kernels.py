@@ -17,6 +17,11 @@ from logparser_tpu_torch.analytics import device as agg_device
 from logparser_tpu_torch.dissectors.tztable import SPAN_MINUTES, default_zone_table
 from logparser_tpu_torch.tools.demolog import (
     COMBINEDIO_STRFTIME_FIELDS,
+    COOKIE_FIELDS,
+    COOKIE_FORMAT,
+    COOKIE_REMAPPINGS,
+    cookie_edge_lines,
+    cookie_lines,
     DASHBOARD_OPS,
     COMBINEDIO_STRFTIME_FORMAT,
     GEOIP_FIELDS,
@@ -136,6 +141,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     assert counts.pop("zone_lookup") == 0
     assert counts.pop("ipv4_spans") == 0 and counts.pop("geo_lookup") == 0
     assert all(counts.pop(k) == 0 for k in ("agg_lanes", "agg_reduce", "agg_group"))
+    assert counts.pop("setcookie_split") == 0 and counts.pop("muid") == 0
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -559,3 +565,73 @@ def test_aggregate_batch_on_the_card_equals_the_cpu(cuda_device, name):
     # Partials only: far under the packed rows (the dashboard's groups are
     # few; the near-unique client IP ships one group a line).
     assert gpu.d2h_bytes * (10 if name == "dashboard" else 1) <= gpu.row_path_d2h_bytes
+
+
+def _cookie_parser(device, slots=16):
+    return _grown(TorchBatchParser(COOKIE_FORMAT, COOKIE_FIELDS, device=device,
+                                   type_remappings=COOKIE_REMAPPINGS), slots)
+
+
+@pytest.mark.parametrize("line_len,slots", [(0, 16), (0, 128), (8191, 32)])
+def test_cookie_kernels_equal_plain_versions(cuda_device, line_len, slots):
+    """setcookie_split, csr_split in cookie mode and muid, one group at a
+    time, on the same input block as their plain versions."""
+    ex = _cookie_parser(cuda_device, slots).executor
+    (t,) = ex.unit_tables
+    buf, lengths, _ = encode_batch(cookie_lines(3000, seed=51) + cookie_edge_lines(),
+                                   line_len=line_len)
+    buf = torch.from_numpy(buf).to(cuda_device)
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    starts, ends, _ = kernels.split(t.split, buf, lengths)
+    base = torch.zeros((t.n_comp, buf.shape[0]), dtype=torch.int32, device=cuda_device)
+    for c in t.csr:
+        got, want = base.clone(), base.clone()
+        if c.mode == "setcookie":
+            kernels.setcookie_split(c, buf, starts, ends, got)
+            pipeline.setcookie_split_plain(c, buf, starts, ends, want)
+        else:
+            kernels.csr_split(c, buf, got, starts, ends)
+            pipeline.csr_split_plain(c, buf, want, starts, ends)
+        assert torch.equal(got, want), c.mode
+    (m,) = t.muid
+    got = kernels.muid(m, buf, starts, ends)
+    assert torch.equal(got, pipeline.muid_plain(m, buf, starts, ends, torch.empty_like(got)))
+    packed = ex(buf, lengths)
+    cpu = _cookie_parser("cpu", slots).executor
+    assert torch.equal(packed.cpu(), cpu(buf.cpu(), lengths.cpu()))
+
+
+def test_split_on_a_nul_separated_format(cuda_device):
+    """NUL separator bytes, lines ending in NULs, zero padding past each
+    line: the split kernel equals its plain version."""
+    rng = np.random.default_rng(6)
+    alphabet = np.frombuffer(b"\x00\x00\x00ab1. -", dtype=np.uint8)
+    lines = [b"1.2.3.4\x00bob\x00200", b"1.2.3.4\x00bob\x00200\x00", b"\x00\x00", b""]
+    lines += [bytes(rng.choice(alphabet, size=int(rng.integers(0, 60))))
+              for _ in range(3000)]
+    fields = ["IP:connection.client.host", "STRING:connection.client.user",
+              "STRING:request.status.last"]
+    for fmt in ("%h\x00%u\x00%>s", "%h\x00\x00%u %>s\x00"):
+        (t,) = TorchBatchParser(fmt, fields, device=cuda_device).executor.unit_tables
+        for line_len in (0, 1024):
+            buf, lengths, _ = encode_batch(lines, line_len=line_len)
+            buf = torch.from_numpy(buf).to(cuda_device)
+            lengths = torch.from_numpy(lengths).to(cuda_device)
+            got = kernels.split(t.split, buf, lengths)
+            want = pipeline.compute_split(t.split.program, buf, lengths)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), fmt
+
+
+def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):
+    lines = cookie_lines(4000, seed=52) + cookie_edge_lines()
+    kernels.reset_launch_counts()
+    gpu_p = _cookie_parser(None)
+    gpu = gpu_p.parse_batch(lines)
+    counts = kernels.launch_counts()
+    assert counts["setcookie_split"] >= 1 and counts["muid"] >= 1
+    assert counts["csr_split"] >= 1 and gpu.csr_regrows == 3
+    cpu = _cookie_parser("cpu").parse_batch(lines)
+    assert gpu.to_dict() == cpu.to_dict()
+    assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
+    assert gpu.to_arrow(strings="copy").equals(cpu.to_arrow(strings="copy"))

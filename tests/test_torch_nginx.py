@@ -201,8 +201,8 @@ def test_widest_bucket_matches_reference():
 
 
 @pytest.mark.parametrize("fmt,field,why", [
-    ("$remote_addr $upstream_addr", "UPSTREAM_ADDR:nginxmodule.upstream.addr.0.value",
-     "upstream-list"),
+    ("$remote_addr $upstream_response_length",
+     "BYTES:nginxmodule.upstream.response.length.0.value", "upstream-list"),
     ("$remote_addr $upstream_response_time",
      "SECOND_MILLIS:nginxmodule.upstream.response.time.1.redirected", "upstream-list"),
     ("$binary_remote_addr $status", "IP:connection.client.host", "BinaryIPDissector"),

@@ -137,18 +137,17 @@ def test_unported_formats_raise(fmt):
         TorchBatchParser(fmt, ["IP:connection.client.host"], device="cpu")
 
 
-COOKIE_FORMAT = '%h %t "%r" %>s %b "%{Cookie}i" "%{Set-Cookie}o"'
-
-
-@pytest.mark.parametrize("field,where", [
-    ("HTTP.COOKIE:request.cookies.*", "cookie CSR split"),
-    ("TIME.EPOCH:response.cookies.id.expires", "split_setcookie_csr"),
-    ("BYTESCLF:response.body.bytesclf", "zero->null CLF conversion"),
-    ("STRING:no.such.field", "no producer"),
+@pytest.mark.parametrize("fmt,field,where", [
+    ("%h [%{%d/%b/%Y}t]", "TIME.LOCALIZEDSTRING:request.receive.time",
+     "TIME.LOCALIZEDSTRING values"),
+    ("$remote_addr [$time_iso8601]", "TIME.EPOCH:request.receive.time.epoch",
+     "compile_java_pattern"),
+    ("$binary_remote_addr $status", "IP:connection.client.host", "BinaryIPDissector"),
+    ('%h %t "%r" %>s %b', "STRING:no.such.field", "no producer"),
 ])
-def test_unported_fields_raise_naming_the_slice(field, where):
+def test_unported_fields_raise_naming_the_slice(fmt, field, where):
     with pytest.raises(UnsupportedFieldError, match=where):
-        TorchBatchParser(COOKIE_FORMAT, [field], device="cpu")
+        TorchBatchParser(fmt, [field], device="cpu")
 
 
 def test_charset_tables_are_bool_copies():
