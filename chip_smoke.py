@@ -19,11 +19,15 @@ use, seed 46) and NGINX (``nginx_uri``, seed 44; ``nginx_timing``: $msec
 and $request_time, seed 49) -- then the analytics pushdown (the dashboard
 aggregate over the headline fields, 65,536 lines, seed 42, plus crafted
 fold lines) and ``cookies_uniqueid`` (request cookies, Set-Cookie lists
-and mod_unique_id tokens, seed 50), and fails (non-zero exit, no result line) on the first
-phase that fails:
+and mod_unique_id tokens, seed 50) and the other entry points (run_program,
+parse_blob, aggregate_blob, the two streams, the unescape and GeoIP
+gather utilities), and fails (non-zero exit, no result line) on the
+first phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the fourteen kernels from logparser_tpu_torch/csrc, in parallel;
+2. build   -- the sixteen kernels from logparser_tpu_torch/csrc, in parallel,
+   and beside them the g++ line framer (logparser_tpu_torch/native), which
+   must build: the blob and stream phases fail on a numpy framing;
 3. corpus  -- the generated lines + edge lines;
 4. one phase per kernel (split, span_stages, timestamp, pack_rows): the
    kernel and its plain PyTorch version on the same CUDA tensors must be
@@ -33,6 +37,13 @@ phase that fails:
    launch counts zeroed just before and read just after, compared with
    the same parser on the CPU (to_dict and needs_host); then a small batch
    at the widest line bucket (8191 bytes, one line past it);
+   5b. runtime.run_program (the split-only entry) on the headline batch
+   against compute_split; the unescape utility (postproc.
+   unescape_compact_spans) over the user-agent spans of 65,536 headline
+   lines with 5% escaped quotes, against its plain version, and the spec's
+   fuzz cases; parse_blob of the headline batch as one blob (CRLF on some
+   lines, a trailing newline), equal to the CPU's parse_batch of the same
+   lines, with its encode seconds beside parse_batch's;
 6. the URI chain: span_stages (with the protocol split), uri_split and
    csr_split (one launch per group, two groups each) and pack_rows (with
    the overflow bit) against their plain versions under its tables at
@@ -57,7 +68,10 @@ phase that fails:
    a host simulation of the same search touches) beside
    torch.searchsorted, and on an empty table; parse_batch end to end on
    both GeoIP configurations (the synthetic one also reports the seconds
-   to write the database and to build its table) and the 8191-byte bucket;
+   to write the database and to build its table), GeoDeviceTable.gather
+   of every synthetic City column by the batch's looked-up rows and
+   crafted out-of-range ones (beside torch.index_select), and the
+   8191-byte bucket;
 9. NGINX: span_stages (the secmillis tasks) and pack_rows under the
    nginx_timing tables against their plain versions; parse_batch end to
    end on both NGINX configurations and the 8191-byte bucket;
@@ -70,7 +84,8 @@ phase that fails:
    zeroed just before, read just after), equal to the CPU's
    AggregateState, needs_host and row accounting, with at least 10x fewer
    D2H bytes than parse_batch on the same batch and the crafted lines
-   folded, then aggregate and parse_batch in turns for lines/s.  Each of
+   folded, then aggregate and parse_batch in turns for lines/s, then
+   aggregate_blob of the same lines equal to the CPU's state.  Each of
    sections 5 to 9 also runs its configuration's representative_spec
    (the reference bench's parity sweep) on the card against the CPU
    (phases ``agg_parity_*``), and the URI chain a count_by over the query
@@ -87,13 +102,19 @@ phase that fails:
    upstream-list elements, BYTESCLF over ``%B``, the cookie path's
    8191-byte bucket.  Every end-to-end comparison in sections 5 to 11
    holds needs_host, to_dict() and to_arrow(strings="copy") equal;
-12. the kernels line, the card line, and the result line
+12. streams: parse_batch_stream over six batches of 65,536 lines
+   (headline, the URI chain regrowing 16 -> 128 mid-stream, headline),
+   each equal to its parse_batch on the card, the stream wall beside the
+   serial walls; aggregate_batch_stream(depth=2) over three dashboard
+   batches, each state equal to aggregate_batch's;
+13. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 H100_HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -116,6 +137,8 @@ REPLACES = {
     "agg_group": "logparser_tpu/analytics/device.py:233",
     "setcookie_split": "logparser_tpu/tpu/postproc.py:843",
     "muid": "logparser_tpu/tpu/postproc.py:957",
+    "unescape": "logparser_tpu/tpu/postproc.py:1131",
+    "geo_gather": "logparser_tpu/geoip/device.py:114",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -215,15 +238,23 @@ def main() -> int:
         generate_combined_lines,
         uri_edge_lines,
     )
+    from logparser_tpu_torch import native
     from logparser_tpu_torch.tpu import kernels, pipeline, runtime
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
+    framer_build = threading.Thread(target=native.get_lib)
+    framer_build.start()   # g++ beside the nvcc processes
     kernels.build()
+    framer_build.join()
     info = kernels.build_info()
     regs = {k: [ln.strip() for ln in log.splitlines() if "registers" in ln]
             for k, log in info["ptxas"].items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs})
+    if not native.native_available():
+        fail("the g++ framer (logparser_tpu_torch/native/logframe.cc) did not build")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": len(kernels.KERNELS), "native_available": native.native_available(),
+          "framer_build_seconds": native.build_seconds(), "ptxas": regs})
 
     # ---- 3. corpus -----------------------------------------------------
     lines = generate_combined_lines(N_LINES, seed=42, garbage_fraction=0.01)
@@ -247,14 +278,14 @@ def main() -> int:
     rows = {}
 
     def phase(name, run_kernel, run_plain, bytes_moved, ops, kernel=None, n=None,
-              width=None, library=None, compare=None):
+              width=None, library=None, compare=None, extra=None):
         """Kernel vs plain version on the same CUDA tensors, then timed.
         ``kernel`` names the kernels-line row when the phase name differs
         (a kernel re-run under the URI chain's tables keeps its slice-1
         row and reports here only); ``library`` is one PyTorch call
         computing the same function, timed the same way; ``compare``
         (got, want) -> max abs error replaces the exact tensor comparison
-        (it calls fail itself)."""
+        (it calls fail itself); ``extra`` adds keys to the phase line."""
         got = run_kernel()
         want = run_plain()
         torch.cuda.synchronize()
@@ -281,7 +312,7 @@ def main() -> int:
               "L": L if width is None else width, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
               "bound_by": row["bound_by"], "library_ms": library_ms,
-              "bytes": bytes_moved, "card": smi})
+              "bytes": bytes_moved, **(extra or {}), "card": smi})
         return got
 
     phase.bounds = {}
@@ -361,6 +392,11 @@ def main() -> int:
     emit({"phase": "wide_bucket", "B": len(wide), "L": 8191,
           "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
 
+    # ---- 5b. the split-only entry, the unescape utility, the blob ------
+    run_program_phase(torch, kernels, pipeline, runtime, phase, unit, dbuf, dlen, B, L)
+    unescape_phases(torch, kernels, runtime, phase, rows, smi)
+    blob_phase(kernels, gpu, lines, ref, res, smi)
+
     # ---- 6. the URI chain -----------------------------------------------
     uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                smi, URI_CHAIN_FIELDS, generate_combined_lines, uri_edge_lines)
@@ -381,12 +417,155 @@ def main() -> int:
     # ---- 11. cookies, Set-Cookie, mod_unique_id, NUL separators ----------
     cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi)
 
-    # ---- 12. result ------------------------------------------------------
+    # ---- 12. streams -----------------------------------------------------
+    stream_phases(torch, TorchBatchParser, kernels, smi)
+
+    # ---- 13. result ------------------------------------------------------
     print(smi, flush=True)
     emit({"kernels": [rows[k] for k in REPLACES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def run_program_phase(torch, kernels, pipeline, runtime, phase, unit, dbuf, dlen, B, L):
+    """runtime.run_program on the headline batch: driven once with the
+    launch counts zeroed just before and read just after, then held to
+    compute_split (starts, ends, valid) and timed like a kernel."""
+    program = unit.split.program
+
+    def run():
+        out = runtime.run_program(program, dbuf, dlen)
+        return out["starts"], out["ends"], out["valid"]
+
+    def plain():
+        starts, ends, flags = pipeline.compute_split(program, dbuf, dlen)
+        return starts, ends, (flags & pipeline.SPLIT_VALID) != 0
+
+    kernels.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["split"] < 1:
+        fail("run_program did not launch the split kernel")
+    phase("run_program", run, plain, *split_cost(unit.split, B, L), kernel="split",
+          extra={"launches": launches["split"]})
+
+
+# The fuzz cases of the reference's unescape spec (tests/test_fuzz_differential.py):
+# (span, exact, the reference decode of an exact span).
+UNESCAPE_CASES = [
+    (b'esc \\" quote', True, b'esc " quote'),
+    (b"a\\\\b", True, b"a\\b"),
+    (b'a\\\\\\"b', True, b'a\\"b'),
+    (b'run\\\\\\\\\\"x', True, b'run\\\\"x'),
+    (b'\\" \\" \\"', True, b'" " "'),
+    (b"plain", True, b"plain"),
+    (b"tail\\\\", True, b"tail\\"),
+    (b"a\\qb", True, b"a\\qb"),
+    (b"odd\\", False, None),
+    (b"a\\nb", False, None),
+    (b"\\x41z", False, None),
+]
+
+
+def unescape_phases(torch, kernels, runtime, phase, rows, smi):
+    """The unescape utility over the user-agent spans of the headline
+    corpus with 5% of lines carrying an escaped quote (the reference
+    bench's corpus, B = 65,536): postproc.unescape_compact_spans driven
+    once with the counts zeroed, then the kernel against its plain version
+    (out, out_len, exact), timed; then the spec's fuzz cases."""
+    import numpy as np
+
+    from logparser_tpu_torch.tools.demolog import (
+        force_escaped_quote_lines,
+        generate_combined_lines,
+    )
+    from logparser_tpu_torch.tpu import postproc
+
+    lines = force_escaped_quote_lines(generate_combined_lines(N_LINES, seed=42), 5)
+    buf, lengths, _ = runtime.encode_batch(lines)
+    B, L = buf.shape
+    # The UA span is the final quoted field, opened by the last ' "'.
+    starts = np.array([ln.rindex(' "') + 2 for ln in lines], dtype=np.int32)
+    ends = np.array([len(ln) - 1 for ln in lines], dtype=np.int32)
+    width = min(int((ends - starts).max()) + 1, L)
+    dbuf, ds, de = (torch.from_numpy(a).cuda() for a in (buf, starts, ends))
+    kernels.reset_launch_counts()
+    out, out_len, exact = postproc.unescape_compact_spans(dbuf, ds, de, width)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["unescape"]
+    if launches < 1:
+        fail("unescape_compact_spans did not launch the unescape kernel")
+    n_read = int(np.minimum(ends - starts, width).clip(0).sum())
+    escaped = sum('"esc \\" quote' in ln for ln in lines)
+    span_len = torch.from_numpy(ends - starts).cuda()
+    phase("unescape", lambda: kernels.unescape(dbuf, ds, de, width),
+          lambda: postproc.unescape_compact_spans_plain(dbuf, ds, de, width),
+          bytes_moved=n_read + 8 * B + B * width + 5 * B, ops=10 * n_read, n=B,
+          width=width, extra={"L": L, "launches": launches, "escaped_lines": escaped,
+                              "exact_rows": int(exact.sum())})
+    rows["unescape"]["launches"] = launches
+    if int((out_len < span_len).sum()) != escaped or not bool(exact.all()):
+        fail("unescape: the escaped-quote lines did not each lose one byte, "
+             "or a row was inexact")
+
+    case = np.zeros((len(UNESCAPE_CASES), 64), dtype=np.uint8)
+    for i, (c, _, _) in enumerate(UNESCAPE_CASES):
+        case[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
+    args = (torch.from_numpy(case).cuda(), torch.zeros(len(case), dtype=torch.int32).cuda(),
+            torch.tensor([len(c) for c, _, _ in UNESCAPE_CASES], dtype=torch.int32).cuda())
+    got = kernels.unescape(*args, 32)
+    require_equal(torch, "unescape_cases", got, postproc.unescape_compact_spans_plain(*args, 32))
+    o, n, e = (t.cpu().numpy() for t in got)
+    for i, (c, want_exact, decoded) in enumerate(UNESCAPE_CASES):
+        if bool(e[i]) != want_exact or (want_exact and bytes(o[i, :n[i]]) != decoded):
+            fail(f"unescape case {c!r}: exact {bool(e[i])}, out {bytes(o[i, :n[i]])!r}")
+    emit({"phase": "unescape_cases", "equal": True, "cases": len(UNESCAPE_CASES),
+          "card": smi})
+
+
+def blob_phase(kernels, gpu, lines, ref, res, smi):
+    """parse_blob on the card: the headline corpus and its edge lines as one
+    blob, CRLF on every seventh line and a trailing newline.  The framed
+    lines must be the list, and the result equal parse_batch's on the CPU
+    over them (``ref``); the encode seconds beside parse_batch's on the
+    same lines (``res``: its numpy loop, forced by the empty edge line) and
+    on the same lines without the empty one (native)."""
+    from logparser_tpu_torch.tpu.batch import _BlobLines
+
+    raw = [ln.encode() for ln in lines]
+    blob = b"".join(r + (b"\r\n" if i % 7 == 3 else b"\n") for i, r in enumerate(raw))
+    if list(_BlobLines(blob)) != raw:
+        fail("end_to_end_blob: the framed lines differ from the list")
+    gpu.parse_blob(blob[:1 << 20])   # warm the pinned-memory cache
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = gpu.parse_blob(blob)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("split", "span_stages", "timestamp", "pack_rows"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the blob path")
+    if got.framer != "native":
+        fail(f"parse_blob framed with {got.framer}, not the native framer")
+    compare_results(got, ref, "end_to_end_blob")
+    nonempty = [ln for ln in lines if ln]
+    t0 = time.perf_counter()
+    native_res = gpu.parse_batch(nonempty)
+    native_wall = time.perf_counter() - t0
+    if native_res.framer != "native":
+        fail(f"parse_batch without empty lines framed with {native_res.framer}")
+    emit({"phase": "end_to_end_blob", "B": len(lines), "blob_bytes": len(blob),
+          "equal_to_cpu": True, "framer": got.framer, "wall_seconds": wall,
+          "lines_per_s": len(lines) / wall, "stage_seconds": got.stage_seconds,
+          "encode_seconds": got.stage_seconds["encode"],
+          "parse_batch_framer": res.framer,
+          "parse_batch_encode_seconds": res.stage_seconds["encode"],
+          "parse_batch_native_framer": native_res.framer,
+          "parse_batch_native_encode_seconds": native_res.stage_seconds["encode"],
+          "parse_batch_native_wall_seconds": native_wall,
+          "launches": launches, "card": smi})
 
 
 def bound_ms(bytes_moved, ops):
@@ -774,12 +953,17 @@ def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
     zones = torch.from_numpy(z.astype(np.int32)).cuda()
     minutes = torch.from_numpy(m.astype(np.int32)).cuda()
     n = len(z)
+    # The library yardstick: the sorted-key search alone, on the same
+    # (zone, clipped minute) keys.
+    sorted_keys = torch.from_numpy(keys).cuda()
+    query = zones.to(torch.int64) * span + minutes.to(torch.int64).clamp(0, span - 1)
     phase("zone_lookup",
           lambda: kernels.zone_lookup(zt, zones, minutes),
           lambda: pipeline.zone_lookup_plain(
               zt, zones, minutes, None, torch.empty((2, n), dtype=torch.int32, device="cuda")),
           bytes_moved=16 * n + zone_table_bytes(torch, zt, zones, minutes),
-          ops=10 * n, n=n, width=0)
+          ops=10 * n, n=n, width=0,
+          library=lambda: torch.searchsorted(sorted_keys, query, right=True))
 
 
 GEO_LARGE_RANGES = 1 << 22   # the order of a production City database's IPv4 networks
@@ -1020,7 +1204,63 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                    None, smi, db_write_seconds=None if existed else write_s,
                    table_build_seconds=build_s, ranges=ranges)
     agg_parity(torch, kernels, gpu_syn, cpu_syn, syn_lines, "agg_parity_geo_synthetic", smi)
+    geo_gather_phase(torch, kernels, runtime, phase, rows, gpu_syn, syn_lines, smi)
     run_wide(gpu, parser(city, "cpu"), demolog.geoip_chain_lines(256) + edge, "geo")
+
+
+def geo_gather_phase(torch, kernels, runtime, phase, rows, gpu_syn, syn_lines, smi):
+    """GeoDeviceTable.gather on the synthetic City table (131,072 networks)
+    for every column, by the rows geo_lookup finds for the geoip_synthetic
+    batch plus crafted out-of-range rows: driven once per column with the
+    counts zeroed before the first and read after the last, each column
+    held to its plain version (bit for bit: the float columns hold NaN),
+    and the float latitude timed beside torch.index_select over the same
+    rows with the index rule applied beforehand."""
+    import numpy as np
+
+    from logparser_tpu_torch.geoip.device import geo_gather_plain
+
+    (t,) = gpu_syn.executor.unit_tables
+    g = next(g for g in t.geo if "location.latitude" in g.table.columns)
+    table = g.table
+    buf, lengths, _ = runtime.encode_batch(syn_lines)
+    dbuf, dlen = torch.from_numpy(buf).cuda(), torch.from_numpy(lengths).cuda()
+    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    ip = kernels.ipv4_spans(g, dbuf, starts, ends)
+    found = kernels.geo_lookup(g, ip[0], gate=ip[1])
+    n = len(table) + 1   # the miss row and one row per range
+    crafted = torch.tensor([-1, -n, -n - 5, n, n + 100, 2**31 - 1, -2**31],
+                           dtype=torch.int32, device="cuda")
+    rows_t = torch.cat([found, crafted]).contiguous()
+    B = rows_t.shape[0]
+    kernels.reset_launch_counts()
+    got = {c: table.gather(c, rows_t) for c in table.columns}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["geo_gather"]
+    if launches < len(table.columns):
+        fail(f"geo_gather launched {launches} times for {len(table.columns)} columns")
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for c, out in got.items():
+        col = torch.from_numpy(table.arrays[c]).cuda()
+        if out.dtype != col.dtype or not torch.equal(bits(out), bits(geo_gather_plain(col, rows_t))):
+            fail(f"geo_gather on {c} differs from its plain version")
+    if int((found > 0).sum()) < 0.45 * N_LINES:   # half the hosts are inside
+        fail(f"geo_gather: only {int((found > 0).sum())} lookups hit")
+    col = table._device_arrays[("location.latitude", rows_t.device)]
+    idx = torch.where(rows_t < 0, rows_t.to(torch.int64) + n, rows_t.to(torch.int64)).clamp(0, n - 1)
+    distinct = int(torch.unique(idx).numel())
+    phase("geo_gather", lambda: table.gather("location.latitude", rows_t),
+          lambda: geo_gather_plain(col, rows_t),
+          bytes_moved=4 * B + 4 * B + 4 * distinct, ops=4 * B, n=B, width=0,
+          library=lambda: torch.index_select(col, 0, idx),
+          compare=lambda a, b: 0.0 if torch.equal(bits(a), bits(b)) else fail(
+              "geo_gather on location.latitude differs from its plain version"),
+          extra={"columns": table.columns, "rows": len(table) + 1,
+                 "launches": launches, "hits": int((found > 0).sum())})
+    rows["geo_gather"]["launches"] = launches
 
 
 def nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
@@ -1288,7 +1528,8 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
         walls[which].append(time.perf_counter() - t0)
     compare_aggregates(again, out, "agg_dashboard_repeat")
     cpu = TorchBatchParser("combined", demolog.HEADLINE_FIELDS, device="cpu")
-    compare_aggregates(out, cpu.aggregate_batch(lines, spec), "end_to_end_agg")
+    cpu_out = cpu.aggregate_batch(lines, spec)
+    compare_aggregates(out, cpu_out, "end_to_end_agg")
     if out.d2h_bytes * 10 > res.d2h_bytes:
         fail(f"the aggregate copied {out.d2h_bytes} bytes back, parse_batch "
              f"{res.d2h_bytes}: not 10x fewer")
@@ -1313,6 +1554,22 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
           "d2h_ratio": res.d2h_bytes / out.d2h_bytes,
           "device_lines_per_s": B / out.stage_seconds["kernels"],
           "launches": launches, "card": smi})
+
+    # aggregate_blob: the same lines as one blob, against the CPU's state.
+    blob = "\n".join(lines).encode()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    blob_out = gpu.aggregate_blob(blob, spec)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("split", "pack_rows", "agg_lanes", "agg_reduce", "agg_group"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the aggregate_blob path")
+    compare_aggregates(blob_out, cpu_out, "end_to_end_agg_blob")
+    emit({"phase": "end_to_end_agg_blob", "B": B, "blob_bytes": len(blob),
+          "equal_to_cpu": True, "wall_seconds": wall, "lines_per_s": B / wall,
+          "stage_seconds": blob_out.stage_seconds, "fold_rows": blob_out.fold_rows,
+          "d2h_bytes": blob_out.d2h_bytes, "launches": launches, "card": smi})
 
 
 def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
@@ -1522,9 +1779,107 @@ def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
           "launches": launches, "card": smi})
 
 
-def compare_results(got, want, what) -> None:
-    """needs_host, to_dict() and to_arrow(strings="copy") of the card's
-    result equal the CPU's."""
+STREAM_BATCHES = (("headline", 142), ("headline", 143), ("uri", 153), ("uri", 154),
+                  ("headline", 144), ("headline", 145))
+
+
+def stream_phases(torch, TorchBatchParser, kernels, smi):
+    """parse_batch_stream (depth 1, staged H2D) over six batches of 65,536
+    lines -- headline, then the URI chain (a fresh parser regrows 16 -> 128
+    slots mid-stream: one URI edge line passes the cap), then headline
+    again -- each result equal to that batch's parse_batch on the card on
+    another fresh parser; the stream wall beside the sum of the serial
+    walls, taken before the stream and again after it.  Then aggregate_batch_stream(depth=2) over three dashboard
+    batches, each state equal to aggregate_batch's."""
+    from logparser_tpu_torch.tools import demolog
+
+    def batch(kind, seed):
+        lines = demolog.generate_combined_lines(N_LINES, seed=seed, garbage_fraction=0.01)
+        return lines + (demolog.uri_edge_lines() if kind == "uri" else [])
+
+    batches = [batch(kind, seed) for kind, seed in STREAM_BATCHES]
+    fields = demolog.URI_CHAIN_FIELDS
+    serial = TorchBatchParser("combined", fields)
+    serial.parse_batch(batches[0][:4096])   # warm the allocators
+    walls, want = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        want.append(serial.parse_batch(b))
+        walls.append(time.perf_counter() - t0)
+    stream = TorchBatchParser("combined", fields)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = list(stream.parse_batch_stream(batches, depth=1))
+    stream_wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("split", "span_stages", "timestamp", "uri_split", "csr_split", "pack_rows"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the stream path")
+    if [r.csr_regrows for r in got] != [r.csr_regrows for r in want] or stream.csr_slots != 128:
+        fail(f"stream regrows {[r.csr_regrows for r in got]}, serial "
+             f"{[r.csr_regrows for r in want]}, slots {stream.csr_slots}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.framer != "native":
+            fail(f"stream batch {i} framed with {g.framer}, not the native framer")
+        compare_results(g, w, f"stream batch {i}", arrow=False)
+    # The serial walls once more, after the stream (a fresh parser again,
+    # results dropped): how much of the difference is the order of runs.
+    again = TorchBatchParser("combined", fields)
+    walls_after = []
+    for b in batches:
+        t0 = time.perf_counter()
+        again.parse_batch(b)
+        walls_after.append(time.perf_counter() - t0)
+    emit({"phase": "stream", "batches": [f"{k} {len(b)}" for (k, _), b in
+                                         zip(STREAM_BATCHES, batches)],
+          "depth": 1, "stage_h2d": True, "equal_to_parse_batch": True,
+          "stream_wall_seconds": stream_wall, "serial_wall_seconds": walls,
+          "serial_wall_sum": sum(walls), "serial_after_wall_seconds": walls_after,
+          "serial_after_wall_sum": sum(walls_after),
+          "lines_per_s": sum(map(len, batches)) / stream_wall,
+          "serial_lines_per_s": sum(map(len, batches)) / sum(walls),
+          "csr_regrows": [r.csr_regrows for r in got],
+          "stage_seconds": [r.stage_seconds for r in got],
+          "serial_stage_seconds": [r.stage_seconds for r in want],
+          "launches": launches, "card": smi})
+
+    spec = demolog.DASHBOARD_OPS
+    agg = [demolog.generate_combined_lines(N_LINES, seed=s, garbage_fraction=0.01)
+           + demolog.aggregate_edge_lines() for s in (146, 147, 148)]
+    gpu = TorchBatchParser("combined", demolog.HEADLINE_FIELDS)
+    walls = []
+    want = []
+    for b in agg:
+        t0 = time.perf_counter()
+        want.append(gpu.aggregate_batch(b, spec))
+        walls.append(time.perf_counter() - t0)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = list(gpu.aggregate_batch_stream(agg, spec, depth=2))
+    stream_wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in ("agg_lanes", "agg_reduce", "agg_group"):
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the aggregate stream path")
+    for i, (g, w) in enumerate(zip(got, want)):
+        compare_aggregates(g, w, f"aggregate stream batch {i}")
+    walls_after = []
+    for b in agg:
+        t0 = time.perf_counter()
+        gpu.aggregate_batch(b, spec)
+        walls_after.append(time.perf_counter() - t0)
+    emit({"phase": "aggregate_stream", "batches": len(agg), "depth": 2,
+          "equal_to_aggregate_batch": True, "stream_wall_seconds": stream_wall,
+          "serial_wall_seconds": walls, "serial_wall_sum": sum(walls),
+          "serial_after_wall_seconds": walls_after,
+          "serial_after_wall_sum": sum(walls_after),
+          "stage_seconds": [o.stage_seconds for o in got],
+          "launches": launches, "card": smi})
+
+
+def compare_results(got, want, what, arrow=True) -> None:
+    """needs_host, to_dict() and (with ``arrow``) to_arrow(strings="copy")
+    of the card's result equal the CPU's."""
     if got.needs_host.tolist() != want.needs_host.tolist():
         fail(f"{what}: needs_host differs: {got.needs_host[:10]} vs {want.needs_host[:10]}")
     got_d, want_d = got.to_dict(), want.to_dict()
@@ -1532,6 +1887,8 @@ def compare_results(got, want, what) -> None:
         if got_d[fid] != want_d[fid]:
             i = next(i for i, (a, b) in enumerate(zip(got_d[fid], want_d[fid])) if a != b)
             fail(f"{what}: {fid} row {i}: {got_d[fid][i]!r} != {want_d[fid][i]!r}")
+    if not arrow:
+        return
     got_t, want_t = got.to_arrow(strings="copy"), want.to_arrow(strings="copy")
     if not got_t.equals(want_t):
         bad = [n for n in want_t.column_names

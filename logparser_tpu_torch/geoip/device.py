@@ -12,7 +12,10 @@ r - 1; string columns as vocabulary codes, the vocabulary stays on the
 host).  A batch of IPv4 keys looks up its rows with one binary search per
 key: the ``geo_lookup`` kernel on the card (``tpu/kernels.py``), and
 :func:`lookup_rows_plain` -- ``torch.searchsorted`` in int64 -- as its
-plain version.  The columns are gathered on the host at materialization.
+plain version.  The parser gathers the columns on the host at
+materialization; :meth:`GeoDeviceTable.gather` is the public column
+gather by looked-up row (the ``geo_gather`` kernel on the card,
+:func:`geo_gather_plain` its plain version).
 """
 from __future__ import annotations
 
@@ -89,6 +92,27 @@ class GeoDeviceTable:
         self.vocab_arrays: Dict[str, np.ndarray] = {
             c: np.asarray(v, dtype=object) for c, v in self.vocabs.items()
         }
+        self._device_arrays: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    def gather(self, column: str, rows, device=None) -> torch.Tensor:
+        """One column for looked-up rows: ``arrays[column][rows]`` [B] in
+        the column's dtype (float32, int64 for ``asn.number``, int32
+        vocabulary codes).  ``rows`` [B] int32 is a tensor or a numpy array
+        (numpy goes to CUDA unless ``device`` says otherwise); on a CUDA
+        tensor the ``geo_gather`` kernel gathers from a device copy of the
+        column, made once per column and device.  Out-of-range rows follow
+        the reference's rule (:func:`geo_gather_plain`)."""
+        from ..tpu import kernels
+        from ..tpu.runtime import device_tensor
+
+        if not isinstance(rows, torch.Tensor):
+            rows = np.asarray(rows, dtype=np.int32)
+        rows = device_tensor(rows, device)
+        key = (column, rows.device)
+        col = self._device_arrays.get(key)
+        if col is None:
+            col = self._device_arrays[key] = torch.from_numpy(self.arrays[column]).to(rows.device)
+        return kernels.geo_gather(col, rows)
 
     @classmethod
     def from_ranges(cls, starts: np.ndarray, ends: np.ndarray) -> "GeoDeviceTable":
@@ -99,6 +123,7 @@ class GeoDeviceTable:
         table.starts = np.asarray(starts, dtype=np.uint32)
         table.ends = np.asarray(ends, dtype=np.uint32)
         table.vocabs, table.arrays, table.vocab_arrays = {}, {}, {}
+        table._device_arrays = {}
         return table
 
     def __len__(self) -> int:
@@ -131,6 +156,17 @@ def lookup_rows_plain(starts: torch.Tensor, ends: torch.Tensor,
     idx = (pos - 1).clamp(0, K - 1)
     hit = (pos > 0) & (k64 <= e64[idx]) & (k64 >= s64[idx])
     return torch.where(hit, pos, 0).to(torch.int32)
+
+
+def geo_gather_plain(column: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``column[rows]`` under the reference's gather rule: a negative row
+    adds the column's length once, then every row clamps into [0, N - 1]
+    (``[-1]`` reads the last entry, ``[-N - 4]`` the first, ``[N]`` the
+    last)."""
+    n = column.shape[0]
+    idx = rows.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return column[idx]
 
 
 def ipv4_to_u32(ips: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:

@@ -84,6 +84,18 @@ def generate_combined_lines(
     return lines
 
 
+
+def force_escaped_quote_lines(base: List[str], pct: float) -> List[str]:
+    """Copy of ``base`` with every ``round(100 / pct)``-th line's last
+    quoted field (the user-agent) rewritten to start with a
+    backslash-escaped quote (``"esc \\" quote <ua>"``): the reference
+    bench's escaped-quote corpus."""
+    step = max(1, round(100 / pct))
+    out = list(base)
+    for i in range(0, len(out), step):
+        out[i] = re.sub(r'"([^"]*)"$', r'"esc \\" quote \1"', out[i], count=1)
+    return out
+
 # The benchmark-of-record field set (bench.py and the device profiler
 # both import it, so they can never measure different parsers).
 HEADLINE_FIELDS = [

@@ -17,11 +17,15 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
   one path, raises :class:`UnsupportedFieldError` naming the ROADMAP item
   that brings it; a format the split cannot run becomes a
   plausibility-only probe unit;
-- the batch goes host -> device once (pinned buffer, ``non_blocking`` on
-  the current stream), through the kernels (``UnitsExecutor``), and back
-  once as the packed ``[K + 4V, B]`` int32; a batch whose row 0 carries
-  the CSR overflow bit doubles the query-string slots (up to
-  ``CSR_SLOTS_MAX``) and runs again;
+- a batch goes host -> device once (framed straight into pinned memory
+  by the native framer, or pinned after the numpy loop; ``non_blocking``
+  copies), through the kernels (``UnitsExecutor``), and back once as the
+  packed ``[K + 4V, B]`` int32, into pinned memory behind an event; a
+  batch whose row 0 carries the CSR overflow bit doubles the query-string
+  slots (up to ``CSR_SLOTS_MAX``) and runs again.  ``parse_batch`` takes
+  a line list, ``parse_blob`` newline-delimited bytes, and
+  ``parse_batch_stream`` overlaps the host's encode and materialization
+  with the card's work on the neighbouring batches;
 - materialization decides, per line, the winning format, validity and
   plausibility, and decodes span / long / timestamp columns on the host
   (int64 numpy), including the Long-overflow patch of ``%b``, the
@@ -36,15 +40,16 @@ plausible, contested, truncated) are returned in ``needs_host`` with all
 fields None and ``valid`` False: the per-line oracle is a later slice.
 Definitely-bad lines (implausible for every format) are plain invalid.
 
-``aggregate_batch`` / ``aggregate_batch_stream`` are the analytics
-pushdown (the reference's, at stream depth 1): the same kernels, then the
-aggregate kernels over the packed rows on the card, and only the partials
-come back; every row the device cannot finish exactly replays through
-``parse_batch`` and is folded in from its delivered values.
+``aggregate_batch`` / ``aggregate_blob`` / ``aggregate_batch_stream``
+are the analytics pushdown: the same kernels, then the aggregate kernels
+over the packed rows on the card, and only the partials come back; every
+row the device cannot finish exactly replays through ``parse_batch`` and
+is folded in from its delivered values.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -61,6 +66,7 @@ from ..geoip.dissectors import AbstractGeoIPDissector
 from ..geoip.mmdb import MMDBReader
 from ..httpd.apache import ApacheLogFormat, looks_like_apache_format
 from ..httpd.nginx import NginxLogFormat, additional_consumers, looks_like_nginx_format
+from ..native import _count_lines, encode_blob, framer
 from . import postproc, timefields
 from .pipeline import (
     CSR_OVERFLOW_BIT,
@@ -86,7 +92,7 @@ from .program import (
     compile_device_program,
     compile_plausibility_program,
 )
-from .runtime import encode_batch
+from .runtime import encode_lines
 from .timeparse import compile_layout_for_device
 
 __all__ = ["TorchBatchParser", "BatchResult", "UnsupportedFieldError",
@@ -278,6 +284,8 @@ class TorchBatchParser:
             for fid in self.requested if _plan_group(self.plan_by_id[fid]) == "span"
         ]
         self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
+        self._plain_executor: Optional[UnitsExecutor] = None   # emit_views=False
+        self._copy_stream = None   # the side stream of staged H2D copies
         # canonical spec -> (CSR slots it was built at, AggregateExecutor)
         self._agg_executors: Dict[str, Tuple[int, Any]] = {}
 
@@ -299,6 +307,7 @@ class TorchBatchParser:
             u.layout = PackedLayout.for_plans(u.plans, self.csr_slots)
         assign_row_offsets(self.units)
         self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
+        self._plain_executor = None
         return True
 
     # -- plan resolution -------------------------------------------------
@@ -506,63 +515,179 @@ class TorchBatchParser:
         return []
 
     # -- parsing ---------------------------------------------------------
+    #
+    # A batch goes encode -> dispatch -> fetch -> materialize.  On the card
+    # dispatch only enqueues (H2D, the kernels, the D2H into pinned host
+    # memory, with events), so a stream can encode batch k + 1 and
+    # materialize batch k while the card works; fetch waits on the D2H
+    # event.  On the CPU dispatch runs the plain versions to the end.
 
-    def parse_batch(self, lines: Sequence[Union[bytes, str]]) -> "BatchResult":
+    def parse_batch(self, lines: Sequence[Union[bytes, str]],
+                    emit_views: Optional[bool] = None) -> "BatchResult":
+        """Lines -> BatchResult.  ``emit_views=False`` runs the executor
+        without the per-field view rows (less D2H; ``to_dict()`` and
+        ``to_arrow()`` are the same either way)."""
+        return self._finish(self._dispatch(self._encode(list(lines)), emit_views))
+
+    def parse_blob(self, data: Union[bytes, bytearray, memoryview],
+                   emit_views: Optional[bool] = None) -> "BatchResult":
+        """Newline-delimited log bytes -> BatchResult without a Python line
+        list: the native framer packs the padded [B, L] buffer straight
+        from the blob (into pinned memory on the card), and a line
+        materializes as bytes only when indexed.  Framing is
+        ``native.encode_blob``'s: a final empty segment after a trailing
+        newline is dropped and one trailing ``\\r`` per line is stripped."""
+        batch = self._encode_blob(bytes(data))
+        if isinstance(batch, _BlobLines):  # framer / view disagreement
+            return self.parse_batch(list(batch), emit_views=emit_views)
+        return self._finish(self._dispatch(batch, emit_views))
+
+    def parse_batch_stream(self, batches, depth: int = 1,
+                           emit_views: Optional[bool] = None,
+                           stage_h2d: Optional[bool] = None):
+        """One BatchResult per batch of lines, in order, each equal to its
+        ``parse_batch``.  Up to ``depth`` batches are on the card at once:
+        the host encodes batch k + 1 while batch k runs, and materializes
+        batch k while batch k + 1 runs.  ``stage_h2d`` (default on) starts
+        batch k + 1's H2D copy on a side stream before waiting for batch
+        k's D2H.  A CSR regrow rebuilds the executor; every pending batch
+        dispatched at the old slot count is dispatched again at its fetch."""
+        stage_h2d = True if stage_h2d is None else stage_h2d
+        depth = max(1, depth)
+        pending: deque = deque()
+        for lines in batches:
+            batch = self._encode(list(lines))
+            if stage_h2d:
+                self._stage_h2d(batch)
+            if len(pending) >= depth:
+                fetched = self._fetch(pending.popleft())
+                pending.append(self._dispatch(batch, emit_views))
+                yield self._materialize_fetched(*fetched)
+            else:
+                pending.append(self._dispatch(batch, emit_views))
+        while pending:
+            yield self._finish(pending.popleft())
+
+    def _executor_for(self, emit_views: Optional[bool]) -> UnitsExecutor:
+        """The executor with view rows (the default), or the one without
+        them when ``emit_views`` is False (built at first use)."""
+        if emit_views is None or emit_views:
+            return self.executor
+        if self._plain_executor is None:
+            self._plain_executor = UnitsExecutor(self.units).to(self.device)
+        return self._plain_executor
+
+    def _encode(self, lines: List[Union[bytes, str]]) -> "_Batch":
+        alloc = _PinnedAlloc() if self.device.type == "cuda" else None
         t0 = time.perf_counter()
-        buf, lengths, overflow = encode_batch(lines)
-        stage = {"encode": time.perf_counter() - t0}
-        B = len(lines)
-        regrows = 0
-        while True:
-            packed = self._run_device(buf, lengths, stage)
-            # Adaptive CSR: a line with more query parameters than slots
-            # (or a span past its scan window) -> double the slots and run
-            # the batch again.
-            row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
-            if not ((row0 & CSR_OVERFLOW_BIT) != 0).any() or not self._grow_csr_slots():
-                break
-            regrows += 1
-        t1 = time.perf_counter()
-        result = self._materialize(list(lines), buf, lengths, overflow, packed)
-        stage["materialize"] = time.perf_counter() - t1
-        result.stage_seconds = stage
-        result.d2h_bytes = int(packed.nbytes)
-        result.csr_regrows = regrows
-        return result
+        buf, lengths, overflow, framer = encode_lines(lines, alloc=alloc)
+        return _Batch(lines, buf, lengths, overflow, framer,
+                      time.perf_counter() - t0, alloc)
 
-    def _run_device(self, buf: np.ndarray, lengths: np.ndarray,
-                    stage: Dict[str, float]) -> np.ndarray:
-        """One H2D copy, the kernels, one D2H copy of the packed rows.
-        On the card the device stages are timed with CUDA events."""
-        def add(key, seconds):
-            stage[key] = stage.get(key, 0.0) + seconds
+    def _encode_blob(self, data: bytes):
+        """The blob framed as a _Batch, or its _BlobLines when the framer
+        and the line view disagree on the count."""
+        lines = _BlobLines(data)
+        alloc = _PinnedAlloc() if self.device.type == "cuda" else None
+        t0 = time.perf_counter()
+        buf, lengths, overflow = encode_blob(data, alloc=alloc)
+        if buf.shape[0] != len(lines):
+            return lines
+        return _Batch(lines, buf, lengths, overflow, framer(),
+                      time.perf_counter() - t0, alloc)
 
+    def _upload(self, batch: "_Batch", stream) -> None:
+        """Pin (unless the framer wrote into pinned memory) and start the
+        batch's H2D copy on ``stream``, between two events."""
+        if batch.dbuf is not None:
+            return
+        t0 = time.perf_counter()
+        host_buf, host_len = batch.pinned()
+        batch.add("pin", time.perf_counter() - t0)
+        compute = torch.cuda.current_stream(self.device)
+        batch.h2d = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.cuda.stream(stream):
+            batch.h2d[0].record(stream)
+            batch.dbuf = host_buf.to(self.device, non_blocking=True)
+            batch.dlen = host_len.to(self.device, non_blocking=True)
+            batch.h2d[1].record(stream)
+        if stream != compute:
+            # Made on the side stream, read on the compute stream.
+            batch.dbuf.record_stream(compute)
+            batch.dlen.record_stream(compute)
+
+    def _stage_h2d(self, batch: "_Batch") -> None:
+        """Start the batch's H2D copy on the side copy stream, so that it
+        overlaps the work already on the card (a no-op on the CPU)."""
+        if self.device.type != "cuda":
+            return
+        with torch.cuda.device(self.device):
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            self._upload(batch, self._copy_stream)
+
+    def _dispatch(self, batch: "_Batch", emit_views: Optional[bool]) -> "_Pending":
+        """Enqueue the batch's device pass at the current slot count."""
+        executor = self._executor_for(emit_views)
+        pend = _Pending(batch, emit_views, self.csr_slots)
         if self.device.type == "cpu":
             t0 = time.perf_counter()
-            out = self.executor(torch.from_numpy(buf), torch.from_numpy(lengths))
-            add("kernels", time.perf_counter() - t0)
-            return out.numpy()
-        t0 = time.perf_counter()
-        host_buf = torch.from_numpy(buf).pin_memory()
-        host_len = torch.from_numpy(lengths).pin_memory()
-        host_out = torch.empty((self.executor.n_out_rows, buf.shape[0]),
-                               dtype=torch.int32, pin_memory=True)
-        add("pin", time.perf_counter() - t0)
+            pend.packed = executor(torch.from_numpy(batch.buf),
+                                   torch.from_numpy(batch.lengths)).numpy()
+            batch.add("kernels", time.perf_counter() - t0)
+            return pend
         with torch.cuda.device(self.device):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            dbuf = host_buf.to(self.device, non_blocking=True)
-            dlen = host_len.to(self.device, non_blocking=True)
-            ev[1].record()
-            packed = self.executor(dbuf, dlen)
-            ev[2].record()
-            host_out.copy_(packed, non_blocking=True)
-            ev[3].record()
-            ev[3].synchronize()
-        add("h2d", ev[0].elapsed_time(ev[1]) / 1e3)
-        add("kernels", ev[1].elapsed_time(ev[2]) / 1e3)
-        add("d2h", ev[2].elapsed_time(ev[3]) / 1e3)
-        return host_out.numpy()
+            compute = torch.cuda.current_stream(self.device)
+            self._upload(batch, compute)
+            # The kernels wait for the copy, wherever it ran.
+            compute.wait_event(batch.h2d[1])
+            pend.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            pend.events[0].record()
+            packed = executor(batch.dbuf, batch.dlen)
+            pend.events[1].record()
+            pend.host_out = torch.empty(tuple(packed.shape), dtype=torch.int32,
+                                        pin_memory=True)
+            pend.host_out.copy_(packed, non_blocking=True)
+            pend.events[2].record()
+        return pend
+
+    def _fetch(self, pend: "_Pending"):
+        """Wait for one dispatched batch's packed rows: (batch, packed,
+        regrows).  A batch dispatched before a regrow is dispatched again;
+        a batch whose row 0 carries the CSR overflow bit doubles the slots
+        (up to CSR_SLOTS_MAX) and runs again."""
+        batch, B = pend.batch, pend.batch.buf.shape[0]
+        regrows = 0
+        while True:
+            if pend.slots != self.csr_slots:
+                pend = self._dispatch(batch, pend.emit_views)
+            if pend.events is not None:
+                ev = pend.events
+                ev[2].synchronize()
+                batch.count_h2d()
+                batch.add("kernels", ev[0].elapsed_time(ev[1]) / 1e3)
+                batch.add("d2h", ev[1].elapsed_time(ev[2]) / 1e3)
+                pend.packed = pend.host_out.numpy()
+            packed = pend.packed
+            row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
+            if not ((row0 & CSR_OVERFLOW_BIT) != 0).any() or not self._grow_csr_slots():
+                return batch, packed, regrows
+            regrows += 1
+
+    def _finish(self, pend: "_Pending") -> "BatchResult":
+        return self._materialize_fetched(*self._fetch(pend))
+
+    def _materialize_fetched(self, batch: "_Batch", packed: np.ndarray,
+                             regrows: int) -> "BatchResult":
+        t1 = time.perf_counter()
+        result = self._materialize(batch.lines, batch.buf, batch.lengths,
+                                   batch.overflow, packed)
+        batch.add("materialize", time.perf_counter() - t1)
+        result.stage_seconds = batch.stage
+        result.d2h_bytes = int(packed.nbytes)
+        result.csr_regrows = regrows
+        result.framer = batch.framer
+        return result
 
     # -- analytics pushdown ----------------------------------------------
 
@@ -587,14 +712,32 @@ class TorchBatchParser:
         whose ``state`` holds this batch's partial aggregates (merge
         across batches with ``AggregateState.merge``).  ``spec`` is an
         ``AggregateSpec``, an op list or a JSON string."""
-        return self._aggregate(lines, self._resolve_agg_spec(spec))
-
-    def aggregate_batch_stream(self, batches, spec):
-        """One AggregateOutcome per batch, in order (one batch at a time:
-        no overlap of host and device work)."""
         spec = self._resolve_agg_spec(spec)
+        return self._finish_aggregate(self._dispatch_aggregate(
+            self._encode(list(lines)), spec))
+
+    def aggregate_blob(self, data: Union[bytes, bytearray, memoryview], spec):
+        """``parse_blob``'s framing, ``aggregate_batch``'s delivery."""
+        spec = self._resolve_agg_spec(spec)
+        batch = self._encode_blob(bytes(data))
+        if isinstance(batch, _BlobLines):  # framer / view disagreement
+            return self.aggregate_batch(list(batch), spec)
+        return self._finish_aggregate(self._dispatch_aggregate(batch, spec))
+
+    def aggregate_batch_stream(self, batches, spec, depth: int = 1):
+        """One AggregateOutcome per batch, in order, each equal to its
+        ``aggregate_batch``.  Up to ``depth`` batches wait on the card
+        while the host accumulates (and folds) the oldest one's partials:
+        the accumulation of batch k overlaps the device work of k + 1."""
+        spec = self._resolve_agg_spec(spec)
+        depth = max(1, depth)
+        pending: deque = deque()
         for lines in batches:
-            yield self._aggregate(lines, spec)
+            pending.append(self._dispatch_aggregate(self._encode(list(lines)), spec))
+            if len(pending) > depth:
+                yield self._finish_aggregate(pending.popleft())
+        while pending:
+            yield self._finish_aggregate(pending.popleft())
 
     def _agg_executor(self, spec):
         """The aggregate executor of this parser and spec, cached per
@@ -610,20 +753,62 @@ class TorchBatchParser:
         self._agg_executors[key] = (self.csr_slots, ex)
         return ex
 
-    def _aggregate(self, lines, spec):
-        from ..analytics.device import accumulate_partials
+    def _dispatch_aggregate(self, batch: "_Batch", spec) -> "_Pending":
+        """Enqueue the aggregate's device pass; the pending batch keeps its
+        executor (a later regrow builds another)."""
+        B = batch.buf.shape[0]
+        # Truncated lines: the device saw a prefix only; they fold.
+        batch.host_kill = np.zeros(B, dtype=np.uint8)
+        batch.host_kill[batch.overflow] = 1
+        pend = _Pending(batch, None, self.csr_slots)
+        pend.spec = spec
+        pend.executor = ex = self._agg_executor(spec)
+        if self.device.type == "cpu":
+            t0 = time.perf_counter()
+            pend.out = ex(torch.from_numpy(batch.buf), torch.from_numpy(batch.lengths),
+                          B, torch.from_numpy(batch.host_kill))
+            batch.add("kernels", time.perf_counter() - t0)
+            return pend
+        with torch.cuda.device(self.device):
+            compute = torch.cuda.current_stream(self.device)
+            t0 = time.perf_counter()
+            kill = torch.from_numpy(batch.host_kill).pin_memory()
+            batch.add("pin", time.perf_counter() - t0)
+            self._upload(batch, compute)
+            pend.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            dkill = kill.to(self.device, non_blocking=True)
+            pend.events[0].record()
+            pend.out = ex(batch.dbuf, batch.dlen, B, dkill)
+            pend.events[1].record()
+        return pend
+
+    def _finish_aggregate(self, pend: "_Pending"):
+        """Copy one aggregate's partials back, accumulate them, and replay
+        its folded rows through ``parse_batch``."""
+        from ..analytics.device import accumulate_partials, fetch_partials
         from ..analytics.state import AggregateOutcome, AggregateState
 
-        lines = list(lines)
+        batch, spec, ex = pend.batch, pend.spec, pend.executor
+        lines, buf, stage = batch.lines, batch.buf, batch.stage
+        B = buf.shape[0]
+        if pend.events is not None:
+            pend.events[1].synchronize()   # this batch's kernels, not later ones
         t0 = time.perf_counter()
-        buf, lengths, overflow = encode_batch(lines)
-        stage = {"encode": time.perf_counter() - t0}
-        B = len(lines)
-        # Truncated lines: the device saw a prefix only; they fold.
-        host_kill = np.zeros(B, dtype=np.uint8)
-        host_kill[overflow] = 1
-        ex = self._agg_executor(spec)
-        fetched, nbytes = self._run_aggregate(ex, buf, lengths, host_kill, stage)
+        if pend.events is None:
+            fetched, nbytes = fetch_partials(pend.out, ex.tables, B)
+        else:
+            with torch.cuda.device(self.device):
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                # The copies wait for this batch's kernels only, not for
+                # batches dispatched after it.
+                self._copy_stream.wait_event(pend.events[1])
+                with torch.cuda.stream(self._copy_stream):
+                    fetched, nbytes = fetch_partials(pend.out, ex.tables, B)
+            batch.count_h2d()
+            batch.add("kernels", pend.events[0].elapsed_time(pend.events[1]) / 1e3)
+        pend.out = None
+        stage["d2h"] = time.perf_counter() - t0
         t1 = time.perf_counter()
         state = AggregateState(spec)
         accumulate_partials(state, spec, fetched, buf)
@@ -654,41 +839,6 @@ class TorchBatchParser:
             device_rows=n_device, fold_rows=len(fold_rows), d2h_bytes=nbytes,
             row_path_d2h_bytes=row_bytes, stage_seconds=stage,
         )
-
-    def _run_aggregate(self, ex, buf: np.ndarray, lengths: np.ndarray,
-                       host_kill: np.ndarray, stage: Dict[str, float]):
-        """One H2D copy, the kernels, the D2H copy of the partials only.
-        On the card the copy in and the kernels are timed with CUDA
-        events."""
-        from ..analytics.device import fetch_partials
-
-        B = buf.shape[0]
-        if self.device.type == "cpu":
-            t0 = time.perf_counter()
-            out = ex(torch.from_numpy(buf), torch.from_numpy(lengths), B,
-                     torch.from_numpy(host_kill))
-            stage["kernels"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            fetched = fetch_partials(out, ex.tables, B)
-            stage["d2h"] = time.perf_counter() - t0
-            return fetched
-        t0 = time.perf_counter()
-        host = [torch.from_numpy(a).pin_memory() for a in (buf, lengths, host_kill)]
-        stage["pin"] = time.perf_counter() - t0
-        with torch.cuda.device(self.device):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            dbuf, dlen, dkill = (h.to(self.device, non_blocking=True) for h in host)
-            ev[1].record()
-            out = ex(dbuf, dlen, B, dkill)
-            ev[2].record()
-            ev[2].synchronize()
-            t0 = time.perf_counter()
-            fetched = fetch_partials(out, ex.tables, B)
-            stage["d2h"] = time.perf_counter() - t0
-        stage["h2d"] = ev[0].elapsed_time(ev[1]) / 1e3
-        stage["kernels"] = ev[1].elapsed_time(ev[2]) / 1e3
-        return fetched
 
     def _materialize(self, lines, buf, lengths, overflow, packed) -> "BatchResult":
         """Per-line verdicts (the reference's _fetch_packed) and the span /
@@ -960,6 +1110,138 @@ class TorchBatchParser:
         return failed
 
 
+class _PinnedAlloc:
+    """``encode_blob``'s ``alloc`` hook: the framer writes straight into
+    pinned host memory, so the H2D copy needs no staging copy."""
+
+    def __init__(self) -> None:
+        self.buf: Optional[torch.Tensor] = None
+        self.lengths: Optional[torch.Tensor] = None
+
+    def __call__(self, n: int, L: int):
+        self.buf = torch.empty((n, L), dtype=torch.uint8, pin_memory=True)
+        self.lengths = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        return self.buf.numpy(), self.lengths.numpy()
+
+
+class _Batch:
+    """One encoded batch on its way through the device: its lines, the
+    framed buffer, the pinned host and device copies of it, and the stage
+    seconds so far."""
+
+    def __init__(self, lines, buf: np.ndarray, lengths: np.ndarray,
+                 overflow: List[int], framer_name: str, encode_s: float,
+                 alloc: Optional[_PinnedAlloc]):
+        self.lines = lines
+        self.buf, self.lengths, self.overflow = buf, lengths, overflow
+        self.framer = framer_name
+        self.stage: Dict[str, float] = {"encode": encode_s}
+        self.host = None   # (buf, lengths) pinned tensors
+        if (alloc is not None and alloc.buf is not None and buf.shape[0]
+                and buf.ctypes.data == alloc.buf.data_ptr()):
+            self.host = (alloc.buf[:buf.shape[0]], alloc.lengths[:buf.shape[0]])
+        self.dbuf: Optional[torch.Tensor] = None
+        self.dlen: Optional[torch.Tensor] = None
+        self.h2d = None    # the two events around the H2D copy
+        self._h2d_counted = False
+        self.host_kill: Optional[np.ndarray] = None
+
+    def add(self, key: str, seconds: float) -> None:
+        self.stage[key] = self.stage.get(key, 0.0) + seconds
+
+    def pinned(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.host is None:
+            self.host = (torch.from_numpy(self.buf).pin_memory(),
+                         torch.from_numpy(self.lengths).pin_memory())
+        return self.host
+
+    def count_h2d(self) -> None:
+        """Add the finished H2D copy's seconds (once)."""
+        if not self._h2d_counted:
+            self.add("h2d", self.h2d[0].elapsed_time(self.h2d[1]) / 1e3)
+            self._h2d_counted = True
+
+
+class _Pending:
+    """A dispatched batch: the slot count it ran at and, on the card, its
+    events and the pinned buffer its D2H copy lands in (an aggregate's
+    executor, spec and device partials)."""
+
+    def __init__(self, batch: _Batch, emit_views: Optional[bool], slots: int):
+        self.batch, self.emit_views, self.slots = batch, emit_views, slots
+        self.events: Optional[List[Any]] = None
+        self.host_out: Optional[torch.Tensor] = None
+        self.packed: Optional[np.ndarray] = None
+        self.spec = self.executor = self.out = None
+
+
+class _BlobLines:
+    """Lazy per-line view of a newline-delimited blob: ``parse_blob``
+    never builds a line list; a line materializes as bytes only when
+    indexed (an aggregate's fold rows).  Framing is ``encode_blob``'s: a
+    final empty segment after a trailing newline is dropped and one
+    trailing ``\\r`` per line is stripped."""
+
+    __slots__ = ("_blob", "_n", "_starts", "_ends")
+
+    def __init__(self, blob: bytes):
+        self._blob = blob
+        self._n = _count_lines(blob)
+        self._starts: Optional[np.ndarray] = None
+        self._ends: Optional[np.ndarray] = None
+
+    def _index(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._starts is None:
+            arr = np.frombuffer(self._blob, dtype=np.uint8)
+            nl = np.flatnonzero(arr == 0x0A)
+            starts = np.concatenate([[0], nl + 1]).astype(np.int64)
+            ends = np.concatenate([nl, [len(arr)]]).astype(np.int64)
+            if len(arr) and arr[-1] == 0x0A:
+                starts, ends = starts[:-1], ends[:-1]
+            cr = (arr[np.maximum(ends - 1, 0)] == 0x0D) & (ends > starts)
+            self._starts, self._ends = starts, ends - cr
+        return self._starts, self._ends
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        starts, ends = self._index()
+        return self._blob[starts[i]:ends[i]]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class _SliceLines:
+    """Row-window view of a lines sequence (a list or a _BlobLines): rows
+    materialize through the parent only when indexed."""
+
+    __slots__ = ("_parent", "_start", "_n")
+
+    def __init__(self, parent, start: int, n: int):
+        self._parent, self._start, self._n = parent, start, n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(self._n))]
+        if i < 0:
+            i += self._n
+        if not 0 <= i < self._n:
+            raise IndexError(i)
+        return self._parent[self._start + i]
+
+    def __iter__(self):
+        for i in range(self._n):
+            yield self[i]
+
+
 def _fix_uri_part(value: str, mode: str) -> str:
     """Per-row URI repair of a device ``fix`` span: the host's encode step
     and %-repair (twice, like the host), then for a path or userinfo the
@@ -1212,6 +1494,7 @@ class BatchResult:
         self.stage_seconds: Dict[str, float] = {}
         self.d2h_bytes = 0
         self.csr_regrows = 0
+        self.framer: Optional[str] = None   # "native" or "numpy"
 
     def field_ids(self) -> List[str]:
         return list(self._columns)

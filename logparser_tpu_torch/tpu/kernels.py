@@ -10,7 +10,8 @@ return ``cudaGetLastError()`` after the launch.
 Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
 ``uri_split``, ``csr_split``, ``ipv4_spans``, ``geo_lookup``,
 ``pack_rows``, the aggregate pushdown's ``agg_lanes``, ``agg_reduce``
-and ``agg_group``, and ``setcookie_split`` and ``muid``):
+and ``agg_group``, ``setcookie_split`` and ``muid``, and the two public
+utilities' ``unescape`` and ``geo_gather``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -35,7 +36,8 @@ import torch
 
 from ..analytics import device as agg_device
 from ..analytics.device import AggTables
-from . import pipeline
+from ..geoip.device import geo_gather_plain
+from . import pipeline, postproc
 from .pipeline import (
     CONS_NEVER,
     CsrTables,
@@ -52,7 +54,8 @@ from .pipeline import (
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
            "csr_split", "ipv4_spans", "geo_lookup", "pack_rows", "agg_lanes",
-           "agg_reduce", "agg_group", "setcookie_split", "muid")
+           "agg_reduce", "agg_group", "setcookie_split", "muid", "unescape",
+           "geo_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -87,6 +90,8 @@ _SIGNATURES = {
     "agg_reduce": [_INT, _P, _P, _P, _INT, _P, _INT, _P, _INT, _P, _P, _INT, _INT,
                    _P],
     "agg_group": [_INT, _INT, _P, _P, _INT, _INT, _P, _P, _P, _P, _P],
+    "unescape": [_P, _INT, _INT, _P, _P, _INT, _P, _P, _P, _P],
+    "geo_gather": [_P, _INT, _INT, _P, _INT, _P, _P],
 }
 
 
@@ -643,13 +648,67 @@ def agg_group(
     return groups, n_groups
 
 
+def unescape(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 15: the byte-dropping unescape of the spans [start, end):
+    (out [B, min(width, L)] uint8, out_len [B] int32, exact [B] bool), as
+    ``postproc.unescape_compact_spans_plain`` defines them."""
+    if buf.dim() != 2:
+        raise ValueError(f"buf must be [B, L], got {tuple(buf.shape)}")
+    B, L = buf.shape
+    dev = buf.device
+    _check("buf", buf, torch.uint8, (B, L), dev)
+    _check("start", start, _I32, (B,), dev)
+    _check("end", end, _I32, (B,), dev)
+    if width < 1:
+        raise ValueError(f"width must be positive, got {width}")
+    if not _route(buf):
+        return postproc.unescape_compact_spans_plain(buf, start, end, width)
+    width = min(width, L)
+    out = torch.empty((B, width), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(B, dtype=_I32, device=dev)
+    exact = torch.empty(B, dtype=torch.bool, device=dev)
+    if B:
+        _launch("unescape", dev, _ptr(buf), B, L, _ptr(start), _ptr(end), width,
+                _ptr(out), _ptr(out_len), _ptr(exact))
+        unescape.launches += 1
+    return out, out_len, exact
+
+
+_GATHER_DTYPES = (torch.float32, torch.int32, torch.int64)
+
+
+def geo_gather(column: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Kernel 16: ``column[rows]`` [B] for a GeoIP column (float32, int32
+    or int64) under the reference's index rule (``geo_gather_plain``)."""
+    if column.dim() != 1 or column.shape[0] == 0:
+        raise ValueError(f"column must be [N > 0], got {tuple(column.shape)}")
+    if column.dtype not in _GATHER_DTYPES:
+        raise TypeError(f"column has dtype {column.dtype}, expected one of {_GATHER_DTYPES}")
+    if rows.dim() != 1:
+        raise ValueError(f"rows must be [B], got {tuple(rows.shape)}")
+    dev = column.device
+    _check("column", column, column.dtype, column.shape, dev)
+    _check("rows", rows, _I32, rows.shape, dev)
+    if not _route(column):
+        return geo_gather_plain(column, rows)
+    B = rows.shape[0]
+    out = torch.empty(B, dtype=column.dtype, device=dev)
+    if B:
+        _launch("geo_gather", dev, _ptr(column), column.shape[0],
+                column.element_size(), _ptr(rows), B, _ptr(out))
+        geo_gather.launches += 1
+    return out
+
+
 WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
             "zone_lookup": zone_lookup, "uri_split": uri_split,
             "csr_split": csr_split, "ipv4_spans": ipv4_spans,
             "geo_lookup": geo_lookup, "pack_rows": pack_rows,
             "agg_lanes": agg_lanes, "agg_reduce": agg_reduce,
             "agg_group": agg_group, "setcookie_split": setcookie_split,
-            "muid": muid}
+            "muid": muid, "unescape": unescape, "geo_gather": geo_gather}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

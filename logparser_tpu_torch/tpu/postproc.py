@@ -28,6 +28,10 @@ Apache ``combined`` main path and the URI chain run:
   mod_unique_id token: the plain versions of the ``setcookie_split`` and
   ``muid`` kernels; :func:`split_csr` with ``sep=b"; "`` is the cookie
   mode of ``csr_split``.
+- :func:`unescape_compact_spans` -- the device inverse of Apache's
+  ``ap_escape_logitem`` for ``\\"`` and ``\\\\``: the public entry, which
+  launches the ``unescape`` kernel on a CUDA tensor;
+  :func:`unescape_compact_spans_plain` is its plain version.
 
 Every function reproduces the reference's int32 arithmetic, wraparound
 included, so its outputs equal the reference bit for bit on any bytes.
@@ -730,3 +734,77 @@ def parse_ipv4_spans(
     value = ((value << 8) | (octet.to(torch.int64) & 0xFFFFFFFF)) & 0xFFFFFFFF
     ok = good & (w >= 7) & (w <= MAX_IP) & (ndots == 3) & (ndig > 0) & ~lead0
     return wrap_i32(value), ok, has_colon
+
+
+_SUBST_ESCAPES = torch.tensor(list(b"bnrtvx"), dtype=torch.int32)
+
+
+def unescape_compact_spans_plain(
+    buf: torch.Tensor, start: torch.Tensor, end: torch.Tensor, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``unescape_compact_spans`` in PyTorch, the plain
+    version of the ``unescape`` kernel: (out [B, width'] uint8, out_len
+    [B] int32, exact [B] bool) with ``width' = min(width, L)``.
+
+    ``out`` holds the span's bytes (read as :func:`gather_span_bytes`
+    reads them) with every escaping backslash dropped, zeros past
+    ``out_len``.  In a maximal backslash run the backslashes at even
+    offsets are the escaping bytes of ``\\\\`` pairs; an odd run's last
+    backslash is dropped only before a quote, kept before an unknown
+    byte, and makes the row inexact before a substituting C-escape
+    (``\\b \\n \\r \\t \\v \\x``) or at the span's end.  A span wider
+    than ``width'`` is inexact too.  The reference's ``out`` is int32 (a
+    TPU lane choice); the values are the same bytes."""
+    B, L = buf.shape
+    dev = buf.device
+    width = min(width, L)
+    n = (end - start).clamp(min=0)
+    win = gather_span_bytes(buf, start, width).to(torch.int32)
+    pos = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    in_span = pos < n[:, None]
+    is_bs = (win == ord("\\")) & in_span
+    # Offset of each backslash in its run: the distance to the last
+    # non-backslash before it (a running max).
+    last_non_bs = torch.cummax(torch.where(is_bs, -1, pos.expand(B, width)), dim=1).values
+    prev_last = torch.cat([torch.full((B, 1), -1, dtype=torch.int32, device=dev),
+                           last_non_bs[:, :-1]], dim=1)
+    even_offset = ((pos - prev_last) & 1) == 1
+    nxt = shift_zero(win, 1)
+    nxt_in_span = (pos + 1) < n[:, None]
+    last_of_run = is_bs & ~(shift_zero(is_bs, 1) & nxt_in_span)
+    odd_tail = last_of_run & even_offset
+    escapes_quote = odd_tail & nxt_in_span & (nxt == ord('"'))
+    subst = torch.isin(nxt, _SUBST_ESCAPES.to(dev))
+    inexact_pos = odd_tail & ((subst & nxt_in_span) | ~nxt_in_span)
+    drop = is_bs & even_offset & (~odd_tail | escapes_quote)
+    keep = in_span & ~drop
+    out_len = keep.sum(dim=1, dtype=torch.int32)
+    # Stable compaction: kept bytes first, in order.
+    order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    out = torch.gather(win, 1, order)
+    out = torch.where(pos < out_len[:, None], out, 0).to(torch.uint8)
+    exact = (n <= width) & ~inexact_pos.any(dim=1)
+    return out, out_len, exact
+
+
+def unescape_compact_spans(buf, start, end, width: int, device=None):
+    """Device-side inverse of Apache's ``ap_escape_logitem`` for the
+    byte-dropping escapes (``\\"`` -> ``"``, ``\\\\`` -> ``\\``) over the
+    spans [start, end) of a [B, L] uint8 buffer: (out [B, min(width, L)]
+    uint8, out_len [B] int32, exact [B] bool), as
+    :func:`unescape_compact_spans_plain` defines them.  ``exact`` marks
+    the rows where ``out[:out_len]`` is the reference's host decode
+    (``decode_apache_httpd_log_value``).
+
+    Not on the parse path (quoted fields are delivered verbatim, as the
+    reference delivers them): a utility for callers that want the decoded
+    bytes on the device.  Inputs are tensors or numpy arrays (numpy goes
+    to CUDA unless ``device`` says otherwise); on a CUDA tensor it
+    launches the ``unescape`` kernel."""
+    from . import kernels
+    from .runtime import device_tensor
+
+    buf = device_tensor(buf, device)
+    start = device_tensor(start, buf.device)
+    end = device_tensor(end, buf.device)
+    return kernels.unescape(buf, start, end, width)

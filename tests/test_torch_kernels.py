@@ -142,6 +142,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     assert counts.pop("ipv4_spans") == 0 and counts.pop("geo_lookup") == 0
     assert all(counts.pop(k) == 0 for k in ("agg_lanes", "agg_reduce", "agg_group"))
     assert counts.pop("setcookie_split") == 0 and counts.pop("muid") == 0
+    assert counts.pop("unescape") == 0 and counts.pop("geo_gather") == 0
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -635,3 +636,91 @@ def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):
     assert gpu.to_dict() == cpu.to_dict()
     assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
     assert gpu.to_arrow(strings="copy").equals(cpu.to_arrow(strings="copy"))
+
+
+UNESCAPE_CASES = [b'esc \\" quote', b"a\\\\b", b'a\\\\\\"b', b'run\\\\\\\\\\"x',
+                  b'\\" \\" \\"', b"plain", b"tail\\\\", b"a\\qb", b"odd\\", b"a\\nb",
+                  b"\\x41z"]
+
+
+@pytest.mark.parametrize("L,width", [(64, 32), (64, 64), (384, 400), (8191, 300)])
+def test_unescape_kernel_equals_plain_version(cuda_device, L, width):
+    """Random backslash / quote / escape-letter bytes, starts and ends
+    past both edges (start bits above bit_length(L - 1) included), and
+    the fuzz cases: out, out_len and exact equal the plain version."""
+    from logparser_tpu_torch.tpu import postproc
+
+    rng = np.random.default_rng(L + width)
+    alpha = np.frombuffer(b'\\\\\\"abnrtvxq ', dtype=np.uint8)
+    B = 5000
+    buf = alpha[rng.integers(0, len(alpha), (B, L))].astype(np.uint8)
+    start = rng.integers(-5, L + 3, B).astype(np.int32)
+    end = (start + rng.integers(-3, min(L, 2 * width) + 5, B)).astype(np.int32)
+    start[:3] += np.int32(1 << 20)
+    for i, c in enumerate(UNESCAPE_CASES):
+        buf[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
+        start[i], end[i] = 0, len(c)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (buf, start, end)]
+    before = kernels.unescape.launches
+    got = postproc.unescape_compact_spans(*args, width)
+    assert kernels.unescape.launches == before + 1
+    want = postproc.unescape_compact_spans_plain(*args, width)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.int64])
+def test_geo_gather_kernel_equals_plain_version(cuda_device, dtype):
+    """Every row, negative rows down to -2N, rows up to 2N: the gather
+    equals its plain version, in the column's dtype."""
+    from logparser_tpu_torch.geoip.device import geo_gather_plain
+
+    rng = np.random.default_rng(7)
+    n = 131073
+    col = (rng.standard_normal(n) * 1e3).astype(dtype)
+    if dtype == np.int64:
+        col[1::7] = np.int64(2) ** 40 + np.arange(len(col[1::7]))
+    rows = np.concatenate([np.arange(n), rng.integers(-2 * n, 2 * n, 200000),
+                           [-1, -n, -n - 1, n, n + 1, 2**31 - 1, -2**31]]).astype(np.int32)
+    col_t = torch.from_numpy(col).to(cuda_device)
+    rows_t = torch.from_numpy(rows).to(cuda_device)
+    got = kernels.geo_gather(col_t, rows_t)
+    want = geo_gather_plain(col_t, rows_t)
+    assert got.dtype == col_t.dtype and torch.equal(got, want)
+
+
+def test_new_entry_points_on_the_card_equal_the_cpu(cuda_device):
+    """run_program, parse_blob, parse_batch_stream (a mid-stream regrow,
+    staged and not) and aggregate_batch_stream(depth=2) on the card equal
+    the same calls on the CPU."""
+    from logparser_tpu_torch.tpu import runtime
+
+    lines = _uri_lines()
+    parser = TorchBatchParser("combined", URI_CHAIN_FIELDS, device=cuda_device)
+    (t,) = parser.executor.unit_tables
+    buf, lengths, _ = encode_batch(lines)
+    got = runtime.run_program(t.split.program, buf, lengths)
+    want = runtime.run_program(t.split.program, buf, lengths, device="cpu")
+    for k in ("starts", "ends", "valid"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    blob = ("\r\n".join(lines[:2000]) + "\n").encode()
+    cpu = TorchBatchParser("combined", URI_CHAIN_FIELDS, device="cpu")
+    res = parser.parse_blob(blob)
+    assert res.framer == "native"
+    ref = cpu.parse_blob(blob)
+    assert res.to_dict() == ref.to_dict() and res.needs_host.tolist() == ref.needs_host.tolist()
+    batches = [generate_combined_lines(1500, seed=s) for s in (1, 2)] + [lines[:3000]] \
+        + [generate_combined_lines(1500, seed=3)]
+    for depth, stage in ((1, True), (2, False)):
+        gpu = TorchBatchParser("combined", URI_CHAIN_FIELDS, device=cuda_device)
+        for b, r in zip(batches, gpu.parse_batch_stream(batches, depth=depth,
+                                                        stage_h2d=stage)):
+            w = cpu.parse_batch(b)
+            assert r.to_dict() == w.to_dict()
+            assert r.needs_host.tolist() == w.needs_host.tolist()
+    gpu = TorchBatchParser("combined", HEADLINE_FIELDS, device=cuda_device)
+    head = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu")
+    agg = [generate_combined_lines(2000, seed=s, garbage_fraction=0.02)
+           + aggregate_edge_lines() for s in (8, 9, 10)]
+    for b, out in zip(agg, gpu.aggregate_batch_stream(agg, DASHBOARD_OPS, depth=2)):
+        assert out.state == head.aggregate_batch(b, DASHBOARD_OPS).state
