@@ -25,7 +25,7 @@ gather utilities), and fails (non-zero exit, no result line) on the
 first phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the sixteen kernels from logparser_tpu_torch/csrc, in parallel,
+2. build   -- the eighteen kernels from logparser_tpu_torch/csrc, in parallel,
    and beside them the g++ line framer (logparser_tpu_torch/native), which
    must build: the blob and stream phases fail on a numpy framing;
 3. corpus  -- the generated lines + edge lines;
@@ -107,7 +107,28 @@ first phase that fails:
    each equal to its parse_batch on the card, the stream wall beside the
    serial walls; aggregate_batch_stream(depth=2) over three dashboard
    batches, each state equal to aggregate_batch's;
-13. the kernels line, the card line, and the result line
+13. the device mesh, each phase over ``parallel.mesh.local_devices``
+   replaced with ``[cuda:0] * 4`` (one card holds every shard; restored
+   after): ``mesh_dp`` (the headline batch, padded with 3 empty rows to
+   B = 65,552, through data_parallel_runner and batch_parallel_runner with
+   view rows on a 4 x 1 mesh, equal to run_program / the executor bit for
+   bit, timed beside them); ``mesh_dp_uri`` (the URI chain under
+   data_parallel=4: the edge lines that force 16 -> 128 lie in one shard,
+   the whole batch regrows, equal to the unsharded card parser);
+   ``parser_dp`` (the headline parser with data_parallel=4: parse_batch,
+   parse_blob, a 3-batch parse_batch_stream and the dashboard
+   aggregate_batch equal to the unsharded parser, to_arrow and IPC bytes
+   included); ``sp_split`` (the padded headline batch on a 2 x 4 mesh,
+   shard width 96: every launch of the runner against its plain version,
+   the runner against the runner over the plain version, and against
+   run_program on every row without ``\\"``); ``sp_long`` (8,192 lines
+   of 8,192 to 32,000 bytes, seed 63, L = 32,768 on 1 x 4: kernel = plain,
+   every non-garbage row valid, lines/s); ``aggregate_counters`` (valid
+   and ~valid of the headline parse over 4 shards = valid.sum());
+   ``mesh_multi_card`` (mesh_dp, parser_dp and sp_split again on
+   distinct cards when the machine has two or more, each equal to one
+   card, else a line saying it was skipped);
+14. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -139,6 +160,8 @@ REPLACES = {
     "muid": "logparser_tpu/tpu/postproc.py:957",
     "unescape": "logparser_tpu/tpu/postproc.py:1131",
     "geo_gather": "logparser_tpu/geoip/device.py:114",
+    "sp_split": "logparser_tpu/parallel/mesh.py:224",
+    "counters": "logparser_tpu/parallel/mesh.py:243",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
@@ -223,6 +246,9 @@ def require_equal(torch, name, got, want) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:]:
+        fail(f"usage: python3 chip_smoke.py, got {sys.argv[1:]}")
+
     # ---- 1. card -------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs the card")
@@ -232,12 +258,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     from logparser_tpu_torch import TorchBatchParser
-    from logparser_tpu_torch.tools.demolog import (
-        HEADLINE_FIELDS,
-        URI_CHAIN_FIELDS,
-        generate_combined_lines,
-        uri_edge_lines,
-    )
+    from logparser_tpu_torch.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
     from logparser_tpu_torch import native
     from logparser_tpu_torch.tpu import kernels, pipeline, runtime
 
@@ -269,8 +290,6 @@ def main() -> int:
     emit({"phase": "corpus", "B": B, "L": L, "bytes": int(buf.nbytes)})
 
     gpu = TorchBatchParser("combined", HEADLINE_FIELDS)
-    ex = gpu.executor
-    unit = ex.unit_tables[0]
     dbuf = torch.from_numpy(buf).cuda()
     dlen = torch.from_numpy(lengths).cuda()
 
@@ -316,6 +335,38 @@ def main() -> int:
         return got
 
     phase.bounds = {}
+    single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
+                       rows, smi, gpu, lines, buf, lengths, dbuf, dlen)
+
+    # ---- 13. the device mesh ----------------------------------------------
+    mesh_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi, gpu,
+                lines, buf, lengths)
+
+    # ---- 14. result ------------------------------------------------------
+    missing = [k for k in REPLACES if k not in rows]
+    if missing:
+        fail(f"no kernels-line row for {missing}")
+    print(smi, flush=True)
+    emit({"kernels": [rows[k] for k in REPLACES]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
+                       smi, gpu, lines, buf, lengths, dbuf, dlen):
+    """Sections 4 to 12: every kernel against its plain version and every
+    single-card path end to end."""
+    from logparser_tpu_torch.tools.demolog import (
+        HEADLINE_FIELDS,
+        URI_CHAIN_FIELDS,
+        generate_combined_lines,
+        uri_edge_lines,
+    )
+
+    B, L = buf.shape
+    ex = gpu.executor
+    unit = ex.unit_tables[0]
     starts, ends, flags = phase(
         "split",
         lambda: kernels.split(unit.split, dbuf, dlen),
@@ -419,13 +470,6 @@ def main() -> int:
 
     # ---- 12. streams -----------------------------------------------------
     stream_phases(torch, TorchBatchParser, kernels, smi)
-
-    # ---- 13. result ------------------------------------------------------
-    print(smi, flush=True)
-    emit({"kernels": [rows[k] for k in REPLACES]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
-    return 0
 
 
 def run_program_phase(torch, kernels, pipeline, runtime, phase, unit, dbuf, dlen, B, L):
@@ -1875,6 +1919,384 @@ def stream_phases(torch, TorchBatchParser, kernels, smi):
           "serial_after_wall_sum": sum(walls_after),
           "stage_seconds": [o.stage_seconds for o in got],
           "launches": launches, "card": smi})
+
+
+class swapped:
+    """``with swapped(module, name, fn):`` module.name is fn inside."""
+
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def recorded(kernels, name, run):
+    """[(args, kwargs)] of every call ``run()`` makes to kernels.<name>
+    (each passed through to the wrapper)."""
+    calls = []
+    wrapper = getattr(kernels, name)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return wrapper(*args, **kwargs)
+
+    # The wrapper counts through its module-level name, which is this
+    # function while swapped: those launches land here, uncounted.
+    record.launches = 0
+
+    with swapped(kernels, name, record):
+        run()
+    return calls
+
+
+def plain_sp_split(mesh):
+    """kernels.sp_split's signature over its plain version (mesh.
+    sp_split_plain), for a run of the SP runner on the card without the
+    kernel."""
+    def run(tables, op_index, mode, buf, offset, lo, hi=None, halo=None, l_total=0):
+        op = tables.program.ops[op_index]
+        return mesh.sp_split_plain(mode, buf, offset, lo, hi, op.lit,
+                                   halo if mode == mesh.SP_FIND else None, l_total,
+                                   tables.charsets[tables.cs_of_op[op_index]] != 0)
+    return run
+
+
+def sp_cost(program, B, L):
+    """(bytes, operations) of the SP split as a function, whatever its
+    launches re-read between them: the [B, L] buffer and the lengths in
+    once, the token cursors [T, B] int32 and valid [B] out once (split's
+    own count); a compare per byte."""
+    return B * L + 4 * B + 2 * len(program.tokens) * 4 * B + B, B * L
+
+
+def time_wall(torch, fn, reps: int) -> float:
+    """Median milliseconds of fn() over reps runs, host clock around a
+    synchronize (the runners enqueue many launches and combines)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi, gpu,
+                lines, buf, lengths):
+    """The device mesh on one card: ``parallel.mesh.local_devices``
+    replaced with [cuda:0] * 4 for every phase, restored after."""
+    import numpy as np
+
+    from logparser_tpu_torch.parallel import mesh
+
+    saved = mesh.local_devices
+    cuda0 = torch.device("cuda", 0)
+    mesh.local_devices = lambda: [cuda0] * 4
+    try:
+        # The headline batch padded to a multiple of 4 (and 2) rows with
+        # empty lines: the runners take even shards only.
+        pad = mesh.padded_rows(mesh.make_mesh(4), len(lines)) - len(lines)
+        pbuf = np.concatenate([buf, np.zeros((pad, buf.shape[1]), dtype=np.uint8)])
+        plen = np.concatenate([lengths, np.zeros(pad, dtype=np.int32)])
+        dbuf, dlen = torch.from_numpy(pbuf).cuda(), torch.from_numpy(plen).cuda()
+        mesh_dp_phase(torch, kernels, runtime, mesh, gpu, dbuf, dlen, smi,
+                      mesh.make_mesh(4), "mesh_dp")
+        mesh_dp_uri_phase(torch, TorchBatchParser, kernels, smi)
+        parser_dp_phase(torch, TorchBatchParser, kernels, gpu, lines, smi)
+        sp = sp_split_phase(torch, kernels, runtime, mesh, phase, rows, gpu, lines,
+                            dbuf, dlen, smi)
+        sp_long_phase(torch, kernels, runtime, mesh, gpu, smi)
+        counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi)
+    finally:
+        mesh.local_devices = saved
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        emit({"phase": "mesh_multi_card", "skipped": "1 card"})
+        return
+    devs = [torch.device("cuda", i) for i in range(n_cards)]
+    width = mesh.dp_device_count()   # the real local_devices again
+    emit({"phase": "mesh_multi_card", "cards": n_cards, "data_width": width,
+          "names": [torch.cuda.get_device_name(i) for i in range(n_cards)]})
+    mesh_dp_phase(torch, kernels, runtime, mesh, gpu, dbuf, dlen, smi,
+                  mesh.make_mesh(width, devices=devs), "mesh_multi_card_dp")
+    parser_dp_phase(torch, TorchBatchParser, kernels, gpu, lines, smi, width,
+                    "mesh_multi_card_parser")
+    n_seq = 4 if width >= 4 else 2
+    prog = gpu.units[0].program
+    run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(1, n_seq, devices=devs),
+                                        dbuf.shape[1])
+    got = run(dbuf, dlen)
+    for key in ("valid", "starts", "ends"):
+        if not torch.equal(got[key], sp[key]):
+            fail(f"mesh_multi_card: SP on {n_seq} cards differs from one card in {key}")
+    emit({"phase": "mesh_multi_card_sp", "cards": n_seq, "equal_to_one_card": True,
+          "runner_ms": time_wall(torch, lambda: run(dbuf, dlen), 5), "card": smi})
+
+
+def mesh_dp_phase(torch, kernels, runtime, mesh, gpu, dbuf, dlen, smi, m, tag):
+    """data_parallel_runner and batch_parallel_runner (with the view rows)
+    on mesh ``m`` against run_program and the unsharded executor, bit for
+    bit, each timed beside its unsharded run."""
+    prog = gpu.units[0].program
+    B = dbuf.shape[0]
+    dp = mesh.data_parallel_runner(prog, m)
+    bp = mesh.batch_parallel_runner(gpu.units, m, gpu.view_specs)
+    kernels.reset_launch_counts()
+    got_dp = dp(dbuf, dlen)
+    got_bp = bp(dbuf, dlen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    for name in ("split", "span_stages", "timestamp", "pack_rows"):
+        if launches[name] < m.shape[0]:
+            fail(f"{tag}: kernel {name} launched {launches[name]} times over "
+                 f"{m.shape[0]} shards")
+    want_dp = runtime.run_program(prog, dbuf, dlen)
+    for key in ("starts", "ends", "valid"):
+        if not torch.equal(got_dp[key], want_dp[key]):
+            fail(f"{tag}: data_parallel_runner {key} differs from run_program")
+    want_bp = gpu.executor(dbuf, dlen)
+    if not torch.equal(got_bp, want_bp):
+        bad = (got_bp != want_bp).nonzero()
+        fail(f"{tag}: batch_parallel_runner differs from the executor at "
+             f"{bad.shape[0]} places, first {bad[:3].tolist()}")
+    emit({"phase": tag, "B": B, "L": int(dbuf.shape[1]), "mesh": list(m.shape),
+          "devices": [str(d) for d in m.data_devices], "equal": True,
+          "dp_ms": time_kernel(torch, lambda: dp(dbuf, dlen), 10),
+          "run_program_ms": time_kernel(torch, lambda: runtime.run_program(prog, dbuf, dlen), 10),
+          "dp_wall_ms": time_wall(torch, lambda: dp(dbuf, dlen), 10),
+          "run_program_wall_ms": time_wall(
+              torch, lambda: runtime.run_program(prog, dbuf, dlen), 10),
+          "bp_ms": time_kernel(torch, lambda: bp(dbuf, dlen), 10),
+          "executor_ms": time_kernel(torch, lambda: gpu.executor(dbuf, dlen), 10),
+          "bp_wall_ms": time_wall(torch, lambda: bp(dbuf, dlen), 10),
+          "executor_wall_ms": time_wall(torch, lambda: gpu.executor(dbuf, dlen), 10),
+          "launches": launches, "card": smi})
+
+
+def mesh_dp_uri_phase(torch, TorchBatchParser, kernels, smi):
+    """The URI chain under data_parallel=4: the uri edge lines (20
+    parameters, and more than the 128-slot cap) lie in the last shard, so
+    one shard's overflow bit regrows the whole batch 16 -> 128; equal to
+    the unsharded card parser, regrows included."""
+    from logparser_tpu_torch.tools.demolog import (
+        URI_CHAIN_FIELDS,
+        generate_combined_lines,
+        uri_edge_lines,
+    )
+
+    lines = generate_combined_lines(N_LINES, seed=53) + uri_edge_lines()
+    solo = TorchBatchParser("combined", URI_CHAIN_FIELDS)
+    dp = TorchBatchParser("combined", URI_CHAIN_FIELDS, data_parallel=4)
+    if dp.mesh_devices != 4:
+        fail(f"mesh_dp_uri: data_parallel=4 resolved to {dp.mesh_devices} devices")
+    shard = -(-len(lines) // 4)
+    edge_rows = range(N_LINES, len(lines))
+    if {r // shard for r in edge_rows} != {3}:
+        fail("mesh_dp_uri: the URI edge lines are not all in the last shard")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = dp.parse_batch(lines)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    want = solo.parse_batch(lines)
+    solo_wall = time.perf_counter() - t0
+    if (got.csr_regrows, dp.csr_slots) != (want.csr_regrows, solo.csr_slots) \
+            or dp.csr_slots != 128:
+        fail(f"mesh_dp_uri: regrows {got.csr_regrows} to {dp.csr_slots} slots, "
+             f"unsharded {want.csr_regrows} to {solo.csr_slots}")
+    compare_results(got, want, "mesh_dp_uri")
+    emit({"phase": "mesh_dp_uri", "B": len(lines), "mesh_devices": dp.mesh_devices,
+          "equal_to_unsharded": True, "csr_regrows": got.csr_regrows,
+          "csr_slots": dp.csr_slots, "wall_seconds": wall, "unsharded_wall_seconds": solo_wall,
+          "stage_seconds": got.stage_seconds, "unsharded_stage_seconds": want.stage_seconds,
+          "launches": launches, "card": smi})
+
+
+def parser_dp_phase(torch, TorchBatchParser, kernels, gpu, lines, smi, width=4,
+                    tag="parser_dp"):
+    """TorchBatchParser("combined", HEADLINE_FIELDS, data_parallel=width)
+    against the unsharded card parser ``gpu``: parse_batch, parse_blob, a
+    3-batch parse_batch_stream and the dashboard aggregate_batch (state,
+    IPC bytes, row accounting)."""
+    from logparser_tpu_torch.tools import demolog
+
+    dp = TorchBatchParser("combined", demolog.HEADLINE_FIELDS, data_parallel=width)
+    if dp.mesh_devices != width:
+        fail(f"{tag}: data_parallel={width} resolved to {dp.mesh_devices} devices")
+    dp.parse_batch(lines[:4096])   # warm the allocators
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = dp.parse_batch(lines)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    want = gpu.parse_batch(lines)
+    solo_wall = time.perf_counter() - t0
+    compare_results(got, want, f"{tag} parse_batch")
+    blob = "\n".join(lines).encode()
+    compare_results(dp.parse_blob(blob), gpu.parse_blob(blob), f"{tag} parse_blob")
+    batches = [demolog.generate_combined_lines(N_LINES, seed=s, garbage_fraction=0.01)
+               for s in (142, 143, 144)]
+    for i, (g, w) in enumerate(zip(dp.parse_batch_stream(batches, depth=2),
+                                   [gpu.parse_batch(b) for b in batches])):
+        compare_results(g, w, f"{tag} stream batch {i}", arrow=False)
+    agg_lines = lines + demolog.aggregate_edge_lines()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = dp.aggregate_batch(agg_lines, demolog.DASHBOARD_OPS)
+    agg_wall = time.perf_counter() - t0
+    agg_launches = kernels.launch_counts()
+    agg_want = gpu.aggregate_batch(agg_lines, demolog.DASHBOARD_OPS)
+    compare_aggregates(agg, agg_want, f"{tag} aggregate_batch")
+    if agg.state.to_ipc_bytes() != agg_want.state.to_ipc_bytes():
+        fail(f"{tag}: the mesh aggregate's IPC bytes differ from one device's")
+    for name in ("split", "pack_rows"):
+        if launches[name] < width:
+            fail(f"{tag}: {name} launched {launches[name]} times over {width} shards")
+    for name in ("agg_lanes", "agg_reduce"):
+        if agg_launches[name] < width:
+            fail(f"{tag}: {name} launched {agg_launches[name]} times over {width} shards")
+    emit({"phase": tag, "B": len(lines), "mesh_devices": dp.mesh_devices,
+          "equal_to_unsharded": True, "wall_seconds": wall,
+          "unsharded_wall_seconds": solo_wall, "stage_seconds": got.stage_seconds,
+          "unsharded_stage_seconds": want.stage_seconds,
+          "aggregate_wall_seconds": agg_wall, "aggregate_d2h_bytes": agg.d2h_bytes,
+          "unsharded_aggregate_d2h_bytes": agg_want.d2h_bytes,
+          "launches": launches, "aggregate_launches": agg_launches, "card": smi})
+
+
+def sp_split_phase(torch, kernels, runtime, mesh, phase, rows, gpu, lines, dbuf, dlen,
+                   smi):
+    """The SP runner over the padded headline batch on a 2 x 4 mesh
+    (shard width 96): the runner's launch counts, the runner against the
+    runner over the plain version, every launch against its plain version
+    (timed: all launches of a batch), and the result against run_program
+    on every row whose line holds no escaped quote (the reference's SP has
+    no escape parity)."""
+    prog = gpu.units[0].program
+    B, L = dbuf.shape
+    m = mesh.make_mesh(2, 4, devices=[torch.device("cuda", 0)] * 8)
+    run = mesh.sequence_parallel_runner(prog, m, L)
+    run(dbuf, dlen)   # warm
+    kernels.reset_launch_counts()
+    got = run(dbuf, dlen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["sp_split"] < 1:
+        fail("sp_split was not launched on the SP path")
+    plain = plain_sp_split(mesh)
+    with swapped(kernels, "sp_split", plain):
+        want = run(dbuf, dlen)
+    for key in ("valid", "starts", "ends"):
+        if not torch.equal(got[key], want[key]):
+            fail(f"sp_split: the runner's {key} differs from the runner over the plain version")
+    single = runtime.run_program(prog, dbuf, dlen)
+    same = torch.ones(B, dtype=torch.bool, device=dbuf.device)
+    for key in ("starts", "ends"):
+        same &= (got[key] == single[key]).all(dim=0)
+    same &= got["valid"] == single["valid"]
+    differ = (~same).nonzero().flatten().tolist()
+    texts = lines + [""] * (B - len(lines))
+    if any('\\"' not in texts[i] for i in differ):
+        fail(f"sp_split: rows without an escaped quote differ from run_program: "
+             f"{[i for i in differ if chr(92) + chr(34) not in texts[i]][:5]}")
+    calls = recorded(kernels, "sp_split", lambda: run(dbuf, dlen))
+    phase("sp_split", lambda: [kernels.sp_split(*a, **k) for a, k in calls],
+          lambda: [plain(*a, **k) for a, k in calls], *sp_cost(prog, B, L), n=B,
+          width=L, extra={"mesh": list(m.shape), "shard_width": L // 4,
+                          "launches_per_batch": len(calls),
+                          "rows_differing_from_run_program": len(differ),
+                          "all_differing_rows_hold_an_escaped_quote": True,
+                          "valid": int(got["valid"].sum()),
+                          "runner_wall_ms": time_wall(torch, lambda: run(dbuf, dlen), 10),
+                          "run_program_ms": time_kernel(
+                              torch, lambda: runtime.run_program(prog, dbuf, dlen), 10)})
+    rows["sp_split"]["launches"] = launches["sp_split"]
+    return got
+
+
+def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi):
+    """Lines of 8,192 to 32,000 bytes (8,192 of them, seed 63, ~1%
+    garbage) at L = 32,768 on a 1 x 4 mesh (shard width 8,192): kernel =
+    plain on the card, every non-garbage row valid; lines/s of the
+    runner."""
+    from logparser_tpu_torch.tools.demolog import long_combined_lines
+
+    t0 = time.perf_counter()
+    lines = long_combined_lines(8192, seed=63)
+    buf, lengths, overflow = runtime.encode_batch(lines, line_len=32768)
+    gen_s = time.perf_counter() - t0
+    if overflow:
+        fail(f"sp_long: {len(overflow)} lines past 32,768 bytes")
+    B, L = buf.shape
+    dbuf, dlen = torch.from_numpy(buf).cuda(), torch.from_numpy(lengths).cuda()
+    prog = gpu.units[0].program
+    run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(1, 4), L)
+    run(dbuf, dlen)   # warm
+    kernels.reset_launch_counts()
+    got = run(dbuf, dlen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["sp_split"]
+    if launches < 1:
+        fail("sp_split was not launched on the long-line path")
+    plain = plain_sp_split(mesh)
+    with swapped(kernels, "sp_split", plain):
+        want = run(dbuf, dlen)
+    for key in ("valid", "starts", "ends"):
+        if not torch.equal(got[key], want[key]):
+            fail(f"sp_long: the runner's {key} differs from the runner over the plain version")
+    long_rows = torch.from_numpy(lengths >= 8192).cuda()
+    if not bool(got["valid"][long_rows].all()):
+        fail(f"sp_long: {int((~got['valid'][long_rows]).sum())} long lines invalid")
+    calls = recorded(kernels, "sp_split", lambda: run(dbuf, dlen))
+    replay = lambda: [kernels.sp_split(*a, **k) for a, k in calls]  # noqa: E731
+    bytes_moved, ops = sp_cost(prog, B, L)
+    bound, bound_by = bound_ms(bytes_moved, ops)
+    wall_ms = time_wall(torch, lambda: run(dbuf, dlen), 5)
+    emit({"phase": "sp_long", "B": B, "L": L, "mesh": [1, 4], "shard_width": L // 4,
+          "buffer_bytes": int(buf.nbytes), "long_lines": int(long_rows.sum()),
+          "valid": int(got["valid"].sum()), "equal": True, "launches": launches,
+          "ms": time_kernel(torch, replay, 10),
+          "plain_ms": time_kernel(torch, lambda: [plain(*a, **k) for a, k in calls], 3),
+          "runner_wall_ms": wall_ms, "lines_per_s": B / (wall_ms / 1e3),
+          "bound_ms": bound, "bound_by": bound_by, "bytes": bytes_moved,
+          "generate_encode_seconds": gen_s, "card": smi})
+
+
+def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
+    """aggregate_counters over 4 shards of the headline parse's valid and
+    ~valid: equal to valid.sum() and (~valid).sum(); the four launches
+    against the plain version."""
+    import numpy as np
+
+    res = gpu.parse_batch(lines)
+    good = torch.from_numpy(np.asarray(res.valid, dtype=bool)).cuda()
+    bad = ~good
+    m = mesh.make_mesh(4)
+    kernels.reset_launch_counts()
+    g, b = mesh.aggregate_counters(m, good, bad)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["counters"]
+    if launches < 1:
+        fail("counters was not launched by aggregate_counters")
+    want = (int(res.valid.sum()), int((~res.valid).sum()))
+    if (int(g), int(b)) != want or g.dtype != torch.int32:
+        fail(f"aggregate_counters: {(int(g), int(b))} ({g.dtype}) != {want}")
+    calls = recorded(kernels, "counters", lambda: mesh.aggregate_counters(m, good, bad))
+    B = good.shape[0]
+    phase("counters", lambda: [kernels.counters(*a) for a, _ in calls],
+          lambda: [mesh.counters_plain(*a) for a, _ in calls],
+          bytes_moved=2 * B + 8 * len(calls), ops=2 * B, n=B, width=1,
+          extra={"shards": len(calls), "good": want[0], "bad": want[1]})
+    rows["counters"]["launches"] = launches
 
 
 def compare_results(got, want, what, arrow=True) -> None:

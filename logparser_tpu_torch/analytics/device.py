@@ -632,14 +632,58 @@ class AggregateExecutor(nn.Module):
 
     def forward(self, buf: torch.Tensor, lengths: torch.Tensor, n_rows: int,
                 host_kill: torch.Tensor) -> Dict[str, Any]:
+        return self.group(*self.partials(buf, lengths, n_rows, host_kill), buf)
+
+    def partials(self, buf: torch.Tensor, lengths: torch.Tensor, n_rows: int,
+                 host_kill: torch.Tensor):
+        """(cls, lanes, counts, tiles) of one batch, or one data shard, on
+        its device: the parse kernels, ``agg_lanes`` and ``agg_reduce``."""
         from ..tpu import kernels
 
         packed = self.units(buf, lengths)
         cls, lanes = kernels.agg_lanes(self.tables, packed, buf, n_rows, host_kill)
         counts, tiles = kernels.agg_reduce(self.tables, cls, lanes)
+        return cls, lanes, counts, tiles
+
+    def group(self, cls: torch.Tensor, lanes: torch.Tensor, counts: torch.Tensor,
+              tiles: torch.Tensor, buf: torch.Tensor) -> Dict[str, Any]:
+        """The partials dict: one ``agg_group`` per grouping lane over the
+        whole batch's lanes and bytes."""
+        from ..tpu import kernels
+
         groups = [kernels.agg_group(lanes[row], buf, spans)
                   for row, spans in self.tables.groups_py]
         return {"cls": cls, "counts": counts, "tiles": tiles, "groups": groups}
+
+
+def aggregate_shards(executors: Dict[torch.device, AggregateExecutor],
+                     bufs: Sequence[torch.Tensor], lengths: Sequence[torch.Tensor],
+                     kills: Sequence[torch.Tensor], n: int,
+                     home: torch.device) -> Dict[str, Any]:
+    """The aggregate of a data-sharded batch (the reference's mesh
+    aggregate, data-sharded in, replicated out): each shard's
+    ``partials`` on its device (rows at or past ``n`` are padding), then
+    on ``home`` the class planes and lanes side by side, the counts and
+    bins added, the sum tiles concatenated (``accumulate_partials`` adds
+    every tile), and one ``agg_group`` per lane over the gathered lanes
+    and the shards' bytes -- the single-device grouping, so keys, counts
+    and capacity are its own."""
+    from ..parallel.mesh import gather_columns
+
+    parts, r0 = [], 0
+    for buf, ln, kill in zip(bufs, lengths, kills):
+        n_rows = max(0, min(buf.shape[0], n - r0))
+        parts.append(executors[buf.device].partials(buf, ln, n_rows, kill))
+        r0 += buf.shape[0]
+    cls = gather_columns([p[0] for p in parts], n, home)
+    lanes = gather_columns([p[1] for p in parts], n, home)
+    if len(parts) == 1 and bufs[0].shape[0] == n and bufs[0].device == home:
+        _, _, counts, tiles = parts[0]   # one shard: the batch itself
+        return executors[home].group(cls, lanes, counts, tiles, bufs[0])
+    counts = torch.stack([p[2].to(home) for p in parts]).sum(dim=0, dtype=torch.int32)
+    tiles = torch.cat([p[3].to(home) for p in parts], dim=1)
+    buf = torch.cat([b.to(home) for b in bufs])[:n]
+    return executors[home].group(cls, lanes, counts, tiles, buf)
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +781,7 @@ def accumulate_partials(state: AggregateState, spec: AggregateSpec,
 
 
 __all__ = [
-    "AggTables", "AggregateExecutor", "plan_aggregate", "fetch_partials",
+    "AggTables", "AggregateExecutor", "aggregate_shards", "plan_aggregate", "fetch_partials",
     "accumulate_partials", "agg_lanes_plain", "agg_reduce_plain",
     "agg_group_plain", "sum_tiling", "SUM_TILE",
 ]

@@ -85,6 +85,43 @@ def generate_combined_lines(
 
 
 
+_LONG_PARTS = re.compile(r'^(.*?"\S+ )(\S+)( [^"]*" \S+ \S+ ")([^"]*)(" ")([^"]*)(")$')
+_PAD_BYTES = np.frombuffer(
+    b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789", dtype=np.uint8)
+
+
+def long_combined_lines(n: int, seed: int = 63, min_len: int = 8192,
+                        max_len: int = 32000,
+                        garbage_fraction: float = 0.01) -> List[str]:
+    """``generate_combined_lines(n, seed, garbage_fraction)`` with each
+    non-garbage line grown to a length drawn from [min_len, max_len] (a
+    numpy RNG from ``seed``): the extra bytes, letters and digits, go to a
+    ``pad=`` query parameter of the request URI, an ``r=`` parameter of
+    the referer and the user-agent's tail, in random shares -- the lines
+    of sites that raise ``LimitRequestLine`` /
+    ``large_client_header_buffers`` for long ad-tech queries, cookies and
+    referers.  Garbage lines stay as they are."""
+    rng = np.random.default_rng(seed)
+    out: List[str] = []
+    for line in generate_combined_lines(n, seed=seed, garbage_fraction=garbage_fraction):
+        m = _LONG_PARTS.match(line)
+        if m is None:
+            out.append(line)
+            continue
+        head, uri, mid, ref, sep, ua, tail = m.groups()
+        # Nine bytes of separators come on top: '&' or '?' twice,
+        # 'pad=', 'r=' and a space.
+        extra = max(0, int(rng.integers(min_len, max_len + 1)) - len(line) - 9)
+        cut = np.sort(rng.integers(0, extra + 1, size=2))
+        pad = _PAD_BYTES[rng.integers(0, len(_PAD_BYTES), size=extra)].tobytes().decode()
+        p_uri, p_ref, p_ua = pad[:cut[0]], pad[cut[0]:cut[1]], pad[cut[1]:]
+        uri += ("&" if "?" in uri else "?") + "pad=" + p_uri
+        ref += ("&" if "?" in ref else "?") + "r=" + p_ref
+        ua += " " + p_ua
+        out.append(head + uri + mid + ref + sep + ua + tail)
+    return out
+
+
 def force_escaped_quote_lines(base: List[str], pct: float) -> List[str]:
     """Copy of ``base`` with every ``round(100 / pct)``-th line's last
     quoted field (the user-agent) rewritten to start with a

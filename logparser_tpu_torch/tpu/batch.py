@@ -45,6 +45,15 @@ are the analytics pushdown: the same kernels, then the aggregate kernels
 over the packed rows on the card, and only the partials come back; every
 row the device cannot finish exactly replays through ``parse_batch`` and
 is folded in from its delivered values.
+
+Every entry runs over a data-axis mesh: ``data_parallel=N`` takes the
+largest power of two <= N of ``parallel.mesh.local_devices()``, and
+without it (or at a width of 1) the mesh is the parser's device alone.
+The batch is padded to a multiple of the width, each shard's rows go
+from the pinned buffer to their device and through the executor there,
+and the packed rows (an aggregate's class plane, lanes and partials) are
+assembled on the mesh's home device and copied back once; a CSR regrow
+is decided over all shards and re-runs every shard.
 """
 from __future__ import annotations
 
@@ -67,6 +76,14 @@ from ..geoip.mmdb import MMDBReader
 from ..httpd.apache import ApacheLogFormat, looks_like_apache_format
 from ..httpd.nginx import NginxLogFormat, additional_consumers, looks_like_nginx_format
 from ..native import _count_lines, encode_blob, framer
+from ..parallel.mesh import (
+    ShardedUnits,
+    dp_device_count,
+    dp_shardings,
+    make_mesh,
+    padded_rows,
+    scatter_rows,
+)
 from . import postproc, timefields
 from .pipeline import (
     CSR_OVERFLOW_BIT,
@@ -219,12 +236,17 @@ class TorchBatchParser:
     (one flattened table per database).  ``type_remappings`` are the
     reference's keyword too: {field path: type or types}; the chase
     re-types that path's value (mod_unique_id's ``%{UNIQUE_ID}e`` as
-    ``MOD_UNIQUE_ID``)."""
+    ``MOD_UNIQUE_ID``).  ``data_parallel`` is the reference's keyword:
+    the largest power of two <= it of ``parallel.mesh.local_devices()``
+    (of the parser's device type) holds the batch's row shards, and the
+    mesh's first device becomes ``device``; <= 1, or a resolution of 1,
+    makes a one-device mesh of ``device``."""
 
     def __init__(self, log_format: str, fields: Sequence[str],
                  device: Union[str, torch.device, None] = None,
                  extra_dissectors: Optional[Sequence[Any]] = None,
-                 type_remappings: Optional[Dict[str, Any]] = None):
+                 type_remappings: Optional[Dict[str, Any]] = None,
+                 data_parallel: Optional[int] = None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -233,6 +255,12 @@ class TorchBatchParser:
             )
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
+        self.data_parallel = data_parallel
+        self._mesh = self._build_mesh(data_parallel, self.device)
+        if self._mesh.home.type != self.device.type:
+            raise ValueError(f"data_parallel={data_parallel}: the mesh's devices are "
+                             f"{self._mesh.home.type}, the parser's {self.device}")
+        self.device = self._mesh.home
         self.log_format = log_format
         self.requested = list(dict.fromkeys(cleanup_field_value(f) for f in fields))
         self._remaps: Dict[str, Tuple[str, ...]] = {}
@@ -283,11 +311,34 @@ class TorchBatchParser:
             (fid, tuple(i for i, u in enumerate(self.units) if not u.plausibility_only))
             for fid in self.requested if _plan_group(self.plan_by_id[fid]) == "span"
         ]
-        self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
-        self._plain_executor: Optional[UnitsExecutor] = None   # emit_views=False
+        self._sharded: Dict[bool, ShardedUnits] = {}   # by emit_views
         self._copy_stream = None   # the side stream of staged H2D copies
-        # canonical spec -> (CSR slots it was built at, AggregateExecutor)
-        self._agg_executors: Dict[str, Tuple[int, Any]] = {}
+        # (canonical spec, device) -> (CSR slots it was built at, AggregateExecutor)
+        self._agg_executors: Dict[Tuple[str, torch.device], Tuple[int, Any]] = {}
+
+    @staticmethod
+    def _build_mesh(data_parallel: Optional[int], device: torch.device):
+        """The data-axis mesh a ``data_parallel`` request resolves to on
+        this host; ``device`` alone for no request or a 1-wide one."""
+        n = dp_device_count(int(data_parallel)) if data_parallel and int(data_parallel) > 1 else 1
+        return make_mesh(n_data=n) if n > 1 else make_mesh(1, devices=[device])
+
+    @property
+    def mesh_devices(self) -> int:
+        """How many devices the batch is laid over."""
+        return self._mesh.size
+
+    @property
+    def executor(self) -> UnitsExecutor:
+        """The home device's executor, with view rows."""
+        return self._executor_for(True).executors[self.device]
+
+    def _scatter(self, B: int, *tensors: torch.Tensor, non_blocking: bool = False):
+        """Each tensor's rows of a B-row batch as the mesh's shards (the
+        batch padded to the mesh width with zero rows), each on its
+        device: one list per tensor."""
+        shards = dp_shardings(self._mesh, padded_rows(self._mesh, B))
+        return [scatter_rows(t, shards, B, non_blocking) for t in tensors]
 
     @staticmethod
     def _plan_group(plan: FieldPlan) -> str:
@@ -306,8 +357,7 @@ class TorchBatchParser:
         for u in self.units:
             u.layout = PackedLayout.for_plans(u.plans, self.csr_slots)
         assign_row_offsets(self.units)
-        self.executor = UnitsExecutor(self.units, self.view_specs).to(self.device)
-        self._plain_executor = None
+        self._sharded = {}
         return True
 
     # -- plan resolution -------------------------------------------------
@@ -568,14 +618,14 @@ class TorchBatchParser:
         while pending:
             yield self._finish(pending.popleft())
 
-    def _executor_for(self, emit_views: Optional[bool]) -> UnitsExecutor:
-        """The executor with view rows (the default), or the one without
-        them when ``emit_views`` is False (built at first use)."""
-        if emit_views is None or emit_views:
-            return self.executor
-        if self._plain_executor is None:
-            self._plain_executor = UnitsExecutor(self.units).to(self.device)
-        return self._plain_executor
+    def _executor_for(self, emit_views: Optional[bool]) -> ShardedUnits:
+        """The mesh's executors with view rows (the default), or without
+        them when ``emit_views`` is False; each built at first use."""
+        views = emit_views is None or emit_views
+        if views not in self._sharded:
+            self._sharded[views] = ShardedUnits(
+                self.units, self._mesh, self.view_specs if views else ())
+        return self._sharded[views]
 
     def _encode(self, lines: List[Union[bytes, str]]) -> "_Batch":
         alloc = _PinnedAlloc() if self.device.type == "cuda" else None
@@ -598,7 +648,11 @@ class TorchBatchParser:
 
     def _upload(self, batch: "_Batch", stream) -> None:
         """Pin (unless the framer wrote into pinned memory) and start the
-        batch's H2D copy on ``stream``, between two events."""
+        batch's H2D copy on ``stream``, between two events.  ``dbuf`` /
+        ``dlen`` are the mesh's shards' rows, each copied straight
+        from the pinned buffer to its device (on ``stream`` for the home
+        device, on its own current stream for another; the events time
+        the home device's copies)."""
         if batch.dbuf is not None:
             return
         t0 = time.perf_counter()
@@ -608,13 +662,14 @@ class TorchBatchParser:
         batch.h2d = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         with torch.cuda.stream(stream):
             batch.h2d[0].record(stream)
-            batch.dbuf = host_buf.to(self.device, non_blocking=True)
-            batch.dlen = host_len.to(self.device, non_blocking=True)
+            batch.dbuf, batch.dlen = self._scatter(batch.buf.shape[0], host_buf,
+                                                   host_len, non_blocking=True)
             batch.h2d[1].record(stream)
         if stream != compute:
             # Made on the side stream, read on the compute stream.
-            batch.dbuf.record_stream(compute)
-            batch.dlen.record_stream(compute)
+            for t in batch.dbuf + batch.dlen:
+                if t.device == self.device:
+                    t.record_stream(compute)
 
     def _stage_h2d(self, batch: "_Batch") -> None:
         """Start the batch's H2D copy on the side copy stream, so that it
@@ -632,8 +687,9 @@ class TorchBatchParser:
         pend = _Pending(batch, emit_views, self.csr_slots)
         if self.device.type == "cpu":
             t0 = time.perf_counter()
-            pend.packed = executor(torch.from_numpy(batch.buf),
-                                   torch.from_numpy(batch.lengths)).numpy()
+            B = batch.buf.shape[0]
+            buf, lengths = torch.from_numpy(batch.buf), torch.from_numpy(batch.lengths)
+            pend.packed = executor(*self._scatter(B, buf, lengths), B).numpy()
             batch.add("kernels", time.perf_counter() - t0)
             return pend
         with torch.cuda.device(self.device):
@@ -643,7 +699,7 @@ class TorchBatchParser:
             compute.wait_event(batch.h2d[1])
             pend.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             pend.events[0].record()
-            packed = executor(batch.dbuf, batch.dlen)
+            packed = executor(batch.dbuf, batch.dlen, batch.buf.shape[0])
             pend.events[1].record()
             pend.host_out = torch.empty(tuple(packed.shape), dtype=torch.int32,
                                         pin_memory=True)
@@ -739,17 +795,19 @@ class TorchBatchParser:
         while pending:
             yield self._finish_aggregate(pending.popleft())
 
-    def _agg_executor(self, spec):
-        """The aggregate executor of this parser and spec, cached per
-        (canonical spec, CSR slot count): a regrow rebuilds the layouts,
-        so the executor rebuilds with them."""
+    def _agg_executor(self, spec, device: Optional[torch.device] = None):
+        """The aggregate executor of this parser and spec on ``device``
+        (default the parser's), cached per (canonical spec, device, CSR
+        slot count): a regrow rebuilds the layouts, so the executor
+        rebuilds with them."""
         from ..analytics.device import AggregateExecutor
 
-        key = spec.canonical_key()
+        device = self.device if device is None else device
+        key = (spec.canonical_key(), device)
         cached = self._agg_executors.get(key)
         if cached is not None and cached[0] == self.csr_slots:
             return cached[1]
-        ex = AggregateExecutor(self, spec).to(self.device)
+        ex = AggregateExecutor(self, spec).to(device)
         self._agg_executors[key] = (self.csr_slots, ex)
         return ex
 
@@ -762,11 +820,12 @@ class TorchBatchParser:
         batch.host_kill[batch.overflow] = 1
         pend = _Pending(batch, None, self.csr_slots)
         pend.spec = spec
-        pend.executor = ex = self._agg_executor(spec)
+        pend.executor = self._agg_executor(spec)
         if self.device.type == "cpu":
             t0 = time.perf_counter()
-            pend.out = ex(torch.from_numpy(batch.buf), torch.from_numpy(batch.lengths),
-                          B, torch.from_numpy(batch.host_kill))
+            buf, lengths = torch.from_numpy(batch.buf), torch.from_numpy(batch.lengths)
+            kill = torch.from_numpy(batch.host_kill)
+            pend.out = self._aggregate_shards(spec, *self._scatter(B, buf, lengths, kill), B)
             batch.add("kernels", time.perf_counter() - t0)
             return pend
         with torch.cuda.device(self.device):
@@ -776,11 +835,19 @@ class TorchBatchParser:
             batch.add("pin", time.perf_counter() - t0)
             self._upload(batch, compute)
             pend.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            dkill = kill.to(self.device, non_blocking=True)
+            (kills,) = self._scatter(B, kill, non_blocking=True)
             pend.events[0].record()
-            pend.out = ex(batch.dbuf, batch.dlen, B, dkill)
+            pend.out = self._aggregate_shards(spec, batch.dbuf, batch.dlen, kills, B)
             pend.events[1].record()
         return pend
+
+    def _aggregate_shards(self, spec, bufs, lengths, kills, B: int):
+        """The mesh aggregate (the reference's data-sharded in, replicated
+        out) over the shards' rows, lengths and host_kill planes."""
+        from ..analytics.device import aggregate_shards
+
+        executors = {b.device: self._agg_executor(spec, b.device) for b in bufs}
+        return aggregate_shards(executors, bufs, lengths, kills, B, self.device)
 
     def _finish_aggregate(self, pend: "_Pending"):
         """Copy one aggregate's partials back, accumulate them, and replay

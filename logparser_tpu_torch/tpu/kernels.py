@@ -10,8 +10,9 @@ return ``cudaGetLastError()`` after the launch.
 Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
 ``uri_split``, ``csr_split``, ``ipv4_spans``, ``geo_lookup``,
 ``pack_rows``, the aggregate pushdown's ``agg_lanes``, ``agg_reduce``
-and ``agg_group``, ``setcookie_split`` and ``muid``, and the two public
-utilities' ``unescape`` and ``geo_gather``):
+and ``agg_group``, ``setcookie_split`` and ``muid``, the two public
+utilities' ``unescape`` and ``geo_gather``, and the mesh's ``sp_split``
+and ``counters``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -37,6 +38,8 @@ import torch
 from ..analytics import device as agg_device
 from ..analytics.device import AggTables
 from ..geoip.device import geo_gather_plain
+from ..parallel import mesh
+from ..parallel.mesh import SP_BYTES, SP_CHARSET, SP_FIND, SpTables
 from . import pipeline, postproc
 from .pipeline import (
     CONS_NEVER,
@@ -55,7 +58,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
            "csr_split", "ipv4_spans", "geo_lookup", "pack_rows", "agg_lanes",
            "agg_reduce", "agg_group", "setcookie_split", "muid", "unescape",
-           "geo_gather")
+           "geo_gather", "sp_split", "counters")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -92,6 +95,9 @@ _SIGNATURES = {
     "agg_group": [_INT, _INT, _P, _P, _INT, _INT, _P, _P, _P, _P, _P],
     "unescape": [_P, _INT, _INT, _P, _P, _INT, _P, _P, _P, _P],
     "geo_gather": [_P, _INT, _INT, _P, _INT, _P, _P],
+    "sp_split": [_INT, _P, _INT, _INT, _INT, _P, _P, _P, _INT, _P, _INT, _INT, _P,
+                 _P, _P],
+    "counters": [_P, _P, _INT, _INT, _P, _P],
 }
 
 
@@ -702,13 +708,94 @@ def geo_gather(column: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sp_split(
+    tables: SpTables, op_index: int, mode: int, buf: torch.Tensor, offset: int,
+    lo: torch.Tensor, hi: Optional[torch.Tensor] = None,
+    halo: Optional[torch.Tensor] = None, l_total: int = 0,
+) -> torch.Tensor:
+    """Kernel 17: op ``op_index``'s shard-local step of the
+    sequence-parallel split on one seq shard's slice ``buf`` [B, Lc] uint8
+    (global columns ``offset`` ..), as ``mesh.sp_split_plain`` defines
+    it: SP_FIND (an ``until_lit``; lo = cursor, hi = lengths, ``halo``
+    [B, H >= len(lit) - 1] uint8 the next shard's first bytes) -> [B]
+    int32, SP_BYTES (a ``lit``; lo = cursor) -> [len(lit), B] int32,
+    SP_CHARSET (an ``until_lit`` or ``to_end``; [lo, hi) the span) -> [B]
+    int32.  Any slice width: SP emits no packed spans."""
+    if buf.dim() != 2:
+        raise ValueError(f"buf must be [B, Lc], got {tuple(buf.shape)}")
+    B, Lc = buf.shape
+    dev = buf.device
+    _check("buf", buf, torch.uint8, (B, Lc), dev)
+    _check_tables(tables, dev)
+    op = tables.program.ops[op_index]
+    _check("lo", lo, _I32, (B,), dev)
+    H = 0
+    if mode == SP_FIND:
+        if op.kind != "until_lit":
+            raise ValueError(f"SP_FIND runs an until_lit op, op {op_index} is {op.kind}")
+        _check("hi", hi, _I32, (B,), dev)
+        if halo is not None:
+            H = halo.shape[1] if halo.dim() == 2 else -1
+            _check("halo", halo, torch.uint8, (B, H), dev)
+        if len(op.lit) - 1 > H:
+            raise ValueError(f"a {len(op.lit)}-byte separator needs a halo of "
+                             f"{len(op.lit) - 1} bytes, got {H}")
+        shape: Tuple[int, ...] = (B,)
+    elif mode == SP_BYTES:
+        if op.kind != "lit":
+            raise ValueError(f"SP_BYTES runs a lit op, op {op_index} is {op.kind}")
+        shape = (len(op.lit), B)
+    elif mode == SP_CHARSET:
+        if op.kind == "lit":
+            raise ValueError(f"SP_CHARSET runs a token op, op {op_index} is a lit")
+        _check("hi", hi, _I32, (B,), dev)
+        shape = (B,)
+    else:
+        raise ValueError(f"unknown sp_split mode {mode}")
+    cs = tables.cs_of_op[op_index]
+    if not _route(buf):
+        return mesh.sp_split_plain(mode, buf, offset, lo, hi, op.lit,
+                                   halo if mode == SP_FIND else None, l_total,
+                                   tables.charsets[cs] != 0)
+    out = torch.empty(shape, dtype=_I32, device=dev)
+    if B:
+        _launch("sp_split", dev, mode, _ptr(buf), B, Lc, offset, _ptr(lo),
+                _ptr(hi) if hi is not None else None, _ptr(tables.lits[op_index]),
+                len(op.lit), _ptr(halo) if H else None, H, l_total,
+                _ptr(tables.charsets[cs]), _ptr(out))
+        sp_split.launches += 1
+    return out
+
+
+def counters(good: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
+    """Kernel 18: [2] int32, the sums of the [B] ``good`` and ``bad``
+    masks (both bool or both int32; 32-bit wrapping sums)."""
+    if good.dim() != 1:
+        raise ValueError(f"good must be [B], got {tuple(good.shape)}")
+    if good.dtype not in (torch.bool, _I32):
+        raise TypeError(f"good has dtype {good.dtype}, expected bool or int32")
+    B = good.shape[0]
+    dev = good.device
+    _check("good", good, good.dtype, (B,), dev)
+    _check("bad", bad, good.dtype, (B,), dev)
+    if not _route(good):
+        return mesh.counters_plain(good, bad)
+    if not B:
+        return torch.zeros(2, dtype=_I32, device=dev)
+    out = torch.empty(2, dtype=_I32, device=dev)   # the kernel zeroes it
+    _launch("counters", dev, _ptr(good), _ptr(bad), B, good.element_size(), _ptr(out))
+    counters.launches += 1
+    return out
+
+
 WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
             "zone_lookup": zone_lookup, "uri_split": uri_split,
             "csr_split": csr_split, "ipv4_spans": ipv4_spans,
             "geo_lookup": geo_lookup, "pack_rows": pack_rows,
             "agg_lanes": agg_lanes, "agg_reduce": agg_reduce,
             "agg_group": agg_group, "setcookie_split": setcookie_split,
-            "muid": muid, "unescape": unescape, "geo_gather": geo_gather}
+            "muid": muid, "unescape": unescape, "geo_gather": geo_gather,
+            "sp_split": sp_split, "counters": counters}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

@@ -143,6 +143,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     assert all(counts.pop(k) == 0 for k in ("agg_lanes", "agg_reduce", "agg_group"))
     assert counts.pop("setcookie_split") == 0 and counts.pop("muid") == 0
     assert counts.pop("unescape") == 0 and counts.pop("geo_gather") == 0
+    assert counts.pop("sp_split") == 0 and counts.pop("counters") == 0
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -724,3 +725,92 @@ def test_new_entry_points_on_the_card_equal_the_cpu(cuda_device):
            + aggregate_edge_lines() for s in (8, 9, 10)]
     for b, out in zip(agg, gpu.aggregate_batch_stream(agg, DASHBOARD_OPS, depth=2)):
         assert out.state == head.aggregate_batch(b, DASHBOARD_OPS).state
+
+
+def _sp_plain(tables, op_index, mode, buf, offset, lo, hi=None, halo=None, l_total=0):
+    """kernels.sp_split's signature over its plain version."""
+    from logparser_tpu_torch.parallel import mesh
+
+    op = tables.program.ops[op_index]
+    return mesh.sp_split_plain(mode, buf, offset, lo, hi, op.lit,
+                               halo if mode == mesh.SP_FIND else None, l_total,
+                               tables.charsets[tables.cs_of_op[op_index]] != 0)
+
+
+@pytest.mark.parametrize("fmt,L,shape", [
+    ("combined", 384, (2, 4)),
+    ("combined", 16384, (1, 4)),
+    ("%h - %u - %{Referer}i", 64, (1, 4)),
+    ("[[[[[[[[[[%h] %u %>s", 64, (1, 8)),
+    ("%h\x00%u\x00%>s", 64, (2, 4)),
+])
+def test_sp_split_kernel_equals_plain_version(cuda_device, monkeypatch, fmt, L, shape):
+    """The SP runner with every shard on one card: through the kernel,
+    through the plain version on the card, and on the CPU -- all equal."""
+    from logparser_tpu_torch.httpd.apache import ApacheLogFormat
+    from logparser_tpu_torch.parallel import mesh
+    from logparser_tpu_torch.tools.demolog import long_combined_lines
+    from logparser_tpu_torch.tpu.program import compile_device_program
+
+    if fmt == "combined":
+        lines = (long_combined_lines(64, seed=63, max_len=L - 1) if L > 8191
+                 else _lines()[:3000] + EDGE_LINES[:8])
+    else:
+        rng = np.random.default_rng(L)
+        alphabet = list(" -[]\x00ab12") if "\x00" in fmt else list(" -[]ab12")
+        lines = ["".join(rng.choice(alphabet, size=int(rng.integers(0, L))))
+                 for _ in range(400)]
+        lines += ["a - b - c", "[[[[[[[[[[1.2.3.4] u 200", "1.2.3.4\x00u\x00200"] * 8
+    buf, lengths, overflow = encode_batch(lines[:len(lines) // 8 * 8], line_len=L)
+    assert not overflow
+    prog = compile_device_program(ApacheLogFormat(fmt))
+    devices = [cuda_device] * 8
+    run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(*shape, devices=devices), L)
+    kernels.reset_launch_counts()
+    got = run(buf, lengths)
+    assert kernels.launch_counts()["sp_split"] >= shape[0] * shape[1]
+    monkeypatch.setattr(kernels, "sp_split", _sp_plain)
+    want = run(buf, lengths)
+    cpu = mesh.sequence_parallel_runner(prog, mesh.make_mesh(*shape, devices=["cpu"] * 8),
+                                        L)(buf, lengths)
+    for k in ("valid", "starts", "ends"):
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.parametrize("B", [0, 1, 31, 100003])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32])
+def test_counters_kernel_equals_plain_version(cuda_device, B, dtype):
+    from logparser_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(B)
+    good = torch.from_numpy(rng.random(B) < 0.7)
+    bad = ~good
+    if dtype is torch.int32:
+        good = torch.from_numpy(rng.integers(-5, 1 << 20, size=B, dtype=np.int32))
+        bad = torch.from_numpy(rng.integers(0, 3, size=B, dtype=np.int32))
+    got = kernels.counters(good.to(cuda_device), bad.to(cuda_device))
+    assert torch.equal(got.cpu(), mesh.counters_plain(good, bad))
+    m = mesh.make_mesh(4, devices=[cuda_device] * 4)
+    g, b = mesh.aggregate_counters(m, good, bad)
+    assert (int(g), int(b)) == tuple(mesh.counters_plain(good, bad).tolist())
+
+
+def test_data_parallel_parser_on_the_card_equals_the_cpu(cuda_device, monkeypatch):
+    """TorchBatchParser(data_parallel=4) with four shards on one card:
+    parse_batch and the dashboard aggregate equal the CPU parser's."""
+    from logparser_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "local_devices", lambda: [torch.device("cuda", 0)] * 4)
+    gpu = TorchBatchParser("combined", HEADLINE_FIELDS, data_parallel=4)
+    assert gpu.mesh_devices == 4
+    cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu")
+    lines = _lines()
+    kernels.reset_launch_counts()
+    res = gpu.parse_batch(lines)
+    assert kernels.launch_counts()["split"] == 4
+    ref = cpu.parse_batch(lines)
+    assert res.to_dict() == ref.to_dict() and res.needs_host.tolist() == ref.needs_host.tolist()
+    agg = lines + aggregate_edge_lines()
+    assert gpu.aggregate_batch(agg, DASHBOARD_OPS).state == \
+        cpu.aggregate_batch(agg, DASHBOARD_OPS).state
