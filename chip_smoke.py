@@ -28,11 +28,20 @@ first phase that fails:
 2. build   -- the eighteen kernels from logparser_tpu_torch/csrc, in parallel,
    and beside them the g++ line framer (logparser_tpu_torch/native), which
    must build: the blob and stream phases fail on a numpy framing;
+   2b. timing -- the yardstick (DeviceClock): a kernel's or a library
+   call's time is device time with the host out of the window -- each of
+   25 reps flushes L2, enqueues a GPU busy wait (torch.cuda._sleep) of
+   twice the call's host enqueue time plus 0.02 ms, then records start,
+   calls, records stop; the phase prints the busy wait's calibration and
+   the time of an empty window behind it, which must be under 0.005 ms;
 3. corpus  -- the generated lines + edge lines;
 4. one phase per kernel (split, span_stages, timestamp, pack_rows): the
    kernel and its plain PyTorch version on the same CUDA tensors must be
-   equal (exact integers, tolerance 0); median kernel time over 25
-   launches with the L2 cache flushed before each, CUDA events;
+   equal (exact integers, tolerance 0); the kernel's median device time
+   (``ms``) beside its host enqueue (``enqueue_ms``), the library call's
+   the same way (``library_ms``, ``library_enqueue_ms``), the plain
+   version's median over 5 runs, each after an L2 flush, events around
+   the enqueue as well (``plain_ms``);
 5. end to end -- TorchBatchParser(...).parse_batch on the card, with the
    launch counts zeroed just before and read just after, compared with
    the same parser on the CPU (to_dict and needs_host); then a small batch
@@ -68,7 +77,8 @@ first phase that fails:
    a host simulation of the same search touches) beside
    torch.searchsorted, and on an empty table; parse_batch end to end on
    both GeoIP configurations (the synthetic one also reports the seconds
-   to write the database and to build its table), GeoDeviceTable.gather
+   to write the database and to build its table), geo_lookup on the
+   synthetic City table (``geo_lookup_synthetic``), GeoDeviceTable.gather
    of every synthetic City column by the batch's looked-up rows and
    crafted out-of-range ones (beside torch.index_select), and the
    8191-byte bucket;
@@ -124,7 +134,8 @@ first phase that fails:
    run_program on every row without ``\\"``); ``sp_long`` (8,192 lines
    of 8,192 to 32,000 bytes, seed 63, L = 32,768 on 1 x 4: kernel = plain,
    every non-garbage row valid, lines/s); ``aggregate_counters`` (valid
-   and ~valid of the headline parse over 4 shards = valid.sum());
+   and ~valid of the headline parse over 4 shards = valid.sum(); the
+   counters kernel timed beside torch.stack((good, bad)).sum(1));
    ``mesh_multi_card`` (mesh_dp, parser_dp and sp_split again on
    distinct cards when the machine has two or more, each equal to one
    card, else a line saying it was skipped);
@@ -211,7 +222,10 @@ def card_line() -> str:
 
 def time_kernel(torch, fn, reps: int) -> float:
     """Median milliseconds of fn() over reps launches, each after an L2
-    flush (the 50 MB L2 would otherwise hold the 32 MB batch)."""
+    flush (the 50 MB L2 would otherwise hold the 32 MB batch).  The events
+    bracket the host's enqueue too: where fn's Python outlasts the flush,
+    the card idles inside the window.  For the plain versions and the
+    mesh's runners; kernels and library calls take DeviceClock.time."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     times = []
     for _ in range(reps):
@@ -224,6 +238,69 @@ def time_kernel(torch, fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+class DeviceClock:
+    """Device time of a call, with the host's enqueue out of the window.
+
+    Each rep flushes L2, enqueues a GPU busy wait (``torch.cuda._sleep``)
+    of at least twice the call's host enqueue time, then records start,
+    calls fn and records stop: the whole enqueue lands while the card is
+    still busy, so the events bracket the call's device work alone.  The
+    enqueue is timed once a call with ``time.perf_counter`` around a warm
+    call; the busy wait's cycles are converted to milliseconds once, with
+    events (``cycles_per_ms``)."""
+
+    CALIBRATION_CYCLES = 1 << 21
+    PAD_MS = 0.02   # beyond twice the enqueue: the host's jitter
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        torch.cuda._sleep(self.CALIBRATION_CYCLES)   # warm
+        ms = []
+        for _ in range(5):
+            start, stop = self._events()
+            start.record()
+            torch.cuda._sleep(self.CALIBRATION_CYCLES)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+        self.cycles_per_ms = self.CALIBRATION_CYCLES / statistics.median(ms)
+
+    def _events(self):
+        return (self.torch.cuda.Event(enable_timing=True),
+                self.torch.cuda.Event(enable_timing=True))
+
+    def enqueue_ms(self, fn) -> float:
+        """Host milliseconds of one warm call of fn (its enqueue)."""
+        fn()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        self.torch.cuda.synchronize()
+        return (t1 - t0) * 1e3
+
+    def window(self, fn, reps: int, enqueue_ms: float):
+        """Event times of fn() behind a busy wait sized for enqueue_ms."""
+        cycles = int((2 * enqueue_ms + self.PAD_MS) * self.cycles_per_ms)
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            self.torch.cuda._sleep(cycles)
+            start, stop = self._events()
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return times
+
+    def time(self, fn, reps: int):
+        """(median device milliseconds over reps, enqueue milliseconds)."""
+        enqueue = self.enqueue_ms(fn)
+        return statistics.median(self.window(fn, reps, enqueue)), enqueue
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -277,6 +354,15 @@ def main() -> int:
           "kernels": len(kernels.KERNELS), "native_available": native.native_available(),
           "framer_build_seconds": native.build_seconds(), "ptxas": regs})
 
+    # ---- 2b. the yardstick ---------------------------------------------
+    clock = DeviceClock(torch)
+    empty = clock.window(lambda: None, KERNEL_REPS, 0.0)
+    if statistics.median(empty) >= 0.005:
+        fail(f"an empty window behind the busy wait reads {statistics.median(empty)} ms")
+    emit({"phase": "timing", "empty_window_ms": statistics.median(empty),
+          "empty_window_max_ms": max(empty), "cycles_per_us": clock.cycles_per_ms / 1e3,
+          "pad_ms": clock.PAD_MS, "reps": KERNEL_REPS})
+
     # ---- 3. corpus -----------------------------------------------------
     lines = generate_combined_lines(N_LINES, seed=42, garbage_fraction=0.01)
     lines += EDGE_LINES
@@ -313,9 +399,10 @@ def main() -> int:
             err = max_abs_err(torch, got, want)
         else:
             err = compare(got, want)
-        ms = time_kernel(torch, run_kernel, KERNEL_REPS)
+        ms, enqueue_ms = clock.time(run_kernel, KERNEL_REPS)
         plain_ms = time_kernel(torch, run_plain, PLAIN_REPS)
-        library_ms = time_kernel(torch, library, KERNEL_REPS) if library else None
+        library_ms, library_enqueue_ms = (clock.time(library, KERNEL_REPS) if library
+                                          else (None, None))
         bound, bound_by = bound_ms(bytes_moved, ops)
         row = {
             "name": kernel or name, "route": "cuda",
@@ -328,13 +415,15 @@ def main() -> int:
         if kernel is None:
             rows[name] = row
         emit({"phase": name, "equal": True, "B": n or B,
-              "L": L if width is None else width, "ms": ms,
+              "L": L if width is None else width, "ms": ms, "enqueue_ms": enqueue_ms,
               "plain_ms": plain_ms, "bound_ms": row["bound_ms"],
               "bound_by": row["bound_by"], "library_ms": library_ms,
+              "library_enqueue_ms": library_enqueue_ms,
               "bytes": bytes_moved, **(extra or {}), "card": smi})
         return got
 
     phase.bounds = {}
+    phase.clock = clock
     single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
                        rows, smi, gpu, lines, buf, lengths, dbuf, dlen)
 
@@ -969,22 +1058,21 @@ def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
 
 def zone_table_bytes(torch, zt, zones, minutes):
     """Table bytes a lookup of these pairs must read, each entry once: the
-    buckets and packed rows it touches, and the window table."""
+    reference's buckets (2^14 minutes) and packed rows it touches, and the
+    window table; one bound for every design of the kernel."""
+    table = zt.table
     m = minutes.to(torch.int64).clamp(0, (1 << 26) - 1)
     key = zones.to(torch.int64) * (1 << 26) + m
-    bucket = key >> 14
-    idx = zt.buckets.to(torch.int64)[bucket]
-    rows = torch.cat([idx + k for k in range(zt.chain + 1)]).clamp(max=zt.packed.shape[0] - 1)
+    bucket = key >> table.BUCKET_BITS
+    idx = torch.from_numpy(table.buckets).to(key.device, torch.int64)[bucket]
+    rows = torch.cat([idx + k for k in range(table.chain + 1)]).clamp(max=len(table.keys) - 1)
     return (4 * int(torch.unique(bucket).numel()) + 8 * int(torch.unique(rows).numel())
-            + 4 * zt.valid_until.numel())
+            + 4 * len(table.valid_until))
 
 
-def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
-    """The standalone lookup on every transition key +-1 minute, each
+def zone_probe_pairs(np, table, span):
+    """(zones, minutes) int32: every transition key +-1 minute, each
     zone's window edges and the clip edges, plus N_LINES random pairs."""
-    import numpy as np
-
-    table = zt.table
     keys = table.keys.astype(np.int64)
     z = np.repeat(keys // span, 3)
     m = (keys[:, None] % span + np.array([-1, 0, 1])[None, :]).ravel()
@@ -994,8 +1082,17 @@ def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
     rng = np.random.default_rng(17)
     z = np.concatenate([z, np.repeat(np.arange(Z), 5), rng.integers(0, Z, N_LINES)])
     m = np.concatenate([m, edges.ravel(), rng.integers(-10, span + 10, N_LINES)])
-    zones = torch.from_numpy(z.astype(np.int32)).cuda()
-    minutes = torch.from_numpy(m.astype(np.int32)).cuda()
+    return z.astype(np.int32), m.astype(np.int32)
+
+
+def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
+    """The standalone lookup on zone_probe_pairs."""
+    import numpy as np
+
+    z, m = zone_probe_pairs(np, zt.table, span)
+    keys = zt.table.keys.astype(np.int64)
+    zones = torch.from_numpy(z).cuda()
+    minutes = torch.from_numpy(m).cuda()
     n = len(z)
     # The library yardstick: the sorted-key search alone, on the same
     # (zone, clipped minute) keys.
@@ -1013,6 +1110,21 @@ def zone_lookup_phase(torch, kernels, pipeline, phase, zt, span):
 GEO_LARGE_RANGES = 1 << 22   # the order of a production City database's IPv4 networks
 GEO_LARGE_STRIDE = 64
 GEO_SYNTHETIC_SEED = 4
+
+
+def large_geo_table(np, GeoDeviceTable):
+    """(table, keys uint32): GEO_LARGE_RANGES seeded disjoint ranges over
+    the whole uint32 space; the start, end and both neighbours of every
+    GEO_LARGE_STRIDE-th range, 0 and 0xFFFFFFFF."""
+    mask = 0xFFFFFFFF
+    rng = np.random.default_rng(21)
+    K = GEO_LARGE_RANGES
+    bounds = np.sort(rng.choice(1 << 32, size=2 * K, replace=False)).astype(np.uint32)
+    large = GeoDeviceTable.from_ranges(bounds[0::2], bounds[1::2])
+    pick = np.arange(0, K, GEO_LARGE_STRIDE)
+    s64, e64 = large.starts[pick].astype(np.int64), large.ends[pick].astype(np.int64)
+    keys = (np.concatenate([s64, e64, s64 - 1, e64 + 1, [0, mask]]) & mask).astype(np.uint32)
+    return large, keys
 
 
 def geo_search_bytes(np, starts, ends, keys, gate=None):
@@ -1187,14 +1299,9 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
 
     # geo_lookup alone on a table of a production database's size, and
     # on an empty one.
-    rng = np.random.default_rng(21)
     K = GEO_LARGE_RANGES
-    bounds = np.sort(rng.choice(1 << 32, size=2 * K, replace=False)).astype(np.uint32)
-    large = GeoDeviceTable.from_ranges(bounds[0::2], bounds[1::2])
+    large, keys_np = large_geo_table(np, GeoDeviceTable)
     gl = pipeline.GeoTables(pipeline._GeoGroup("large", 0, large)).cuda()
-    pick = np.arange(0, K, GEO_LARGE_STRIDE)
-    s64, e64 = large.starts[pick].astype(np.int64), large.ends[pick].astype(np.int64)
-    keys_np = (np.concatenate([s64, e64, s64 - 1, e64 + 1, [0, mask]]) & mask).astype(np.uint32)
     keys = torch.from_numpy(keys_np.view(np.int32)).cuda()
     n = len(keys_np)
     table_bytes, hits = geo_search_bytes(np, large.starts, large.ends, keys_np)
@@ -1204,7 +1311,7 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                 lambda: pipeline.geo_lookup_plain(gl, keys, None, torch.empty_like(keys)),
                 bytes_moved=8 * n + table_bytes, ops=4 * 22 * n, kernel="geo_lookup",
                 n=n, width=0, library=lambda: torch.searchsorted(lib_s, lib_k, right=True))
-    if int((got > 0).sum()) != int(hits.sum()) or int(hits.sum()) < 2 * len(pick):
+    if int((got > 0).sum()) != int(hits.sum()) or int(hits.sum()) < 2 * K // GEO_LARGE_STRIDE:
         fail(f"geo_lookup_large: {int((got > 0).sum())} hits, the simulation "
              f"{int(hits.sum())}")
     emit({"phase": "geo_lookup_large_table", "ranges": K, "table_bytes": 8 * K,
@@ -1248,14 +1355,19 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                    None, smi, db_write_seconds=None if existed else write_s,
                    table_build_seconds=build_s, ranges=ranges)
     agg_parity(torch, kernels, gpu_syn, cpu_syn, syn_lines, "agg_parity_geo_synthetic", smi)
-    geo_gather_phase(torch, kernels, runtime, phase, rows, gpu_syn, syn_lines, smi)
+    geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, syn_lines,
+                     smi)
     run_wide(gpu, parser(city, "cpu"), demolog.geoip_chain_lines(256) + edge, "geo")
 
 
-def geo_gather_phase(torch, kernels, runtime, phase, rows, gpu_syn, syn_lines, smi):
-    """GeoDeviceTable.gather on the synthetic City table (131,072 networks)
-    for every column, by the rows geo_lookup finds for the geoip_synthetic
-    batch plus crafted out-of-range rows: driven once per column with the
+def geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, syn_lines,
+                     smi):
+    """geo_lookup on the synthetic City table (131,072 networks: a
+    two-level search with 16 starts a splitter) for the geoip_synthetic
+    batch, against its plain version and torch.searchsorted (phase
+    ``geo_lookup_synthetic``); then GeoDeviceTable.gather on that table
+    for every column, by the rows geo_lookup finds plus crafted
+    out-of-range rows: driven once per column with the
     counts zeroed before the first and read after the last, each column
     held to its plain version (bit for bit: the float columns hold NaN),
     and the float latitude timed beside torch.index_select over the same
@@ -1271,7 +1383,18 @@ def geo_gather_phase(torch, kernels, runtime, phase, rows, gpu_syn, syn_lines, s
     dbuf, dlen = torch.from_numpy(buf).cuda(), torch.from_numpy(lengths).cuda()
     starts, ends, _ = kernels.split(t.split, dbuf, dlen)
     ip = kernels.ipv4_spans(g, dbuf, starts, ends)
-    found = kernels.geo_lookup(g, ip[0], gate=ip[1])
+    host = ip[:2].cpu().numpy()
+    mask = 0xFFFFFFFF
+    lib_s, lib_k = g.starts.to(torch.int64) & mask, ip[0].to(torch.int64) & mask
+    found = phase(
+        "geo_lookup_synthetic", lambda: kernels.geo_lookup(g, ip[0], gate=ip[1]),
+        lambda: pipeline.geo_lookup_plain(g, ip[0], ip[1], torch.empty_like(ip[0])),
+        bytes_moved=12 * ip.shape[1] + geo_search_bytes(
+            np, table.starts, table.ends, host[0].view(np.uint32), host[1])[0],
+        ops=4 * ip.shape[1], kernel="geo_lookup", n=ip.shape[1], width=0,
+        library=lambda: torch.searchsorted(lib_s, lib_k, right=True),
+        extra={"ranges": len(table), "split_shift": g.split_shift,
+               "lockstep": g.lockstep})
     n = len(table) + 1   # the miss row and one row per range
     crafted = torch.tensor([-1, -n, -n - 5, n, n + 100, 2**31 - 1, -2**31],
                            dtype=torch.int32, device="cuda")
@@ -2012,7 +2135,7 @@ def mesh_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi, gpu
         parser_dp_phase(torch, TorchBatchParser, kernels, gpu, lines, smi)
         sp = sp_split_phase(torch, kernels, runtime, mesh, phase, rows, gpu, lines,
                             dbuf, dlen, smi)
-        sp_long_phase(torch, kernels, runtime, mesh, gpu, smi)
+        sp_long_phase(torch, kernels, runtime, mesh, gpu, smi, phase.clock)
         counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi)
     finally:
         mesh.local_devices = saved
@@ -2223,7 +2346,7 @@ def sp_split_phase(torch, kernels, runtime, mesh, phase, rows, gpu, lines, dbuf,
     return got
 
 
-def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi):
+def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi, clock):
     """Lines of 8,192 to 32,000 bytes (8,192 of them, seed 63, ~1%
     garbage) at L = 32,768 on a 1 x 4 mesh (shard width 8,192): kernel =
     plain on the card, every non-garbage row valid; lines/s of the
@@ -2261,10 +2384,11 @@ def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi):
     bytes_moved, ops = sp_cost(prog, B, L)
     bound, bound_by = bound_ms(bytes_moved, ops)
     wall_ms = time_wall(torch, lambda: run(dbuf, dlen), 5)
+    ms, enqueue_ms = clock.time(replay, 10)
     emit({"phase": "sp_long", "B": B, "L": L, "mesh": [1, 4], "shard_width": L // 4,
           "buffer_bytes": int(buf.nbytes), "long_lines": int(long_rows.sum()),
           "valid": int(got["valid"].sum()), "equal": True, "launches": launches,
-          "ms": time_kernel(torch, replay, 10),
+          "ms": ms, "enqueue_ms": enqueue_ms,
           "plain_ms": time_kernel(torch, lambda: [plain(*a, **k) for a, k in calls], 3),
           "runner_wall_ms": wall_ms, "lines_per_s": B / (wall_ms / 1e3),
           "bound_ms": bound, "bound_by": bound_by, "bytes": bytes_moved,
@@ -2295,6 +2419,7 @@ def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
     phase("counters", lambda: [kernels.counters(*a) for a, _ in calls],
           lambda: [mesh.counters_plain(*a) for a, _ in calls],
           bytes_moved=2 * B + 8 * len(calls), ops=2 * B, n=B, width=1,
+          library=lambda: [torch.stack((g, b)).sum(1) for (g, b), _ in calls],
           extra={"shards": len(calls), "good": want[0], "bad": want[1]})
     rows["counters"]["launches"] = launches
 

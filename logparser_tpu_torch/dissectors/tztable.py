@@ -267,6 +267,22 @@ def read_snapshot(path: Path = SNAPSHOT) -> Dict[str, WallTable]:
 # ---------------------------------------------------------------------------
 
 
+def _bucket_index(keys: np.ndarray, n_zones: int, bits: int) -> Tuple[np.ndarray, int]:
+    """For each bucket of 2^bits minutes of the key space, the last key at
+    or before its start (clipped to 0, as the lookup clips); and the most
+    keys strictly inside one bucket, the forward steps a lookup may take
+    past its bucket's entry."""
+    n_buckets = n_zones << (26 - bits)
+    starts = np.arange(n_buckets, dtype=np.uint64) << bits
+    first = np.searchsorted(keys, starts, side="right")
+    index = np.maximum(first - 1, 0)
+    chain = 0
+    if len(keys) and n_buckets:
+        ends = starts + np.uint64((1 << bits) - 1)
+        chain = int((np.searchsorted(keys, ends, side="right") - first).max())
+    return index, chain
+
+
 @dataclass
 class ZoneDeviceTable:
     """Packed uint32 keys ``zone * SPAN_MINUTES + wall minute`` with their
@@ -276,6 +292,7 @@ class ZoneDeviceTable:
     finish the search (transitions are months apart)."""
 
     BUCKET_BITS = 14
+    INDEX_BITS = 18
 
     zones: Tuple[str, ...]
     keys: np.ndarray          # [T] uint32 ascending
@@ -296,16 +313,7 @@ class ZoneDeviceTable:
         if any(abs(o) >= 86400 for o in offs):
             raise ValueError("a zone offset outside +-24h")
         keys_a = np.asarray(keys, dtype=np.uint32)
-        n_buckets = len(tables) << (26 - cls.BUCKET_BITS)
-        starts = np.arange(n_buckets, dtype=np.uint64) << cls.BUCKET_BITS
-        buckets = np.maximum(
-            np.searchsorted(keys_a, starts, side="right") - 1, 0
-        ).astype(np.int32)
-        chain = 0
-        if len(keys_a) and n_buckets:
-            ends = starts + np.uint64((1 << cls.BUCKET_BITS) - 1)
-            chain = int((np.searchsorted(keys_a, ends, side="right")
-                         - np.searchsorted(keys_a, starts, side="right")).max())
+        buckets, chain = _bucket_index(keys_a, len(tables), cls.BUCKET_BITS)
         if chain > 4:
             raise ValueError(
                 f"zone vocabulary needs {chain} in-bucket steps (>4); "
@@ -313,7 +321,22 @@ class ZoneDeviceTable:
             )
         return cls(tuple(tables), keys_a, np.asarray(offs, dtype=np.int32),
                    np.asarray([t[2] for t in tables.values()], dtype=np.int32),
-                   buckets, chain)
+                   buckets.astype(np.int32), chain)
+
+    def coarse_index(self) -> Tuple[np.ndarray, int]:
+        """The ``zone_lookup`` kernel's index and step count: [Z << (26 -
+        INDEX_BITS)] uint16, for each bucket of 2^18 wall minutes (about
+        182 days) the last transition at or before its start, and the most
+        transitions inside one bucket (4 for the default vocabulary).  The
+        kernel stages it in shared memory; ``buckets`` and :meth:`lookup`
+        stay the reference's.  Raises ValueError at 65,536 transitions or
+        more (uint16 entries)."""
+        T = len(self.keys)
+        if T >= 1 << 16:
+            raise ValueError(f"{T} transitions do not fit the coarse index's "
+                             "uint16 entries (at most 65,535)")
+        index, chain = _bucket_index(self.keys, len(self.zones), self.INDEX_BITS)
+        return index.astype(np.uint16), chain
 
     def packed(self) -> np.ndarray:
         """[T, 2] int32 rows of (key, offset + _OFFSET_BIAS), both uint32

@@ -77,7 +77,8 @@ _SIGNATURES = {
     "span_stages": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P],
     "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P, _INT, _INT,
                   _INT, _INT, _INT, _INT, _P, _P, _P],
-    "zone_lookup": [_INT, _P, _P, _P, _P, _P, _P, _INT, _INT, _P, _P, _P],
+    "zone_lookup": [_INT, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                    _P, _P, _P],
     "uri_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
                   _INT, _P, _INT, _INT, _INT, _P],
     "csr_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _P, _INT, _INT,
@@ -87,7 +88,8 @@ _SIGNATURES = {
     "pack_rows": [_INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _INT, _INT,
                   _P, _P],
     "ipv4_spans": [_P, _INT, _INT, _P, _P, _P, _P],
-    "geo_lookup": [_INT, _P, _P, _P, _P, _INT, _P, _P],
+    "geo_lookup": [_INT, _P, _P, _P, _P, _INT, _P, _INT, _INT, _INT, _INT, _INT, _P,
+                   _P],
     "agg_lanes": [_INT, _INT, _INT, _P, _INT, _P, _P, _INT, _P, _P, _INT, _P, _P,
                   _INT, _P, _P, _P, _P],
     "agg_reduce": [_INT, _P, _P, _P, _INT, _P, _INT, _P, _INT, _P, _P, _INT, _INT,
@@ -342,10 +344,11 @@ def zone_lookup(
     gate: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel 7: (zone index, wall minute) -> (offset seconds, ok), [2, B]
-    int32, through the tzdata tables.  With ``gate`` (a %Z timestamp
-    bundle's verdict so far) ok becomes the bundle's final verdict.
-    ``out`` may be the rows ``minutes`` and ``gate`` lie in (each line
-    reads its inputs before it writes)."""
+    int32, through the tzdata tables (``tables.image``, staged into each
+    block's shared memory: ``tables.smem_bytes``, about 74 KB).  With
+    ``gate`` (a %Z timestamp bundle's verdict so far) ok becomes the
+    bundle's final verdict.  ``out`` may be the rows ``minutes`` and
+    ``gate`` lie in (each line reads its inputs before it writes)."""
     if minutes.dim() != 1:
         raise ValueError(f"minutes must be [B], got {tuple(minutes.shape)}")
     B = minutes.shape[0]
@@ -360,9 +363,10 @@ def zone_lookup(
         return pipeline.zone_lookup_plain(tables, zone_idx, minutes, gate, out)
     if B:
         _launch("zone_lookup", dev, B, _ptr(zone_idx), _ptr(minutes),
-                _ptr(gate) if gate is not None else None, _ptr(tables.buckets),
-                _ptr(tables.packed), _ptr(tables.valid_until),
-                tables.packed.shape[0], tables.chain, _ptr(out[0]), _ptr(out[1]))
+                _ptr(gate) if gate is not None else None, _ptr(tables.image),
+                tables.smem_bytes, tables.n_zones, tables.n_transitions, tables.chain,
+                tables.index_bits, tables.packed_at, tables.valid_at, _ptr(out[0]),
+                _ptr(out[1]))
         zone_lookup.launches += 1
     return out
 
@@ -507,7 +511,9 @@ def geo_lookup(
 ) -> torch.Tensor:
     """Kernel 9: each key's row in the group's flattened GeoIP table, [B]
     int32 (0 = miss, row r = range r - 1); keys are uint32 bit patterns
-    in int32.  With ``gate`` a key whose gate is 0 gets row 0."""
+    in int32.  With ``gate`` a key whose gate is 0 gets row 0.  Each
+    block stages ``tables.image`` (the splitters, at most 32 KB, and up
+    to 8,192 ranges the ends too) into shared memory."""
     if keys.dim() != 1:
         raise ValueError(f"keys must be [B], got {tuple(keys.shape)}")
     B = keys.shape[0]
@@ -519,13 +525,18 @@ def geo_lookup(
     K = tables.starts.shape[0]
     if tables.ends.shape[0] != K:
         raise ValueError(f"starts has {K} entries, ends {tables.ends.shape[0]}")
+    if 4 * tables.image.shape[0] != tables.smem_bytes:
+        raise ValueError(f"a {4 * tables.image.shape[0]}-byte image, "
+                         f"{tables.smem_bytes} bytes to stage")
     out = _out(out, (B,), dev)
     if not _route(keys):
         return pipeline.geo_lookup_plain(tables, keys, gate, out)
     if B:
         _launch("geo_lookup", dev, B, _ptr(keys),
                 _ptr(gate) if gate is not None else None, _ptr(tables.starts),
-                _ptr(tables.ends), K, _ptr(out))
+                _ptr(tables.ends), K, _ptr(tables.image), tables.n_split,
+                tables.split_shift, tables.ends_at, tables.smem_bytes, tables.lockstep,
+                _ptr(out))
         geo_lookup.launches += 1
     return out
 

@@ -968,19 +968,48 @@ class StageTables(nn.Module):
         self.register_buffer("tasks", _i32(self.tasks_py, TASKW))
 
 
+# Dynamic shared memory one block of an H100 may hold (227 KB), less 16
+# bytes for the barrier of a kernel that stages its tables there.
+SMEM_TABLE_BUDGET = 232_448 - 16
+
+
+def _pad16(raw: bytes) -> bytes:
+    """A table region padded to 16 bytes (a TMA bulk copy's granule)."""
+    return raw + bytes(-len(raw) % 16)
+
+
 class ZoneTables(nn.Module):
-    """A ``ZoneDeviceTable`` for the ``zone_lookup`` kernel: ``buckets``
-    [Z << 12], ``packed`` [T, 2] (key, offset + bias, uint32 bit
-    patterns) and ``valid_until`` [Z]."""
+    """A ``ZoneDeviceTable`` for the ``zone_lookup`` kernel, as the one
+    ``image`` each block stages into shared memory: the coarse index
+    (uint16 [Z << (26 - index_bits)], :meth:`ZoneDeviceTable.coarse_index`,
+    at most ``chain`` forward steps), ``packed`` [T, 2] (key, offset +
+    bias, uint32) from byte ``packed_at`` and ``valid_until`` [Z] from
+    ``valid_at``, each region padded to 16 bytes; ``smem_bytes`` in all.
+    Raises ValueError when the image passes SMEM_TABLE_BUDGET, or the
+    vocabulary has no transition or 65,536 of them."""
 
     def __init__(self, table):
         super().__init__()
         self.table = table
-        self.chain = table.chain
-        self.register_buffer("buckets", torch.from_numpy(table.buckets.astype(np.int32)))
-        self.register_buffer("packed", torch.from_numpy(table.packed().copy()))
-        self.register_buffer("valid_until", torch.from_numpy(
-            table.valid_until.astype(np.int32)))
+        T = len(table.keys)
+        if T == 0:
+            raise ValueError("an empty zone vocabulary has no table")
+        index, self.chain = table.coarse_index()
+        self.index_bits = table.INDEX_BITS
+        self.n_zones = len(table.zones)
+        self.n_transitions = T
+        regions = [_pad16(index.tobytes()), _pad16(table.packed().tobytes()),
+                   _pad16(table.valid_until.astype(np.int32).tobytes())]
+        self.packed_at = len(regions[0])
+        self.valid_at = self.packed_at + len(regions[1])
+        self.smem_bytes = self.valid_at + len(regions[2])
+        if self.smem_bytes > SMEM_TABLE_BUDGET:
+            raise ValueError(
+                f"zone tables need {self.smem_bytes} bytes of shared memory (index "
+                f"{len(regions[0])}, {T} transitions {len(regions[1])}, windows "
+                f"{len(regions[2])}); a block holds {SMEM_TABLE_BUDGET}")
+        self.register_buffer("image", torch.from_numpy(
+            np.frombuffer(b"".join(regions), dtype=np.int32).copy()))
 
 
 class TsTables(nn.Module):
@@ -1023,10 +1052,25 @@ class TsTables(nn.Module):
         self.zone = ZoneTables(dl.zone_table) if dl.zone_table is not None else None
 
 
+# The most splitters a geo_lookup block stages: 32 KB of shared memory.
+GEO_SPLITTERS = 8192
+
+
 class GeoTables(nn.Module):
     """One GeoIP group for ``ipv4_spans`` and ``geo_lookup``: the token,
     the first of its 5 component rows, and the table's ``starts`` /
-    ``ends`` as int32 buffers (uint32 bit patterns), uploaded once."""
+    ``ends`` as int32 buffers (uint32 bit patterns), uploaded once.
+
+    For the kernel's two-level search, ``image`` is what each block
+    stages into shared memory: the splitters, every S-th start (S =
+    2^``split_shift``, the least with ceil(K / S) <= GEO_SPLITTERS;
+    ``n_split`` of them), and with S = 1 the ends from word ``ends_at``
+    (else -1), each region padded with zeros to 16 bytes; ``smem_bytes``
+    in all.  A key's search over the splitters leaves the S starts from
+    its splitter on to search in device memory.  ``lockstep``: the keys
+    whose device-memory searches one thread keeps in flight side by side
+    -- 4 above S = 16 (halving steps, then a window), 2 up to it (the
+    window alone), 1 at S = 1, where no level reads device memory."""
 
     def __init__(self, g: _GeoGroup):
         super().__init__()
@@ -1034,8 +1078,23 @@ class GeoTables(nn.Module):
         self.token_index = g.token
         self.base = g.base
         self.table = g.table
-        self.register_buffer("starts", u32_bits(g.table.starts))
-        self.register_buffer("ends", u32_bits(g.table.ends))
+        starts, ends = g.table.starts, g.table.ends
+        K = len(starts)
+        self.split_shift = 0
+        while -(-K >> self.split_shift) > GEO_SPLITTERS:
+            self.split_shift += 1
+        regions = [starts[::1 << self.split_shift]]
+        self.n_split = len(regions[0])
+        if self.split_shift == 0 and K:
+            regions.append(ends)
+        regions = [np.concatenate([r, np.zeros(-len(r) % 4, dtype=np.uint32)]) for r in regions]
+        self.ends_at = len(regions[0]) if len(regions) == 2 else -1
+        image = np.concatenate(regions) if regions else np.zeros(0, np.uint32)
+        self.smem_bytes = 4 * len(image)
+        self.lockstep = 4 if self.split_shift > 4 else (2 if self.split_shift else 1)
+        self.register_buffer("starts", u32_bits(starts))
+        self.register_buffer("ends", u32_bits(ends))
+        self.register_buffer("image", u32_bits(image))
 
 
 class UriTables(nn.Module):

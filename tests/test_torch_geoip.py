@@ -199,6 +199,116 @@ def test_geo_lookup_plain_gates_and_high_addresses():
     assert pipeline.geo_lookup_plain(group, keys, gate, out).tolist() == [0, 1, 0, 0, 2, 0, 0]
 
 
+# -- the geo_lookup kernel's two-level search --------------------------------
+
+
+def _two_level_rows(g, keys, gate=None, window=16):
+    """The geo_lookup kernel's search in numpy, over GeoTables as a block
+    reads them: the staged splitters by power-of-two steps, then from the
+    key's splitter on halving steps over the starts down to a window of
+    ``window`` starts, counted whole; row = the starts at or below the
+    key, a hit when the key is at most that range's end (read from the
+    staged image when it holds the ends)."""
+    K, shift = g.starts.shape[0], g.split_shift
+    k = keys.astype(np.int64)
+    if K == 0:
+        return np.zeros(len(k), dtype=np.int32)
+    image = g.image.numpy().view(np.uint32).astype(np.int64)
+    starts = g.starts.numpy().view(np.uint32).astype(np.int64)
+    ends = (image[g.ends_at:g.ends_at + K] if g.ends_at >= 0
+            else g.ends.numpy().view(np.uint32).astype(np.int64))
+    spl = image[:g.n_split]
+
+    def halve(v, base, n, top, stop):
+        pos = np.zeros(len(k), dtype=np.int64)
+        step = top
+        while step >= stop:
+            cand = pos + step
+            at = np.where(cand <= n, base + cand - 1, 0)
+            pos = np.where((cand <= n) & (v[at] <= k), cand, pos)
+            step >>= 1
+        return pos
+
+    pos = halve(spl, 0, g.n_split, 1 << (g.n_split.bit_length() - 1), 1)
+    if shift:
+        S = 1 << shift
+        base = np.where(pos > 0, (pos - 1) << shift, 0)
+        n = np.where(pos > 0, np.minimum(S, K - base), 0)
+        p = halve(starts, base, n, S >> 1, window)
+        count = np.zeros(len(k), dtype=np.int64)
+        for i in range(min(S, window)):
+            inside = p + i < n
+            at = np.where(inside, base + p + i, 0)
+            count += inside & (starts[at] <= k)
+        pos = np.where(pos > 0, base + p + count, 0)
+    hit = (pos > 0) & (k <= ends[np.clip(pos - 1, 0, K - 1)])
+    if gate is not None:
+        hit &= gate != 0
+    return np.where(hit, pos, 0).astype(np.int32)
+
+
+def _reference_rows(starts, ends, keys):
+    """GeoDeviceTable.lookup_rows of the reference over these ranges."""
+    from types import SimpleNamespace
+
+    ns = SimpleNamespace(starts=starts, ends=ends)
+    return np.asarray(RefTable.lookup_rows(ns, jnp.asarray(keys)))
+
+
+def _edge_keys(starts, ends):
+    s64, e64 = starts.astype(np.int64), ends.astype(np.int64)
+    keys = np.concatenate([s64, e64, s64 - 1, e64 + 1, s64 + 1, e64 - 1, [0, 0xFFFFFFFF]])
+    return (keys & 0xFFFFFFFF).astype(np.uint32)
+
+
+@pytest.mark.parametrize("K", [0, 1, 7, 8192, 8193, 131072])
+def test_two_level_search_matches_reference(K):
+    """Seeded disjoint ranges over the whole uint32 space: S is the least
+    power of two with ceil(K / S) <= 8,192 splitters, and the search
+    gives the reference's rows on every start and end +-1, 0 and
+    0xFFFFFFFF."""
+    rng = np.random.default_rng(K + 7)
+    bounds = np.sort(rng.choice(1 << 32, size=2 * K, replace=False)).astype(np.uint32)
+    starts, ends = bounds[0::2], bounds[1::2]
+    g = pipeline.GeoTables(pipeline._GeoGroup("k", 0, GeoDeviceTable.from_ranges(starts, ends)))
+    S = 1 << g.split_shift
+    assert g.n_split == -(-K // S) <= pipeline.GEO_SPLITTERS
+    assert S == 1 or -(-K // (S // 2)) > pipeline.GEO_SPLITTERS
+    image = g.image.numpy().view(np.uint32)
+    assert np.array_equal(image[:g.n_split], starts[::S])
+    if K and S == 1:   # the ends staged too: the whole lookup in shared memory
+        assert g.ends_at == -(-K // 4) * 4 and np.array_equal(image[g.ends_at:][:K], ends)
+    else:
+        assert g.ends_at == -1
+    assert g.smem_bytes == 4 * len(image) and g.smem_bytes % 16 == 0
+    assert g.smem_bytes <= 2 * 4 * pipeline.GEO_SPLITTERS
+    assert g.lockstep == (4 if S > 16 else (2 if S > 1 else 1))
+    keys = _edge_keys(starts, ends)
+    # The reference's gather fails on an empty table; the port's plain
+    # version (held to it on every other table) misses every key there.
+    want = _reference_rows(starts, ends, keys) if K else np.zeros(len(keys), np.int32)
+    plain = lookup_rows_plain(g.starts, g.ends, torch.from_numpy(keys.view(np.int32)))
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(_two_level_rows(g, keys), want)
+    if K:
+        assert np.array_equal(want[:K], np.arange(1, K + 1))
+    gate = np.random.default_rng(K).integers(0, 2, size=len(keys))
+    np.testing.assert_array_equal(_two_level_rows(g, keys, gate), np.where(gate != 0, want, 0))
+
+
+@pytest.mark.parametrize("db", ["city", "asn"])
+def test_two_level_search_on_the_fixture_tables(dbs, db):
+    columns = ["country.name"] if db != "asn" else ["asn.number"]
+    ref = RefTable(RefReader(dbs[db]), columns)
+    g = pipeline.GeoTables(pipeline._GeoGroup(db, 0, GeoDeviceTable(MMDBReader(dbs[db]),
+                                                                     columns)))
+    assert g.split_shift == 0 and g.n_split == len(ref.starts) and g.ends_at >= g.n_split
+    keys = np.concatenate([_edge_keys(ref.starts, ref.ends), _keys_for(ref.starts, ref.ends, 4)])
+    want = np.asarray(ref.lookup_rows(jnp.asarray(keys)))
+    np.testing.assert_array_equal(_two_level_rows(g, keys), want)
+    assert (want > 0).any() and (want == 0).any()
+
+
 # -- the databases and the flattened table -----------------------------------
 
 @pytest.mark.parametrize("db,columns", [

@@ -331,6 +331,22 @@ def test_zone_lookup_kernel_on_every_transition(cuda_device):
     got = kernels.zone_lookup(zt, z, m)
     want = pipeline.zone_lookup_plain(zt, z, m, None, torch.empty_like(got))
     assert torch.equal(got, want)
+    # A gated call in place on the minute and gate rows, as the %Z path
+    # makes it.
+    gate = torch.from_numpy(rng.integers(0, 2, size=len(zones)).astype(np.int32))
+    rows = torch.stack([m, gate.to(cuda_device)])
+    want = pipeline.zone_lookup_plain(zt, z, rows[0], rows[1], torch.empty_like(rows))
+    assert kernels.zone_lookup(zt, z, rows[0], gate=rows[1], out=rows) is rows
+    assert torch.equal(rows, want)
+    # A batch smaller than one block, and one larger than the persistent
+    # grid's stride (132 SMs x 2,048 threads).
+    for n in (37, 1 << 21):
+        zs = torch.from_numpy(rng.integers(0, len(table.zones), size=n).astype(np.int32))
+        ms = torch.from_numpy(rng.integers(-10, SPAN_MINUTES + 10, size=n).astype(np.int32))
+        zs, ms = zs.to(cuda_device), ms.to(cuda_device)
+        got = kernels.zone_lookup(zt, zs, ms)
+        assert torch.equal(got, pipeline.zone_lookup_plain(zt, zs, ms, None,
+                                                           torch.empty_like(got)))
 
 
 @pytest.mark.parametrize("name", ["combinedio_strftime", "strftime_zonetext"])
@@ -395,11 +411,13 @@ def test_geo_kernels_equal_plain_versions(cuda_device, line_len):
                           cpu(buf.cpu(), lengths.cpu()).numpy())
 
 
-@pytest.mark.parametrize("K", [0, 1, 2, 1000, 1 << 20])
+@pytest.mark.parametrize("K", [0, 1, 2, 1000, 8192, 8193, 1 << 20])
 def test_geo_lookup_kernel_on_seeded_tables(cuda_device, K):
     """Disjoint ranges across the whole uint32 space (half of them above
     2^31, negative as int32): every start, end and their neighbours, 0,
-    0xFFFFFFFF and random keys."""
+    0xFFFFFFFF and random keys; gated; and batches smaller than one block
+    and larger than the persistent grid's stride.  8,192 ranges are one
+    splitter each (S = 1), 8,193 two (S = 2)."""
     from logparser_tpu_torch.geoip import GeoDeviceTable
 
     rng = np.random.default_rng(K)
@@ -417,6 +435,16 @@ def test_geo_lookup_kernel_on_seeded_tables(cuda_device, K):
     assert torch.equal(got, want)
     if K:
         assert int((got[:K] == torch.arange(1, K + 1, device=cuda_device)).sum()) == K
+    assert g.split_shift == (0 if K <= 8192 else (1 if K == 8193 else 7))
+    gate = torch.from_numpy(rng.integers(0, 2, size=keys.shape[0]).astype(np.int32))
+    gate = gate.to(cuda_device)
+    got = kernels.geo_lookup(g, keys, gate=gate)
+    assert torch.equal(got, pipeline.geo_lookup_plain(g, keys, gate, torch.empty_like(got)))
+    for n in (37, 1 << 21):
+        ks = torch.from_numpy(rng.integers(0, 1 << 32, size=n).astype(np.uint32).view(np.int32))
+        ks = ks.to(cuda_device)
+        got = kernels.geo_lookup(g, ks)
+        assert torch.equal(got, pipeline.geo_lookup_plain(g, ks, None, torch.empty_like(got)))
 
 
 @pytest.mark.parametrize("line_len", [0, 8191])

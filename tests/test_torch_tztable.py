@@ -128,3 +128,105 @@ def test_vocabulary_order_is_the_references():
     assert tuple(e[1] for e in vocab) == zone_item.zone_idx
     assert tuple(e[2] for e in vocab) == zone_item.fold_flags
     assert len(vocab) == 83
+
+
+# -- the zone_lookup kernel's coarse index --------------------------------------
+
+
+def _kernel_search(zt, zones, minutes):
+    """The zone_lookup kernel's search in numpy, over ZoneTables.image as a
+    block stages it: (transition index, offset seconds, ok)."""
+    raw = zt.image.numpy().view(np.uint8)
+    index = raw[:zt.packed_at].view(np.uint16)
+    packed = raw[zt.packed_at:zt.packed_at + 8 * zt.n_transitions].view(np.uint32).reshape(-1, 2)
+    valid = raw[zt.valid_at:zt.valid_at + 4 * zt.n_zones].view(np.int32)
+    span = tztable.SPAN_MINUTES
+    key = zones.astype(np.int64) * span + np.clip(minutes.astype(np.int64), 0, span - 1)
+    idx = index[key >> zt.index_bits].astype(np.int64)
+    last = max(zt.n_transitions - 1, 0)
+    for _ in range(zt.chain):
+        nxt = np.minimum(idx + 1, last)
+        idx = np.where(packed[nxt, 0] <= key, nxt, idx)
+    off = (packed[idx, 1].astype(np.int64) - (1 << 17)).astype(np.int32)
+    return idx, off, (minutes >= 0) & (minutes < valid[zones])
+
+
+def _random_pairs(table, n=20000, seed=12):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, len(table.zones), size=n).astype(np.int32),
+            rng.integers(-1000, tztable.SPAN_MINUTES + 1000, size=n).astype(np.int32))
+
+
+@pytest.mark.parametrize("probe", ["transitions", "random"])
+def test_coarse_index_search_matches_reference(tables, probe):
+    """The kernel's coarse index plus its forward steps find the
+    reference's transition (the last key at or below the clipped key) and
+    give ZoneDeviceTable.lookup's offset and ok."""
+    ours, ref = tables
+    zones, minutes = _probe_points(ref) if probe == "transitions" else _random_pairs(ref)
+    zt = pipeline.ZoneTables(ours)
+    idx, off, ok = _kernel_search(zt, zones, minutes)
+    span = tztable.SPAN_MINUTES
+    key = zones.astype(np.int64) * span + np.clip(minutes.astype(np.int64), 0, span - 1)
+    want_idx = np.maximum(np.searchsorted(ref.keys.astype(np.int64), key, side="right") - 1, 0)
+    assert np.array_equal(idx, want_idx)
+    ref_off, ref_ok = ref.lookup(jnp.asarray(zones), jnp.asarray(minutes))
+    assert np.array_equal(off, np.asarray(ref_off))
+    assert np.array_equal(ok, np.asarray(ref_ok))
+    assert (idx > 0).any() and ok.any() and (~ok).any()
+
+
+def test_coarse_index_fits_a_block(tables):
+    """2^18-minute buckets, at most 4 forward steps, each entry the last
+    transition at or before its bucket's start; the image (index, packed
+    rows, windows, each padded to 16 bytes) fits one block's shared
+    memory."""
+    ours, ref = tables
+    zt = pipeline.ZoneTables(ours)
+    assert zt.index_bits == 18 and 1 <= zt.chain <= 4
+    Z, T = len(ref.zones), len(ref.keys)
+    index = zt.image.numpy().view(np.uint8)[:zt.packed_at].view(np.uint16)
+    assert zt.packed_at == 2 * (Z << 8) == 32256
+    starts = np.arange(Z << 8, dtype=np.int64) << 18
+    keys = ref.keys.astype(np.int64)
+    assert np.array_equal(index, np.searchsorted(keys, starts, side="right") - 1)
+    steps = np.searchsorted(keys, starts + (1 << 18) - 1, side="right") - (index + 1)
+    assert steps.max() == zt.chain
+    assert zt.valid_at == zt.packed_at + -(-8 * T // 16) * 16
+    assert zt.smem_bytes == zt.valid_at + -(-4 * Z // 16) * 16
+    assert zt.smem_bytes <= pipeline.SMEM_TABLE_BUDGET
+    assert zt.image.dtype == torch.int32 and 4 * zt.image.numel() == zt.smem_bytes
+
+
+def _dense_wall_tables(n_zones, per_zone):
+    """Wall tables with a transition every 4,096 minutes (at most 3 inside
+    a reference bucket of 2^14 minutes)."""
+    bounds = np.arange(per_zone, dtype=np.int64) * 4096
+    offsets = np.where(np.arange(per_zone) % 2 == 0, 0, 3600).astype(np.int32)
+    return {f"Z{z}": (bounds, offsets, tztable.SPAN_MINUTES - 1) for z in range(n_zones)}
+
+
+@pytest.mark.parametrize("n_zones,per_zone,match", [
+    (5, 16384, "65,535"),              # 81,920 transitions: past uint16
+    (2, 15000, "bytes of shared memory"),   # 240 KB of packed rows
+])
+def test_zone_tables_that_cannot_fit_raise(n_zones, per_zone, match):
+    table = tztable.ZoneDeviceTable.from_wall_tables(_dense_wall_tables(n_zones, per_zone))
+    assert table.chain <= 4   # the reference's table builds
+    with pytest.raises(ValueError, match=match):
+        pipeline.ZoneTables(table)
+
+
+def test_dense_zone_tables_that_fit_still_search_right():
+    """A vocabulary with many more steps a bucket than the default (64)
+    that fits the budget: the kernel's search equals the plain lookup."""
+    table = tztable.ZoneDeviceTable.from_wall_tables(_dense_wall_tables(1, 16000))
+    zt = pipeline.ZoneTables(table)
+    assert zt.chain == 63
+    _, minutes = _random_pairs(table, seed=13)
+    bounds = np.arange(16000, dtype=np.int32) * 4096
+    minutes = np.concatenate([minutes, bounds - 1, bounds, bounds + 1])
+    zones = np.zeros(len(minutes), dtype=np.int32)
+    _, off, ok = _kernel_search(zt, zones, minutes)
+    want_off, want_ok = table.lookup(torch.from_numpy(zones), torch.from_numpy(minutes))
+    assert np.array_equal(off, want_off.numpy()) and np.array_equal(ok, want_ok.numpy())
