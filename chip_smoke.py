@@ -53,8 +53,9 @@ first phase that fails:
    fuzz cases; parse_blob of the headline batch as one blob (CRLF on some
    lines, a trailing newline), equal to the CPU's parse_batch of the same
    lines, with its encode seconds beside parse_batch's;
-6. the URI chain: span_stages (with the protocol split), uri_split and
-   csr_split (one launch per group, two groups each) and pack_rows (with
+6. the URI chain: split (``split_uri``), span_stages (with the protocol
+   split), uri_split and csr_split (one launch per group, two groups
+   each) and pack_rows (with
    the overflow bit) against their plain versions under its tables at
    16 slots, timed the same way; then parse_batch end to end, which
    regrows the query-string slots on the card (16 -> 128: one edge line
@@ -104,8 +105,9 @@ first phase that fails:
    generated lines, seed 50, plus the cookie edge lines): parse_batch end
    to end on a fresh parser, which regrows 16 -> 128 slots on the card,
    equal to the CPU (phase ``end_to_end_cookies``, then
-   ``end_to_end_cookies_grown``); under the grown tables setcookie_split,
-   csr_split in cookie mode (``csr_split_cookie``) and muid against their
+   ``end_to_end_cookies_grown``); under the grown tables split
+   (``split_cookies``), setcookie_split, csr_split in cookie mode
+   (``csr_split_cookie``) and muid against their
    plain versions, timed the same way; split on a NUL-separated format
    (``split_nul``, then ``end_to_end_nul``); small legs, card = CPU only:
    a multi-format parser with a plausibility-only probe unit, NGINX
@@ -774,7 +776,10 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     t = ex.unit_tables[0]
     dbuf = torch.from_numpy(buf).cuda()
     dlen = torch.from_numpy(lengths).cuda()
-    starts, ends, flags = kernels.split(t.split, dbuf, dlen)
+    starts, ends, flags = phase(
+        "split_uri", lambda: kernels.split(t.split, dbuf, dlen),
+        lambda: pipeline.compute_split(t.split.program, dbuf, dlen),
+        *split_cost(t.split, B, L), kernel="split", n=B)
     block = torch.zeros((t.n_comp, B), dtype=torch.int32, device="cuda")
     a = t.stages.n_out
 
@@ -1574,6 +1579,22 @@ def agg_reduce_cost(t, B, ntiles):
     return B * (1 + 12 * len(lanes)) + out, B * ops
 
 
+def agg_reduce_library(torch, t, lanes):
+    """The yardstick beside agg_reduce: one reshaped sum over the tiles'
+    16-bit halves of every summed limb, which are split outside the timed
+    call -- a floor for any PyTorch composition, not the same work (no
+    selection, no halves, no n_device, no bins inside it)."""
+    from logparser_tpu_torch.analytics import device as agg
+
+    B = lanes.shape[1]
+    tile, ntiles = agg.sum_tiling(B)
+    halves = torch.stack([
+        torch.nn.functional.pad(torch.where(lanes[r] != -1, lanes[r + j], 0)
+                                >> (16 * h) & 0xFFFF, (0, ntiles * tile - B))
+        for r in t.sums_py for j in range(3) for h in range(2)])
+    return lambda: halves.view(-1, ntiles, tile).sum(2)
+
+
 def agg_group_cost(torch, agg, lane, spans, n_groups):
     """(bytes, operations) of agg_group on this lane: the lane in, the key
     bytes of the selected rows (spans), the groups and their count out;
@@ -1627,16 +1648,10 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
         *agg_lanes_cost(agg, t, B), n=B)
 
     tile, ntiles = agg.sum_tiling(B)
-    sel_rows = [lanes[r] != -1 for r in t.sums_py]
-    halves = torch.stack([
-        torch.nn.functional.pad(torch.where(sel, lanes[r + j], 0) >> (16 * h) & 0xFFFF,
-                                (0, ntiles * tile - B))
-        for r, sel in zip(t.sums_py, sel_rows) for j in range(3) for h in range(2)])
     phase("agg_reduce", lambda: kernels.agg_reduce(t, cls, lanes),
           lambda: agg.agg_reduce_plain(t, cls, lanes, empty(1 + t.n_bins),
                                        empty(len(t.sums_py), ntiles, 3, 2)),
-          *agg_reduce_cost(t, B, ntiles), n=B,
-          library=lambda: halves.view(-1, ntiles, tile).sum(2))
+          *agg_reduce_cost(t, B, ntiles), n=B, library=agg_reduce_library(torch, t, lanes))
 
     labels = {}
     for p, part in zip(t.op_plans, t.op_partial):
@@ -1805,7 +1820,10 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
     (t,) = gpu_fresh.executor.unit_tables
     dbuf = torch.from_numpy(buf).cuda()
     dlen = torch.from_numpy(lengths).cuda()
-    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    starts, ends, _ = phase(
+        "split_cookies", lambda: kernels.split(t.split, dbuf, dlen),
+        lambda: pipeline.compute_split(t.split.program, dbuf, dlen),
+        *split_cost(t.split, B, L), kernel="split", n=B, width=L)
     block = torch.zeros((t.n_comp, B), dtype=torch.int32, device="cuda")
     cookie = [c for c in t.csr if c.mode == "cookie"]
     setcookie = [c for c in t.csr if c.mode == "setcookie"]
@@ -1896,22 +1914,23 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
           "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
 
 
-def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
-    """split on a format whose separators are NUL bytes, with lines that
-    end in NULs and are padded with zeros, against its plain version
-    (which the CPU tests hold to the reference's compute_split_dense),
-    then that format end to end."""
-    import numpy as np
+NUL_FORMAT = "%h\x00%u\x00%>s"
+NUL_FIELDS = ["IP:connection.client.host", "STRING:connection.client.user",
+              "STRING:request.status.last"]
 
+
+def nul_lines(np):
+    """The NUL-separated batch: generated headline lines (seed 62) cut to
+    host, user and status joined by NULs; 5% end in 1-3 NULs, 5% have a
+    space for the first NUL, garbage lines stay as they are."""
     from logparser_tpu_torch.tools.demolog import generate_combined_lines
 
     rng = np.random.default_rng(61)
-    base = [ln.split(" ") for ln in
-            generate_combined_lines(N_LINES, seed=62, garbage_fraction=0.01)]
     lines = []
-    for parts in base:
+    for ln in generate_combined_lines(N_LINES, seed=62, garbage_fraction=0.01):
+        parts = ln.split(" ")
         if len(parts) < 9:
-            lines.append(" ".join(parts).encode())
+            lines.append(ln.encode())
             continue
         line = f"{parts[0]}\x00{parts[2]}\x00{parts[8]}".encode()
         r = rng.random()
@@ -1920,11 +1939,21 @@ def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
         elif r < 0.1:
             line = line.replace(b"\x00", b" ", 1)
         lines.append(line)
+    return lines
+
+
+def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
+    """split on a format whose separators are NUL bytes, with lines that
+    end in NULs and are padded with zeros, against its plain version
+    (which the CPU tests hold to the reference's compute_split_dense),
+    then that format end to end."""
+    import numpy as np
+
+    lines = nul_lines(np)
     buf, lengths, _ = runtime.encode_batch(lines)
     B, L = buf.shape
-    fields = ["IP:connection.client.host", "STRING:connection.client.user",
-              "STRING:request.status.last"]
-    gpu = TorchBatchParser("%h\x00%u\x00%>s", fields)
+    fields = NUL_FIELDS
+    gpu = TorchBatchParser(NUL_FORMAT, fields)
     (t,) = gpu.executor.unit_tables
     if 0 not in {b for lit in t.split.program.ops for b in lit.lit}:
         fail("split_nul: the program has no NUL separator")
@@ -1937,7 +1966,7 @@ def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
     kernels.reset_launch_counts()
     res = gpu.parse_batch(lines)
     launches = kernels.launch_counts()
-    compare_results(res, TorchBatchParser("%h\x00%u\x00%>s", fields,
+    compare_results(res, TorchBatchParser(NUL_FORMAT, fields,
                                           device="cpu").parse_batch(lines), "end_to_end_nul")
     if launches["split"] < 1 or int(res.valid.sum()) < 0.8 * B:
         fail(f"split_nul: {launches['split']} split launches, {int(res.valid.sum())} valid")

@@ -102,6 +102,12 @@ class _OpPlan:
         self.units_desc = units_desc
 
 
+def edge_rows(edges: Sequence[int]) -> List[Tuple[int, int, int, int]]:
+    """A histogram's edges as (always, A, B, C) rows: an edge <= 0 always
+    holds (values are >= 0), else its base-10^6 limbs."""
+    return [(1, 0, 0, 0) if e <= 0 else (0, *_limbs_of(int(e))) for e in edges]
+
+
 def _qscsr_desc(u, plan) -> Optional[dict]:
     """Device descriptor for count_by/top_k over one concrete query key
     (``STRING:...uri.query.img``), or None when rows won by this unit must
@@ -249,9 +255,7 @@ class AggTables(nn.Module):
                     seen[key] = len(self.hists_py)
                     self.hists_py.append((row, len(self.edges_py), len(op.edges), n_bins))
                     n_bins += len(op.edges) + 1
-                    for e in op.edges:
-                        self.edges_py.append((1, 0, 0, 0) if e <= 0
-                                             else (0, *_limbs_of(int(e))))
+                    self.edges_py.extend(edge_rows(op.edges))
                 else:
                     seen[key] = len(self.groups_py)
                     self.groups_py.append((row, kind == LANE_SPAN))

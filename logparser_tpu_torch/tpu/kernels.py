@@ -64,7 +64,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Line buckets the kernels take: the widest window a stage gathers (the
-# 31-byte %Z zone window) must fit, and span fields hold 13 bits.
+# 31-byte %Z zone window) must fit, and span fields hold 13 bits.  The
+# split gathers no window: it takes any L from 1.
 MIN_LINE_LEN = 32
 MAX_LINE_LEN = 8191
 
@@ -73,7 +74,7 @@ _P = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
     "split": [_P, _P, _INT, _INT, _P, _P, _INT, _P, _INT, _INT, _INT, _INT,
-              _P, _P, _P, _P],
+              _INT, _P, _P, _P, _P],
     "span_stages": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P],
     "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P, _INT, _INT,
                   _INT, _INT, _INT, _INT, _P, _P, _P],
@@ -229,13 +230,13 @@ def _route(buf: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {buf.device}")
 
 
-def _check_buf(buf: torch.Tensor) -> Tuple[int, int]:
+def _check_buf(buf: torch.Tensor, min_len: int = MIN_LINE_LEN) -> Tuple[int, int]:
     if buf.dim() != 2:
         raise ValueError(f"buf must be [B, L], got {tuple(buf.shape)}")
     B, L = buf.shape
     _check("buf", buf, torch.uint8, (B, L), buf.device)
-    if not MIN_LINE_LEN <= L <= MAX_LINE_LEN:
-        raise ValueError(f"line bucket {L} outside [{MIN_LINE_LEN}, {MAX_LINE_LEN}]")
+    if not min_len <= L <= MAX_LINE_LEN:
+        raise ValueError(f"line bucket {L} outside [{min_len}, {MAX_LINE_LEN}]")
     return B, L
 
 
@@ -257,8 +258,8 @@ def split(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 1: (starts [T, B], ends [T, B], flags [B]) int32; flags bits
     are pipeline.SPLIT_VALID / SPLIT_PLAUSIBLE / SPLIT_ESC_HIT.  Requires
-    lengths <= L (encode_batch guarantees it)."""
-    B, L = _check_buf(buf)
+    lengths <= L (encode_batch guarantees it); any L from 1 to 8191."""
+    B, L = _check_buf(buf, 1)
     dev = buf.device
     _check("lengths", lengths, _I32, (B,), dev)
     _check_tables(tables, dev)
@@ -272,7 +273,8 @@ def split(
     if B:
         _launch("split", dev, _ptr(buf), _ptr(lengths), B, L, _ptr(tables.cls),
                 _ptr(tables.ops), tables.ops.shape[0], _ptr(tables.lits),
-                tables.lit_width, tables.n_planes, int(tables.has_esc),
+                tables.lit_width, tables.lits.shape[0], tables.n_planes,
+                int(tables.has_esc),
                 tables.n_tok, _ptr(starts), _ptr(ends), _ptr(flags))
         split.launches += 1
     return starts, ends, flags

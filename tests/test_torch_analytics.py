@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from logparser_tpu.analytics.device import build_aggregate_fn
+from logparser_tpu.analytics.device import _limb_ge, _limbs_of, _sum_tiles, build_aggregate_fn
 from logparser_tpu.analytics.spec import AggregateSpec as RefSpec
 from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser
@@ -36,6 +36,7 @@ from logparser_tpu_torch.tools.demolog import (
     representative_spec,
     uri_edge_lines,
 )
+from logparser_tpu_torch.tools.kernel_ab import SEEDED_B, SEEDED_HISTS, seeded_reduce_case
 from logparser_tpu_torch.tpu import kernels
 from logparser_tpu_torch.tpu.runtime import encode_batch
 from test_torch_harness import EDGE_LINES, assert_aggregate_matches_reference, reference_parser
@@ -123,6 +124,38 @@ def test_lanes_and_reduce_equal_the_reference(case, B, L):
         elif p.op.op == "histogram":
             ne, b0 = tables.hists_py[part][2], tables.hists_py[part][3]
             np.testing.assert_array_equal(counts[1 + b0:2 + b0 + ne], want[f"op{i}_bins"])
+
+
+@pytest.mark.parametrize("selected", ["some", "none", "all"])
+@pytest.mark.parametrize("B", SEEDED_B)
+def test_reduce_plain_matches_reference_on_seeded_lanes(B, selected):
+    """agg_reduce's plain version on the card tests' seeded lanes (limbs
+    at 0, 1, 0xFFFF, 0x10000, 999,999; 2 sums, a histogram with an
+    always-edge and one with 8 edges) against the reference's _sum_tiles
+    and _limb_ge bins, at B around the 4,096-row tile and past it.  The
+    reference tiles a padded batch: the lanes are padded to whole tiles
+    with unselected rows.  Exact."""
+    t, cls, lanes = seeded_reduce_case(B, seed=B, selected=selected)
+    counts, tiles = (x.numpy() for x in kernels.agg_reduce(t, cls, lanes))
+    tile, ntiles = agg_device.sum_tiling(B)
+    la = lanes.numpy()
+    pad = np.pad(la, ((0, 0), (0, ntiles * tile - B)), constant_values=-1)
+    for si, row in enumerate(t.sums_py):
+        want = _sum_tiles(jnp.asarray(pad[row] != -1),
+                          tuple(jnp.asarray(pad[row + j]) for j in range(3)), ntiles * tile)
+        np.testing.assert_array_equal(tiles[si], np.asarray(want))
+    assert int(counts[0]) == int((cls.numpy() == 0).sum())
+    for (row, edges), (_, _, ne, b0) in zip(SEEDED_HISTS, t.hists_py):
+        a, b, c = (jnp.asarray(la[row + j]) for j in range(3))
+        bin_of = jnp.zeros(B, dtype=jnp.int32)
+        for e in edges:
+            ge = jnp.ones(B, dtype=bool) if e <= 0 else _limb_ge(a, b, c, *_limbs_of(e))
+            bin_of = bin_of + ge.astype(jnp.int32)
+        sel = a != -1
+        want = [int(jnp.sum(sel & (bin_of == k))) for k in range(ne + 1)]
+        np.testing.assert_array_equal(counts[1 + b0:2 + b0 + ne], want)
+    if selected == "none":
+        assert not counts[1:].any() and not tiles.any()
 
 
 def _canonical(rows, buf, spans):

@@ -46,6 +46,12 @@ from logparser_tpu_torch.tools.demolog import (
     uri_edge_lines,
     zonetext_lines,
 )
+from logparser_tpu_torch.tools.kernel_ab import (
+    SEEDED_B,
+    SPLIT_WIDTHS,
+    seeded_reduce_case,
+    seeded_split_case,
+)
 from logparser_tpu_torch.tpu import kernels, pipeline
 from logparser_tpu_torch.tpu.runtime import encode_batch
 
@@ -579,6 +585,23 @@ def test_agg_group_kernel_on_seeded_lanes(cuda_device, B):
         assert sum(a.values()) == int((lane != (-1 if spans else agg_device.INT32_MAX)).sum())
 
 
+@pytest.mark.parametrize("selected", ["some", "none", "all"])
+@pytest.mark.parametrize("B", SEEDED_B)
+def test_agg_reduce_kernel_on_seeded_lanes(cuda_device, B, selected):
+    """The 8-block clusters against the plain version: tiles around and
+    past 4,096 rows, limbs at 0xFFFF / 0x10000 / 999,999, no row or every
+    row selected, a histogram with an always-edge and one with 8 edges."""
+    t, cls, lanes = seeded_reduce_case(B, seed=B, selected=selected)
+    t = t.to(cuda_device)
+    cls, lanes = cls.to(cuda_device), lanes.to(cuda_device)
+    counts, tiles = kernels.agg_reduce(t, cls, lanes)
+    want = agg_device.agg_reduce_plain(t, cls, lanes, torch.empty_like(counts),
+                                       torch.empty_like(tiles))
+    assert torch.equal(counts, want[0]) and torch.equal(tiles, want[1])
+    again = kernels.agg_reduce(t, cls, lanes)   # counts zeroed on every call
+    assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+
+
 @pytest.mark.parametrize("name", ["dashboard", "representative", "uri_query_key"])
 def test_aggregate_batch_on_the_card_equals_the_cpu(cuda_device, name):
     gpu_parser, spec, lines = _agg_case(name, cuda_device)
@@ -651,6 +674,33 @@ def test_split_on_a_nul_separated_format(cuda_device):
             want = pipeline.compute_split(t.split.program, buf, lengths)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), fmt
+
+
+NUL_FIELDS = ["IP:connection.client.host", "STRING:connection.client.user",
+              "STRING:request.status.last"]
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("L", SPLIT_WIDTHS)
+def test_split_kernel_on_seeded_buffers(cuda_device, L, offset):
+    """Every line width from 1 to 8,191 (odd ones too: the staged line's
+    head and tail outside the 16-byte-aligned bulk copy), backslash runs
+    that end before a quote across word and 32-word boundaries, lengths 0,
+    L and between, a separator longer than a plane word and a
+    NUL-separated program.  ``offset`` starts the buffer that many bytes
+    past an allocation, so no line starts on 16 bytes."""
+    for fmt, fields, nul in (("combined", FIELDS, False), (LONG_SEP, FIELDS, False),
+                             ("%h\x00%u\x00%>s", NUL_FIELDS, True)):
+        buf, lengths = seeded_split_case(1500, L, seed=L, nul=nul)
+        flat = torch.zeros(buf.size + offset, dtype=torch.uint8, device=cuda_device)
+        dbuf = flat[offset:].view(buf.shape)
+        dbuf.copy_(torch.from_numpy(buf))
+        dlen = torch.from_numpy(lengths).to(cuda_device)
+        for t in TorchBatchParser(fmt, fields, device=cuda_device).executor.unit_tables:
+            got = kernels.split(t.split, dbuf, dlen)
+            want = pipeline.compute_split(t.split.program, dbuf, dlen)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (fmt, L, offset)
 
 
 def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):

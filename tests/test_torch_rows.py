@@ -129,8 +129,14 @@ def test_stage_wrappers_check_their_inputs():
     starts, ends, _ = kernels.split(unit.split, b, n)
     with pytest.raises(TypeError):
         kernels.split(unit.split, b.to(torch.int32), n)
-    with pytest.raises(ValueError):
-        kernels.split(unit.split, b[:, :16].contiguous(), n)      # bucket < 32
+    with pytest.raises(ValueError):                               # bucket > 8191
+        kernels.split(unit.split, torch.zeros((4, 8192), dtype=torch.uint8), n)
+    # The split gathers no window: a bucket under 32 bytes is its to take,
+    # while the stages, which gather up to 31 bytes, still reject it.
+    s16, e16, _ = kernels.split(unit.split, b[:, :16].contiguous(), n.clamp(max=16))
+    assert s16.shape == (unit.split.n_tok, 4) and e16.shape == s16.shape
+    with pytest.raises(ValueError):                               # bucket < 32
+        kernels.span_stages(unit.stages, b[:, :16].contiguous(), s16, e16)
     with pytest.raises(ValueError):
         kernels.span_stages(unit.stages, b, starts[:2], ends[:2])
     with pytest.raises(ValueError):

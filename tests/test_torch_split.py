@@ -7,6 +7,8 @@ validity, plausibility and escape-parity bits, exactly.  Format shapes
 cover a leading literal, until_lit chains, a to_end tail with a bounded
 charset, escaped quotes in final and non-final quoted fields.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from logparser_tpu_torch.tpu.carry import (
     unit_to_plain,
     units_from_reference,
 )
+from logparser_tpu_torch.tools.kernel_ab import SPLIT_WIDTHS, seeded_split_case
 from logparser_tpu_torch.tpu.runtime import encode_batch
 from test_torch_harness import (
     corpus,
@@ -142,3 +145,66 @@ def test_split_tables_encode_the_program():
     cls = t.cls.numpy().view(np.uint32)
     for b in b' "[]':
         assert bin(int(cls[b])).count("1") >= 1
+
+
+NUL_FORMAT = "%h\x00%u\x00%>s"
+NUL_FIELDS = ["IP:connection.client.host", "STRING:connection.client.user",
+              "STRING:request.status.last"]
+
+
+@pytest.mark.parametrize("L", SPLIT_WIDTHS)
+def test_split_matches_reference_at_every_kernel_width(L):
+    """The card tests' inputs (kernel_ab.seeded_split_case) at each of
+    their widths, 1 to 8,191: backslash runs that end before a quote
+    across word and 32-word boundaries, lengths 0, L and between.  The
+    reference runs its bitplane split; for the NUL-separated program its
+    own dispatch to compute_split_dense.  Exact."""
+    B = 96 if L <= 384 else 24
+    for fmt, fields, nul in (("combined", HEADLINE_FIELDS, False),
+                             (NUL_FORMAT, NUL_FIELDS, True)):
+        program = reference_parser(fmt, fields).units[0].program
+        buf, lengths = seeded_split_case(B, L, seed=L, nul=nul)
+        _assert_split_equal(program, buf, lengths)
+
+
+_COMBINED = re.compile(r'^(\S+) (\S+) (\S+) \[([^\]]*)\] "(.*?)" (\S+) (\S+) "(.*?)" "(.*)"$')
+# Each format with the generated combined lines recast to its shape.
+PLAUSIBLE_FORMATS = [
+    ("combined", HEADLINE_FIELDS, "{0}"),
+    ('%h %l %u %t "%r" %>s %b', ["IP:connection.client.host"],
+     '{1} {2} {3} [{4}] "{5}" {6} {7}'),
+    ('[%t] "%r" %>s', ["STRING:request.status.last"], '[[{4}]] "{5}" {6}'),
+    ('"%{User-Agent}i" %h', ["IP:connection.client.host"], '"{9}" {1}'),
+    (NUL_FORMAT, NUL_FIELDS, "{1}\x00{3}\x00{6}"),
+]
+
+
+@pytest.mark.parametrize("fmt,fields,shape", PLAUSIBLE_FORMATS)
+def test_valid_lines_are_plausible(fmt, fields, shape):
+    """The split kernel skips the plausibility pass on a valid line and
+    reports it plausible: the pass's cursor never passes the op
+    program's, so each of its searches finds the program's separator or
+    an earlier one.  The plain version, which runs the pass on every line,
+    agrees on generated lines recast to the format, and on seeded
+    buffers with backslash runs."""
+    from logparser_tpu_torch import TorchBatchParser
+    from logparser_tpu_torch.tools.demolog import generate_combined_lines
+
+    lines = []
+    for ln in generate_combined_lines(600, seed=3, garbage_fraction=0.05):
+        m = _COMBINED.match(ln)
+        lines.append(shape.format(ln, *m.groups()) if m else ln)
+    tables = TorchBatchParser(fmt, fields, device="cpu").executor.unit_tables
+    inputs = [encode_batch(lines)[:2]]
+    inputs += [seeded_split_case(200, L, seed=L, nul=nul)
+               for L in (33, 384, 1025) for nul in (False, True)]
+    n_valid = 0
+    for t in tables:
+        for buf, lengths in inputs:
+            _, _, flags = pipeline.compute_split(t.split.program, torch.from_numpy(buf),
+                                                 torch.from_numpy(lengths))
+            flags = flags.numpy()
+            valid = (flags & pipeline.SPLIT_VALID) != 0
+            assert not (valid & ((flags & pipeline.SPLIT_PLAUSIBLE) == 0)).any()
+            n_valid += int(valid.sum())
+    assert n_valid > 500
