@@ -25,7 +25,7 @@ gather utilities), and fails (non-zero exit, no result line) on the
 first phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the eighteen kernels from logparser_tpu_torch/csrc, in parallel,
+2. build   -- the nineteen kernels from logparser_tpu_torch/csrc, in parallel,
    and beside them the g++ line framer (logparser_tpu_torch/native), which
    must build: the blob and stream phases fail on a numpy framing;
    2b. timing -- the yardstick (DeviceClock): a kernel's or a library
@@ -131,15 +131,21 @@ first phase that fails:
    parse_blob, a 3-batch parse_batch_stream and the dashboard
    aggregate_batch equal to the unsharded parser, to_arrow and IPC bytes
    included); ``sp_split`` (the padded headline batch on a 2 x 4 mesh,
-   shard width 96: every launch of the runner against its plain version,
-   the runner against the runner over the plain version, and against
-   run_program on every row without ``\\"``); ``sp_long`` (8,192 lines
-   of 8,192 to 32,000 bytes, seed 63, L = 32,768 on 1 x 4: kernel = plain,
-   every non-garbage row valid, lines/s); ``aggregate_counters`` (valid
+   shard width 96: the runner makes one sp_program launch per data shard
+   and no sp_split launch; equal to the runner over sp_program's plain
+   version, to the per-op path -- sp_split per op, mode and seq shard,
+   the combines in PyTorch, as on distinct cards -- and to run_program on
+   every row without ``\\"``; sp_program's launches against their plain
+   version, the per-op path's launches against theirs, both timed);
+   ``sp_long`` (8,192 lines of 8,192 to 32,000 bytes, seed 63, L = 32,768
+   on 1 x 4: one sp_program launch, equal to its plain version and to the
+   per-op path, every non-garbage row valid, both paths timed, lines/s);
+   ``aggregate_counters`` (valid
    and ~valid of the headline parse over 4 shards = valid.sum(); the
    counters kernel timed beside torch.stack((good, bad)).sum(1));
    ``mesh_multi_card`` (mesh_dp, parser_dp and sp_split again on
-   distinct cards when the machine has two or more, each equal to one
+   distinct cards when the machine has two or more -- SP there takes the
+   per-op path: sp_split launched, sp_program not -- each equal to one
    card, else a line saying it was skipped);
 14. the kernels line, the card line, and the result line
    ``{"ok": true, "device": {...}}`` last.
@@ -174,6 +180,7 @@ REPLACES = {
     "unescape": "logparser_tpu/tpu/postproc.py:1131",
     "geo_gather": "logparser_tpu/geoip/device.py:114",
     "sp_split": "logparser_tpu/parallel/mesh.py:224",
+    "sp_program": "logparser_tpu/parallel/mesh.py:173",
     "counters": "logparser_tpu/parallel/mesh.py:243",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
@@ -2107,16 +2114,41 @@ def recorded(kernels, name, run):
     return calls
 
 
-def plain_sp_split(mesh):
-    """kernels.sp_split's signature over its plain version (mesh.
-    sp_split_plain), for a run of the SP runner on the card without the
-    kernel."""
-    def run(tables, op_index, mode, buf, offset, lo, hi=None, halo=None, l_total=0):
-        op = tables.program.ops[op_index]
-        return mesh.sp_split_plain(mode, buf, offset, lo, hi, op.lit,
-                                   halo if mode == mesh.SP_FIND else None, l_total,
-                                   tables.charsets[tables.cs_of_op[op_index]] != 0)
-    return run
+def flat(outs):
+    """A list of sp_program results as one list of tensors."""
+    return [t for o in outs for t in (o["starts"], o["ends"], o["valid"])]
+
+
+def sp_paths(torch, kernels, mesh, run, per_op, dbuf, dlen, n_data, tag):
+    """Both SP paths of one card's mesh on (dbuf, dlen): the runner (counts
+    zeroed just before, read just after: sp_program once per data shard,
+    sp_split never), the per-op runner (sp_split, no sp_program), the
+    runner over sp_program's plain version -- all equal.  Returns (the
+    runner's result, its counts, the per-op runner's counts)."""
+    run(dbuf, dlen)   # warm
+    per_op(dbuf, dlen)
+    kernels.reset_launch_counts()
+    got = run(dbuf, dlen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["sp_program"] != n_data or launches["sp_split"]:
+        fail(f"{tag}: the runner launched sp_program {launches['sp_program']} times over "
+             f"{n_data} data shards, sp_split {launches['sp_split']} times")
+    kernels.reset_launch_counts()
+    op = per_op(dbuf, dlen)
+    torch.cuda.synchronize()
+    op_launches = kernels.launch_counts()
+    if op_launches["sp_split"] < 1 or op_launches["sp_program"]:
+        fail(f"{tag}: the per-op path launched sp_split {op_launches['sp_split']} times, "
+             f"sp_program {op_launches['sp_program']} times")
+    with swapped(kernels, "sp_program", mesh.sp_program_plain):
+        want = run(dbuf, dlen)
+    for key in ("valid", "starts", "ends"):
+        if not torch.equal(got[key], want[key]):
+            fail(f"{tag}: the runner's {key} differs from the runner over the plain version")
+        if not torch.equal(got[key], op[key]):
+            fail(f"{tag}: the runner's {key} differs from the per-op path's")
+    return got, launches, op_launches
 
 
 def sp_cost(program, B, L):
@@ -2184,11 +2216,18 @@ def mesh_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi, gpu
     prog = gpu.units[0].program
     run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(1, n_seq, devices=devs),
                                         dbuf.shape[1])
+    kernels.reset_launch_counts()
     got = run(dbuf, dlen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["sp_split"] < 1 or launches["sp_program"]:
+        fail(f"mesh_multi_card: SP on {n_seq} cards launched sp_split {launches['sp_split']} "
+             f"times, sp_program {launches['sp_program']} times: not the per-op path")
     for key in ("valid", "starts", "ends"):
         if not torch.equal(got[key], sp[key]):
             fail(f"mesh_multi_card: SP on {n_seq} cards differs from one card in {key}")
     emit({"phase": "mesh_multi_card_sp", "cards": n_seq, "equal_to_one_card": True,
+          "launches": launches,
           "runner_ms": time_wall(torch, lambda: run(dbuf, dlen), 5), "card": smi})
 
 
@@ -2328,28 +2367,19 @@ def parser_dp_phase(torch, TorchBatchParser, kernels, gpu, lines, smi, width=4,
 def sp_split_phase(torch, kernels, runtime, mesh, phase, rows, gpu, lines, dbuf, dlen,
                    smi):
     """The SP runner over the padded headline batch on a 2 x 4 mesh
-    (shard width 96): the runner's launch counts, the runner against the
-    runner over the plain version, every launch against its plain version
-    (timed: all launches of a batch), and the result against run_program
-    on every row whose line holds no escaped quote (the reference's SP has
-    no escape parity)."""
+    (shard width 96), every shard on one card: one sp_program launch per
+    data shard, held to its plain version, to the per-op path and to
+    run_program on every row whose line holds no escaped quote (the
+    reference's SP has no escape parity); sp_program's launches against
+    their plain version (timed), then the per-op path's sp_split launches
+    against theirs (timed: all launches of a batch), both runners' walls."""
     prog = gpu.units[0].program
     B, L = dbuf.shape
     m = mesh.make_mesh(2, 4, devices=[torch.device("cuda", 0)] * 8)
     run = mesh.sequence_parallel_runner(prog, m, L)
-    run(dbuf, dlen)   # warm
-    kernels.reset_launch_counts()
-    got = run(dbuf, dlen)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    if launches["sp_split"] < 1:
-        fail("sp_split was not launched on the SP path")
-    plain = plain_sp_split(mesh)
-    with swapped(kernels, "sp_split", plain):
-        want = run(dbuf, dlen)
-    for key in ("valid", "starts", "ends"):
-        if not torch.equal(got[key], want[key]):
-            fail(f"sp_split: the runner's {key} differs from the runner over the plain version")
+    per_op = mesh._sp_runner(prog, m, L, one_launch=False)
+    got, launches, op_launches = sp_paths(torch, kernels, mesh, run, per_op, dbuf, dlen,
+                                          2, "sp_split")
     single = runtime.run_program(prog, dbuf, dlen)
     same = torch.ones(B, dtype=torch.bool, device=dbuf.device)
     for key in ("starts", "ends"):
@@ -2360,26 +2390,37 @@ def sp_split_phase(torch, kernels, runtime, mesh, phase, rows, gpu, lines, dbuf,
     if any('\\"' not in texts[i] for i in differ):
         fail(f"sp_split: rows without an escaped quote differ from run_program: "
              f"{[i for i in differ if chr(92) + chr(34) not in texts[i]][:5]}")
-    calls = recorded(kernels, "sp_split", lambda: run(dbuf, dlen))
-    phase("sp_split", lambda: [kernels.sp_split(*a, **k) for a, k in calls],
-          lambda: [plain(*a, **k) for a, k in calls], *sp_cost(prog, B, L), n=B,
+    walls = {"runner_wall_ms": time_wall(torch, lambda: run(dbuf, dlen), 10),
+             "per_op_runner_wall_ms": time_wall(torch, lambda: per_op(dbuf, dlen), 10)}
+    plain = mesh.sp_program_plain
+    fused = recorded(kernels, "sp_program", lambda: run(dbuf, dlen))
+    phase("sp_program", lambda: flat([kernels.sp_program(*a, **k) for a, k in fused]),
+          lambda: flat([plain(*a, **k) for a, k in fused]), *sp_cost(prog, B, L), n=B,
           width=L, extra={"mesh": list(m.shape), "shard_width": L // 4,
-                          "launches_per_batch": len(calls),
+                          "launches_per_batch": len(fused),
                           "rows_differing_from_run_program": len(differ),
                           "all_differing_rows_hold_an_escaped_quote": True,
-                          "valid": int(got["valid"].sum()),
-                          "runner_wall_ms": time_wall(torch, lambda: run(dbuf, dlen), 10),
+                          "equal_to_per_op_path": True, "valid": int(got["valid"].sum()),
+                          **walls,
                           "run_program_ms": time_kernel(
                               torch, lambda: runtime.run_program(prog, dbuf, dlen), 10)})
-    rows["sp_split"]["launches"] = launches["sp_split"]
+    rows["sp_program"]["launches"] = launches["sp_program"]
+    calls = recorded(kernels, "sp_split", lambda: per_op(dbuf, dlen))
+    phase("sp_split", lambda: [kernels.sp_split(*a, **k) for a, k in calls],
+          lambda: [mesh.sp_split_step_plain(*a, **k) for a, k in calls],
+          *sp_cost(prog, B, L), n=B, width=L,
+          extra={"mesh": list(m.shape), "path": "per-op", "launches_per_batch": len(calls),
+                 **walls})
+    rows["sp_split"]["launches"] = op_launches["sp_split"]
     return got
 
 
 def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi, clock):
     """Lines of 8,192 to 32,000 bytes (8,192 of them, seed 63, ~1%
-    garbage) at L = 32,768 on a 1 x 4 mesh (shard width 8,192): kernel =
-    plain on the card, every non-garbage row valid; lines/s of the
-    runner."""
+    garbage) at L = 32,768 on a 1 x 4 mesh (shard width 8,192): one
+    sp_program launch, equal to its plain version and to the per-op path,
+    every non-garbage row valid; both paths' kernels timed, lines/s of
+    the runners."""
     from logparser_tpu_torch.tools.demolog import long_combined_lines
 
     t0 = time.perf_counter()
@@ -2391,35 +2432,35 @@ def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi, clock):
     B, L = buf.shape
     dbuf, dlen = torch.from_numpy(buf).cuda(), torch.from_numpy(lengths).cuda()
     prog = gpu.units[0].program
-    run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(1, 4), L)
-    run(dbuf, dlen)   # warm
-    kernels.reset_launch_counts()
-    got = run(dbuf, dlen)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()["sp_split"]
-    if launches < 1:
-        fail("sp_split was not launched on the long-line path")
-    plain = plain_sp_split(mesh)
-    with swapped(kernels, "sp_split", plain):
-        want = run(dbuf, dlen)
-    for key in ("valid", "starts", "ends"):
-        if not torch.equal(got[key], want[key]):
-            fail(f"sp_long: the runner's {key} differs from the runner over the plain version")
+    m = mesh.make_mesh(1, 4)
+    run = mesh.sequence_parallel_runner(prog, m, L)
+    per_op = mesh._sp_runner(prog, m, L, one_launch=False)
+    got, launches, op_launches = sp_paths(torch, kernels, mesh, run, per_op, dbuf, dlen,
+                                          1, "sp_long")
     long_rows = torch.from_numpy(lengths >= 8192).cuda()
     if not bool(got["valid"][long_rows].all()):
         fail(f"sp_long: {int((~got['valid'][long_rows]).sum())} long lines invalid")
-    calls = recorded(kernels, "sp_split", lambda: run(dbuf, dlen))
-    replay = lambda: [kernels.sp_split(*a, **k) for a, k in calls]  # noqa: E731
+    plain = mesh.sp_program_plain
+    fused = recorded(kernels, "sp_program", lambda: run(dbuf, dlen))
+    replay = lambda: flat([kernels.sp_program(*a, **k) for a, k in fused])  # noqa: E731
+    want = flat([plain(*a, **k) for a, k in fused])
+    require_equal(torch, "sp_long", replay(), want)
+    calls = recorded(kernels, "sp_split", lambda: per_op(dbuf, dlen))
+    replay_op = lambda: [kernels.sp_split(*a, **k) for a, k in calls]  # noqa: E731
     bytes_moved, ops = sp_cost(prog, B, L)
     bound, bound_by = bound_ms(bytes_moved, ops)
     wall_ms = time_wall(torch, lambda: run(dbuf, dlen), 5)
     ms, enqueue_ms = clock.time(replay, 10)
+    op_ms, op_enqueue_ms = clock.time(replay_op, 10)
     emit({"phase": "sp_long", "B": B, "L": L, "mesh": [1, 4], "shard_width": L // 4,
           "buffer_bytes": int(buf.nbytes), "long_lines": int(long_rows.sum()),
-          "valid": int(got["valid"].sum()), "equal": True, "launches": launches,
-          "ms": ms, "enqueue_ms": enqueue_ms,
-          "plain_ms": time_kernel(torch, lambda: [plain(*a, **k) for a, k in calls], 3),
+          "valid": int(got["valid"].sum()), "equal": True, "equal_to_per_op_path": True,
+          "launches": launches["sp_program"], "ms": ms, "enqueue_ms": enqueue_ms,
+          "plain_ms": time_kernel(torch, lambda: flat([plain(*a, **k) for a, k in fused]), 3),
+          "per_op_launches": op_launches["sp_split"], "per_op_ms": op_ms,
+          "per_op_enqueue_ms": op_enqueue_ms,
           "runner_wall_ms": wall_ms, "lines_per_s": B / (wall_ms / 1e3),
+          "per_op_runner_wall_ms": time_wall(torch, lambda: per_op(dbuf, dlen), 5),
           "bound_ms": bound, "bound_by": bound_by, "bytes": bytes_moved,
           "generate_encode_seconds": gen_s, "card": smi})
 

@@ -16,17 +16,24 @@ default; tests and ``chip_smoke.py`` replace it to stand in for several.
   column slice of one ``[K, B]`` tensor on the home device
   (``mesh.home``).
 - **SP** (:func:`sequence_parallel_runner`): the line axis L split into
-  ``n_seq`` shards.  Per op of the split program each seq shard launches
-  the ``sp_split`` kernel on its slice (the plain version
-  :func:`sp_split_plain` on the CPU), and the data shard's first device
-  combines the shards' ``[B_i]`` vectors where the reference calls
-  ``lax.pmin`` (the first separator) and ``lax.psum`` (the owned bytes of
-  a literal, the charset violations).  The halo -- the next shard's first
-  ``max len(lit) - 1`` bytes, the last shard taking shard 0's as
-  ``ppermute``'s ring does -- is copied once a batch.  As in the
-  reference there is no escape parity on this path, and any L that
-  ``n_seq`` divides is taken, past the 8,191-byte span cap of the packed
-  rows (SP emits cursors, not packed rows).
+  ``n_seq`` shards.  Where every seq shard of a data shard lies on one
+  device, that data shard is one launch of the ``sp_program`` kernel:
+  the whole op program per line over the shards' slices (strided views of
+  the batch's rows, each shard's halo read from the next shard's slice),
+  the reference's ``lax.pmin`` (the first separator) and ``lax.psum`` (the
+  owned bytes of a literal, the charset violations) inside it; its plain
+  version :func:`sp_program_plain` runs the per-op loop over
+  :func:`sp_split_plain`.  Where the seq shards lie on distinct devices,
+  each op runs the ``sp_split`` kernel on each shard's slice on its device
+  and the data shard's first device combines the shards' ``[B_i]``
+  vectors (:func:`sp_per_op`); the halo -- the next shard's first ``max
+  len(lit) - 1`` bytes, the last shard taking shard 0's as ``ppermute``'s
+  ring does -- is copied once a batch.  The runner picks one path or the
+  other from the mesh's devices; ``_sp_runner(..., one_launch=False)``
+  takes the per-op path on any mesh (the yardstick the one-launch path is
+  held to).  As in the reference there is no escape parity on this path,
+  and any L that ``n_seq`` divides is taken, past the 8,191-byte span cap
+  of the packed rows (SP emits cursors, not packed rows).
 - :func:`aggregate_counters`: the ``counters`` kernel on each data
   shard's rows, the partials added on the home device.
 
@@ -52,6 +59,9 @@ AXES = ("data", "seq")
 
 # sp_split modes (csrc/sp_split.cu).
 SP_FIND, SP_BYTES, SP_CHARSET = 0, 1, 2
+# sp_program op kinds (csrc/sp_program.cu) and its longest literal.
+SP_OP_KINDS = {"lit": 0, "until_lit": 1, "to_end": 2}
+SP_MAX_LIT = 512
 
 Shard = Tuple[torch.device, int, int]   # (device, first row, end row)
 
@@ -258,9 +268,11 @@ def batch_parallel_runner(units, mesh: DeviceMesh, view_specs=None):
 
 
 class SpTables(nn.Module):
-    """One program's literals and charsets for the ``sp_split`` kernel:
-    ``lits`` [n_ops, W] int32 (op i's literal bytes, zero-padded) and
-    ``charsets`` [n_charsets, 256] int32 (1 = byte allowed)."""
+    """One program's tables for the ``sp_split`` and ``sp_program``
+    kernels: ``lits`` [n_ops, W] int32 (op i's literal bytes,
+    zero-padded), ``charsets`` [n_charsets, 256] int32 (1 = byte allowed)
+    and ``ops`` [n_ops, 6] int32 (kind as in ``SP_OP_KINDS``, literal
+    length, charset, token, min_len, max_len)."""
 
     def __init__(self, program: DeviceProgram):
         super().__init__()
@@ -270,7 +282,10 @@ class SpTables(nn.Module):
         for i, op in enumerate(program.ops):
             lits[i, :len(op.lit)] = list(op.lit)
         self.cs_of_op = [program.charset_ids[op.charset] for op in program.ops]
+        ops = [(SP_OP_KINDS[op.kind], len(op.lit), cs, op.token_index, op.min_len,
+                op.max_len or 0) for op, cs in zip(program.ops, self.cs_of_op)]
         self.register_buffer("lits", torch.from_numpy(lits))
+        self.register_buffer("ops", torch.tensor(ops or [[0] * 6], dtype=torch.int32))
         self.register_buffer("charsets", torch.from_numpy(
             np.asarray(program.charset_table, dtype=np.int32)))
 
@@ -327,20 +342,31 @@ def sp_halo_width(program: DeviceProgram) -> int:
     return max([len(op.lit) - 1 for op in program.ops if op.kind == "until_lit"] + [0])
 
 
-def _sp_rows(program: DeviceProgram, l_total: int, parts: List[torch.Tensor],
-             lens: List[torch.Tensor], H: int) -> Dict[str, torch.Tensor]:
-    """One data shard through the program: ``parts`` are its seq shards'
-    slices (and ``lens`` its lengths) on their devices; the combines and
-    the outputs live on the first one's device (the reference's
-    ``_sp_program_body`` with its collectives)."""
-    from ..tpu import kernels
+def sp_split_step_plain(tables: SpTables, op_index: int, mode: int, buf: torch.Tensor,
+                        offset: int, lo: torch.Tensor, hi: Optional[torch.Tensor] = None,
+                        halo: Optional[torch.Tensor] = None,
+                        l_total: int = 0) -> torch.Tensor:
+    """``kernels.sp_split``'s signature over :func:`sp_split_plain`."""
+    op = tables.program.ops[op_index]
+    return sp_split_plain(mode, buf, offset, lo, hi, op.lit,
+                          halo if mode == SP_FIND else None, l_total,
+                          tables.charsets[tables.cs_of_op[op_index]] != 0)
 
+
+def sp_per_op(tables: Sequence[SpTables], l_total: int, parts: Sequence[torch.Tensor],
+              lens: Sequence[torch.Tensor], H: int, step) -> Dict[str, torch.Tensor]:
+    """One data shard through the program, op by op: ``parts`` are its
+    seq shards' slices (``lens`` its lengths, ``tables`` the program's
+    tables) on their devices; ``step`` (``kernels.sp_split`` or
+    :func:`sp_split_step_plain`) gives one shard's value of one op, and
+    the combines and the outputs live on the first shard's device (the
+    reference's ``_sp_program_body`` with its collectives)."""
+    program = tables[0].program
     n_seq = len(parts)
     home = parts[0].device
     Bd, Lc = parts[0].shape
     offsets = [s * Lc for s in range(n_seq)]
     devs = [p.device for p in parts]
-    tables = [sp_tables(program, d) for d in devs]
     halos = [parts[(s + 1) % n_seq][:, :H].contiguous().to(devs[s]) if H else None
              for s in range(n_seq)]
     length = lens[0]
@@ -350,25 +376,25 @@ def _sp_rows(program: DeviceProgram, l_total: int, parts: List[torch.Tensor],
     starts = torch.zeros((n_tok, Bd), dtype=torch.int32, device=home)
     ends = torch.zeros((n_tok, Bd), dtype=torch.int32, device=home)
 
-    def step(i, mode, lo, hi=None):
+    def values(i, mode, lo, hi=None):
         """Every seq shard's value of op i, stacked on home."""
         return torch.stack([
-            kernels.sp_split(tables[s], i, mode, parts[s], offsets[s], lo.to(devs[s]),
-                             None if hi is None else hi.to(devs[s]),
-                             halo=halos[s], l_total=l_total).to(home)
+            step(tables[s], i, mode, parts[s], offsets[s], lo.to(devs[s]),
+                 None if hi is None else hi.to(devs[s]), halo=halos[s],
+                 l_total=l_total).to(home)
             for s in range(n_seq)])
 
     for i, op in enumerate(program.ops):
         n_lit = len(op.lit)
         if op.kind == "lit":
-            got = step(i, SP_BYTES, cursor).sum(dim=0)    # psum of owned bytes
+            got = values(i, SP_BYTES, cursor).sum(dim=0)    # psum of owned bytes
             want = tables[0].lits[i, :n_lit, None]
             ok = (got == want).all(dim=0) & (cursor + n_lit <= length)
             valid = valid & ok
             cursor = cursor + n_lit
             continue
         if op.kind == "until_lit":
-            found = step(i, SP_FIND, cursor, lens[0]).amin(dim=0)   # pmin
+            found = values(i, SP_FIND, cursor, length).amin(dim=0)   # pmin
             token_valid = found < l_total
             start, end = cursor, torch.where(token_valid, found, cursor)
             valid = valid & token_valid
@@ -378,7 +404,7 @@ def _sp_rows(program: DeviceProgram, l_total: int, parts: List[torch.Tensor],
             next_cursor = end
         else:  # pragma: no cover
             raise AssertionError(op.kind)
-        bad = step(i, SP_CHARSET, start, end).sum(dim=0)             # psum
+        bad = values(i, SP_CHARSET, start, end).sum(dim=0)             # psum
         valid = valid & (bad == 0) & ((end - start) >= op.min_len)
         if op.max_len:
             valid = valid & ((end - start) <= op.max_len)
@@ -389,13 +415,22 @@ def _sp_rows(program: DeviceProgram, l_total: int, parts: List[torch.Tensor],
     return {"starts": starts, "ends": ends, "valid": valid}
 
 
-def sequence_parallel_runner(program: DeviceProgram, mesh: DeviceMesh, l_total: int):
-    """fn(buf [B, l_total], lengths [B]) -> {starts, ends [T, B] int32,
-    valid [B] bool} on the home device, with B sharded over ``data`` and
-    L over ``seq`` (the ``sp_split`` kernel per op and seq shard, the
-    combines on each data shard's first device).  Raises ValueError when
-    ``n_seq`` does not divide ``l_total`` or a separator's halo is wider
-    than a shard (the reference fails on both)."""
+def sp_program_plain(tables: SpTables, buf: torch.Tensor, lengths: torch.Tensor,
+                     n_seq: int) -> Dict[str, torch.Tensor]:
+    """The plain version of the ``sp_program`` kernel: one data shard's
+    rows ``buf`` [Bd, n_seq * Lc] (a view of the batch) split into its seq
+    shards' slices, through :func:`sp_per_op` over :func:`sp_split_plain`
+    on ``buf``'s device."""
+    Lc = buf.shape[1] // n_seq
+    parts = [buf[:, s * Lc:(s + 1) * Lc] for s in range(n_seq)]
+    return sp_per_op([tables] * n_seq, n_seq * Lc, parts, [lengths] * n_seq,
+                     sp_halo_width(tables.program), sp_split_step_plain)
+
+
+def _sp_runner(program: DeviceProgram, mesh: DeviceMesh, l_total: int, one_launch: bool):
+    """The SP runner; ``one_launch=False`` puts every data shard on the
+    per-op path whatever its devices (the yardstick the one-launch path is
+    held to)."""
     n_seq = mesh.shape[1]
     if l_total % n_seq:
         raise ValueError(f"line bucket {l_total} does not split evenly over "
@@ -406,22 +441,42 @@ def sequence_parallel_runner(program: DeviceProgram, mesh: DeviceMesh, l_total: 
         raise ValueError(f"a {H + 1}-byte separator needs a {H}-byte halo, wider "
                          f"than the {Lc}-byte seq shard")
 
+    def data_shard(row: List[torch.device], rows: torch.Tensor,
+                   lens: torch.Tensor) -> Dict[str, torch.Tensor]:
+        from ..tpu import kernels
+
+        if one_launch and all(dev == row[0] for dev in row):
+            dev = row[0]
+            return kernels.sp_program(sp_tables(program, dev), rows.to(dev), lens.to(dev),
+                                      n_seq)
+        parts = [rows[:, s * Lc:(s + 1) * Lc].contiguous().to(dev)
+                 for s, dev in enumerate(row)]
+        return sp_per_op([sp_tables(program, dev) for dev in row], l_total, parts,
+                         [lens.to(dev) for dev in row], H, kernels.sp_split)
+
     def run(buf, lengths) -> Dict[str, torch.Tensor]:
         buf, lengths = _as_tensor(buf), _as_tensor(lengths)
         B, L = buf.shape
         if L != l_total:
             raise ValueError(f"buf has {L} columns, the runner was built for {l_total}")
-        outs = []
-        for d, (_, r0, r1) in enumerate(dp_shardings(mesh, B)):
-            row = mesh.devices[d]
-            parts = [buf[r0:r1, s * Lc:(s + 1) * Lc].contiguous().to(dev)
-                     for s, dev in enumerate(row)]
-            lens = [lengths[r0:r1].to(dev) for dev in row]
-            outs.append(_sp_rows(program, l_total, parts, lens, H))
+        outs = [data_shard(mesh.devices[d], buf[r0:r1], lengths[r0:r1])
+                for d, (_, r0, r1) in enumerate(dp_shardings(mesh, B))]
         return {k: gather_columns([o[k] for o in outs], B, mesh.home)
                 for k in ("starts", "ends", "valid")}
 
     return run
+
+
+def sequence_parallel_runner(program: DeviceProgram, mesh: DeviceMesh, l_total: int):
+    """fn(buf [B, l_total], lengths [B]) -> {starts, ends [T, B] int32,
+    valid [B] bool} on the home device, with B sharded over ``data`` and
+    L over ``seq``: a data shard whose seq shards share one device is one
+    ``sp_program`` launch there; one whose seq shards lie on distinct
+    devices runs the ``sp_split`` kernel per op and seq shard, the
+    combines on its first device.  Raises ValueError when ``n_seq`` does
+    not divide ``l_total`` or a separator's halo is wider than a shard
+    (the reference fails on both)."""
+    return _sp_runner(program, mesh, l_total, one_launch=True)
 
 
 # ---------------------------------------------------------------------------
@@ -458,5 +513,7 @@ __all__ = [
     "batch_parallel_runner", "counters_plain", "data_parallel_runner",
     "dp_device_count", "dp_shardings", "gather_columns", "local_devices",
     "make_mesh", "padded_rows", "scatter_rows", "sequence_parallel_runner",
-    "sp_split_plain", "sp_tables", "SP_FIND", "SP_BYTES", "SP_CHARSET",
+    "sp_halo_width", "sp_per_op", "sp_program_plain", "sp_split_plain",
+    "sp_split_step_plain", "sp_tables", "SP_FIND", "SP_BYTES", "SP_CHARSET",
+    "SP_MAX_LIT", "SP_OP_KINDS",
 ]

@@ -8,7 +8,7 @@ process.
 DIR holds the parent's ``csrc`` sources (the ``.cu`` files and the headers
 they include; ``.kernel_ab_parent/`` is git-ignored for it).  KERNEL picks
 the kernels to compare -- ``zone_lookup``, ``geo_lookup``, ``split``,
-``agg_reduce`` -- all four by default.
+``agg_reduce``, ``csr_split``, ``sp_program`` -- all six by default.
 
 The parent's kernels are built with nvcc into a temporary directory.  Each
 runs through this checkout's wrapper (``kernels.split`` and so on) with the
@@ -29,7 +29,18 @@ the same host enqueue.  The cases:
 - ``agg_reduce_dashboard`` (B = 65,547) and ``agg_reduce_seeded_<B>``:
   seeded lanes (:func:`seeded_reduce_case`, 2 sums and 2 histograms) at
   B = 4,095, 4,096, 4,097, 65,547 and 262,144, beside the reshaped sum
-  of the tiles' halves (chip_smoke.agg_reduce_library).
+  of the tiles' halves (chip_smoke.agg_reduce_library);
+- ``csr_split_uri_<slots>`` (the URI chain's two query groups on its
+  batch, the block as it stands before the CSR stage, at 16 and 128
+  slots) and ``csr_split_cookie`` (the cookie group on the cookies batch,
+  L = 2,048, 128 slots);
+- ``sp_program_headline`` (the padded headline batch on 2 x 4, every
+  shard on the card) and ``sp_program_long`` (8,192 long lines at
+  L = 32,768 on 1 x 4): here the "parent" is the per-op path in this
+  checkout -- the sp_split launches of a batch against sp_program's --
+  and ``..._runner`` the same pair as whole runners (PyTorch combines,
+  copies and host enqueue included).  No parent library is built for
+  them.
 
 Each case holds parent and change to the plain version bit for bit, then
 times them with chip_smoke.DeviceClock in turns (parent, change, change,
@@ -57,7 +68,9 @@ import torch
 from ..analytics import device as agg_device
 
 REPS = 25
-CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce")
+CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce", "csr_split",
+                "sp_program")
+NO_PARENT_LIBRARY = ("sp_program",)   # its "parent" is the per-op path
 SEEDED_B = (4095, 4096, 4097, 65547, 262144)
 
 
@@ -69,6 +82,8 @@ class Case(NamedTuple):
     library: Optional[Callable]
     bytes_moved: int
     ops: int
+    parent: Optional[Callable] = None        # else: the parent's library
+    parent_plain: Optional[Callable] = None  # what the parent is held to, else plain
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +187,109 @@ def seeded_split_case(B: int, L: int, seed: int, nul: bool = False):
     lengths[0] = 0
     lengths[min(2, B - 1)] = L
     return buf, lengths
+
+
+CSR_SEPARATORS = {"cookie": b"; ", "query": b"&"}
+CSR_TILE = 32         # csr_split.cu's tile: 32 consecutive lines
+CSR_SHORT_SPAN = 64   # a tile whose raw spans are all this short is split a thread a line
+_CSR_ALPHABET = np.frombuffer(b"ab09xZ=%+-?;; &&\x80\xc3\xa9\xff .", dtype=np.uint8)
+
+
+def _csr_crafted(W: int, slots: int, sep: bytes) -> List[bytes]:
+    """The crafted span texts of :func:`seeded_csr_case`."""
+    seg = b"k=v" + sep
+    S = CSR_SHORT_SPAN
+    return [
+        b"a" * (W - 1) + sep + b"b=c",                      # the separator split at W
+        b"a" * (W - 2) + sep + b"b=c",                      # ... and just inside
+        b";", b";;;;", b"a=1;;b=2; ;c=3", b"&&&", b"a=1&&b=2",
+        b"=first" + sep + b"last=" + sep + b"=", b"a==b" + sep + b"=" + sep + b"c=",
+        sep + sep + b"x=1" + sep,                            # empty segments
+        b"%41=v+w" + sep + b"n\xc3\xa9=%zz" + sep + b"+=%" + sep + b"\xff\x80=\xff",
+        (seg * (W // len(seg) + 1))[:W],                    # exactly W bytes
+        (seg * (W // len(seg) + 1))[:W + 1],                # one byte more
+        b"-", b"?", b"?a=1" + sep + b"b=2", b"??=?",
+        seg * (slots + 3),                                   # more segments than slots
+        sep * (slots + 1),                                   # ... short ones where they fit
+        b"", b"a=1" + sep * 3,
+        b"a" * (S - len(sep)) + sep,                         # a separator ending at byte S
+        b"a" * (S - 1) + b";",                               # a ';' at byte S - 1, ' ' after
+        b"x=" + b"\xc3\xa9%+" * ((S - 2) // 4) + b"=y"[:S - 2 - 4 * ((S - 2) // 4)],
+        (seg * (S // len(seg) + 1))[:S],                    # exactly S bytes
+        (seg * (S // len(seg) + 1))[:S + 1],                # one byte more
+    ]
+
+
+def seeded_csr_case(B: int, L: int, slots: int, mode: str, seed: int):
+    """(buf [B, L] uint8, start [B] int32, end [B] int32) on the CPU: spans
+    for ``split_csr`` with ``mode``'s separator (``"cookie"``: "; ",
+    ``"query"``: "&") and the window W = 8 * slots.  The crafted spans,
+    each at the row's start, its end and byte 5: a "; " (or "&") split by
+    the window's end, a lone ';', ';;' runs, '=' first and last in a
+    segment, empty segments, '%', '+' and high bytes in names and values,
+    a span of exactly W bytes and one of W + 1, a lone '-', a leading '?',
+    more segments than slots, an empty span, a separator ending at byte 64,
+    a ';' at byte 63 (a ' ' follows every span that ends in ';', outside
+    it), spans of exactly 64 bytes and 65; and the odd spans: one that ends
+    before it starts, one that runs past L (the window's clamp), (L, L) and
+    (0, L).  Laid out in the kernel's tiles of 32 rows: first the crafted
+    spans of at most 64 bytes, in tiles of their own (csr_split's
+    thread-a-line path), then the longer ones, each group's last tile
+    filled up with random spans; then random tiles.  A random span starts
+    anywhere and is 0 to 64 bytes long in the short tiles and every other
+    random tile, else 0 to 2W, cut at L; its bytes are the separator-heavy
+    alphabet."""
+    rng = np.random.default_rng(seed)
+    sep = CSR_SEPARATORS[mode]
+    W = 8 * slots
+    buf = rng.choice(_CSR_ALPHABET, size=(B, L)).astype(np.uint8)
+    start = rng.integers(0, L, size=B).astype(np.int32)
+    width = rng.integers(0, 2 * W + 1, size=B)
+    capped = np.zeros(B, dtype=bool)
+    placed = []   # (row bytes at, text) or (None, (s, e)): an odd span
+    for text in _csr_crafted(W, slots, sep):
+        for at in dict.fromkeys((0, max(L - len(text), 0), min(5, L - 1))):
+            placed.append((at, text[:L - at]))
+    placed += [(None, (min(s, L), e)) for s, e in ((4, 2), (L - 3, L + 40), (L, L), (0, L))]
+
+    def span_len(item):
+        at, x = item
+        return len(x) if at is not None else x[1] - x[0]
+
+    rows = []
+    for short in (True, False):
+        group = [item for item in placed if (span_len(item) <= CSR_SHORT_SPAN) == short]
+        pad = -len(group) % CSR_TILE
+        rows += group + [short] * pad   # a bool: a random row, capped if True
+    first = len(rows)
+    rows = rows[:B] + [((r - first) // CSR_TILE) % 2 == 0   # random tiles, every other capped
+                       for r in range(first, B)]
+    end = np.zeros(B, dtype=np.int32)
+    for row, item in enumerate(rows):
+        if isinstance(item, bool):
+            capped[row] = item
+            continue
+        at, x = item
+        if at is None:
+            start[row], end[row] = x
+            continue
+        buf[row, at:at + len(x)] = np.frombuffer(x, dtype=np.uint8) if x else 0
+        start[row], end[row] = at, at + len(x)
+        if x.endswith(b";") and at + len(x) < L:
+            buf[row, at + len(x)] = ord(" ")
+    random = np.array([isinstance(item, bool) for item in rows], dtype=bool)
+    width = np.where(capped, rng.integers(0, CSR_SHORT_SPAN + 1, size=B), width)
+    end = np.where(random, np.minimum(start + width, L), end).astype(np.int32)
+    return buf, start, end
+
+
+def csr_tile_kinds(start: np.ndarray, end: np.ndarray) -> Tuple[int, int]:
+    """(tiles whose raw spans are all at most 64 bytes, the other tiles):
+    how csr_split divides the rows [start, end) between its two paths."""
+    n = -len(start) % CSR_TILE
+    widths = np.concatenate([end - start, np.zeros(n, dtype=end.dtype)])
+    short = (widths.reshape(-1, CSR_TILE) <= CSR_SHORT_SPAN).all(axis=1)
+    return int(short.sum()), int((~short).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -407,8 +525,119 @@ def agg_cases(smoke, kernels, pipeline):
         yield case(f"agg_reduce_seeded_{B}", t.cuda(), *_cuda(cls, lanes))
 
 
+def csr_cases(smoke, kernels, pipeline):
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def grown(parser, slots):
+        while parser.csr_slots < slots:
+            parser._grow_csr_slots()
+        return parser
+
+    def case(name, dbuf, block, groups, cursors, cap):
+        base = block.clone()
+        B = dbuf.shape[0]
+        n_read = n_bytes = 0
+        for c in groups:
+            if cursors:
+                s, e = cursors[0][c.token_index], cursors[1][c.token_index]
+                n_bytes += 8 * B
+            else:
+                s = base[c.src[0]]
+                e = s + base[c.src[1]]
+                n_bytes += 12 * B
+            n = smoke.span_bytes(torch, s, e, cap(c))
+            n_read += n
+            n_bytes += n + 4 * B * (2 * c.slots + 2)
+
+        def run():
+            for c in groups:
+                kernels.csr_split(c, dbuf, block, *cursors)
+            return block
+
+        def plain():
+            out = base.clone()
+            for c in groups:
+                pipeline.csr_split_plain(c, dbuf, out, *cursors)
+            return out
+
+        return Case(name, "csr_split", run, plain, None, n_bytes, 6 * n_read)
+
+    lines = demolog.generate_combined_lines(smoke.N_LINES, seed=53) + demolog.uri_edge_lines()
+    buf, lengths, _ = runtime.encode_batch(lines)
+    dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+    for slots in (16, 128):
+        (t,) = grown(TorchBatchParser("combined", demolog.URI_CHAIN_FIELDS),
+                     slots).executor.unit_tables
+        starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+        block = torch.zeros((t.n_comp, dbuf.shape[0]), dtype=torch.int32, device="cuda")
+        a = t.stages.n_out
+        kernels.span_stages(t.stages, dbuf, starts, ends, out=block[:a])
+        for g, ts in enumerate(t.ts):
+            kernels.timestamp(ts, dbuf, starts, ends, out=block[a + 4 * g:a + 4 * g + 4])
+        for u in t.uri:
+            kernels.uri_split(u, dbuf, starts, ends, block)
+        yield case(f"csr_split_uri_{slots}", dbuf, block, t.csr, (), lambda c: c.window)
+
+    lines = demolog.cookie_lines(smoke.N_LINES) + demolog.cookie_edge_lines()
+    buf, lengths, _ = runtime.encode_batch(lines)
+    dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+    (t,) = grown(TorchBatchParser(demolog.COOKIE_FORMAT, demolog.COOKIE_FIELDS,
+                                  type_remappings=demolog.COOKIE_REMAPPINGS),
+                 128).executor.unit_tables
+    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    block = torch.zeros((t.n_comp, dbuf.shape[0]), dtype=torch.int32, device="cuda")
+    yield case("csr_split_cookie", dbuf, block, [c for c in t.csr if c.mode == "cookie"],
+               (starts, ends), lambda c: c.window)
+
+
+def sp_cases(smoke, kernels, pipeline):
+    from ..parallel import mesh
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    prog = TorchBatchParser("combined", demolog.HEADLINE_FIELDS).units[0].program
+    cuda0 = torch.device("cuda", 0)
+
+    flat = smoke.flat
+
+    def cases(name, shape, dbuf, dlen):
+        B, L = dbuf.shape
+        m = mesh.make_mesh(*shape, devices=[cuda0] * 8)
+        run = mesh.sequence_parallel_runner(prog, m, L)
+        per_op = mesh._sp_runner(prog, m, L, one_launch=False)
+        fused = smoke.recorded(kernels, "sp_program", lambda: run(dbuf, dlen))
+        calls = smoke.recorded(kernels, "sp_split", lambda: per_op(dbuf, dlen))
+        cost = smoke.sp_cost(prog, B, L)
+        yield Case(name, "sp_program",
+                   lambda: flat([kernels.sp_program(*a, **k) for a, k in fused]),
+                   lambda: flat([mesh.sp_program_plain(*a, **k) for a, k in fused]), None,
+                   *cost, parent=lambda: [kernels.sp_split(*a, **k) for a, k in calls],
+                   parent_plain=lambda: [mesh.sp_split_step_plain(*a, **k) for a, k in calls])
+
+        def plain_runner():
+            with smoke.swapped(kernels, "sp_program", mesh.sp_program_plain):
+                return flat([run(dbuf, dlen)])
+
+        yield Case(f"{name}_runner", "sp_program", lambda: flat([run(dbuf, dlen)]),
+                   plain_runner, None, *cost, parent=lambda: flat([per_op(dbuf, dlen)]))
+
+    lines = demolog.generate_combined_lines(smoke.N_LINES, seed=42,
+                                            garbage_fraction=0.01) + smoke.EDGE_LINES
+    lines += [""] * (-len(lines) % 4)
+    buf, lengths, _ = runtime.encode_batch(lines)
+    yield from cases("sp_program_headline", (2, 4),
+                     *_cuda(torch.from_numpy(buf), torch.from_numpy(lengths)))
+    buf, lengths, _ = runtime.encode_batch(demolog.long_combined_lines(8192, seed=63),
+                                           line_len=32768)
+    yield from cases("sp_program_long", (1, 4),
+                     *_cuda(torch.from_numpy(buf), torch.from_numpy(lengths)))
+
+
 CASES = {"zone_lookup": zone_cases, "geo_lookup": geo_cases, "split": split_cases,
-         "agg_reduce": agg_cases}
+         "agg_reduce": agg_cases, "csr_split": csr_cases, "sp_program": sp_cases}
 
 
 def _same(a, b) -> bool:
@@ -432,25 +661,28 @@ def main(argv) -> int:
     smi = smoke.card_line()
     kernels.build()
     with tempfile.TemporaryDirectory() as tmp:
-        parent = build_parent(Path(argv[0]).resolve(), Path(tmp), names)
+        parent = build_parent(Path(argv[0]).resolve(), Path(tmp),
+                              [k for k in names if k not in NO_PARENT_LIBRARY])
         clock = smoke.DeviceClock(torch)
         for kname in names:
             for case in CASES[kname](smoke, kernels, pipeline):
-                lib = parent[case.kernel]
+                if case.parent is not None:
+                    run_parent = case.parent
+                else:
+                    def run_parent(case=case, lib=parent[case.kernel]):
+                        with parent_kernel(case.kernel, lib):
+                            return case.run()
 
-                def run_parent(case=case, lib=lib):
-                    with parent_kernel(case.kernel, lib):
-                        return case.run()
-
-                want = case.plain()
-                for who, fn in (("parent", run_parent), ("change", case.run)):
+                for who, fn, plain in (("parent", run_parent, case.parent_plain or case.plain),
+                                       ("change", case.run, case.plain)):
+                    want = plain()
                     got = fn()
                     torch.cuda.synchronize()
                     if not _same(got, want):
                         print(f"kernel_ab: {case.name}: the {who} kernel differs from the "
                               "plain version", file=sys.stderr)
                         return 1
-                del want, got
+                    del want, got
                 turns = [("parent", run_parent), ("change", case.run),
                          ("change", case.run), ("parent", run_parent)]
                 if case.library is not None:

@@ -11,8 +11,8 @@ Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
 ``uri_split``, ``csr_split``, ``ipv4_spans``, ``geo_lookup``,
 ``pack_rows``, the aggregate pushdown's ``agg_lanes``, ``agg_reduce``
 and ``agg_group``, ``setcookie_split`` and ``muid``, the two public
-utilities' ``unescape`` and ``geo_gather``, and the mesh's ``sp_split``
-and ``counters``):
+utilities' ``unescape`` and ``geo_gather``, and the mesh's ``sp_split``,
+``sp_program`` and ``counters``):
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
@@ -39,10 +39,11 @@ from ..analytics import device as agg_device
 from ..analytics.device import AggTables
 from ..geoip.device import geo_gather_plain
 from ..parallel import mesh
-from ..parallel.mesh import SP_BYTES, SP_CHARSET, SP_FIND, SpTables
+from ..parallel.mesh import SP_BYTES, SP_CHARSET, SP_FIND, SP_MAX_LIT, SpTables
 from . import pipeline, postproc
 from .pipeline import (
     CONS_NEVER,
+    CSR_SLOTS_MAX,
     CsrTables,
     GeoTables,
     MuidTables,
@@ -58,7 +59,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("split", "span_stages", "timestamp", "zone_lookup", "uri_split",
            "csr_split", "ipv4_spans", "geo_lookup", "pack_rows", "agg_lanes",
            "agg_reduce", "agg_group", "setcookie_split", "muid", "unescape",
-           "geo_gather", "sp_split", "counters")
+           "geo_gather", "sp_split", "sp_program", "counters")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,6 +101,8 @@ _SIGNATURES = {
     "geo_gather": [_P, _INT, _INT, _P, _INT, _P, _P],
     "sp_split": [_INT, _P, _INT, _INT, _INT, _P, _P, _P, _INT, _P, _INT, _INT, _P,
                  _P, _P],
+    "sp_program": [_P, _INT, _INT, _INT, _INT, _P, _P, _INT, _P, _INT, _P, _INT, _INT,
+                   _P, _P, _P, _P],
     "counters": [_P, _P, _INT, _INT, _P, _P],
 }
 
@@ -420,6 +423,8 @@ def csr_split(
     _check_tables(tables, dev)
     if tables.mode == "setcookie":
         raise ValueError("a Set-Cookie group runs setcookie_split")
+    if not 1 <= tables.slots <= CSR_SLOTS_MAX:
+        raise ValueError(f"{tables.slots} slots outside [1, {CSR_SLOTS_MAX}]")
     need = max(tables.words + 2 * tables.slots - 1, tables.ok, tables.over, *tables.src)
     _check_block(comps, B, need, dev)
     direct = tables.src[0] < 0
@@ -765,11 +770,10 @@ def sp_split(
         shape = (B,)
     else:
         raise ValueError(f"unknown sp_split mode {mode}")
-    cs = tables.cs_of_op[op_index]
     if not _route(buf):
-        return mesh.sp_split_plain(mode, buf, offset, lo, hi, op.lit,
-                                   halo if mode == SP_FIND else None, l_total,
-                                   tables.charsets[cs] != 0)
+        return mesh.sp_split_step_plain(tables, op_index, mode, buf, offset, lo, hi,
+                                        halo, l_total)
+    cs = tables.cs_of_op[op_index]
     out = torch.empty(shape, dtype=_I32, device=dev)
     if B:
         _launch("sp_split", dev, mode, _ptr(buf), B, Lc, offset, _ptr(lo),
@@ -778,6 +782,50 @@ def sp_split(
                 _ptr(tables.charsets[cs]), _ptr(out))
         sp_split.launches += 1
     return out
+
+
+def sp_program(
+    tables: SpTables, buf: torch.Tensor, lengths: torch.Tensor, n_seq: int,
+) -> Dict[str, torch.Tensor]:
+    """Kernel 19: the whole sequence-parallel split program over one data
+    shard whose ``n_seq`` seq shards share a device, as
+    ``mesh.sp_program_plain`` defines it: ``buf`` [Bd, n_seq * Lc] uint8
+    is the data shard's rows (rows may be strided, bytes within a row
+    not), shard s's slice its columns [s * Lc, (s + 1) * Lc); ``lengths``
+    [Bd] int32.  Returns {starts, ends [T, Bd] int32, valid [Bd] bool}."""
+    if buf.dim() != 2:
+        raise ValueError(f"buf must be [Bd, L], got {tuple(buf.shape)}")
+    Bd, L = buf.shape
+    dev = buf.device
+    if buf.dtype != torch.uint8:
+        raise TypeError(f"buf has dtype {buf.dtype}, expected torch.uint8")
+    if buf.stride(1) != 1 or (Bd > 1 and buf.stride(0) < L):
+        raise ValueError(f"buf's rows must be runs of bytes, strides {buf.stride()}")
+    _check("lengths", lengths, _I32, (Bd,), dev)
+    _check_tables(tables, dev)
+    program = tables.program
+    if n_seq < 1 or L % n_seq:
+        raise ValueError(f"line bucket {L} does not split evenly over {n_seq} seq shards")
+    Lc = L // n_seq
+    H = mesh.sp_halo_width(program)
+    if H > Lc:
+        raise ValueError(f"a {H + 1}-byte separator needs a {H}-byte halo, wider than "
+                         f"the {Lc}-byte seq shard")
+    if tables.lits.shape[1] > SP_MAX_LIT:
+        raise ValueError(f"a {tables.lits.shape[1]}-byte literal (max {SP_MAX_LIT})")
+    if not _route(buf):
+        return mesh.sp_program_plain(tables, buf, lengths, n_seq)
+    n_tok = len(program.tokens)
+    starts = torch.empty((n_tok, Bd), dtype=_I32, device=dev)
+    ends = torch.empty((n_tok, Bd), dtype=_I32, device=dev)
+    valid = torch.empty(Bd, dtype=torch.bool, device=dev)
+    if Bd:
+        _launch("sp_program", dev, _ptr(buf), Bd, buf.stride(0), n_seq, Lc,
+                _ptr(lengths), _ptr(tables.ops), len(program.ops), _ptr(tables.lits),
+                tables.lits.shape[1], _ptr(tables.charsets), tables.charsets.shape[0],
+                n_tok, _ptr(starts), _ptr(ends), _ptr(valid))
+        sp_program.launches += 1
+    return {"starts": starts, "ends": ends, "valid": valid}
 
 
 def counters(good: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
@@ -808,7 +856,7 @@ WRAPPERS = {"split": split, "span_stages": span_stages, "timestamp": timestamp,
             "agg_lanes": agg_lanes, "agg_reduce": agg_reduce,
             "agg_group": agg_group, "setcookie_split": setcookie_split,
             "muid": muid, "unescape": unescape, "geo_gather": geo_gather,
-            "sp_split": sp_split, "counters": counters}
+            "sp_split": sp_split, "sp_program": sp_program, "counters": counters}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 

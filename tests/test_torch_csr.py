@@ -63,3 +63,34 @@ def test_class_table_matches_reference():
         np.testing.assert_array_equal(
             postproc.csr_class_table(enc),
             ref_postproc._csr_class_table(ord("&"), ord("="), enc))
+
+
+@pytest.mark.parametrize("mode", ["cookie", "query"])
+@pytest.mark.parametrize("L,slots", [(2048, 16), (2048, 128), (384, 16), (384, 64),
+                                     (130, 16), (8191, 32)])
+def test_split_csr_edge_cases_match_reference(mode, L, slots):
+    """The seeded edge-case generator (tools.kernel_ab.seeded_csr_case,
+    also the card tests' input for the csr_split kernel): a separator
+    split by the window's end, a lone ';', ';;' runs, '=' first and last,
+    empty segments, '%' / '+' / high bytes in names and values, spans of
+    exactly 8 * slots bytes and one more, a lone '-', a leading '?', more
+    segments than slots and spans past L, laid out so that some 32-row
+    tiles hold only spans of at most 64 bytes and others longer ones.
+    Windowed at 8 * slots, as the CSR groups run it (unwindowed where that
+    covers L)."""
+    from logparser_tpu_torch.tools.kernel_ab import (CSR_SEPARATORS, csr_tile_kinds,
+                                                     seeded_csr_case)
+
+    buf, s, e = seeded_csr_case(160, L, slots, mode, seed=L + slots)
+    assert min(csr_tile_kinds(s, e)) >= 2
+    sep, enc = CSR_SEPARATORS[mode], mode == "query"
+    ours = postproc.split_csr(_t(buf), _t(s), _t(e), slots, uri_encoded=enc,
+                              window=8 * slots, sep=sep)
+    ref = ref_postproc.split_csr(jnp.asarray(buf), jnp.asarray(s), jnp.asarray(e), slots,
+                                 sep=sep, uri_encoded=enc, window=8 * slots)
+    for k in ("seg_start", "seg_end", "eq_pos", "decode", "name_pct", "name_high"):
+        for i, (a, b) in enumerate(zip(ours[k], ref[k])):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"{k}[{i}]")
+    np.testing.assert_array_equal(ours["overflow"].numpy(), np.asarray(ref["overflow"]))
+    assert ours["overflow"].any() and (~ours["overflow"]).any()
+    assert any(d.any() for d in ours["decode"]) and any(h.any() for h in ours["name_high"])

@@ -150,6 +150,7 @@ def test_parse_batch_on_the_card_equals_the_cpu(cuda_device):
     assert counts.pop("setcookie_split") == 0 and counts.pop("muid") == 0
     assert counts.pop("unescape") == 0 and counts.pop("geo_gather") == 0
     assert counts.pop("sp_split") == 0 and counts.pop("counters") == 0
+    assert counts.pop("sp_program") == 0
     assert all(n == 1 for n in counts.values())
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu").parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
@@ -703,6 +704,64 @@ def test_split_kernel_on_seeded_buffers(cuda_device, L, offset):
                 assert torch.equal(g, w), (fmt, L, offset)
 
 
+def _csr_group(mode, slots, device):
+    """The CSR group of ``mode`` ("cookie": the cookies parser's Cookie
+    header, "query": the URI chain's first query string) at ``slots``."""
+    if mode == "cookie":
+        (t,) = _cookie_parser(device, slots).executor.unit_tables
+    else:
+        (t,) = _grown(TorchBatchParser("combined", URI_CHAIN_FIELDS, device=device),
+                      slots).executor.unit_tables
+    return next(c for c in t.csr if c.mode == mode)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("L,slots", [(2048, 16), (2048, 128), (384, 16), (384, 64),
+                                     (384, 128), (1024, 128), (130, 16), (8191, 32)])
+@pytest.mark.parametrize("mode", ["cookie", "query"])
+def test_csr_split_kernel_on_seeded_spans(cuda_device, mode, L, slots, offset):
+    """csr_split against its plain version on the seeded edge cases
+    (tools.kernel_ab.seeded_csr_case: separators split by the window's
+    end, ';' runs, '=' first and last, empty segments, escape and high
+    bytes, spans of exactly 8 * slots bytes and one more, a lone '-', a
+    leading '?', spans past L, spans of 64 and 65 bytes), the spans as
+    token cursors (cookie mode) or as the query's component rows with a
+    random ok row (query mode), the block's other rows random.  Both of the
+    kernel's paths run: the case holds 32-line tiles of spans of at most 64
+    bytes (a thread a line) and tiles of longer ones (a warp a line).
+    ``offset`` starts the buffer that many bytes past an allocation.  Exact
+    equality."""
+    from logparser_tpu_torch.tools.kernel_ab import csr_tile_kinds, seeded_csr_case
+
+    c = _csr_group(mode, slots, cuda_device)
+    assert c.slots == slots
+    buf, s, e = seeded_csr_case(2000, L, slots, mode, seed=L + slots)
+    n_short, n_long = csr_tile_kinds(s, e)
+    assert n_short >= 30 and n_long >= 30
+    B = buf.shape[0]
+    flat = torch.zeros(buf.size + offset, dtype=torch.uint8, device=cuda_device)
+    dbuf = flat[offset:].view(buf.shape)
+    dbuf.copy_(torch.from_numpy(buf))
+    rng = np.random.default_rng(L + slots)
+    n_rows = max(c.words + 2 * c.slots, c.ok, c.over, *c.src) + 1
+    base = torch.from_numpy(rng.integers(-9, 9, size=(n_rows, B), dtype=np.int32))
+    ds, de = torch.from_numpy(s), torch.from_numpy(e)
+    cursors = ()
+    if c.src[0] < 0:
+        starts = torch.zeros((c.token_index + 1, B), dtype=torch.int32)
+        ends = torch.zeros_like(starts)
+        starts[c.token_index], ends[c.token_index] = ds, de
+        cursors = (starts.to(cuda_device), ends.to(cuda_device))
+    else:
+        base[c.src[0]], base[c.src[1]] = ds, de - ds
+        base[c.src[2]] = torch.from_numpy((rng.random(B) < 0.9).astype(np.int32))
+    base = base.to(cuda_device)
+    got = kernels.csr_split(c, dbuf, base.clone(), *cursors)
+    want = pipeline.csr_split_plain(c, dbuf, base.clone(), *cursors)
+    assert torch.equal(got, want)
+    assert got[c.over].any() and (got[c.ok] != 0).any()
+
+
 def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):
     lines = cookie_lines(4000, seed=52) + cookie_edge_lines()
     kernels.reset_launch_counts()
@@ -805,16 +864,6 @@ def test_new_entry_points_on_the_card_equal_the_cpu(cuda_device):
         assert out.state == head.aggregate_batch(b, DASHBOARD_OPS).state
 
 
-def _sp_plain(tables, op_index, mode, buf, offset, lo, hi=None, halo=None, l_total=0):
-    """kernels.sp_split's signature over its plain version."""
-    from logparser_tpu_torch.parallel import mesh
-
-    op = tables.program.ops[op_index]
-    return mesh.sp_split_plain(mode, buf, offset, lo, hi, op.lit,
-                               halo if mode == mesh.SP_FIND else None, l_total,
-                               tables.charsets[tables.cs_of_op[op_index]] != 0)
-
-
 @pytest.mark.parametrize("fmt,L,shape", [
     ("combined", 384, (2, 4)),
     ("combined", 16384, (1, 4)),
@@ -823,8 +872,12 @@ def _sp_plain(tables, op_index, mode, buf, offset, lo, hi=None, halo=None, l_tot
     ("%h\x00%u\x00%>s", 64, (2, 4)),
 ])
 def test_sp_split_kernel_equals_plain_version(cuda_device, monkeypatch, fmt, L, shape):
-    """The SP runner with every shard on one card: through the kernel,
-    through the plain version on the card, and on the CPU -- all equal."""
+    """The SP runner with every shard on one card: one sp_program launch
+    per data shard, equal to the per-op path (sp_split per op and seq
+    shard), to both over their plain versions on the card, and to the
+    CPU; then sp_program alone on rows that start off 16 bytes and are
+    strided, with lengths past L (the last shard's halo wraps to shard
+    0), against its plain version.  Exact equality."""
     from logparser_tpu_torch.httpd.apache import ApacheLogFormat
     from logparser_tpu_torch.parallel import mesh
     from logparser_tpu_torch.tools.demolog import long_combined_lines
@@ -842,17 +895,90 @@ def test_sp_split_kernel_equals_plain_version(cuda_device, monkeypatch, fmt, L, 
     buf, lengths, overflow = encode_batch(lines[:len(lines) // 8 * 8], line_len=L)
     assert not overflow
     prog = compile_device_program(ApacheLogFormat(fmt))
-    devices = [cuda_device] * 8
-    run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(*shape, devices=devices), L)
+    m = mesh.make_mesh(*shape, devices=[cuda_device] * 8)
+    run = mesh.sequence_parallel_runner(prog, m, L)
+    per_op = mesh._sp_runner(prog, m, L, one_launch=False)
     kernels.reset_launch_counts()
     got = run(buf, lengths)
-    assert kernels.launch_counts()["sp_split"] >= shape[0] * shape[1]
-    monkeypatch.setattr(kernels, "sp_split", _sp_plain)
+    counts = kernels.launch_counts()
+    assert counts["sp_program"] == shape[0] and counts["sp_split"] == 0
+    kernels.reset_launch_counts()
+    op_path = per_op(buf, lengths)
+    counts = kernels.launch_counts()
+    assert counts["sp_split"] >= shape[0] * shape[1] and counts["sp_program"] == 0
+    monkeypatch.setattr(kernels, "sp_program", mesh.sp_program_plain)
+    monkeypatch.setattr(kernels, "sp_split", mesh.sp_split_step_plain)
     want = run(buf, lengths)
+    want_op = per_op(buf, lengths)
     cpu = mesh.sequence_parallel_runner(prog, mesh.make_mesh(*shape, devices=["cpu"] * 8),
                                         L)(buf, lengths)
     for k in ("valid", "starts", "ends"):
+        for other in (op_path, want, want_op):
+            assert torch.equal(got[k], other[k]), k
+        assert torch.equal(got[k].cpu(), cpu[k]), k
+    monkeypatch.undo()
+    B = buf.shape[0]
+    flat = torch.zeros(B * (L + 3) + 5, dtype=torch.uint8, device=cuda_device)
+    rows = flat[5:5 + B * (L + 3)].view(B, L + 3)[:, :L]
+    rows.copy_(torch.from_numpy(buf))
+    dlen = torch.from_numpy(lengths).to(cuda_device)
+    dlen[::7] = L + 3
+    tables = mesh.sp_tables(prog, rows.device)
+    before = kernels.sp_program.launches
+    got = kernels.sp_program(tables, rows, dlen, shape[1])
+    assert kernels.sp_program.launches == before + 1
+    want = mesh.sp_program_plain(tables, rows, dlen, shape[1])
+    for k in ("valid", "starts", "ends"):
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("layout", ["seq_on_distinct_cards", "mixed"])
+@pytest.mark.parametrize("fmt,L", [("combined", 384), ("%h - %u - %{Referer}i", 64)])
+def test_sp_runner_on_distinct_cards_equals_one_card(cuda_device, layout, fmt, L):
+    """The SP runner on a mesh of distinct cards (two or more): seq shards
+    on distinct cards take the per-op path (sp_split per op and seq
+    shard, the combines on the data shard's first card), a data shard
+    whose seq shards share a card one sp_program launch ("mixed": data
+    shard 0 on card 0, data shard 1 across cards 1 and 2).  Equal to the
+    same mesh on one card and to the CPU.  Exact equality."""
+    from logparser_tpu_torch.httpd.apache import ApacheLogFormat
+    from logparser_tpu_torch.parallel import mesh
+    from logparser_tpu_torch.tpu.program import compile_device_program
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA cards")
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    if layout == "mixed":
+        shape, devices = (2, 2), [cards[0], cards[0], cards[1], cards[2 % n_cards]]
+    else:
+        n_seq = 4 if n_cards >= 4 else 2
+        shape, devices = (1, n_seq), cards[:n_seq]
+    if fmt == "combined":
+        lines = _lines()[:3000] + EDGE_LINES[:8]
+    else:
+        rng = np.random.default_rng(L)
+        lines = ["".join(rng.choice(list(" -[]ab12"), size=int(rng.integers(0, L))))
+                 for _ in range(400)] + ["a - b - c"] * 8
+    buf, lengths, overflow = encode_batch(lines[:len(lines) // 8 * 8], line_len=L)
+    assert not overflow
+    prog = compile_device_program(ApacheLogFormat(fmt))
+    run = mesh.sequence_parallel_runner(prog, mesh.make_mesh(*shape, devices=devices), L)
+    kernels.reset_launch_counts()
+    got = run(buf, lengths)
+    counts = kernels.launch_counts()
+    n_steps = sum(2 if op.kind == "until_lit" else 1 for op in prog.ops)
+    if layout == "mixed":
+        assert counts["sp_program"] == 1 and counts["sp_split"] == 2 * n_steps
+    else:
+        assert counts["sp_program"] == 0 and counts["sp_split"] == shape[1] * n_steps
+    one = mesh.sequence_parallel_runner(
+        prog, mesh.make_mesh(*shape, devices=[cuda_device] * 4), L)(buf, lengths)
+    cpu = mesh.sequence_parallel_runner(
+        prog, mesh.make_mesh(*shape, devices=["cpu"] * 4), L)(buf, lengths)
+    for k in ("valid", "starts", "ends"):
+        assert got[k].device == devices[0]
+        assert torch.equal(got[k], one[k].to(devices[0])), k
         assert torch.equal(got[k].cpu(), cpu[k]), k
 
 

@@ -285,3 +285,113 @@ def test_wrappers_check_their_inputs(programs):
     buf[:, 5] = ord(" ")
     assert kernels.sp_split(tables, 0, mesh.SP_FIND, buf, 0, cur, cur + 16,
                             l_total=16).tolist() == [5] * 4
+
+
+# ---------------------------------------------------------------------------
+# The one-launch route (every seq shard of a data shard on one device: the
+# sp_program kernel, here its plain version) against the reference's SP.
+# ---------------------------------------------------------------------------
+
+_EDGE = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0 "x" '
+
+
+def _exact(line: str, n: int) -> str:
+    """A combined line padded in its user-agent to exactly n bytes."""
+    return line[:-1] + "u" * (n - len(line.encode())) + '"'
+
+
+def _sp_edge_lines(fmt: str, L: int):
+    """Lines for the one-launch route over L-byte rows: separators that
+    slide across every shard edge of the meshes below (so the halo is
+    read), a literal ending exactly at the line's length, lines of length
+    0, each shard width and L, user-agents holding an escaped quote, and
+    garbage rows; padded to a multiple of 8 rows."""
+    if fmt == "combined":
+        lines = generate_combined_lines(24, seed=17, garbage_fraction=0.1)
+        lines += [_EDGE + '"esc \\" quote"', _EDGE + '"tail\\"', _EDGE + '"a \\" b \\" c"']
+        lines += [_exact(_EDGE + '"x"', n) for n in (L // 2, L)]
+        lines += [(_EDGE * 2)[:n] for n in (L // 8, L // 4)]
+        lines += [_EDGE.replace("/ ", "/" + "p" * pad + " ") + '"y"' for pad in range(20, 44)]
+        lines += ["", "completely broken line", '"', "x" * L]
+    else:   # "%h - %u - %{Referer}i": a 3-byte separator, halo 2
+        lines = [f"{'h' * pad} - u{pad % 5} - r" for pad in range(0, L - 8)]
+        lines += ["a - b - ", "h" * 13 + " - u - ", "h" * (L - 8) + " - u - ",
+                  " - ", "- -", "", "nosep", "a - b"]
+        lines += [("a - b - " + "r" * L)[:n] for n in (8, 16, 32, 64)]
+    lines += ["garbage"] * (-len(lines) % 8)
+    return lines
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 4), (1, 8), (4, 2)])
+@pytest.mark.parametrize("fmt,L", [("combined", 256), ("%h - %u - %{Referer}i", 64)])
+def test_one_launch_route_matches_reference(fmt, L, shape):
+    """Every seq shard of a data shard on the CPU: the runner takes the
+    one-launch route (``kernels.sp_program``, its plain version here) and
+    equals the reference's ``sequence_parallel_runner`` bit for bit."""
+    lines = _sp_edge_lines(fmt, L)
+    buf, lengths = _encode(lines, L)
+    assert {0, L, L // shape[1]} <= set(lengths.tolist())
+    kernels.reset_launch_counts()
+    got = _sp_both(_programs(fmt), buf, lengths, *shape)
+    assert kernels.launch_counts()["sp_program"] == 0   # the CPU: the plain version
+    assert got["valid"].any() and not got["valid"].all()
+
+
+def test_one_launch_route_equals_the_per_op_route(programs):
+    _, prog = programs
+    lines = _sp_edge_lines("combined", 256)
+    buf, lengths = _encode(lines, 256)
+    for shape in ((2, 4), (1, 8), (4, 2)):
+        m = mesh.make_mesh(*shape)
+        one = mesh.sequence_parallel_runner(prog, m, 256)(buf, lengths)
+        per_op = mesh._sp_runner(prog, m, 256, one_launch=False)(buf, lengths)
+        _assert_equal({k: v.numpy() for k, v in one.items()},
+                      {k: v.numpy() for k, v in per_op.items()})
+
+
+def test_one_launch_route_launches_once_per_data_shard(monkeypatch, programs):
+    """Routed to the kernels (as CUDA tensors are), the runner launches
+    ``sp_program`` once per data shard, on a view of the batch's rows (no
+    copy: the row stride is L), with as many arguments as its C entry
+    point takes; the per-op runner launches ``sp_split`` per op, mode and
+    seq shard.  The launches are recorded instead of made."""
+    _, prog = programs
+    buf, lengths = _encode(generate_combined_lines(16, seed=2), 256)
+    tb, tl = torch.from_numpy(buf), torch.from_numpy(lengths)
+    calls = []
+
+    def record(name, device, *args):
+        assert len(args) + 1 == len(kernels._SIGNATURES[name]), name
+        calls.append((name, args))
+
+    monkeypatch.setattr(kernels, "_route", lambda t: True)
+    monkeypatch.setattr(kernels, "_launch", record)
+    mesh.sequence_parallel_runner(prog, mesh.make_mesh(2, 4), 256)(tb, tl)
+    assert [c[0] for c in calls] == ["sp_program"] * 2
+    for d, (_, args) in enumerate(calls):
+        assert args[0] == tb.data_ptr() + d * 8 * 256 and args[1:5] == (8, 256, 4, 64)
+    calls.clear()
+    mesh._sp_runner(prog, mesh.make_mesh(2, 4), 256, one_launch=False)(tb, tl)
+    n_steps = sum(2 if op.kind == "until_lit" else 1 for op in prog.ops)
+    assert [c[0] for c in calls] == ["sp_split"] * (2 * 4 * n_steps)
+
+
+def test_sp_program_checks_its_inputs(programs):
+    _, prog = programs
+    tables = mesh.sp_tables(prog, CPU)
+    buf = torch.zeros((4, 64), dtype=torch.uint8)
+    lengths = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not split evenly"):
+        kernels.sp_program(tables, buf, lengths, 3)
+    with pytest.raises(TypeError):
+        kernels.sp_program(tables, buf.to(torch.int32), lengths, 4)
+    with pytest.raises(ValueError, match="runs of bytes"):
+        kernels.sp_program(tables, buf.t(), lengths, 4)
+    with pytest.raises(ValueError, match="halo"):   # '" "' needs 2 bytes, a shard has 1
+        kernels.sp_program(tables, torch.zeros((4, 64), dtype=torch.uint8), lengths, 64)
+    with pytest.raises(TypeError):
+        kernels.sp_program(tables, buf, lengths.to(torch.int64), 4)
+    out = kernels.sp_program(tables, buf, lengths, 4)
+    assert out["valid"].dtype == torch.bool and out["starts"].shape == (len(prog.tokens), 4)
+    empty = kernels.sp_program(tables, buf[:0], lengths[:0], 4)
+    assert empty["valid"].shape == (0,)
