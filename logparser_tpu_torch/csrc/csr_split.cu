@@ -60,6 +60,7 @@
 // Bound: bytes -- the query span (at most W bytes a line) read once, the
 // input rows read and the 2 * slots + 2 output rows written once.
 
+#include "line_stage.cuh"
 #include "lp_common.cuh"
 
 namespace {
@@ -170,11 +171,11 @@ __device__ __forceinline__ void raw_span(const Args& a, int b, int& s, int& e, b
   }
 }
 
-// Whether the aligned 16-byte chunk at q lies inside the [B, L] buffer (an
-// aligned load around a span may reach past either end of it).
-__device__ __forceinline__ bool in_buf(const Args& a, const uint4* q) {
-  const uint8_t* c0 = reinterpret_cast<const uint8_t*>(q);
-  return c0 >= a.buf && c0 + 16 <= a.buf + static_cast<size_t>(a.B) * a.L;
+// The aligned 16-byte chunk at q, its bytes past either end of the [B, L]
+// buffer read as 0 (an aligned load around a span may reach past them).
+__device__ __forceinline__ uint4 chunk_at(const Args& a, const uint4* q) {
+  return lp::load16_in(reinterpret_cast<const uint8_t*>(q), a.buf,
+                       a.buf + static_cast<size_t>(a.B) * a.L);
 }
 
 // The span as the split takes it: a token's ok is "not a lone '-'", a
@@ -242,20 +243,12 @@ __device__ __forceinline__ void short_line(const Args& a, const uint8_t* cls, in
     const uint4* q = reinterpret_cast<const uint4*>(at & ~static_cast<uintptr_t>(15));
     const int skew = static_cast<int>(at & 15);
     for (int ch = 0; 16 * ch < skew + len; ++ch) {
-      if (in_buf(a, q + ch)) {
-        const uint4 v = __ldg(q + ch);
-        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+      const uint4 v = chunk_at(a, q + ch);
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int i = 16 * ch + j - skew;
-          if (i >= 0 && i < len) classify((w[j >> 2] >> (8 * (j & 3))) & 0xFF, i);
-        }
-      } else {   // the span's bytes alone: no load outside the buffer
-        const uint8_t* c0 = reinterpret_cast<const uint8_t*>(q + ch);
-        for (int j = 0; j < 16; ++j) {
-          const int i = 16 * ch + j - skew;
-          if (i >= 0 && i < len) classify(c0[j], i);
-        }
+      for (int j = 0; j < 16; ++j) {
+        const int i = 16 * ch + j - skew;
+        if (i >= 0 && i < len) classify((w[j >> 2] >> (8 * (j & 3))) & 0xFF, i);
       }
     }
   } else {
@@ -355,18 +348,7 @@ __global__ void __launch_bounds__(WARPS * 32) csr_split_kernel(Args a) {
           const int n_chunks = static_cast<int>((a1 - a0) >> 4);
           const uint4* src = reinterpret_cast<const uint4*>(a0);
           uint4* dst = reinterpret_cast<uint4*>(frame);
-          for (int i = lane; i < n_chunks; i += 32) {
-            if (in_buf(a, src + i)) {
-              dst[i] = __ldg(src + i);
-            } else {   // the chunk's bytes in the buffer alone (the span's among them)
-              const uint8_t* c0 = reinterpret_cast<const uint8_t*>(src + i);
-              for (int j = 0; j < 16; ++j) {
-                if (c0 + j >= a.buf && c0 + j < a.buf + static_cast<size_t>(a.B) * a.L) {
-                  frame[16 * i + j] = c0[j];
-                }
-              }
-            }
-          }
+          for (int i = lane; i < n_chunks; i += 32) dst[i] = chunk_at(a, src + i);
           sh = static_cast<int>(at & 15) - lo;
         } else {
           for (int p = lo + lane; p < hi; p += 32) {

@@ -4,7 +4,8 @@ cases, on one card, in one process.
     python3 -m logparser_tpu_torch.tools.kernel_variants KERNEL VARIANTS.json   # from the root
 
 VARIANTS.json maps a variant's name to a list of [old, new] text
-substitutions on ``csrc/KERNEL.cu`` (each ``old`` must occur).  Each
+substitutions on ``csrc/KERNEL.cu`` (each ``old`` must occur; a ``new``
+may include a header that lies beside VARIANTS.json).  Each
 variant is built with nvcc into a temporary directory and run through
 this checkout's wrapper with its library swapped in (as kernel_ab runs a
 parent).  A variant is held to the plain version bit for bit unless its
@@ -43,6 +44,7 @@ def main(argv) -> int:
 
     name = argv[0]
     variants = json.loads(Path(argv[1]).read_text())
+    beside = Path(argv[1]).resolve().parent
     src = (kernels.CSRC / f"{name}.cu").read_text()
     smi = smoke.card_line()
     kernels.build()
@@ -59,7 +61,8 @@ def main(argv) -> int:
             path = Path(tmp) / f"{name}_{v}.cu"
             path.write_text(text)
             procs[v] = (text, subprocess.Popen(
-                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-I", str(beside),
+                 "-o",
                  str(Path(tmp) / f"lib{name}_{v}.so"), str(path)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for v, (text, proc) in procs.items():

@@ -12,6 +12,7 @@ sources.  ``tests/test_torch_cookies_config.py`` holds the configuration as a
 whole.  Every comparison is exact.
 """
 import re
+import types
 
 import numpy as np
 import pytest
@@ -206,3 +207,60 @@ def test_ctypes_signatures_match_the_c_sources():
         params = [p.strip() for p in m.group(1).split(",")]
         want = [kernels._P if "*" in p else kernels._INT for p in params]
         assert kernels._SIGNATURES[name] == want, name
+
+
+@pytest.mark.parametrize("slots", [16, 32])
+@pytest.mark.parametrize("L", [384, 2048])
+def test_split_setcookie_on_seeded_spans_matches_reference(L, slots):
+    """The seeded edge cases of the setcookie_split kernel (tools.kernel_ab.
+    seeded_setcookie_case: expires= 14 and 15 bytes before a part's end, a
+    double hold, a held last part, SeT-CoOkIe prefixes, one read past the
+    span, a ", " as the last two bytes, more parts than slots, spans past
+    L): the plain split equals the reference's on every slot output, bad
+    and overflow."""
+    from logparser_tpu_torch.tools.kernel_ab import (seeded_setcookie_case,
+                                                     setcookie_tile_kinds)
+
+    buf, s, e = seeded_setcookie_case(320, L, slots, seed=L + slots)
+    kinds = setcookie_tile_kinds(s, e, L)
+    assert min(kinds) >= 1   # tiles with nothing to walk, one round, more rounds
+    ours = postproc.split_setcookie_csr(_t(buf), _t(s), _t(e), slots)
+    ref = ref_postproc.split_setcookie_csr(jnp.asarray(buf), jnp.asarray(s),
+                                           jnp.asarray(e), slots)
+    for k in ("seg_start", "seg_end", "name_end", "emit"):
+        for i, (a, b) in enumerate(zip(ours[k], ref[k])):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"{k}[{i}]")
+    for k in ("bad", "overflow"):
+        np.testing.assert_array_equal(ours[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    assert ours["bad"].any() and ours["overflow"].any() and (~ours["overflow"]).any()
+
+
+@pytest.mark.parametrize("L", [384, 2048])
+def test_setcookie_slots_past_the_end_are_zero(L):
+    """The premise setcookie_split's dead slots rest on, shown on the plain
+    version over the seeded spans: once the cursor has reached the span's
+    end, every later slot is two zero words and adds no bad -- the words of
+    32 slots are those of 16 followed by zeros wherever the cursor had
+    passed the end after 16, and bad is the same there."""
+    from logparser_tpu_torch.tools.kernel_ab import seeded_setcookie_case
+    from logparser_tpu_torch.tpu import pipeline
+
+    buf, s, e = seeded_setcookie_case(320, L, 16, seed=L)
+    B = len(s)
+    out = {}
+    for slots in (16, 32):
+        t = types.SimpleNamespace(token_index=0, slots=slots, words=0, ok=2 * slots,
+                                  bad=2 * slots + 1, over=2 * slots + 2)
+        comps = torch.zeros((2 * slots + 3, B), dtype=torch.int32)
+        pipeline.setcookie_split_plain(t, _t(buf), _t(s)[None], _t(e)[None], comps)
+        sc = postproc.split_setcookie_csr(_t(buf), _t(s), _t(e), slots)
+        out[slots] = (comps.numpy(), np.stack([c.numpy() for c in sc["seg_start"]]))
+    (c16, cur16), (c32, cur32) = out[16], out[32]
+    for k in range(32):
+        past = cur32[k] >= e
+        assert (c32[2 * k][past] == 0).all() and (c32[2 * k + 1][past] == 0).all()
+    done = cur32[16] >= e
+    assert done.sum() > B // 2 and (~done).any()
+    np.testing.assert_array_equal(c32[:32, done], c16[:32, done])
+    assert (c32[32:64, done] == 0).all()
+    np.testing.assert_array_equal(c32[65, done], c16[33, done])

@@ -762,6 +762,97 @@ def test_csr_split_kernel_on_seeded_spans(cuda_device, mode, L, slots, offset):
     assert got[c.over].any() and (got[c.ok] != 0).any()
 
 
+def _offset_buffer(buf, offset, device):
+    """buf on the card, ``offset`` bytes past an allocation."""
+    flat = torch.zeros(buf.size + offset, dtype=torch.uint8, device=device)
+    dbuf = flat[offset:].view(buf.shape)
+    dbuf.copy_(torch.from_numpy(buf))
+    return dbuf
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("slots", [16, 128])
+@pytest.mark.parametrize("L", [384, 2048, 8191])
+def test_uri_split_kernel_on_seeded_spans(cuda_device, L, slots, offset):
+    """uri_split against its plain version on the seeded edge cases
+    (tools.kernel_ab.seeded_uri_case: '@' and ':' in userinfo and port,
+    19- and 20-digit ports, [::1], mailto:, a +.- scheme, '-', '%' and '%X'
+    at the window's end, spans the window cuts, across 16-byte boundaries
+    and past L), both URI groups of the URI chain (the first line's rows
+    with a random ok row, the referer's token), windowed or not as the
+    slots make the window.  Every tile kind the window allows runs: tiles
+    whose frames are all staged in shared memory, tiles with none staged
+    (longer than the staged runs), mixed tiles; a window of at most 241
+    bytes stages every frame, and there the window's clamp runs (spans
+    past L).  ``offset`` starts
+    the buffer that many bytes past an allocation.  Exact equality."""
+    from logparser_tpu_torch.tools.kernel_ab import (seeded_uri_case, uri_byte_walks,
+                                                     uri_clamped, uri_tile_kinds)
+
+    (t,) = _grown(TorchBatchParser("combined", URI_CHAIN_FIELDS, device=cuda_device),
+                  slots).executor.unit_tables
+    rng = np.random.default_rng(L + slots)
+    for u in t.uri:
+        buf, s, e = seeded_uri_case(2000, L, u.window, seed=L + slots)
+        kinds = uri_tile_kinds(s, e, L, u.window, offset)
+        if u.window < L and u.window <= 241:   # every frame staged, some clamped
+            assert uri_byte_walks(s, e, L, u.window, offset) == 0
+            assert kinds[0] >= 3 and uri_clamped(s, e, L, u.window).sum() >= 32
+        else:
+            assert min(kinds) >= 3 and uri_byte_walks(s, e, L, u.window, offset) >= 32
+        B = buf.shape[0]
+        dbuf = _offset_buffer(buf, offset, cuda_device)
+        base = torch.from_numpy(rng.integers(-9, 9, size=(t.n_comp, B), dtype=np.int32))
+        starts = torch.zeros((u.token_index + 1, B), dtype=torch.int32)
+        ends = torch.zeros_like(starts)
+        starts[u.token_index], ends[u.token_index] = torch.from_numpy(s), torch.from_numpy(e)
+        if u.src[0] >= 0:
+            base[u.src[0]], base[u.src[1]] = torch.from_numpy(s), torch.from_numpy(e - s)
+            base[u.src[2]] = torch.from_numpy((rng.random(B) < 0.9).astype(np.int32))
+        starts, ends, base = starts.to(cuda_device), ends.to(cuda_device), base.to(cuda_device)
+        got = kernels.uri_split(u, dbuf, starts, ends, base.clone())
+        want = pipeline.uri_split_plain(u, dbuf, starts, ends, base.clone())
+        assert torch.equal(got, want), u.src
+        assert got[u.over].any() == (u.window < L)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("slots", [16, 128])
+@pytest.mark.parametrize("L", [384, 2048, 8191])
+def test_setcookie_split_kernel_on_seeded_spans(cuda_device, L, slots, offset):
+    """setcookie_split against its plain version on the seeded edge cases
+    (tools.kernel_ab.seeded_setcookie_case: expires= 14 and 15 bytes
+    before a part's end, a double hold, a held last part, SeT-CoOkIe
+    prefixes, one read past the span, a ", " as the last two bytes, more
+    parts than slots, a ", " and an expires= across a staged run's end,
+    spans past L), the cookies parser's Set-Cookie group at ``slots``, the
+    block's rows random.  Every tile kind runs: tiles with no byte to walk,
+    tiles walked in one 128-byte round, tiles walked in more rounds.
+    ``offset`` starts the buffer that many bytes past an allocation.  Exact
+    equality."""
+    from logparser_tpu_torch.tools.kernel_ab import (seeded_setcookie_case,
+                                                     setcookie_tile_kinds)
+
+    (t,) = _cookie_parser(cuda_device, slots).executor.unit_tables
+    (c,) = [c for c in t.csr if c.mode == "setcookie"]
+    assert c.slots == slots
+    buf, s, e = seeded_setcookie_case(2000, L, slots, seed=L + slots)
+    kinds = setcookie_tile_kinds(s, e, L, offset)
+    assert min(kinds) >= 3
+    B = buf.shape[0]
+    dbuf = _offset_buffer(buf, offset, cuda_device)
+    rng = np.random.default_rng(L + slots)
+    base = torch.from_numpy(rng.integers(-9, 9, size=(t.n_comp, B), dtype=np.int32))
+    starts = torch.zeros((c.token_index + 1, B), dtype=torch.int32)
+    ends = torch.zeros_like(starts)
+    starts[c.token_index], ends[c.token_index] = torch.from_numpy(s), torch.from_numpy(e)
+    starts, ends, base = starts.to(cuda_device), ends.to(cuda_device), base.to(cuda_device)
+    got = kernels.setcookie_split(c, dbuf, starts, ends, base.clone())
+    want = pipeline.setcookie_split_plain(c, dbuf, starts, ends, base.clone())
+    assert torch.equal(got, want)
+    assert got[c.bad].any() and got[c.over].any() and (got[c.ok] == 0).any()
+
+
 def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):
     lines = cookie_lines(4000, seed=52) + cookie_edge_lines()
     kernels.reset_launch_counts()

@@ -170,3 +170,31 @@ def test_uri_chain_rows_match_reference(L, slots, fields):
     assert first_mismatch(ref.units, specs, got, want) is None
     over = (got[0] & pipeline.CSR_OVERFLOW_BIT) != 0
     assert over[len(uri_edge_lines()) - 1] and over.sum() < 8
+
+
+@pytest.mark.parametrize("L", [384, 2048])
+@pytest.mark.parametrize("window", [192, None])
+def test_split_uri_on_seeded_spans_matches_reference(L, window):
+    """The seeded edge cases of the uri_split kernel (tools.kernel_ab.
+    seeded_uri_case: '@' and ':' in userinfo and port, 19- and 20-digit
+    ports, [::1], mailto:, a +.- scheme, '-', '%' and '%X' at the window's
+    end, a span the window cuts, spans across a 16-byte boundary and past
+    L), windowed at 192 bytes (16 slots) and unwindowed, with the CLF dash:
+    the plain split equals the reference's on every output."""
+    from logparser_tpu_torch.tools.kernel_ab import (seeded_uri_case, uri_byte_walks,
+                                                     uri_clamped, uri_tile_kinds)
+
+    W = window or L
+    buf, s, e = seeded_uri_case(256, L, W, seed=L + W)
+    assert uri_tile_kinds(s, e, L, W)[0] >= 1
+    assert uri_byte_walks(s, e, L, W) > 0 or uri_clamped(s, e, L, W).any()
+    dash = (e - s == 1) & (buf[np.arange(len(s)), np.minimum(s, L - 1)] == ord("-"))
+    ours = postproc.split_uri_fast(_t(buf), _t(s), _t(e), dash=_t(dash), window=window)
+    ref = ref_postproc.split_uri_fast(jnp.asarray(buf), jnp.asarray(s), jnp.asarray(e),
+                                      dash=jnp.asarray(dash), window=window)
+    assert set(ours) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    assert ours["path_fix"].any() and ours["query_fix"].any() and ours["userinfo_fix"].any()
+    assert (~ours["ok"]).any() and (~ours["host_null"]).any()
+    assert ours["overflow"].any() == (window is not None)
