@@ -42,6 +42,10 @@ first phase that fails:
    the same way (``library_ms``, ``library_enqueue_ms``), the plain
    version's median over 5 runs, each after an L2 flush, events around
    the enqueue as well (``plain_ms``);
+   4b. ``span_stages_seeded`` and ``pack_rows_seeded``: the two kernels
+   on tools/kernel_ab.py's seeded edge cases (seeded_span_case under
+   seeded_stage_tables; seeded_pack_case's lines of eight formats), equal
+   to their plain versions;
 5. end to end -- TorchBatchParser(...).parse_batch on the card, with the
    launch counts zeroed just before and read just after, compared with
    the same parser on the CPU (to_dict and needs_host); then a small batch
@@ -502,6 +506,9 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
         *pack_cost(ex, all_comps.shape[0], B),
     )
 
+    # ---- 4b. the seeded edge cases of span_stages and pack_rows -----------
+    seeded_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase)
+
     # ---- 5. end to end -------------------------------------------------
     gpu.parse_batch(lines[:4096])  # warm the caching allocator
     kernels.reset_launch_counts()
@@ -568,6 +575,43 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
 
     # ---- 12. streams -----------------------------------------------------
     stream_phases(torch, TorchBatchParser, kernels, smi)
+
+
+def seeded_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase):
+    """Section 4b: span_stages on tools.kernel_ab's seeded spans (every
+    task kind over two tokens) and pack_rows on its seeded lines of eight
+    formats (every line-constraint kind, contested lines, view fields
+    that several units decode), each equal to its plain version."""
+    from logparser_tpu_torch.tools import kernel_ab
+
+    buf, s, e = kernel_ab.seeded_span_case(N_LINES + 11, 384, seed=13)
+    stages = kernel_ab.seeded_stage_tables(pipeline).cuda()
+    dbuf, starts, ends = (torch.from_numpy(x).cuda() for x in (buf, s, e))
+    B, L = buf.shape
+    phase("span_stages_seeded",
+          lambda: kernels.span_stages(stages, dbuf, starts, ends),
+          lambda: pipeline.span_stages_plain(
+              stages, dbuf, starts, ends,
+              torch.empty((stages.n_out, B), dtype=torch.int32, device="cuda")),
+          *span_stages_cost(torch, pipeline, stages, starts, ends, B, L),
+          kernel="span_stages", n=B, width=L)
+
+    lines = kernel_ab.seeded_pack_case(N_LINES + 11, seed=13)
+    buf, lengths, _ = runtime.encode_batch(lines)
+    B, L = buf.shape
+    ex = TorchBatchParser(kernel_ab.SEEDED_PACK_FORMAT, kernel_ab.SEEDED_PACK_FIELDS).executor
+    flags, comps = ex.components(torch.from_numpy(buf).cuda(), torch.from_numpy(lengths).cuda())
+    want = pipeline.pack_rows_plain(ex.pack, flags, comps)
+    contested = kernel_ab.contested_lines(want.cpu().numpy(), ex.pack)
+    kinds = sorted({kind for _, kind in ex.pack.cons_py})
+    if ex.pack.U != pipeline.MAX_UNITS or not contested or kinds != list(range(5)):
+        fail(f"the seeded pack lines lost their premise: {ex.pack.U} units, "
+             f"{contested} contested lines, constraint kinds {kinds}")
+    phase("pack_rows_seeded",
+          lambda: kernels.pack_rows(ex.pack, flags, comps),
+          lambda: pipeline.pack_rows_plain(ex.pack, flags, comps),
+          *pack_cost(ex, comps.shape[0], B), kernel="pack_rows", n=B, width=L,
+          extra={"units": ex.pack.U, "contested": contested, "K": ex.pack.K})
 
 
 def run_program_phase(torch, kernels, pipeline, runtime, phase, unit, dbuf, dlen, B, L):

@@ -45,37 +45,6 @@ struct LongFrame {
   bool digits_ok;
 };
 
-__device__ __forceinline__ LongFrame long_frame(const Row& row, int s, int n) {
-  LongFrame f{0u, 0u, 0u, true};
-  for (int i = 0; i < 19; ++i) {
-    const uint32_t d = static_cast<uint32_t>(row.at(s, i) - '0') & 0xFFu;
-    const bool in_span = i < n;
-    if (in_span && d > 9) f.digits_ok = false;
-    const uint32_t dd = in_span ? d : 0u;
-    if (i < 9) f.hi = f.hi * 10u + dd;
-    else if (i < 18) f.lo = f.lo * 10u + dd;
-    else f.d18 = dd;
-  }
-  return f;
-}
-
-// The reference's span_prefix_words: word w holds bytes 4w..4w+3 of the
-// span (little-endian), bytes at or past n zeroed, all zero unless live;
-// with amp a leading '?' renders as '&'.
-__device__ __forceinline__ uint32_t prefix_word(const Row& row, int s, int n,
-                                                bool live, bool amp, int w) {
-  uint32_t word = 0;
-  if (!live) return 0;
-  for (int j = 0; j < 4; ++j) {
-    const int i = 4 * w + j;
-    if (i >= n) break;
-    int c = row.at(s, i);
-    if (i == 0 && amp && c == '?') c = '&';
-    word |= static_cast<uint32_t>(c) << (8 * j);
-  }
-  return word;
-}
-
 inline int grid_for(int n, int threads) {
   long long blocks = (static_cast<long long>(n) + threads - 1) / threads;
   if (blocks > (1 << 20)) blocks = 1 << 20;

@@ -9,7 +9,7 @@ DIR holds the parent's ``csrc`` sources (the ``.cu`` files and the headers
 they include; ``.kernel_ab_parent/`` is git-ignored for it).  KERNEL picks
 the kernels to compare -- ``zone_lookup``, ``geo_lookup``, ``split``,
 ``agg_reduce``, ``csr_split``, ``sp_program``, ``uri_split``,
-``setcookie_split`` -- all eight by default.
+``setcookie_split``, ``pack_rows``, ``span_stages`` -- all ten by default.
 
 The parent's kernels are built with nvcc into a temporary directory.  Each
 runs through this checkout's wrapper (``kernels.split`` and so on) with the
@@ -49,7 +49,17 @@ the same host enqueue.  The cases:
 - ``setcookie_split_16`` and ``setcookie_split_128`` (the Set-Cookie group
   on the cookies batch, L = 2,048, its tables grown to 16 and 128 slots)
   and ``setcookie_split_seeded`` (the 128-slot group on
-  :func:`seeded_setcookie_case`'s 65,536 spans, L = 2,048).
+  :func:`seeded_setcookie_case`'s 65,536 spans, L = 2,048);
+- ``pack_rows_headline`` (the headline batch), ``pack_rows_uri_16`` and
+  ``pack_rows_uri_128`` (a pass of the URI chain's batch under its tables
+  grown to 16 and 128 slots), ``pack_rows_cookies`` (the cookies batch,
+  16 slots) and ``pack_rows_seeded`` (:func:`seeded_pack_case`'s 65,547
+  lines of the eight formats of ``SEEDED_PACK_FORMAT``), each on the
+  flags and components the executor computes for it on the card;
+- ``span_stages_headline``, ``span_stages_uri`` and
+  ``span_stages_nginx_timing`` (the secmillis task) on their batches'
+  cursors, and ``span_stages_seeded`` (:func:`seeded_span_case`'s 65,547
+  lines, L = 384, under :func:`seeded_stage_tables`).
 
 Each case holds parent and change to the plain version bit for bit (a
 difference fails the run), except that a case which names a known
@@ -59,7 +69,10 @@ places where the parent differs (``parent_differs_at``), and its parent
 times are those of a wrong kernel.  Then it times them with
 chip_smoke.DeviceClock in turns (parent, change, change, parent; the
 library call after) and prints one JSON line: each turn's device ms and
-host enqueue ms, the bound (chip_smoke's cost functions) and the card.
+host enqueue ms, the bound (chip_smoke's cost functions), ``copy_ms`` (one
+device copy of the case's bytes, half read and half written, timed the
+same way: what a kernel at the HBM rate takes behind this clock's L2
+flush) and the card.
 Then the card's name and power limit, and a last line ``{"ok": true,
 ...}``.  Needs a CUDA card and ``nvcc``.
 """
@@ -83,7 +96,7 @@ from ..analytics import device as agg_device
 
 REPS = 25
 CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce", "csr_split",
-                "sp_program", "uri_split", "setcookie_split")
+                "sp_program", "uri_split", "setcookie_split", "pack_rows", "span_stages")
 NO_PARENT_LIBRARY = ("sp_program",)   # its "parent" is the per-op path
 SEEDED_B = (4095, 4096, 4097, 65547, 262144)
 
@@ -583,6 +596,211 @@ def seeded_setcookie_case(B: int, L: int, slots: int, seed: int):
     return buf, start, end
 
 
+_SPAN_ALPHABET = np.frombuffer(b"GET /HTP1.0 2-x9a.\\:?=\x80", dtype=np.uint8)
+
+
+def _span_crafted(L: int) -> List[bytes]:
+    """The crafted span texts of :func:`seeded_span_case`."""
+    path = b"/" + b"p" * 150
+    return [
+        b"GET /a HTTP/1.1", b"GET /x", b"GET", b"POST  /y  HTTP/2.0", b"-", b"",
+        b"GET / HTTP/1.1.1", b"A B HTTP/1.", b"A B HTTP/x.1", b"A B HTTP/10.25",
+        b"A B HTTP/.1", b"A B HTTPS/1.1", b"A B http/1.1", b"A B HTTP/1", b"A B HTTP/1.1 ",
+        b" A B HTTP/1.1", b"A  HTTP/1.1", b"A B HTTP/1.0x", b"A B HTTP/\x801.1", b"A B HTTP/",
+        b"A B HTTP/11", b"A B HTTP/1..1", b"A B HTTP/1.1/", b"A B /HTTP/1.1", b"A HTTP/1.1",
+        b"GET " + path + b" HTTP/1.1",                 # past 128 bytes
+        b"GET /" + b"q" * (L + 10) + b" HTTP/1.1",     # past L: cut there
+        b"GET " + b"/r" * 58 + b" HTTP/1.1",           # the version across byte 128
+        b"0", b"00", b"007", b"9" * 19, b"1" * 20, b"9" * 25, b"12a4", b"-5", b" 12",
+        b"1234567890123456789", b"0000000000000000001",
+        b"1700000000.123", b"1.234", b".123", b"12345", b"1234567890123456.123",
+        b"12345678901234567.123", b"1700000000.12a", b"1700000000,123", b"1.2345", b"-.123",
+    ]
+
+
+def seeded_span_case(B: int, L: int, seed: int):
+    """(buf [B, L] uint8, starts [2, B] int32, ends [2, B] int32) on the
+    CPU: spans for ``span_stages`` over two tokens.  Token 0: the crafted
+    texts (:func:`_span_crafted`: request lines with no space, one space,
+    doubled spaces, past 128 bytes and past L, the version across byte 128,
+    ``HTTP/`` heads with bad versions; a lone '-'; longs of 0, 19, 20 and 25
+    digits, leading zeros, garbage digits; secmillis spans of 4 to 23
+    bytes), each at the row's start, at byte 14 (across a 16-byte
+    boundary), ending at the line's end, and running 40 bytes past L; each
+    again with its start and end raised by a multiple of the gather mask's
+    span (bits above the mask: Row::at reads the same bytes, the first-line
+    scan none); the odd spans (4, 2), (L, L), (L - 3, L + 40), (0, L),
+    (-3, 5).  Then random rows in tiles of 32 in turn: request-shaped lines
+    of 20 to 300 bytes (a tile whose lines all pass 128 bytes reads past the
+    staged run), secmillis spans of 4 to 20 digits and dots starting at
+    bytes 0 to 3, random spans of the alphabet.  Token 1: a random span of
+    the same line (its start from -2 to L + 5, its length from -3 to
+    150)."""
+    rng = np.random.default_rng(seed)
+    buf = rng.choice(_SPAN_ALPHABET, size=(B, L)).astype(np.uint8)
+    start = np.zeros(B, dtype=np.int32)
+    end = np.zeros(B, dtype=np.int32)
+    high = 1 << max(int(L - 1).bit_length(), 1)   # the gather mask + 1
+    placed, raised = [], []
+    for text in _span_crafted(L):
+        text = text[:L]
+        for at in dict.fromkeys((0, min(14, L - 1), max(L - len(text), 0))):
+            placed.append((at, text))
+            raised.append((at, text))
+        placed.append((max(L - len(text) // 2 - 1, 0), text, len(text), 40))
+    placed += [(None, (4, 2)), (None, (L, L)), (None, (L - 3, L + 40)), (None, (0, L)),
+               (None, (-3, 5))]
+    rows = _rows_of(B, [placed, raised], lambda r: None)
+    for row, item in enumerate(rows):
+        if item is None:
+            kind = (row // LINE_TILE) % 3
+            if kind == 0:   # a request line
+                n = int(rng.integers(20, 301))
+                text = (b"GET /" + bytes(rng.choice(_SPAN_ALPHABET, size=n))
+                        + b" HTTP/1." + b"%d" % rng.integers(0, 10))
+                at = int(rng.integers(0, max(L - len(text), 1)))
+                item = (at, text[:L - at])
+            elif kind == 1:   # secmillis-shaped
+                n = int(rng.integers(4, 21))
+                text = bytes(rng.choice(np.frombuffer(b"0123456789" * 3 + b".", np.uint8),
+                                        size=n))
+                item = (int(rng.integers(0, 4)), text)
+            else:
+                s = int(rng.integers(0, L))
+                item = (None, (s, min(s + int(rng.integers(0, 120)), L + 3)))
+        _place(buf, start, end, row, item)
+    k = len(placed) + (-len(placed) % LINE_TILE)
+    # The raised copies: the same bytes, the span's bits above the mask set.
+    n_raised = min(len(raised), max(B - k, 0))
+    lift = high * rng.integers(1, 4, size=n_raised)
+    start[k:k + n_raised] += lift.astype(np.int32)
+    end[k:k + n_raised] += lift.astype(np.int32)
+    s1 = rng.integers(-2, L + 6, size=B)
+    e1 = s1 + rng.integers(-3, 151, size=B)
+    return (buf, np.stack([start, s1.astype(np.int32)]),
+            np.stack([end, e1.astype(np.int32)]))
+
+
+def seeded_stage_tables(pipeline):
+    """StageTables over seeded_span_case's two tokens holding every task
+    kind: on token 0 each span part (0 to 7) with its prefix words, a
+    plain long, a CLF long, a zero_null long and a secmillis task; on
+    token 1 a second first line (its method, URI and protocol split, with
+    prefixes), a direct span and a CLF long."""
+    uc = pipeline._UnitComps()
+    rows = 0
+
+    def take(n):
+        nonlocal rows
+        rows += n
+        return list(range(rows - n, rows))
+
+    def span(tok, part):
+        out = take(4)
+        uc.tasks.append((pipeline.TASK_SPAN, tok, part, 0, *out, 0, 0, 0, take(3)[0]))
+
+    def long(tok, part, clf):
+        out = take(7)
+        lead = take(1)[0] if part == pipeline.LONG_ZERO_NULL else -1
+        uc.tasks.append((pipeline.TASK_LONG, tok, part, clf, *out, lead))
+
+    for part in range(8):
+        span(0, part)
+    long(0, pipeline.LONG_PLAIN, 0)
+    long(0, pipeline.LONG_PLAIN, 1)
+    long(0, pipeline.LONG_ZERO_NULL, 1)
+    uc.tasks.append((pipeline.TASK_SECMILLIS, 0, 0, 0, *take(8)))
+    for part in (pipeline.PART_METHOD, pipeline.PART_URI, pipeline.PART_PV_PROTOCOL,
+                 pipeline.PART_PV_VERSION, pipeline.PART_DIRECT):
+        span(1, part)
+    long(1, pipeline.LONG_PLAIN, 1)
+    uc.n_stage_rows = rows
+    return pipeline.StageTables(uc)
+
+
+# Eight formats (MAX_UNITS) over the same fields: every line-constraint kind
+# (a URI window's and a query string's overflow, a required long, the
+# zero_null leading zero of %B under BYTESCLF, and the probe unit of the
+# format the split cannot run, "%h%l"), and view fields that seven units
+# decode.
+SEEDED_PACK_FORMATS = (
+    "combined",
+    '%h %l %u %t "%r" %>s %B',
+    '%h%l %u %t "%r" %>s %b',
+    "common",
+    '%h %u "%r" %>s %b',
+    '%u %h "%r" %b %>s',
+    '%h %l %u %t "%r" %>s %B "%{Referer}i"',
+    '%>s %h %u "%r" %b',
+)
+SEEDED_PACK_FORMAT = "\n".join(SEEDED_PACK_FORMATS)
+SEEDED_PACK_FIELDS = [
+    "IP:connection.client.host", "HTTP.URI:request.firstline.uri",
+    "HTTP.PATH:request.firstline.uri.path", "STRING:request.firstline.uri.query.*",
+    "HTTP.HOST:request.firstline.uri.host", "BYTESCLF:response.body.bytes",
+    "STRING:request.status.last", "STRING:connection.client.user",
+]
+_COMBINED = re.compile(r'^(\S+) (\S+) (\S+) (\[[^\]]*\]) "([^"]*)" (\S+) (\S+) "([^"]*)" "([^"]*)"$')
+_PACK_BYTES = ("0", "00", "007", "-", "12a", "1" * 20, "9" * 19, "", "5")
+_PACK_URIS = ("/p?" + "&".join(f"k{i}=v" for i in range(40)),     # more keys than slots
+              "/" + "u" * 400,                                     # past the URI's window
+              "http://h.com:80/x?a=1", "/p?a=%zz", "-", "/a b", "")
+
+
+def seeded_pack_case(B: int, seed: int) -> List[str]:
+    """B lines for ``SEEDED_PACK_FORMAT``: generated combined lines
+    rendered in each of its eight formats in turn (the "%h%l" format as its
+    probe unit reads it), a third of them with one field replaced: the
+    bytes by a leading zero, a dash, garbage, 19 or 20 digits or nothing;
+    the request's URI by a query string with more keys than slots, a path
+    past the URI window, an authority, a bad escape; the status or host
+    by garbage.  An earlier format then often finds a line plausible but
+    invalid while a later one takes it (contested lines), or none does."""
+    rng = np.random.default_rng(seed)
+    from .demolog import generate_combined_lines
+
+    base = generate_combined_lines(max(B // 4, 1), seed=seed)
+    out = []
+    for i in range(B):
+        m = _COMBINED.match(base[i % len(base)])
+        h, l, u, t, r, s, b, ref, ua = m.groups() if m else ("1.2.3.4", "-", "-", "[x]",
+                                                             "GET / HTTP/1.1", "200", "0",
+                                                             "-", "-")
+        if rng.random() < 1 / 3:
+            what = int(rng.integers(0, 4))
+            if what == 0:
+                b = _PACK_BYTES[int(rng.integers(0, len(_PACK_BYTES)))]
+            elif what == 1:
+                method, _, rest = r.partition(" ")
+                r = f"{method} {_PACK_URIS[int(rng.integers(0, len(_PACK_URIS)))]} HTTP/1.1"
+            elif what == 2:
+                s = ("2x0", "", "-", "9999")[int(rng.integers(0, 4))]
+            else:
+                h = ("", "a b", "-", "1.2.3.4.5")[int(rng.integers(0, 4))]
+        fmt = i % len(SEEDED_PACK_FORMATS)
+        out.append([
+            f'{h} {l} {u} {t} "{r}" {s} {b} "{ref}" "{ua}"',
+            f'{h} {l} {u} {t} "{r}" {s} {b}',
+            f'{h}{l} {u} {t} "{r}" {s} {b}',
+            f'{h} {l} {u} {t} "{r}" {s} {b}',
+            f'{h} {u} "{r}" {s} {b}',
+            f'{u} {h} "{r}" {b} {s}',
+            f'{h} {l} {u} {t} "{r}" {s} {b} "{ref}"',
+            f'{s} {h} {u} "{r}" {b}',
+        ][fmt])
+    return out
+
+
+def contested_lines(packed: np.ndarray, pack) -> int:
+    """Lines whose winner (the first unit with row 0 valid) has an earlier
+    unit still plausible: the view rows leave them un-claimed."""
+    row0 = np.stack([packed[off] for off, _, _ in pack.units_py])
+    valid, plaus = (row0 & 1) != 0, (row0 & 2) != 0
+    winner = np.where(valid.any(0), valid.argmax(0), -1)
+    earlier = np.cumsum(plaus, axis=0) - plaus
+    return int(((winner > 0) & (earlier[np.maximum(winner, 0), np.arange(len(winner))] > 0)).sum())
+
+
 # ---------------------------------------------------------------------------
 # the parent's libraries
 # ---------------------------------------------------------------------------
@@ -1050,9 +1268,76 @@ def setcookie_cases(smoke, kernels, pipeline):
                *_token_cursors(c, s, e, B), parent_defect="C4")
 
 
+def pack_cases(smoke, kernels, pipeline):
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, parser, lines):
+        buf, lengths, _ = runtime.encode_batch(lines)
+        dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+        ex = parser.executor
+        flags, comps = ex.components(dbuf, dlen)
+        return Case(name, "pack_rows", lambda: kernels.pack_rows(ex.pack, flags, comps),
+                    lambda: pipeline.pack_rows_plain(ex.pack, flags, comps), None,
+                    *smoke.pack_cost(ex, comps.shape[0], dbuf.shape[0]))
+
+    yield case("pack_rows_headline", TorchBatchParser("combined", demolog.HEADLINE_FIELDS),
+               demolog.generate_combined_lines(smoke.N_LINES, seed=42, garbage_fraction=0.01)
+               + smoke.EDGE_LINES)
+    uri = demolog.generate_combined_lines(smoke.N_LINES, seed=53) + demolog.uri_edge_lines()
+    for slots in (16, 128):
+        yield case(f"pack_rows_uri_{slots}",
+                   _grown(TorchBatchParser("combined", demolog.URI_CHAIN_FIELDS), slots), uri)
+    yield case("pack_rows_cookies",
+               TorchBatchParser(demolog.COOKIE_FORMAT, demolog.COOKIE_FIELDS,
+                                type_remappings=demolog.COOKIE_REMAPPINGS),
+               demolog.cookie_lines(smoke.N_LINES) + demolog.cookie_edge_lines())
+    yield case("pack_rows_seeded", TorchBatchParser(SEEDED_PACK_FORMAT, SEEDED_PACK_FIELDS),
+               seeded_pack_case(smoke.N_LINES + 11, seed=13))
+
+
+def span_cases(smoke, kernels, pipeline):
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, stages, dbuf, starts, ends):
+        B, L = dbuf.shape
+
+        def plain():
+            return pipeline.span_stages_plain(
+                stages, dbuf, starts, ends,
+                torch.empty((stages.n_out, B), dtype=torch.int32, device="cuda"))
+
+        return Case(name, "span_stages",
+                    lambda: kernels.span_stages(stages, dbuf, starts, ends), plain, None,
+                    *smoke.span_stages_cost(torch, pipeline, stages, starts, ends, B, L))
+
+    configs = [
+        ("span_stages_headline", "combined", demolog.HEADLINE_FIELDS,
+         demolog.generate_combined_lines(smoke.N_LINES, seed=42, garbage_fraction=0.01)
+         + smoke.EDGE_LINES),
+        ("span_stages_uri", "combined", demolog.URI_CHAIN_FIELDS,
+         demolog.generate_combined_lines(smoke.N_LINES, seed=53) + demolog.uri_edge_lines()),
+        ("span_stages_nginx_timing", demolog.NGINX_TIMING_FORMAT, demolog.NGINX_TIMING_FIELDS,
+         demolog.nginx_timing_lines(smoke.N_LINES) + demolog.nginx_edge_lines()),
+    ]
+    for name, fmt, fields, lines in configs:
+        buf, lengths, _ = runtime.encode_batch(lines)
+        dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+        (t,) = TorchBatchParser(fmt, fields).executor.unit_tables
+        starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+        yield case(name, t.stages, dbuf, starts, ends)
+    sbuf, s, e = seeded_span_case(smoke.N_LINES + 11, 384, seed=13)
+    yield case("span_stages_seeded", seeded_stage_tables(pipeline).cuda(),
+               *_cuda(torch.from_numpy(sbuf), torch.from_numpy(s), torch.from_numpy(e)))
+
+
 CASES = {"zone_lookup": zone_cases, "geo_lookup": geo_cases, "split": split_cases,
          "agg_reduce": agg_cases, "csr_split": csr_cases, "sp_program": sp_cases,
-         "uri_split": uri_cases, "setcookie_split": setcookie_cases}
+         "uri_split": uri_cases, "setcookie_split": setcookie_cases, "pack_rows": pack_cases,
+         "span_stages": span_cases}
 
 
 def _same(a, b) -> bool:
@@ -1123,6 +1408,13 @@ def main(argv) -> int:
                     ms, enqueue = clock.time(fn, REPS)
                     line.setdefault(f"{who}_ms", []).append(ms)
                     line.setdefault(f"{who}_enqueue_ms", []).append(enqueue)
+                # The yardstick of a kernel at the HBM rate under this clock
+                # (its L2 flush included): one device copy of the case's bytes.
+                src = torch.empty(max(case.bytes_moved // 2, 1), dtype=torch.uint8,
+                                  device="cuda")
+                dst = torch.empty_like(src)
+                line["copy_ms"] = clock.time(lambda: dst.copy_(src), REPS)[0]
+                del src, dst
                 line["card"] = smi
                 print(json.dumps(line), flush=True)
                 del case, turns, run_parent

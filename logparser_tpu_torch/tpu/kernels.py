@@ -88,7 +88,7 @@ _SIGNATURES = {
     "setcookie_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P],
     "muid": [_P, _INT, _INT, _P, _P, _P, _P],
     "pack_rows": [_INT, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _INT, _INT,
-                  _P, _P],
+                  _P, _INT, _P, _P],
     "ipv4_spans": [_P, _INT, _INT, _P, _P, _P, _P],
     "geo_lookup": [_INT, _P, _P, _P, _P, _INT, _P, _INT, _INT, _INT, _INT, _INT, _P,
                    _P],
@@ -572,7 +572,8 @@ def pack_rows(
         _launch("pack_rows", dev, B, tables.U, _ptr(flags), _ptr(comps),
                 _ptr(tables.units), _ptr(tables.cons), _ptr(tables.rows),
                 tables.K, _ptr(tables.slots), _ptr(tables.views),
-                tables.n_views, tables.V, _ptr(out))
+                tables.n_views, tables.V, _ptr(out), len(tables.slots_py),
+                _ptr(tables.view_of))
         pack_rows.launches += 1
     return out
 

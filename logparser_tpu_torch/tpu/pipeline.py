@@ -1178,7 +1178,9 @@ class PackTables(nn.Module):
     this is or -1, first slot, slot count) per output row; ``slots``
     (component, shift, bits); ``views`` (view field, unit, packed row of
     its span word, first prefix component) per (view field, decodable
-    unit)."""
+    unit); ``view_of`` [V, U] the index in ``views`` of each (view field,
+    unit) entry, -1 where the unit does not decode the field (the last
+    such entry where one repeats: repeats are equal)."""
 
     def __init__(self, units: Sequence[FormatUnit], ucs: Sequence[_UnitComps],
                  bases: Sequence[int], view_specs: ViewSpecs):
@@ -1214,6 +1216,11 @@ class PackTables(nn.Module):
         self.register_buffer("slots", _i32(slots or [(0, 0, 0)], 3))
         self.register_buffer("views", _i32(views or [(0, 0, 0, 0)], 4))
         self.n_views = len(views)
+        view_of = np.full((max(self.V, 1), self.U), -1, dtype=np.int32)
+        for i, (vi, ui, _, _) in enumerate(views):
+            view_of[vi, ui] = i
+        self.view_of_py = view_of[:self.V].tolist()
+        self.register_buffer("view_of", torch.from_numpy(view_of))
 
 
 # ---------------------------------------------------------------------------
@@ -1641,6 +1648,14 @@ class UnitsExecutor(nn.Module):
     def forward(self, buf: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         from . import kernels
 
+        return kernels.pack_rows(self.pack, *self.components(buf, lengths))
+
+    def components(self, buf: torch.Tensor, lengths: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(flags [U, B], comps [n_comp, B]): every launch before pack_rows,
+        the inputs pack_rows packs."""
+        from . import kernels
+
         B = buf.shape[0]
         flags = torch.empty((len(self.unit_tables), B), dtype=torch.int32,
                             device=buf.device)
@@ -1673,4 +1688,4 @@ class UnitsExecutor(nn.Module):
                     kernels.setcookie_split(c, buf, starts, ends, block)
                 else:
                     kernels.csr_split(c, buf, block, starts, ends)
-        return kernels.pack_rows(self.pack, flags, comps)
+        return flags, comps

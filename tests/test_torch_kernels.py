@@ -853,6 +853,56 @@ def test_setcookie_split_kernel_on_seeded_spans(cuda_device, L, slots, offset):
     assert got[c.bad].any() and got[c.over].any() and (got[c.ok] == 0).any()
 
 
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("B,L", [(4095, 384), (4097, 384), (65547, 384), (4097, 64),
+                                 (4097, 2048)])
+def test_span_stages_kernel_on_seeded_spans(cuda_device, B, L, offset):
+    """span_stages against its plain version on the seeded edge cases
+    (tools.kernel_ab.seeded_span_case under seeded_stage_tables: every
+    span part with prefix words, plain, CLF and zero_null longs and a
+    secmillis task on a crafted token, a second first line on a random
+    token; request lines with no or one space, bad versions, past 128
+    bytes and past L; starts with bits above the gather mask; longs of 0,
+    19, 20 and 25 digits).  ``offset`` starts the buffer that many bytes
+    past an allocation.  Exact equality."""
+    from logparser_tpu_torch.tools.kernel_ab import seeded_span_case, seeded_stage_tables
+
+    buf, s, e = seeded_span_case(B, L, seed=B + L)
+    stages = seeded_stage_tables(pipeline).to(cuda_device)
+    dbuf = _offset_buffer(buf, offset, cuda_device)
+    starts, ends = torch.from_numpy(s).to(cuda_device), torch.from_numpy(e).to(cuda_device)
+    got = kernels.span_stages(stages, dbuf, starts, ends)
+    want = pipeline.span_stages_plain(stages, dbuf, starts, ends, torch.empty_like(got))
+    assert torch.equal(got, want)
+    protocol_ok = [t[6] for t in stages.tasks_py if t[:3] == (pipeline.TASK_SPAN, 0, 3)]
+    assert got[protocol_ok[0]].any() and not got[protocol_ok[0]].all()
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("B", [4095, 4097, 65547])
+def test_pack_rows_kernel_on_seeded_lines(cuda_device, B, offset):
+    """pack_rows against its plain version on the seeded lines of eight
+    formats (tools.kernel_ab.seeded_pack_case: MAX_UNITS units, every
+    line-constraint kind, contested lines, view fields that seven units
+    decode), on the flags and components the executor computes on the
+    card.  ``offset`` starts the components that many words past an
+    allocation.  Exact equality."""
+    from logparser_tpu_torch.tools.kernel_ab import (SEEDED_PACK_FIELDS, SEEDED_PACK_FORMAT,
+                                                     contested_lines, seeded_pack_case)
+
+    ex = TorchBatchParser(SEEDED_PACK_FORMAT, SEEDED_PACK_FIELDS, device=cuda_device).executor
+    buf, lengths, _ = encode_batch(seeded_pack_case(B, seed=B))
+    flags, comps = ex.components(torch.from_numpy(buf).to(cuda_device),
+                                 torch.from_numpy(lengths).to(cuda_device))
+    flat = torch.zeros(comps.numel() + offset, dtype=torch.int32, device=cuda_device)
+    shifted = flat[offset:].view(comps.shape)
+    shifted.copy_(comps)
+    got = kernels.pack_rows(ex.pack, flags, shifted)
+    want = pipeline.pack_rows_plain(ex.pack, flags, comps)
+    assert torch.equal(got, want)
+    assert ex.pack.U == pipeline.MAX_UNITS and contested_lines(want.cpu().numpy(), ex.pack) > 0
+
+
 def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):
     lines = cookie_lines(4000, seed=52) + cookie_edge_lines()
     kernels.reset_launch_counts()

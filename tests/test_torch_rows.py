@@ -149,3 +149,52 @@ def test_stage_wrappers_check_their_inputs():
     assert np.array_equal(kernels.timestamp(unit.ts[0], b, starts, ends)[3].numpy(),
                           np.ones(4, dtype=np.int32))
 
+
+
+def test_seeded_pack_lines_match_reference():
+    """The pack_rows kernel's seeded lines (tools.kernel_ab.
+    seeded_pack_case: eight formats, so MAX_UNITS units, every
+    line-constraint kind, contested lines, view fields that seven units
+    decode) through the port's executor equal the reference executor's
+    packed rows."""
+    from logparser_tpu_torch.tools.kernel_ab import (SEEDED_PACK_FIELDS, SEEDED_PACK_FORMAT,
+                                                     contested_lines, seeded_pack_case)
+
+    ref = reference_parser(SEEDED_PACK_FORMAT, SEEDED_PACK_FIELDS)
+    specs = ref._view_specs()
+    units = units_from_reference([jax_unit_plain(u) for u in ref.units])
+    ex = pipeline.UnitsExecutor(units, specs)
+    assert ex.pack.U == pipeline.MAX_UNITS
+    assert {kind for _, kind in ex.pack.cons_py} == set(range(5))
+    assert max(sum(v >= 0 for v in row) for row in ex.pack.view_of_py) >= 7
+    buf, lengths, _ = encode_batch(seeded_pack_case(600, seed=7))
+    want = reference_packed(ref.units, specs, buf, lengths)
+    got = ex(torch.from_numpy(buf), torch.from_numpy(lengths)).numpy()
+    assert first_mismatch(ref.units, specs, got, want) is None
+    assert contested_lines(got, ex.pack) > 0
+
+
+@pytest.mark.parametrize("config", ["headline", "two_formats", "uri_chain", "nginx_timing",
+                                    "seeded_pack"])
+def test_view_index_describes_the_view_entries(config):
+    """PackTables.view_of, the index pack_rows walks instead of every view
+    entry, names for each (view field, unit) exactly the entry of
+    ``views_py`` with that field and unit (-1 where none); repeated
+    entries, where a unit decodes a field twice, are equal."""
+    from logparser_tpu_torch.tools import demolog
+    from logparser_tpu_torch.tools.kernel_ab import SEEDED_PACK_FIELDS, SEEDED_PACK_FORMAT
+
+    fmt, fields = {
+        "headline": ("combined", HEADLINE_FIELDS), "two_formats": CONFIGS[3],
+        "uri_chain": ("combined", URI_CHAIN_FIELDS),
+        "nginx_timing": (demolog.NGINX_TIMING_FORMAT, demolog.NGINX_TIMING_FIELDS),
+        "seeded_pack": (SEEDED_PACK_FORMAT, SEEDED_PACK_FIELDS)}[config]
+    pack = TorchBatchParser(fmt, fields, device="cpu").executor.pack
+    assert len(pack.view_of_py) == pack.V
+    for vi, row in enumerate(pack.view_of_py):
+        assert len(row) == pack.U
+        for ui, e in enumerate(row):
+            match = [i for i, (v, u, _, _) in enumerate(pack.views_py) if (v, u) == (vi, ui)]
+            assert (e == -1) if not match else (e == match[-1]), (vi, ui)
+            assert all(pack.views_py[i] == pack.views_py[match[-1]] for i in match)
+    assert pack.view_of.tolist()[:pack.V] == pack.view_of_py

@@ -201,3 +201,89 @@ def test_layouts_outside_the_slice_do_not_compile():
             assert_plain_equal(time_layout_to_plain(got), time_layout_to_plain(want))
     items = compile_java_pattern("HH:mm:ss ZZ").items
     assert timeparse.compile_layout_for_device(TimeLayout(items)) is None
+
+
+def _reference_span_rows(stages, buf, s, e):
+    """Every task's rows of tools.kernel_ab.seeded_stage_tables, from the
+    JAX package's functions: the span chain (split_firstline,
+    split_protocol_version, the CLF dash through gather_span_bytes), the
+    prefix words (span_prefix_words), the long frames (parse_long_spans,
+    with the port's >19-digit span patch and zero_null leading-zero row)
+    and parse_secmillis_spans."""
+    from logparser_tpu_torch.tpu import pipeline as tp
+
+    jb = jnp.asarray(buf)
+    want = {}
+    for task in stages.tasks_py:
+        kind, tok, part, clf = task[:4]
+        js, je = jnp.asarray(s[tok]), jnp.asarray(e[tok])
+        first = ref_postproc.gather_span_bytes(jb, js, 1)[:, 0]
+        dash = ((je - js) == 1) & (first == ord("-"))
+        zeros = jnp.zeros_like(js, dtype=bool)
+        if kind == tp.TASK_SPAN:
+            start, end, ok, null = js, je, ~zeros, zeros
+            if part == tp.PART_DIRECT:
+                null = dash
+            elif part == tp.PART_ULIST0:
+                ok = ~dash
+            elif part == tp.PART_ULIST_ABSENT:
+                end, ok = js, zeros
+            else:
+                fl = ref_postproc.split_firstline(jb, None, js, je)
+                name = {tp.PART_METHOD: "method", tp.PART_URI: "uri"}.get(part, "proto")
+                start, end = fl[f"{name}_start"], fl[f"{name}_end"]
+                ok = fl["ok"] & fl["has_protocol"] if name == "proto" else fl["ok"]
+                if part in (tp.PART_PV_PROTOCOL, tp.PART_PV_VERSION):
+                    pv = ref_postproc.split_protocol_version(jb, start, end)
+                    if part == tp.PART_PV_PROTOCOL:
+                        end = pv["proto_end"]
+                    else:
+                        start, end = pv["ver_start"], pv["ver_end"]
+                    null = pv["null"]
+            for o, v in zip(task[4:8], (start, end - start, ok, null)):
+                want[o] = v
+            words = ref_pipeline.span_prefix_words(jb, start, end, ok, null, None,
+                                                   ref_postproc.gather_span_bytes)
+            for k in range(3):
+                want[task[11] + k] = words[k]
+        elif kind == tp.TASK_SECMILLIS:
+            (hi, lo, d18, nd), milli, is_null, ok = ref_postproc.parse_secmillis_spans(
+                jb, js, je)
+            for o, v in zip(task[4:12], (hi, lo, d18, nd, ok, is_null, zeros, milli)):
+                want[o] = v
+        else:
+            (hi, lo, d18, nd), is_null, ok, big = ref_postproc.parse_long_spans(
+                jb, js, je, clf=bool(clf))
+            if part == tp.LONG_ZERO_NULL:
+                ok, big = ok & ~big, zeros
+                want[task[11]] = ((je - js) > 1) & (first == ord("0"))
+            else:
+                span = js | (jnp.minimum(je - js, 8191) << 13)
+                hi, lo, d18 = (jnp.where(big, span, hi), jnp.where(big, 0, lo),
+                               jnp.where(big, 0, d18))
+            for o, v in zip(task[4:11], (hi, lo, d18, nd, ok, is_null, big)):
+                want[o] = v
+    return want
+
+
+@pytest.mark.parametrize("L", [64, 384, 2048])
+def test_seeded_spans_match_reference(L):
+    """The span_stages kernel's seeded edge cases (tools.kernel_ab.
+    seeded_span_case under seeded_stage_tables: request lines with no or
+    one space, bad versions, past 128 bytes and past L, starts with bits
+    above the gather mask, longs of 0 to 25 digits and leading zeros,
+    secmillis spans of 4 to 23 bytes) through span_stages_plain equal the
+    JAX package's functions, every row bit for bit."""
+    from logparser_tpu_torch.tools.kernel_ab import seeded_span_case, seeded_stage_tables
+    from logparser_tpu_torch.tpu import pipeline as tp
+
+    buf, s, e = seeded_span_case(300, L, seed=L + 1)
+    stages = seeded_stage_tables(tp)
+    got = tp.span_stages_plain(stages, _t(buf), _t(s), _t(e),
+                               torch.empty((stages.n_out, buf.shape[0]), dtype=torch.int32))
+    want = _reference_span_rows(stages, buf, s, e)
+    assert sorted(want) == list(range(stages.n_out))
+    for r, v in want.items():
+        _eq(got[r].numpy(), np.asarray(v).astype(np.int32), f"row {r}")
+    protocol_ok = [t[6] for t in stages.tasks_py if t[:3] == (tp.TASK_SPAN, 0, tp.PART_PROTOCOL)]
+    assert got[protocol_ok[0]].any() and not got[protocol_ok[0]].all()

@@ -16,7 +16,9 @@ from logparser_tpu_torch.tpu import kernels
 
 TOOLS = Path(kernels.__file__).resolve().parent.parent / "tools"
 VARIANT_FILES = {"split_phases.json": "split", "uri_variants.json": "uri_split",
-                 "setcookie_variants.json": "setcookie_split"}
+                 "setcookie_variants.json": "setcookie_split",
+                 "pack_rows_variants.json": "pack_rows",
+                 "span_stages_variants.json": "span_stages"}
 
 
 def test_every_variant_file_names_its_kernel():
