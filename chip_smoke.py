@@ -543,6 +543,7 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
     if res_w.buf.shape[1] != 8191:
         fail(f"the wide batch took bucket {res_w.buf.shape[1]}, not 8191")
     compare_results(res_w, cpu.parse_batch(wide), "wide bucket")
+    hold_timestamp(gpu, wide, "wide_bucket")
     if len(wide) - 1 not in res_w.needs_host.tolist():
         fail("the over-long line was not routed to the host")
     emit({"phase": "wide_bucket", "B": len(wide), "L": 8191,
@@ -927,6 +928,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     cpu = TorchBatchParser("combined", fields, device="cpu")
     ref = cpu.parse_batch(lines)
     compare_results(res, ref, "end_to_end_uri")
+    hold_timestamp(gpu, lines, "uri")
     twenty = len(lines) - len(edge) + next(
         i for i, x in enumerate(edge) if "k19=v19" in x)
     cap_line = len(lines) - 1
@@ -980,6 +982,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     if res_w.buf.shape[1] != 8191:
         fail(f"the wide URI batch took bucket {res_w.buf.shape[1]}, not 8191")
     compare_results(res_w, ref_w, "wide_bucket_uri")
+    hold_timestamp(gpu_w, wide, "wide_bucket_uri")
     host = res_w.needs_host.tolist()
     if not {len(wide) - 2, len(wide) - 1} <= set(host):
         fail("the 200-parameter or the 5,000-byte URI line is not in needs_host")
@@ -1225,6 +1228,7 @@ def run_end_to_end(torch, kernels, gpu, cpu, lines, tag, must, path_bound, smi,
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the {tag} path")
     compare_results(res, cpu.parse_batch(lines), tag)
+    hold_timestamp(gpu, lines, tag)
     n_valid = int(res.valid.sum())
     if n_valid < 0.98 * N_LINES:
         fail(f"only {n_valid} of {len(lines)} {tag} lines valid on device")
@@ -1247,10 +1251,40 @@ def run_wide(gpu, cpu, lines, tag):
     if res.buf.shape[1] != 8191:
         fail(f"the wide {tag} batch took bucket {res.buf.shape[1]}, not 8191")
     compare_results(res, cpu.parse_batch(lines), f"wide_bucket_{tag}")
+    hold_timestamp(gpu, lines, f"wide_bucket_{tag}")
     if len(lines) - 1 not in res.needs_host.tolist():
         fail(f"the over-long {tag} line was not routed to the host")
     emit({"phase": f"wide_bucket_{tag}", "B": len(lines), "L": 8191,
           "equal_to_cpu": True, "needs_host": res.needs_host.tolist()})
+
+
+def hold_timestamp(gpu, lines, tag) -> None:
+    """Every timestamp launch of the parser's device pass over ``lines``
+    made again and held bit for bit to timestamp_plain on the same inputs
+    (the zone row too); the path's counted run is over, so these launches
+    only compare.  A field set without a timestamp (GeoIP's, NGINX's) has
+    none to hold."""
+    import torch
+
+    from logparser_tpu_torch.tpu import kernels, pipeline, runtime
+
+    if not any(t.ts for t in gpu.executor.unit_tables):
+        return
+    buf, lengths, _ = runtime.encode_batch(lines)
+    dbuf, dlen = torch.from_numpy(buf).cuda(), torch.from_numpy(lengths).cuda()
+    calls = recorded(kernels, "timestamp", lambda: gpu.executor.components(dbuf, dlen))
+    if not calls:
+        fail(f"no timestamp launch on the {tag} path")
+    for args, _ in calls:
+        ts, b, starts, ends = args[:4]
+        zone = ts.zone is not None
+        z = torch.empty(b.shape[0], dtype=torch.int32, device="cuda") if zone else None
+        got = [kernels.timestamp(ts, b, starts, ends, zone_out=z)] + ([z] if zone else [])
+        want = [torch.empty_like(got[0])] + ([torch.empty_like(z)] if zone else [])
+        pipeline.timestamp_plain(ts, b, starts, ends, *want)
+        require_equal(torch, f"timestamp_held_{tag}", got, want)
+    emit({"phase": f"timestamp_held_{tag}", "equal": True, "launches": len(calls),
+          "B": int(dbuf.shape[0]), "L": int(dbuf.shape[1])})
 
 
 def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
@@ -1838,6 +1872,7 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
             fail(f"kernel {name} was not launched on the cookies path")
     ref = cpu.parse_batch(lines)
     compare_results(res, ref, "end_to_end_cookies")
+    hold_timestamp(gpu_fresh, lines, "cookies")
     if gpu_fresh.csr_slots != 128 or res.csr_regrows != 3:
         fail(f"cookies: {gpu_fresh.csr_slots} slots after {res.csr_regrows} regrows")
     if len(lines) - 1 not in res.needs_host.tolist():
@@ -1954,11 +1989,13 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
     pad = 8191 - len(wide[0].encode())
     wide += [wide[0].replace('"GET ', '"GET /' + "w" * (pad - 1), 1),
              wide[0].replace('"GET ', '"GET /' + "w" * (pad + 999), 1)]
-    res_w = TorchBatchParser(*args, **remap).parse_batch(wide)
+    gpu_w = TorchBatchParser(*args, **remap)
+    res_w = gpu_w.parse_batch(wide)
     if res_w.buf.shape[1] != 8191:
         fail(f"the wide cookie batch took bucket {res_w.buf.shape[1]}, not 8191")
     compare_results(res_w, TorchBatchParser(*args, device="cpu", **remap).parse_batch(wide),
                     "wide_bucket_cookies")
+    hold_timestamp(gpu_w, wide, "wide_bucket_cookies")
     if len(wide) - 1 not in res_w.needs_host.tolist():
         fail("the over-long cookie line was not routed to the host")
     emit({"phase": "wide_bucket_cookies", "B": len(wide), "L": 8191,

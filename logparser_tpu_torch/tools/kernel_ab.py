@@ -9,14 +9,20 @@ DIR holds the parent's ``csrc`` sources (the ``.cu`` files and the headers
 they include; ``.kernel_ab_parent/`` is git-ignored for it).  KERNEL picks
 the kernels to compare -- ``zone_lookup``, ``geo_lookup``, ``split``,
 ``agg_reduce``, ``csr_split``, ``sp_program``, ``uri_split``,
-``setcookie_split``, ``pack_rows``, ``span_stages`` -- all ten by default.
+``setcookie_split``, ``pack_rows``, ``span_stages``, ``timestamp``,
+``agg_group`` -- all twelve by default.
 
 The parent's kernels are built with nvcc into a temporary directory.  Each
 runs through this checkout's wrapper (``kernels.split`` and so on) with the
 parent's library swapped in, its C parameters matched to the wrapper's
 arguments by name: a parameter the parent lacks (split's ``n_lits``) is
 dropped, one only the parent has is an error.  So parent and change pay
-the same host enqueue.  The cases:
+the same host enqueue.  ``timestamp`` and ``agg_group`` run the parent
+through the parent's own wrapper instead (:func:`parent_timestamp`,
+:func:`parent_agg_group`: its argument list, its scratch allocated as it
+allocated it), since this checkout's wrappers pass other arguments and
+allocate other scratch; there each side pays its own wrapper's enqueue.
+The cases:
 
 - ``zone_lookup`` (every transition key +-1 minute, the window and clip
   edges, 65,536 random pairs), ``zone_lookup_gated`` (the zonetext batch's
@@ -59,7 +65,19 @@ the same host enqueue.  The cases:
 - ``span_stages_headline``, ``span_stages_uri`` and
   ``span_stages_nginx_timing`` (the secmillis task) on their batches'
   cursors, and ``span_stages_seeded`` (:func:`seeded_span_case`'s 65,547
-  lines, L = 384, under :func:`seeded_stage_tables`).
+  lines, L = 384, under :func:`seeded_stage_tables`);
+- ``timestamp_headline``, ``timestamp_strftime`` (the %z layout of
+  combinedio_strftime) and ``timestamp_zonetext`` (%Z) on their batches'
+  cursors, and ``timestamp_seeded`` (:func:`seeded_timestamp_case`: one
+  launch for each of the seven ``TS_SEEDED_LAYOUTS``, 9,364 spans each at
+  L = 256, valid and broken renders mixed);
+- ``agg_group_hour``, ``agg_group_status`` and ``agg_group_uri`` (the
+  dashboard batch's three grouping lanes), and
+  ``agg_group_seeded_<keys>_<B>_<spans|ints>`` (:func:`seeded_group_case`:
+  1, 4, 24, 1,000 or B distinct keys at B = 4,095, 65,547 and 262,144,
+  and at B = 65,547 24 keys with every row or no row selected), beside
+  ``torch.unique`` on the int lanes.  agg_group's output order is
+  arbitrary, so these compare key -> count maps (:func:`group_map`).
 
 Each case holds parent and change to the plain version bit for bit (a
 difference fails the run), except that a case which names a known
@@ -87,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -96,7 +115,8 @@ from ..analytics import device as agg_device
 
 REPS = 25
 CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce", "csr_split",
-                "sp_program", "uri_split", "setcookie_split", "pack_rows", "span_stages")
+                "sp_program", "uri_split", "setcookie_split", "pack_rows", "span_stages",
+                "timestamp", "agg_group")
 NO_PARENT_LIBRARY = ("sp_program",)   # its "parent" is the per-op path
 SEEDED_B = (4095, 4096, 4097, 65547, 262144)
 
@@ -110,8 +130,10 @@ class Case(NamedTuple):
     bytes_moved: int
     ops: int
     parent: Optional[Callable] = None        # else: the parent's library
+    parent_run: Optional[Callable] = None    # run through the parent's own wrapper, else run
     parent_plain: Optional[Callable] = None  # what the parent is held to, else plain
     parent_defect: Optional[str] = None      # a known parent fault (ROADMAP C) this case shows
+    canonical: Optional[Callable] = None     # output -> what is compared (agg_group's key -> count)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +197,90 @@ def seeded_reduce_case(B: int, seed: int, selected: str = "some"):
     return tables, torch.from_numpy(cls), torch.from_numpy(np.ascontiguousarray(lanes))
 
 
+GROUP_CARDINALITIES = (1, 4, 24, 1000, None)   # None: every selected row its own key
+GROUP_B = (4095, 65547, 262144)
+GROUP_L = 128
+_KEY_ALPHABET = np.frombuffer(b"/abcdefghijklmnopqrstuvwxyz0123456789.-_?=&%ABCZ", dtype=np.uint8)
+_KEY_PREFIX = np.frombuffer(b"/static/assets/v", dtype=np.uint8)   # 16 bytes
+
+
+def seeded_group_case(B: int, distinct: Optional[int], seed: int, selected: str = "some",
+                      L: int = GROUP_L):
+    """(buf [B, L] uint8, span lane [B] int32, int lane [B] int32) on the
+    CPU for ``agg_group``: ``distinct`` keys (None: B, one a row) in both
+    lanes, each row taking one (skewed towards the first keys, or each key
+    once for B), a fifth of the rows unselected (-1 / INT32_MAX) for
+    ``selected`` "some", none for "all", every row for "none".  Span keys:
+    the empty key and a 1-byte key first, then in turn 3-12 random bytes;
+    17-40 bytes opening with the same 16 bytes (a few lengths, so keys of
+    equal length and equal first 16 bytes abound); 32 bytes equal but for
+    the last three; 40-60 random bytes -- each ending in its key number, so
+    all differ -- at a random start of a row, 1 in 50 at byte L - 1 instead
+    (running past L: read clamped, as its length and its first byte
+    repeated, one more key per span key).  Int keys: distinct values, with
+    INT32_MIN, -1, 0 and INT32_MAX - 1 first."""
+    rng = np.random.default_rng(seed)
+    K = B if distinct is None else distinct
+    KW = 64
+    lens = np.empty(K, dtype=np.int64)
+    fam = np.arange(K) % 4
+    lens[fam == 0] = rng.integers(3, 13, size=int((fam == 0).sum()))
+    lens[fam == 1] = rng.choice([17, 24, 31, 40], size=int((fam == 1).sum()))
+    lens[fam == 2] = 32
+    lens[fam == 3] = rng.integers(40, 61, size=int((fam == 3).sum()))
+    keys = rng.choice(_KEY_ALPHABET, size=(K, KW)).astype(np.uint8)
+    keys[fam == 1, :16] = _KEY_PREFIX
+    keys[fam == 2, :29] = keys[0, :29] if K else 0
+    # The key number in the last three bytes (base 64): every key differs.
+    idx = np.arange(K)
+    for t in range(3):
+        keys[idx, lens - 1 - t] = 48 + ((idx >> (6 * t)) & 63)   # '0'..'o'
+    if K >= 1:
+        lens[0] = 0
+    if K >= 2:
+        lens[1] = 1
+    special = np.array([-2 ** 31, -1, 0, 2 ** 31 - 2], dtype=np.int64)
+    rest = np.setdiff1d(rng.integers(-2 ** 31, 2 ** 31 - 1, size=K + 8), special)
+    vals = np.concatenate([special, rng.permutation(rest)])[:K].astype(np.int32)
+    if distinct is None:
+        pick = rng.permutation(B) % max(K, 1)
+    else:
+        pick = np.minimum((K * rng.random(B) ** 2).astype(np.int64), K - 1)
+    n = lens[pick]
+    start = rng.integers(0, np.maximum(L - n, 0) + 1)
+    past = rng.random(B) < 0.02
+    start = np.where(past & (n > 0), L - 1, start)
+    buf = rng.choice(_KEY_ALPHABET, size=(B, L)).astype(np.uint8)
+    cols = start[:, None] + np.arange(KW)[None, :]
+    ok = (np.arange(KW)[None, :] < n[:, None]) & (cols < L)
+    rows = np.broadcast_to(np.arange(B)[:, None], cols.shape)
+    buf[rows[ok], cols[ok]] = keys[pick][ok]
+    off = {"some": rng.random(B) < 0.2, "all": np.zeros(B, bool), "none": np.ones(B, bool)}[selected]
+    spans = np.where(off, -1, start | (n << 13)).astype(np.int32)
+    ints = np.where(off, 2 ** 31 - 1, vals[pick] if K else 0).astype(np.int32)
+    return buf, spans, ints
+
+
+def group_map(groups, n_groups, buf, spans: bool) -> Dict:
+    """{key: count} of one agg_group output -- a span key as (length, its
+    bytes read clamped to L - 1), an int key as itself; a key seen twice (a
+    split group) raises."""
+    L = buf.shape[1]
+    out = {}
+    for row in groups[:int(n_groups[0])].cpu().tolist():
+        if spans:
+            cnt, r, s, n = row
+            key = (n, bytes(buf[r, np.minimum(np.arange(s, s + n), L - 1)]))
+        else:
+            key, cnt = row
+        if key in out:
+            raise ValueError(f"agg_group split the key {key!r}")
+        out[key] = cnt
+    return out
+
+
+TS_SEEDED_B = 9364   # a layout's rows: 65,548 over the seven
+TS_SEEDED_L = 256    # a power of two: spans near its end cross the gather mask's span
 SPLIT_WIDTHS = (1, 31, 32, 33, 384, 1025, 2048, 8191)
 _SPLIT_ALPHABET = np.frombuffer(b' "[]\\-0123456789/:+abcGETHTP.=', dtype=np.uint8)
 _NUL_ALPHABET = np.frombuffer(b"\x00\x00\x00ab1. -\\\"", dtype=np.uint8)
@@ -718,6 +824,177 @@ def seeded_stage_tables(pipeline):
     return pipeline.StageTables(uc)
 
 
+def _n(field, width):
+    return ("num", field, width, width, False)
+
+
+# The layouts of seeded_timestamp_case: Apache's %t, the %z and %Z layouts
+# of the strftime configurations, full month names (a variable segment),
+# a two-digit year with a 12-hour clock and am/pm, day names with the
+# default zone, and ISO with millis and a Z / +HH:MM tail.
+TS_SEEDED_LAYOUTS = (
+    ("apache", None),
+    ("strftime_z", "%d/%b/%Y:%H:%M:%S %z"),
+    ("zonetext", "%d/%b/%Y:%H:%M:%S %Z"),
+    ("full_month", "%d/%B/%Y:%H:%M:%S %z"),
+    ("ampm", "%y%m%d %I:%M:%S %p"),
+    ("dayname", "%a %d %b %Y %H:%M:%S"),
+    ("iso_millis", [_n("year", 4), ("lit", "-"), _n("month", 2), ("lit", "-"), _n("day", 2),
+                    ("lit", "T"), _n("hour", 2), ("lit", ":"), _n("minute", 2), ("lit", ":"),
+                    _n("second", 2), ("lit", "."), _n("milli", 3), ("offset_colon",)]),
+)
+_TS_ALPHABET = np.frombuffer(b"0123456789:/ +-.TZaAbCzJanFeb[]\x00", dtype=np.uint8)
+_TS_NOISE = "0123456789abcXYZ/:+- ._"
+
+
+def ts_seeded_layout(spec):
+    """The TimeLayout of one TS_SEEDED_LAYOUTS entry."""
+    from ..dissectors.strftime_stamp import compile_strftime
+    from ..dissectors.timelayout import APACHE_LAYOUT, TimeLayout
+
+    if spec is None:
+        return APACHE_LAYOUT
+    return compile_strftime(spec) if isinstance(spec, str) else TimeLayout(list(spec))
+
+
+def _ts_value(rng, field: str) -> int:
+    """A component value: mostly valid, with the edges and a few past them."""
+    r = rng.random()
+    pick = {
+        "year": (1, 1900, 1969, 1970, 2000, 2023, 2024, 2096, 2097, 9999),
+        "year2": (0, 23, 24, 99), "month": (0, 1, 2, 12, 13), "day": (0, 1, 28, 29, 30, 31, 32),
+        "hour": (0, 23, 24, 25), "clock_hour": (0, 23, 24, 25), "hour12": (0, 1, 11, 12, 13),
+        "minute": (0, 59, 60), "second": (0, 59, 60, 61), "milli": (0, 999),
+    }[field]
+    if r < 0.35:
+        return int(pick[int(rng.integers(0, len(pick)))])
+    lo, hi = {"year": (1970, 2100), "year2": (0, 99), "month": (1, 12), "day": (1, 28),
+              "hour": (0, 23), "clock_hour": (0, 23), "hour12": (1, 12), "minute": (0, 59),
+              "second": (0, 59), "milli": (0, 999)}[field]
+    return int(rng.integers(lo, hi + 1))
+
+
+def _ts_case_mix(rng, text: str) -> str:
+    """Each letter upper or lower at random, a third of the time."""
+    if rng.random() < 2 / 3:
+        return text
+    return "".join(c.upper() if rng.random() < 0.5 else c.lower() for c in text)
+
+
+def _ts_zone_token(rng, vocab, i: int) -> str:
+    """Entry i of the vocabulary in turn (the first pass over it exactly, so
+    every entry occurs), or one of its variants: a case change, a prefix of
+    it, a token byte after it, an unknown zone."""
+    e = vocab[i % len(vocab)]
+    r = rng.random()
+    if i < len(vocab) or r < 0.55:
+        return e
+    if r < 0.65:
+        return _ts_case_mix(rng, e) if len(e) > 1 else e.lower()
+    if r < 0.75:
+        return e[:max(1, len(e) - int(rng.integers(1, 4)))]
+    if r < 0.85:
+        return e + "X_/+-5"[int(rng.integers(0, 6))]
+    return ("Mars/Olympus", "+0100", "UTC ", "Z]", "", "EST5", "Europe/")[int(rng.integers(0, 7))]
+
+
+def _ts_offset(rng, colon: bool) -> str:
+    sign = "+-"[int(rng.integers(0, 2))]
+    hh = int(rng.choice([0, 1, 5, 14, 23, 24, 99])) if rng.random() < 0.3 else int(
+        rng.integers(0, 15))
+    mm = int(rng.choice([0, 30, 45, 59, 60]))
+    return f"{sign}{hh:02d}:{mm:02d}" if colon else f"{sign}{hh:02d}{mm:02d}"
+
+
+def ts_render(rng, layout, vocab, i: int) -> str:
+    """One timestamp of ``layout``: each field a _ts_value, names in mixed
+    case, a %Z token from the vocabulary (entry i in turn, or a variant), a
+    +HHMM or +HH:MM tail (Z or +HH:MM for XXX); a third of them then get
+    a byte replaced, dropped or added (not a %Z layout's first pass over
+    the vocabulary)."""
+    from ..dissectors.timelayout import DAYS_SHORT, MONTHS_FULL, MONTHS_SHORT
+
+    out = []
+    for it in layout.items:
+        kind = it[0]
+        if kind == "lit":
+            out.append(it[1])
+        elif kind == "num":
+            v = _ts_value(rng, it[1])
+            out.append(f"{v:0{it[2]}d}"[-it[2]:])
+        elif kind == "text":
+            names = {"monthname": MONTHS_SHORT if it[2] == "short" else MONTHS_FULL,
+                     "dayname": DAYS_SHORT, "ampm": ["AM", "PM"]}[it[1]]
+            out.append(_ts_case_mix(rng, names[int(rng.integers(0, len(names)))]))
+        elif kind == "offset":
+            out.append(_ts_offset(rng, rng.random() < 0.4))
+        elif kind == "offset_colon":
+            out.append("Zz"[int(rng.integers(0, 2))] if rng.random() < 0.3
+                       else _ts_offset(rng, rng.random() < 0.9))
+        else:
+            out.append(_ts_zone_token(rng, vocab, i))
+    text = "".join(out)
+    first_pass = i < len(vocab) and any(it[0] == "zonetext" for it in layout.items)
+    if text and rng.random() < 1 / 3 and not first_pass:
+        k = int(rng.integers(0, len(text)))
+        c = _TS_NOISE[int(rng.integers(0, len(_TS_NOISE)))]
+        r = rng.random()
+        text = (text[:k] + c + text[k + 1:] if r < 0.5 else
+                text[:k] + text[k + 1:] if r < 0.75 else text[:k] + c + text[k:])
+    return text
+
+
+def seeded_timestamp_case(B: int, L: int, seed: int):
+    """[(name, TimeLayout, buf [B, L] uint8, start [B] int32, end [B] int32)]
+    on the CPU, one per TS_SEEDED_LAYOUTS entry: B renders of the layout
+    (:func:`ts_render`: valid and broken, every %Z entry in turn and its
+    variants), in rows of random bytes of a timestamp-heavy alphabet, the
+    span placed at random (a byte after it sometimes 0 or ']'), at the
+    row's start, ending at L, clipped by L (running past it), within a
+    window of the end of the bucket (a power-of-two L: the cursors cross
+    the gather mask's span there), with its start and end raised by a
+    multiple of the mask's span, cut one byte short or one byte long; then
+    the odd spans (0, 0), (5, 3), (L, L), (L - 1, L), (0, L), (L - 3,
+    L + 40)."""
+    from ..dissectors.tztable import default_zone_table
+    from ..tpu import timeparse
+
+    vocab = [e[0].decode() for e in timeparse.zone_vocabulary(default_zone_table())]
+    high = 1 << max(int(L - 1).bit_length(), 1)   # the gather mask + 1
+    out = []
+    for k, (name, spec) in enumerate(TS_SEEDED_LAYOUTS):
+        rng = np.random.default_rng([seed, k])
+        layout = ts_seeded_layout(spec)
+        buf = rng.choice(_TS_ALPHABET, size=(B, L)).astype(np.uint8)
+        start = np.zeros(B, dtype=np.int32)
+        end = np.zeros(B, dtype=np.int32)
+        odd = [(0, 0), (5, 3), (L, L), (L - 1, L), (0, L), (L - 3, L + 40)]
+        for row in range(B):
+            if row >= B - len(odd):
+                start[row], end[row] = odd[row - (B - len(odd))]
+                continue
+            raw = ts_render(rng, layout, vocab, row).encode()[:L]
+            n = len(raw)
+            where = int(rng.integers(0, 8))
+            at = (0 if where == 0 else L - n if where == 1 else
+                  L - max(n // 2, 1) if where == 2 else
+                  int(rng.integers(max(min(high, L) - 60, 0), L)) if where == 3 else
+                  int(rng.integers(0, L - n + 1)))
+            at = min(max(at, 0), L)
+            buf[row, at:at + n] = np.frombuffer(raw[:L - at], dtype=np.uint8)
+            if at + n < L and rng.random() < 0.3:
+                buf[row, at + n] = (0, ord("]"))[int(rng.integers(0, 2))]
+            s, e = at, at + n
+            if where == 4:
+                lift = high * int(rng.integers(1, 4))
+                s, e = s + lift, e + lift
+            elif where == 5:
+                e += (-1, 1)[int(rng.integers(0, 2))]
+            start[row], end[row] = s, e
+        out.append((name, layout, buf, start, end))
+    return out
+
+
 # Eight formats (MAX_UNITS) over the same fields: every line-constraint kind
 # (a URI window's and a query string's overflow, a required long, the
 # zero_null leading zero of %B under BYTESCLF, and the probe unit of the
@@ -816,25 +1093,33 @@ def c_params(source: str, name: str) -> List[Tuple[str, bool]]:
 
 class ParentLib:
     """The parent's library of one kernel, called with the wrapper's
-    argument list (stream last): arguments are picked by parameter name."""
+    argument list (stream last): arguments are picked by parameter name.
+    ``direct`` is the same library called with the parent's own argument
+    list (a parent wrapper's)."""
 
     def __init__(self, path: Path, name: str, parent_src: str, src: str):
         dll = ctypes.CDLL(str(path))
         theirs, ours = c_params(parent_src, name), c_params(src, name)
         index = {n: i for i, (n, _) in enumerate(ours)}
         unknown = [n for n, _ in theirs if n not in index]
-        if unknown:
-            raise RuntimeError(f"the parent's lp_{name} takes {unknown}, which the "
-                               "wrapper does not pass")
-        pick = [index[n] for n, _ in theirs]
         fn = getattr(dll, f"lp_{name}")
         fn.argtypes = [ctypes.c_void_p if ptr else ctypes.c_int for _, ptr in theirs]
         fn.restype = ctypes.c_int
         err = getattr(dll, f"lp_{name}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        setattr(self, f"lp_{name}", lambda *args: fn(*[args[i] for i in pick]))
+
+        pick = [index.get(n) for n, _ in theirs]
+
+        def picked(*args):
+            if unknown:
+                raise RuntimeError(f"the parent's lp_{name} takes {unknown}, which the "
+                                   "wrapper does not pass")
+            return fn(*[args[i] for i in pick])
+
+        setattr(self, f"lp_{name}", picked)
         setattr(self, f"lp_{name}_error", err)
+        self.direct = SimpleNamespace(**{f"lp_{name}": fn, f"lp_{name}_error": err})
 
 
 def build_parent(src: Path, out: Path, names: Sequence[str]) -> Dict[str, ParentLib]:
@@ -867,6 +1152,95 @@ def parent_kernel(name: str, lib: ParentLib):
         yield
     finally:
         kernels._BUILD.libs[name] = saved
+
+
+# ---------------------------------------------------------------------------
+# the parent's own wrappers, where this checkout's pass other arguments
+# ---------------------------------------------------------------------------
+
+
+class ParentTsRows(torch.nn.Module):
+    """A timestamp layout as the parent's ``lp_timestamp`` takes it:
+    ``segs`` rows (width or -1, first item, item count); ``items`` rows
+    (kind, offset, width, arg, count) -- arg a literal's offset into
+    ``text``, a numeric field's index in ``timeparse.NUM_FIELDS`` or a
+    table's first row of ``entries``, count its entry count; ``entries``
+    rows (length, case-folded, zone index, bytes...)."""
+
+    def __init__(self, dl):
+        from ..tpu import pipeline, timeparse
+
+        super().__init__()
+        segs, items, text, entries = [], [], [], []
+        for seg, seg_w in zip(dl.segments, dl.seg_widths):
+            segs.append((seg_w, len(items), len(seg)))
+            for it in seg:
+                if it.kind == "lit":
+                    items.append((pipeline.ITEM_LIT, it.offset, it.width, len(text), 0))
+                    text.extend(it.text)
+                elif it.kind == "num":
+                    items.append((pipeline.ITEM_NUM, it.offset, it.width,
+                                  timeparse.NUM_FIELDS.index(it.field), 0))
+                else:
+                    items.append((pipeline._TABLE_KIND[it.kind, it.field], it.offset,
+                                  it.width, len(entries), len(it.table)))
+                    for k, e in enumerate(it.table):
+                        fold = it.fold_flags[k] if it.kind == "zone" else True
+                        zone = it.zone_idx[k] if it.kind == "zone" else 0
+                        entries.append((len(e), int(fold), zone) + tuple(e))
+        self.entry_width = 3 + max((len(e) - 3 for e in entries), default=0)
+        self.register_buffer("segs", pipeline._i32(segs, 3))
+        self.register_buffer("items", pipeline._i32(items, 5))
+        self.register_buffer("text", torch.tensor(text or [0], dtype=torch.int32))
+        self.register_buffer("entries", pipeline._i32(entries or [(0, 0, 0)],
+                                                      self.entry_width))
+
+
+def parent_timestamp(rows: ParentTsRows, tables, buf, starts, ends, out=None,
+                     zone_out=None):
+    """The parent's ``kernels.timestamp``: its checks, then its launch on
+    the layout's rows (``rows``, built once as the parent's TsTables held
+    them)."""
+    from ..tpu import kernels as k
+
+    B, L = k._check_buf(buf)
+    dev = buf.device
+    k._check_tables(tables, dev)
+    k._check_cursors(tables.token_index, buf, starts, ends)
+    dl = tables.layout
+    if any(w > L for w in dl.windows()):
+        raise ValueError(f"line bucket {L} narrower than a timestamp segment")
+    out = k._out(out, (4, B), dev)
+    zone = tables.zone is not None
+    if zone:
+        zone_out = k._out(zone_out, (B,), dev)
+    if B:
+        k._launch("timestamp", dev, k._ptr(buf), B, L, k._ptr(starts[tables.token_index]),
+                  k._ptr(ends[tables.token_index]), k._ptr(rows.segs),
+                  rows.segs.shape[0], k._ptr(rows.items), k._ptr(rows.text),
+                  k._ptr(rows.entries), rows.entry_width, tables.tail,
+                  int(dl.one_shot(L)), dl.default_offset_seconds, dl.min_prefix,
+                  int(zone), k._ptr(out), k._ptr(zone_out) if zone else None)
+    return out
+
+
+def parent_agg_group(lane, buf, spans: bool):
+    """The parent's ``kernels.agg_group``: its uninitialised table and
+    counts of ``group_capacity(B)`` slots each, which its entry point
+    clears itself."""
+    from ..tpu import kernels as k
+
+    B, L = k._check_buf(buf)
+    dev = buf.device
+    k._check("lane", lane, torch.int32, (B,), dev)
+    groups = torch.empty((B, 4 if spans else 2), dtype=torch.int32, device=dev)
+    n_groups = torch.empty(1, dtype=torch.int32, device=dev)
+    cap = k.group_capacity(B)
+    table = torch.empty(cap, dtype=torch.int32, device=dev)
+    counts = torch.empty(cap, dtype=torch.int32, device=dev)
+    k._launch("agg_group", dev, B, L, k._ptr(lane), k._ptr(buf), int(spans), cap,
+              k._ptr(table), k._ptr(counts), k._ptr(groups), k._ptr(n_groups))
+    return groups, n_groups
 
 
 # ---------------------------------------------------------------------------
@@ -1334,10 +1708,130 @@ def span_cases(smoke, kernels, pipeline):
                *_cuda(torch.from_numpy(sbuf), torch.from_numpy(s), torch.from_numpy(e)))
 
 
+def timestamp_cases(smoke, kernels, pipeline):
+    from ..tools import demolog
+    from ..tpu import runtime, timeparse
+    from .. import TorchBatchParser
+
+    def case(name, groups):
+        """groups: [(TsTables, buf, starts, ends)], one launch each."""
+        n_bytes = n_ops = 0
+        for ts, dbuf, starts, ends in groups:
+            b, o = smoke.timestamp_cost(torch, ts, starts, ends, *dbuf.shape)
+            n_bytes, n_ops = n_bytes + b, n_ops + o
+
+        def zone(ts, dbuf):
+            return (torch.empty(dbuf.shape[0], dtype=torch.int32, device="cuda")
+                    if ts.zone is not None else None)
+
+        def launches(wrapper):
+            def go():
+                out = []
+                for ts, dbuf, starts, ends in groups:
+                    z = zone(ts, dbuf)
+                    out += [wrapper(ts, dbuf, starts, ends, zone_out=z)] + (
+                        [z] if z is not None else [])
+                return out
+            return go
+
+        rows = {id(ts): ParentTsRows(ts.layout).cuda() for ts, *_ in groups}
+
+        def plain():
+            out = []
+            for ts, dbuf, starts, ends in groups:
+                z = zone(ts, dbuf)
+                rows = torch.empty((4, dbuf.shape[0]), dtype=torch.int32, device="cuda")
+                out += [pipeline.timestamp_plain(ts, dbuf, starts, ends, rows, z)] + (
+                    [z] if z is not None else [])
+            return out
+
+        return Case(name, "timestamp", launches(kernels.timestamp), plain, None, n_bytes,
+                    n_ops, parent_run=launches(
+                        lambda ts, *a, **kw: parent_timestamp(rows[id(ts)], ts, *a, **kw)))
+
+    configs = [
+        ("timestamp_headline", "combined", demolog.HEADLINE_FIELDS,
+         demolog.generate_combined_lines(smoke.N_LINES, seed=42, garbage_fraction=0.01)
+         + smoke.EDGE_LINES),
+        ("timestamp_strftime", demolog.COMBINEDIO_STRFTIME_FORMAT,
+         demolog.COMBINEDIO_STRFTIME_FIELDS,
+         demolog.combinedio_strftime_lines(smoke.N_LINES) + demolog.strftime_edge_lines()),
+        ("timestamp_zonetext", demolog.ZONETEXT_FORMAT, demolog.ZONETEXT_FIELDS,
+         demolog.zonetext_lines(smoke.N_LINES) + demolog.strftime_edge_lines()),
+    ]
+    for name, fmt, fields, lines in configs:
+        buf, lengths, _ = runtime.encode_batch(lines)
+        dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+        (t,) = TorchBatchParser(fmt, fields).executor.unit_tables
+        starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+        yield case(name, [(ts, dbuf, starts, ends) for ts in t.ts])
+    groups = []
+    for _, layout, buf, s, e in seeded_timestamp_case(TS_SEEDED_B, TS_SEEDED_L, seed=14):
+        ts = pipeline.TsTables(0, timeparse.compile_layout_for_device(layout)).cuda()
+        groups.append((ts, *_cuda(torch.from_numpy(buf), torch.from_numpy(s)[None],
+                                  torch.from_numpy(e)[None])))
+    yield case("timestamp_seeded", groups)
+
+
+def group_cases(smoke, kernels, pipeline):
+    from ..analytics import AggregateSpec
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, dbuf, lane, spans, host_buf):
+        B = dbuf.shape[0]
+
+        def plain():
+            return agg_device.agg_group_plain(
+                lane, dbuf, spans, torch.empty((B, 4 if spans else 2), dtype=torch.int32,
+                                               device="cuda"),
+                torch.empty(1, dtype=torch.int32, device="cuda"))
+
+        n_groups = int(plain()[1][0])
+        vals = lane[lane != agg_device.INT32_MAX]
+        return Case(name, "agg_group", lambda: kernels.agg_group(lane, dbuf, spans), plain,
+                    None if spans else lambda: torch.unique(vals, return_counts=True),
+                    *smoke.agg_group_cost(torch, agg_device, lane, spans, n_groups),
+                    parent_run=lambda: parent_agg_group(lane, dbuf, spans),
+                    canonical=lambda out: group_map(*out, host_buf, spans))
+
+    lines = (demolog.generate_combined_lines(smoke.N_LINES, seed=42, garbage_fraction=0.01)
+             + demolog.aggregate_edge_lines())
+    buf, lengths, _ = runtime.encode_batch(lines)
+    spec = AggregateSpec.parse(demolog.DASHBOARD_OPS)
+    ex = TorchBatchParser("combined", demolog.HEADLINE_FIELDS)._agg_executor(spec)
+    dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+    B = dbuf.shape[0]
+    _, lanes = kernels.agg_lanes(ex.tables, ex.units(dbuf, dlen), dbuf, B,
+                                 torch.zeros(B, dtype=torch.uint8, device="cuda"))
+    names = {"request.status.last": "status", "request.firstline.uri": "uri",
+             "request.receive.time.epoch": "hour"}
+    labels = {}
+    for p, part in zip(ex.tables.op_plans, ex.tables.op_partial):
+        if p.op.op in ("count_by", "top_k", "time_bucket"):
+            labels.setdefault(part, names[p.op.field.split(":")[1]])
+    for gi, (row, spans) in enumerate(ex.tables.groups_py):
+        yield case(f"agg_group_{labels[gi]}", dbuf, lanes[row].contiguous(), spans, buf)
+    for B in GROUP_B:
+        runs = [(d, "some") for d in GROUP_CARDINALITIES]
+        if B == 65547:
+            runs += [(24, "all"), (24, "none")]
+        for d, selected in runs:
+            sbuf, span_lane, int_lane = seeded_group_case(B, d, seed=B + (d or 0),
+                                                          selected=selected)
+            dsb = torch.from_numpy(sbuf).cuda()
+            card = "B" if d is None else d
+            tag = f"{card}_{B}" if selected == "some" else f"{selected}_{card}_{B}"
+            for lane, spans in ((span_lane, True), (int_lane, False)):
+                yield case(f"agg_group_seeded_{tag}_{'spans' if spans else 'ints'}", dsb,
+                           torch.from_numpy(lane).cuda(), spans, sbuf)
+
+
 CASES = {"zone_lookup": zone_cases, "geo_lookup": geo_cases, "split": split_cases,
          "agg_reduce": agg_cases, "csr_split": csr_cases, "sp_program": sp_cases,
          "uri_split": uri_cases, "setcookie_split": setcookie_cases, "pack_rows": pack_cases,
-         "span_stages": span_cases}
+         "span_stages": span_cases, "timestamp": timestamp_cases, "agg_group": group_cases}
 
 
 def _same(a, b) -> bool:
@@ -1347,7 +1841,10 @@ def _same(a, b) -> bool:
 
 
 def _n_differ(a, b) -> int:
-    """Places where two outputs differ (0: equal)."""
+    """Places where two outputs differ (0: equal); of two {key: count}
+    maps, the keys whose counts differ."""
+    if isinstance(a, dict):
+        return sum(a.get(k) != b.get(k) for k in set(a) | set(b))
     a = a if isinstance(a, (list, tuple)) else [a]
     b = b if isinstance(b, (list, tuple)) else [b]
     if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
@@ -1379,8 +1876,9 @@ def main(argv) -> int:
                     run_parent = case.parent
                 else:
                     def run_parent(case=case, lib=parent[case.kernel]):
-                        with parent_kernel(case.kernel, lib):
-                            return case.run()
+                        own = case.parent_run is not None
+                        with parent_kernel(case.kernel, lib.direct if own else lib):
+                            return (case.parent_run if own else case.run)()
 
                 differs = {}
                 for who, fn, plain in (("parent", run_parent, case.parent_plain or case.plain),
@@ -1388,6 +1886,8 @@ def main(argv) -> int:
                     want = plain()
                     got = fn()
                     torch.cuda.synchronize()
+                    if case.canonical is not None:
+                        got, want = case.canonical(got), case.canonical(want)
                     differs[who] = _n_differ(got, want)
                     if differs[who] and not (who == "parent" and case.parent_defect):
                         print(f"kernel_ab: {case.name}: the {who} kernel differs from the "

@@ -8,8 +8,8 @@ substitutions on ``csrc/KERNEL.cu`` (each ``old`` must occur; a ``new``
 may include a header that lies beside VARIANTS.json).  Each
 variant is built with nvcc into a temporary directory and run through
 this checkout's wrapper with its library swapped in (as kernel_ab runs a
-parent).  A variant is held to the plain version bit for bit unless its
-name starts with ``x_``: an ablation that compiles a phase out, whose
+parent).  A variant is held to the plain version bit for bit (agg_group's
+as key -> count maps) unless its name starts with ``x_``: an ablation that compiles a phase out, whose
 outputs are wrong by design.  Then every variant and the checkout are
 timed with chip_smoke.DeviceClock on each of kernel_ab's cases for the
 kernel; one JSON line per case (device ms), the card's name and power
@@ -73,16 +73,17 @@ def main(argv) -> int:
             libs[v] = kernel_ab.ParentLib(Path(tmp) / f"lib{name}_{v}.so", name, text, src)
         clock = smoke.DeviceClock(torch)
         for case in kernel_ab.CASES[name](smoke, kernels, pipeline):
-            want = case.plain()
+            canonical = case.canonical or (lambda out: out)
+            want = canonical(case.plain())
             line = {"case": case.name}
             for v, lib in libs.items():
                 def run(lib=lib, case=case):
                     with kernel_ab.parent_kernel(case.kernel, lib):
                         return case.run()
 
-                got = run()
+                got = canonical(run())
                 torch.cuda.synchronize()
-                if not v.startswith("x_") and not kernel_ab._same(got, want):
+                if not v.startswith("x_") and kernel_ab._n_differ(got, want):
                     print(f"kernel_variants: {case.name}: {v} differs from the plain "
                           "version", file=sys.stderr)
                     return 1

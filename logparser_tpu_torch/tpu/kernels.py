@@ -77,8 +77,8 @@ _SIGNATURES = {
     "split": [_P, _P, _INT, _INT, _P, _P, _INT, _P, _INT, _INT, _INT, _INT,
               _INT, _P, _P, _P, _P],
     "span_stages": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P],
-    "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _P, _P, _P, _INT, _INT,
-                  _INT, _INT, _INT, _INT, _P, _P, _P],
+    "timestamp": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT,
+                  _INT, _INT, _P, _P, _P],
     "zone_lookup": [_INT, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                     _P, _P, _P],
     "uri_split": [_P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT, _INT, _INT,
@@ -335,11 +335,10 @@ def timestamp(
         return pipeline.timestamp_plain(tables, buf, starts, ends, out, zone_out)
     if B:
         _launch("timestamp", dev, _ptr(buf), B, L, _ptr(starts[tables.token_index]),
-                _ptr(ends[tables.token_index]), _ptr(tables.segs),
-                tables.segs.shape[0], _ptr(tables.items), _ptr(tables.text),
-                _ptr(tables.entries), tables.entry_width, tables.tail,
-                int(dl.one_shot(L)), dl.default_offset_seconds, dl.min_prefix,
-                int(zone), _ptr(out), _ptr(zone_out) if zone else None)
+                _ptr(ends[tables.token_index]), _ptr(tables.index), tables.index.shape[0],
+                tables.window, tables.fixed, tables.tail, int(dl.one_shot(L)),
+                dl.default_offset_seconds, dl.min_prefix, int(zone), _ptr(out),
+                _ptr(zone_out) if zone else None)
         timestamp.launches += 1
     return out
 
@@ -643,7 +642,7 @@ def agg_reduce(
 
 
 def group_capacity(B: int) -> int:
-    """agg_group's hash-table slots: the least power of two >= 2B."""
+    """agg_group's global hash-table slots: the least power of two >= 2B."""
     cap = 2
     while cap < 2 * B:
         cap *= 2
@@ -661,14 +660,15 @@ def agg_group(
     dev = buf.device
     _check("lane", lane, _I32, (B,), dev)
     groups = torch.empty((B, 4 if spans else 2), dtype=_I32, device=dev)
-    n_groups = torch.empty(1, dtype=_I32, device=dev)
     if not _route(buf):
-        return agg_device.agg_group_plain(lane, buf, spans, groups, n_groups)
+        return agg_device.agg_group_plain(lane, buf, spans, groups,
+                                          torch.empty(1, dtype=_I32, device=dev))
     cap = group_capacity(B)
-    table = torch.empty(cap, dtype=_I32, device=dev)
-    counts = torch.empty(cap, dtype=_I32, device=dev)
+    # The table's 64-bit keys, its group indices and n_groups, zeroed in one fill.
+    scratch = torch.zeros(3 * cap + 1, dtype=_I32, device=dev)
+    n_groups = scratch[3 * cap:]
     _launch("agg_group", dev, B, L, _ptr(lane), _ptr(buf), int(spans), cap,
-            _ptr(table), _ptr(counts), _ptr(groups), _ptr(n_groups))
+            _ptr(scratch), _ptr(scratch[2 * cap:]), _ptr(groups), _ptr(n_groups))
     agg_group.launches += 1
     return groups, n_groups
 

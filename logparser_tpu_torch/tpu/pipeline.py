@@ -53,6 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..dissectors.timelayout import MONTHS_SHORT
 from ..geoip.device import lookup_rows_plain, u32_bits
 from . import postproc, timeparse
 from .program import CS_ANY, DeviceProgram
@@ -1013,43 +1014,134 @@ class ZoneTables(nn.Module):
 
 
 class TsTables(nn.Module):
-    """One timestamp group: the DeviceTimeLayout as tables.
-
-    ``segs`` rows (width or -1, first item, item count); ``items`` rows
-    (kind, offset, width, arg, count) -- arg is a literal's offset into
-    ``text``, a numeric field's index in ``timeparse.NUM_FIELDS`` or a
-    table's first row of ``entries``, count its entry count; ``entries``
-    rows (length, case-folded, zone index, bytes...).  A %Z layout also
-    carries its :class:`ZoneTables` (``zone``)."""
+    """One timestamp group: the DeviceTimeLayout as the image the timestamp
+    kernel reads (``index``, :func:`_ts_index`), the bytes a line's items
+    and tail can read from its span start (``window``) and the kernel's
+    register path for the layout (``fixed``, :func:`_fixed_layout`).  A %Z
+    layout also carries its :class:`ZoneTables` (``zone``)."""
 
     def __init__(self, token_index: int, dl: timeparse.DeviceTimeLayout):
         super().__init__()
         self.token_index = token_index
         self.layout = dl
-        segs, items, text, entries = [], [], [], []
-        for seg, seg_w in zip(dl.segments, dl.seg_widths):
-            segs.append((seg_w, len(items), len(seg)))
-            for it in seg:
-                if it.kind == "lit":
-                    items.append((ITEM_LIT, it.offset, it.width, len(text), 0))
-                    text.extend(it.text)
-                elif it.kind == "num":
-                    items.append((ITEM_NUM, it.offset, it.width,
-                                  timeparse.NUM_FIELDS.index(it.field), 0))
-                else:
-                    items.append((_TABLE_KIND[it.kind, it.field], it.offset, it.width,
-                                  len(entries), len(it.table)))
-                    for k, e in enumerate(it.table):
-                        fold = it.fold_flags[k] if it.kind == "zone" else True
-                        zone = it.zone_idx[k] if it.kind == "zone" else 0
-                        entries.append((len(e), int(fold), zone) + tuple(e))
-        self.entry_width = 3 + max((len(e) - 3 for e in entries), default=0)
         self.tail = TAIL_KIND[dl.tail]
-        self.register_buffer("segs", _i32(segs, 3))
-        self.register_buffer("items", _i32(items, 5))
-        self.register_buffer("text", torch.tensor(text or [0], dtype=torch.int32))
-        self.register_buffer("entries", _i32(entries or [(0, 0, 0)], self.entry_width))
+        self.window = sum(dl.windows()) + (timeparse.TAIL_WIDTH if dl.tail else 0)
+        self.fixed = _fixed_layout(dl)
+        self.register_buffer("index", torch.tensor(_ts_index(dl), dtype=torch.int32))
         self.zone = ZoneTables(dl.zone_table) if dl.zone_table is not None else None
+
+
+# Apache's dd/MMM/yyyy:HH:mm:ss ZZ in English, item by item (kind, offset,
+# width, field or text); the hour item is (num, 12, 2, hour or clock_hour).
+_FIXED_ITEMS = (("num", 0, 2, "day"), ("lit", 2, 1, b"/"), ("name", 3, 3, "month"),
+                ("lit", 6, 1, b"/"), ("num", 7, 4, "year"), ("lit", 11, 1, b":"), None,
+                ("lit", 14, 1, b":"), ("num", 15, 2, "minute"), ("lit", 17, 1, b":"),
+                ("num", 18, 2, "second"), ("lit", 20, 1, b" "))
+_FIXED_HOURS = {"hour": 1, "clock_hour": 2}
+
+
+def _fixed_layout(dl: timeparse.DeviceTimeLayout) -> int:
+    """The timestamp kernel's register path: Apache's segment followed by
+    a numeric offset (%t, strftime's %d/%b/%Y:%H:%M:%S %z), its hour the
+    hour (1) or strftime's clock hour %H (2); else 0 (the interpreted
+    path, %Z's included)."""
+    if not (len(dl.segments) == 1 and dl.seg_widths == (21,) and dl.tail == "offset"
+            and dl.zone_table is None and dl.min_prefix == 21
+            and len(dl.segments[0]) == len(_FIXED_ITEMS)):
+        return 0
+    months = tuple(m.encode() for m in MONTHS_SHORT)
+    hour = 0
+    for it, want in zip(dl.segments[0], _FIXED_ITEMS):
+        if want is None:
+            if (it.kind, it.offset, it.width) != ("num", 12, 2) or it.field not in _FIXED_HOURS:
+                return 0
+            hour = _FIXED_HOURS[it.field]
+            continue
+        kind, off, width, what = want
+        if (it.kind, it.offset, it.width) != (kind, off, width):
+            return 0
+        if (kind == "lit" and it.text != what) or (kind == "num" and it.field != what) or (
+                kind == "name" and (it.field != what or it.table != months)):
+            return 0
+    return hour
+
+
+_ZONE_TOKEN = frozenset(b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_/+-")
+
+
+def _ts_pattern(data: bytes, fold: bool, nw: int) -> List[int]:
+    """A pattern of the timestamp kernel: ``nw`` want words (the bytes
+    little-endian, a letter lowered where it compares case-folded), then
+    ``nw`` fold-mask words (0x20 at those letters)."""
+    want, mask = bytearray(4 * nw), bytearray(4 * nw)
+    for i, c in enumerate(data):
+        letter = fold and ord("a") <= (c | 0x20) <= ord("z")
+        want[i], mask[i] = (c | 0x20, 0x20) if letter else (c, 0)
+    words = np.frombuffer(bytes(want) + bytes(mask), dtype="<u4").astype(np.int64)
+    return [int(w) - (1 << 32) if w >= 1 << 31 else int(w) for w in words]
+
+
+def _token_hash(token: bytes) -> int:
+    """The timestamp kernel's hash of a zone token: its length, then its
+    words with every byte OR 0x20 (case-folded letters; the other token
+    bytes keep their identity), the last one cut to the token."""
+    m = 0xFFFFFFFF
+    h = (len(token) * 0x9E3779B1) & m
+    folded = bytes(c | 0x20 for c in token)
+    for k in range(0, len(folded), 4):
+        h = ((h ^ int.from_bytes(folded[k:k + 4], "little")) * 0x85EBCA6B) & m
+        h ^= h >> 13
+    return h ^ (h >> 16)
+
+
+def _ts_index(dl: timeparse.DeviceTimeLayout) -> List[int]:
+    """The image the timestamp kernel stages into shared memory (its
+    layout is spelled out in ``csrc/timestamp.cu``): the segment rows
+    (width or -1, first item, item count) and item rows (kind, offset,
+    width, arg, count), a numeric item's arg its index in
+    ``timeparse.NUM_FIELDS``, any other item's its pattern or table in the
+    image."""
+    segs, n_items = [], 0
+    for seg, seg_w in zip(dl.segments, dl.seg_widths):
+        segs.append((seg_w, n_items, len(seg)))
+        n_items += len(seg)
+    head = [len(segs), n_items] + [v for row in segs for v in row]
+    at = len(head) + 5 * n_items
+    rows, blocks = [], []
+    for it in (it for seg in dl.segments for it in seg):
+        if it.kind == "num":
+            rows.append((ITEM_NUM, it.offset, it.width, timeparse.NUM_FIELDS.index(it.field), 0))
+            continue
+        if it.kind == "lit":
+            kind, count = ITEM_LIT, 0
+            block = _ts_pattern(it.text, True, (it.width + 3) // 4)
+        else:
+            kind, count = _TABLE_KIND[it.kind, it.field], len(it.table)
+            zone = kind == ITEM_ZONE
+            nw = (max(len(e) for e in it.table) + 3) // 4
+            recs = []
+            for n, e in enumerate(it.table):
+                fold = it.fold_flags[n] if zone else True
+                zi = it.zone_idx[n] if zone else 0
+                if zone and not (e and set(e) <= _ZONE_TOKEN):
+                    raise ValueError(f"zone entry {e!r} is not a zone token")
+                recs.append([len(e) | int(fold) << 8 | n << 16, zi]
+                            + _ts_pattern(e, fold, nw))
+            block = [2 + 2 * nw, recs[0][1]]
+            if zone:
+                nb = 2
+                while nb < 2 * len(recs):
+                    nb *= 2
+                bucket = [_token_hash(e) & (nb - 1) for e in it.table]
+                order = sorted(range(len(recs)), key=lambda n: (bucket[n], n))
+                starts = np.searchsorted(np.array(sorted(bucket)), np.arange(nb + 1))
+                block += [nb] + [int(x) for x in starts]
+                recs = [recs[n] for n in order]
+            block += [v for r in recs for v in r]
+        rows.append((kind, it.offset, it.width, at, count))
+        blocks += block
+        at += len(block)
+    return head + [v for row in rows for v in row] + blocks
 
 
 # The most splitters a geo_lookup block stages: 32 KB of shared memory.

@@ -476,3 +476,63 @@ def test_wrappers_pass_the_c_signature(monkeypatch):
     kernels.agg_reduce(ex.tables, cls, lanes)
     kernels.agg_group(lanes[0], tb, True)
     assert calls == ["agg_lanes", "agg_reduce", "agg_group"]
+
+
+# ---------------------------------------------------------------------------
+# kernel_ab's seeded grouping lanes (the inputs agg_group_seeded_* feeds the
+# card) against the reference's _group_spans / _group_ints.
+# ---------------------------------------------------------------------------
+
+from logparser_tpu.analytics.device import _group_ints, _group_spans  # noqa: E402
+from logparser_tpu_torch.tools.kernel_ab import (  # noqa: E402
+    GROUP_CARDINALITIES,
+    group_map,
+    seeded_group_case,
+)
+
+
+def _reference_groups(rows, n, buf, spans):
+    """The reference's groups merged by full key, as the host merges them
+    (a span key read as the reference reads it: clamped to L - 1)."""
+    L = buf.shape[1]
+    out = {}
+    for row in rows[:n]:
+        if spans:
+            cnt, r, s, ln = (int(x) for x in row)
+            key = (ln, bytes(buf[r, np.minimum(np.arange(s, s + ln), L - 1)]))
+        else:
+            key, cnt = int(row[0]), int(row[1])
+        out[key] = out.get(key, 0) + cnt
+    return out
+
+
+@pytest.mark.parametrize("distinct,selected", [(d, "some") for d in GROUP_CARDINALITIES]
+                         + [(24, "all"), (24, "none")])
+def test_seeded_group_lanes_match_the_reference(distinct, selected):
+    """Both lanes of seeded_group_case through the plain agg_group and the
+    reference: equal key -> count maps, the port's keys distinct and its
+    n_groups their number."""
+    B = 4095
+    buf, span_lane, int_lane = seeded_group_case(B, distinct, seed=B + (distinct or 0),
+                                                 selected=selected)
+    tb = torch.from_numpy(buf)
+    for lane, spans in ((span_lane, True), (int_lane, False)):
+        got = agg_device.agg_group_plain(
+            torch.from_numpy(lane), tb, spans,
+            torch.empty((B, 4 if spans else 2), dtype=torch.int32),
+            torch.empty(1, dtype=torch.int32))
+        port = group_map(*got, buf, spans)
+        assert int(got[1][0]) == len(port)
+        if spans:
+            sel = lane != -1
+            n, rows = _group_spans(jnp.asarray(buf), jnp.asarray(sel),
+                                   jnp.asarray(lane & 8191), jnp.asarray((lane >> 13) & 8191),
+                                   B, buf.shape[1])
+        else:
+            sel = lane != agg_device.INT32_MAX
+            n, rows = _group_ints(jnp.asarray(lane), jnp.asarray(sel), B)
+        want = _reference_groups(np.asarray(rows), int(n), buf, spans)
+        assert port == want
+        assert sum(port.values()) == int(sel.sum())
+        if selected == "none":
+            assert not port

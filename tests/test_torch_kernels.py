@@ -1159,3 +1159,61 @@ def test_data_parallel_parser_on_the_card_equals_the_cpu(cuda_device, monkeypatc
     agg = lines + aggregate_edge_lines()
     assert gpu.aggregate_batch(agg, DASHBOARD_OPS).state == \
         cpu.aggregate_batch(agg, DASHBOARD_OPS).state
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("L", [64, 256, 384])
+def test_timestamp_kernel_on_seeded_spans(cuda_device, L, offset):
+    """timestamp against its plain version on tools.kernel_ab's seeded
+    spans of every seeded layout (Apache's and strftime's %z on the
+    register path; %Z, full month names, am/pm, day names and an ISO tail
+    interpreted):
+    mixed-case names, every %Z entry and its variants, bad digits, clock
+    hour 24, leap seconds, Feb 29, +HHMM against +HH:MM, spans ending at or
+    clipped by L, near a power-of-two bucket's end (the row-read path) and
+    with their bits above the gather mask set.  ``offset`` starts the
+    buffer that many bytes past an allocation.  Exact equality, the zone
+    row too."""
+    from logparser_tpu_torch.tools.kernel_ab import seeded_timestamp_case
+    from logparser_tpu_torch.tpu import timeparse
+
+    for name, layout, buf, s, e in seeded_timestamp_case(4099, L, seed=L + offset):
+        dl = timeparse.compile_layout_for_device(layout)
+        if max(dl.windows()) > L:
+            continue
+        ts = pipeline.TsTables(0, dl).to(cuda_device)
+        dbuf = _offset_buffer(buf, offset, cuda_device)
+        starts = torch.from_numpy(s)[None].to(cuda_device)
+        ends = torch.from_numpy(e)[None].to(cuda_device)
+        zone = ts.zone is not None
+        z = torch.empty(len(s), dtype=torch.int32, device=cuda_device) if zone else None
+        got = kernels.timestamp(ts, dbuf, starts, ends, zone_out=z)
+        zw = torch.empty_like(z) if zone else None
+        want = pipeline.timestamp_plain(ts, dbuf, starts, ends, torch.empty_like(got), zw)
+        assert torch.equal(got, want), name
+        assert not zone or torch.equal(z, zw), name
+        assert got[3].any() and not got[3].all(), name
+
+
+@pytest.mark.parametrize("B", [31, 4095, 65547])
+@pytest.mark.parametrize("distinct", [1, 4, 24, 1000, None])
+def test_agg_group_kernel_on_seeded_cases(cuda_device, B, distinct):
+    """agg_group against its plain version on tools.kernel_ab's seeded
+    lanes (span keys of equal length and equal first 16 bytes, keys that
+    run past L, the empty key; int keys with INT32_MIN and INT32_MAX - 1),
+    ``distinct`` keys or one a row: equal key -> count maps, n_groups the
+    number of keys, no key split."""
+    from logparser_tpu_torch.tools.kernel_ab import group_map, seeded_group_case
+
+    for selected in ("some", "all", "none"):
+        buf, span_lane, int_lane = seeded_group_case(B, distinct, seed=B, selected=selected)
+        dbuf = torch.from_numpy(buf).to(cuda_device)
+        for lane, spans in ((span_lane, True), (int_lane, False)):
+            lane = torch.from_numpy(lane).to(cuda_device)
+            got = kernels.agg_group(lane, dbuf, spans)
+            want = agg_device.agg_group_plain(lane, dbuf, spans, torch.empty_like(got[0]),
+                                              torch.empty(1, dtype=torch.int32,
+                                                          device=cuda_device))
+            a = group_map(*got, buf, spans)
+            assert a == group_map(*want, buf, spans)
+            assert int(got[1][0]) == len(a)

@@ -259,3 +259,137 @@ def test_host_only_layouts_stay_host_only(items, zone):
 
     assert ref_timeparse.compile_layout_for_device(RefTimeLayout(items, zone)) is None
     assert timeparse.compile_layout_for_device(TimeLayout(items, zone)) is None
+
+
+# kernel_ab's seeded timestamp case (the inputs timestamp_seeded feeds the
+# card): every layout at a power-of-two bucket (spans near its end cross
+# the gather mask's span) and at L = 384.
+from logparser_tpu.dissectors.timelayout import TimeLayout as RefTimeLayout  # noqa: E402
+from logparser_tpu_torch.tools.kernel_ab import (  # noqa: E402
+    TS_SEEDED_LAYOUTS,
+    seeded_timestamp_case,
+    ts_render,
+)
+
+
+@pytest.mark.parametrize("L", [256, 384])
+@pytest.mark.parametrize("name", [n for n, _ in TS_SEEDED_LAYOUTS])
+def test_seeded_timestamp_case_matches_reference(name, L):
+    """The seeded spans through the reference's parse_device_timestamp and
+    the port's, bit for bit, and through timestamp_plain (the bundle the
+    kernel is held to): its rows are the components packed, and for the
+    %Z layout the wall minute and the zone index."""
+    (case,) = [c for c in seeded_timestamp_case(600, L, seed=14) if c[0] == name]
+    _, layout, buf, start, end = case
+    dl = timeparse.compile_layout_for_device(layout)
+    ref_dl = ref_timeparse.compile_layout_for_device(
+        RefTimeLayout([tuple(it) for it in layout.items], layout.default_zone))
+    assert dl is not None and ref_dl is not None
+    comp, ok, ref_comp, ref_ok = run_both(ref_dl, dl, buf, start, end)
+    assert_same(comp, ok, ref_comp, ref_ok, (name, L))
+    assert 0 < int(ok.sum()) < len(ok)            # both verdicts occur
+    tables = pipeline.TsTables(0, dl)
+    rows = torch.empty((4, len(start)), dtype=torch.int32)
+    zone = torch.empty(len(start), dtype=torch.int32) if tables.zone is not None else None
+    fields, fok = timeparse.parse_timestamp_fields(
+        torch.from_numpy(buf), torch.from_numpy(start), torch.from_numpy(end), dl)
+    pipeline.timestamp_plain(tables, torch.from_numpy(buf), torch.from_numpy(start)[None],
+                             torch.from_numpy(end)[None], rows, zone)
+    c1 = (fields["year"] | fields["month"] << 14 | fields["day"] << 18 | fields["hour"] << 23)
+    assert torch.equal(rows[0], c1.to(torch.int32))
+    assert torch.equal(rows[3], fok.to(torch.int32))
+    if zone is not None:
+        assert torch.equal(zone, fields["zone_idx"])
+        assert torch.equal(rows[2], fields["minutes"])
+
+
+def test_seeded_timestamp_renders_cover_the_zone_vocabulary():
+    """Every %Z entry of the vocabulary is rendered (entry i in turn), and
+    the render mixes valid timestamps with broken ones."""
+    from logparser_tpu_torch.dissectors.tztable import default_zone_table
+
+    vocab = [e[0].decode() for e in timeparse.zone_vocabulary(default_zone_table())]
+    (case,) = [c for c in seeded_timestamp_case(len(vocab) * 4, 256, seed=14)
+               if c[0] == "zonetext"]
+    layout = case[1]
+    rng = np.random.default_rng(0)
+    renders = [ts_render(rng, layout, vocab, i) for i in range(len(vocab) * 4)]
+    for e in vocab:
+        assert any(r.endswith(" " + e) for r in renders), e
+
+
+@pytest.mark.parametrize("name", [n for n, _ in TS_SEEDED_LAYOUTS])
+def test_register_path_takes_only_the_offset_layouts(name):
+    """TsTables.fixed picks the timestamp kernel's register path for
+    Apache's %t (its hour) and strftime's %d/%b/%Y:%H:%M:%S %z (its clock
+    hour) alone; every other layout, %Z's included, is interpreted from
+    the image."""
+    (case,) = [c for c in seeded_timestamp_case(8, 256, seed=14) if c[0] == name]
+    tables = pipeline.TsTables(0, timeparse.compile_layout_for_device(case[1]))
+    assert tables.fixed == {"apache": 1, "strftime_z": 2}.get(name, 0)
+    assert tables.fixed == 0 or tables.window == 27
+
+
+def _zone_records(index):
+    """The %Z table of a TsTables image, read as csrc/timestamp.cu reads
+    it: (bucket count, bucket starts, records (length, fold, entry number,
+    zone index, want words, mask words))."""
+    n_segs, n_items = index[0], index[1]
+    items = [index[2 + 3 * n_segs + 5 * i:][:5] for i in range(n_items)]
+    (arg,) = [it[3] for it in items if it[0] == pipeline.ITEM_ZONE]
+    tab = index[arg:]
+    rw, nb = tab[0], tab[2]
+    nw = (rw - 2) // 2
+    starts = tab[3:4 + nb]
+    recs = []
+    for n in range(starts[-1]):
+        r = tab[4 + nb + n * rw:][:rw]
+        recs.append((r[0] & 0xFF, (r[0] >> 8) & 1, r[0] >> 16, r[1],
+                     r[2:2 + nw], r[2 + nw:2 + 2 * nw]))
+    return nb, starts, recs
+
+
+@pytest.mark.parametrize("kind,pattern", [ZONE_LAYOUT, ("strf", "%d/%b/%Y %H:%M:%S %Z")])
+def test_zone_image_finds_the_first_entry_in_table_order(kind, pattern):
+    """Every %Z entry, lowered, uppered and as written, looked up as the
+    kernel looks it up in TsTables.index -- its token's folded hash picks a
+    bucket, whose records keep table order, and the first record of the
+    token's length whose words match wins -- finds the first entry in
+    table order that the reference's rule accepts (the same length, equal
+    bytes, letters case-folded where the entry folds), and its zone."""
+    dl = timeparse.compile_layout_for_device(port_layout(ref_layout(kind, pattern)))
+    (zit,) = [it for seg in dl.segments for it in seg if it.kind == "zone"]
+    index = pipeline.TsTables(0, dl).index.tolist()
+    nb, starts, recs = _zone_records(index)
+    assert [r[2] for r in recs] == sorted(
+        range(len(zit.table)), key=lambda n: (pipeline._token_hash(zit.table[n]) & (nb - 1), n))
+
+    def words(tok, nw):
+        padded = tok + bytes(4 * nw - len(tok))
+        return [int.from_bytes(padded[4 * k:4 * k + 4], "little") for k in range(nw)]
+
+    def kernel(tok):
+        bk = pipeline._token_hash(tok) & (nb - 1)
+        for ln, _, n, zi, want, mask in recs[starts[bk]:starts[bk + 1]]:
+            if ln != len(tok):
+                continue
+            cut = [(1 << 8 * min(4, ln - 4 * k)) - 1 for k in range((ln + 3) // 4)]
+            if all(((w | (m & 0xFFFFFFFF)) & c) == (v & 0xFFFFFFFF)
+                   for w, m, c, v in zip(words(tok, len(want)), mask, cut, want)):
+                return n, zi
+        return None
+
+    def rule(tok):
+        for n, e in enumerate(zit.table):
+            same = e.lower() == tok.lower() if zit.fold_flags[n] else e == tok
+            if len(e) == len(tok) and same:
+                return n, zit.zone_idx[n]
+        return None
+
+    tokens = {t for e in zit.table for t in (e, e.lower(), e.upper(), e + b"x", e[:-1])}
+    assert len(tokens) > 3 * len(zit.table)
+    hits = 0
+    for tok in sorted(t for t in tokens if t):
+        assert kernel(tok) == rule(tok), tok
+        hits += rule(tok) is not None
+    assert hits >= len(zit.table)

@@ -18,7 +18,9 @@ TOOLS = Path(kernels.__file__).resolve().parent.parent / "tools"
 VARIANT_FILES = {"split_phases.json": "split", "uri_variants.json": "uri_split",
                  "setcookie_variants.json": "setcookie_split",
                  "pack_rows_variants.json": "pack_rows",
-                 "span_stages_variants.json": "span_stages"}
+                 "span_stages_variants.json": "span_stages",
+                 "timestamp_variants.json": "timestamp",
+                 "agg_group_variants.json": "agg_group"}
 
 
 def test_every_variant_file_names_its_kernel():
