@@ -74,19 +74,23 @@ first phase that fails:
    end for each, equal to the CPU, with no generated timestamp line in
    needs_host; then the zone-text 8191-byte bucket.  Each end-to-end
    line carries its path's bound: the sum of its kernels' bounds;
-8. GeoIP: ipv4_spans and geo_lookup (both groups: City and ASN) and
-   pack_rows (the IPv6 constraint) against their plain versions on the
-   geoip_chain batch; geo_lookup alone on a seeded table of 4,194,304
+8. GeoIP: ipv4_spans (one launch for the IP token that both groups, City
+   and ASN, read), geo_lookup (one a group) and pack_rows (the IPv6
+   constraint) against their plain versions on the geoip_chain batch;
+   ipv4_spans on tools.kernel_ab's seeded spans over two tokens
+   (``ipv4_spans_seeded``); geo_lookup alone on a seeded table of 4,194,304
    ranges (262,146 keys: the start, end and both neighbours of every 64th
    range, 0 and 0xFFFFFFFF; its bound counts the 32-byte sectors of starts
    a host simulation of the same search touches) beside
    torch.searchsorted, and on an empty table; parse_batch end to end on
-   both GeoIP configurations (the synthetic one also reports the seconds
+   both GeoIP configurations, each with exactly one ipv4_spans launch per
+   IP token (the synthetic one also reports the seconds
    to write the database and to build its table), geo_lookup on the
    synthetic City table (``geo_lookup_synthetic``), GeoDeviceTable.gather
    of every synthetic City column by the batch's looked-up rows and
-   crafted out-of-range ones (beside torch.index_select), and the
-   8191-byte bucket;
+   crafted out-of-range ones (beside torch.index_select), the
+   8191-byte bucket, and City and ASN over two IP tokens
+   (``end_to_end_geo_two_tokens``: two ipv4_spans launches, card = CPU);
 9. NGINX: span_stages (the secmillis tasks) and pack_rows under the
    nginx_timing tables against their plain versions; parse_batch end to
    end on both NGINX configurations and the 8191-byte bucket;
@@ -112,7 +116,8 @@ first phase that fails:
    ``end_to_end_cookies_grown``); under the grown tables split
    (``split_cookies``), setcookie_split, csr_split in cookie mode
    (``csr_split_cookie``) and muid against their
-   plain versions, timed the same way; split on a NUL-separated format
+   plain versions, timed the same way, and muid on tools.kernel_ab's
+   seeded tokens at L = 2,048 and 64 (``muid_seeded``, ``muid_seeded_64``); split on a NUL-separated format
    (``split_nul``, then ``end_to_end_nul``); small legs, card = CPU only:
    a multi-format parser with a plausibility-only probe unit, NGINX
    upstream-list elements, BYTESCLF over ``%B``, the cookie path's
@@ -813,6 +818,27 @@ def span_bytes(torch, s, e, cap):
     return int((e - s).clamp(0, cap).to(torch.int64).sum())
 
 
+def window_bytes(torch, s, L, n):
+    """Bytes of the n from each start (its bits above the gather mask
+    ignored) that lie inside the line: Row::at reads 0 past L."""
+    mask = (1 << max(1, (L - 1).bit_length())) - 1
+    return int((L - (s.to(torch.int64) & mask)).clamp(0, n).sum())
+
+
+def muid_cost(torch, s, e, B, L):
+    """(bytes, operations) of muid: the token's first 24 bytes inside the
+    line, the cursors in, 6 rows out."""
+    n_read = window_bytes(torch, s, L, 24)
+    return n_read + B * (8 + 24), 10 * n_read
+
+
+def ipv4_cost(torch, starts, ends, tokens, B):
+    """(bytes, operations) of ipv4_spans, one launch per token: each
+    token's span bytes (its first 15), the cursors in, 4 rows out."""
+    n_read = sum(span_bytes(torch, starts[t], ends[t], 15) for t in tokens)
+    return n_read + len(tokens) * B * (8 + 16), 10 * n_read
+
+
 def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
                smi, fields, generate_combined_lines, uri_edge_lines):
     """Section 6: the URI chain's kernels, end to end, wide bucket."""
@@ -1321,8 +1347,9 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     gpu = parser(city)
     ex = gpu.executor
     (t,) = ex.unit_tables
-    if len(t.geo) != 2:
-        fail(f"geoip_chain has {len(t.geo)} geo groups, not 2 (City, ASN)")
+    if len(t.geo) != 2 or len(t.ip) != 1:
+        fail(f"geoip_chain has {len(t.geo)} geo groups over {len(t.ip)} IP tokens, "
+             "not 2 (City, ASN) over 1")
     dbuf = torch.from_numpy(buf).cuda()
     dlen = torch.from_numpy(lengths).cuda()
     starts, ends, flags = kernels.split(t.split, dbuf, dlen)
@@ -1333,44 +1360,41 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     base = block.clone()
 
     def ip_kernel():
-        for g in t.geo:
-            kernels.ipv4_spans(g, dbuf, starts, ends, out=block[g.base:g.base + 4])
+        for ip in t.ip:
+            kernels.ipv4_spans(ip, dbuf, starts, ends, out=block[ip.base:ip.base + 4])
         return block
 
     def ip_plain():
         out = base.clone()
-        for g in t.geo:
-            pipeline.ipv4_spans_plain(g, dbuf, starts, ends, out[g.base:g.base + 4])
+        for ip in t.ip:
+            pipeline.ipv4_spans_plain(ip, dbuf, starts, ends, out[ip.base:ip.base + 4])
         return out
 
-    ip_bytes = sum(span_bytes(torch, starts[g.token_index], ends[g.token_index], 15)
-                   for g in t.geo)
     phase("ipv4_spans", ip_kernel, ip_plain,
-          bytes_moved=ip_bytes + len(t.geo) * B * (8 + 16), ops=10 * ip_bytes, n=B)
+          *ipv4_cost(torch, starts, ends, [ip.token_index for ip in t.ip], B), n=B)
     ip_kernel()
     torch.cuda.synchronize()
 
     base = block.clone()
-    V, OK, ROW = pipeline.GEO_VALUE, pipeline.GEO_IP_OK, pipeline.GEO_ROW
+    V, OK = pipeline.GEO_VALUE, pipeline.GEO_IP_OK
 
     def geo_kernel():
         for g in t.geo:
-            kernels.geo_lookup(g, block[g.base + V], gate=block[g.base + OK],
-                               out=block[g.base + ROW])
+            kernels.geo_lookup(g, block[g.ip + V], gate=block[g.ip + OK], out=block[g.row])
         return block
 
     def geo_plain():
         out = base.clone()
         for g in t.geo:
-            pipeline.geo_lookup_plain(g, out[g.base + V], out[g.base + OK], out[g.base + ROW])
+            pipeline.geo_lookup_plain(g, out[g.ip + V], out[g.ip + OK], out[g.row])
         return out
 
     mask = 0xFFFFFFFF
-    lib_in = [((g.starts.to(torch.int64) & mask), (base[g.base + V].to(torch.int64) & mask))
+    lib_in = [((g.starts.to(torch.int64) & mask), (base[g.ip + V].to(torch.int64) & mask))
               for g in t.geo]
     g_bytes = 12 * B * len(t.geo)
     for g in t.geo:
-        host = base[g.base:g.base + 2].cpu().numpy()
+        host = base[g.ip:g.ip + 2].cpu().numpy()
         g_bytes += geo_search_bytes(np, g.table.starts, g.table.ends,
                                     host[0].view(np.uint32), host[1])[0]
     phase("geo_lookup", geo_kernel, geo_plain, bytes_moved=g_bytes, ops=4 * B * len(t.geo),
@@ -1417,10 +1441,12 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     emit({"phase": "geo_lookup_empty", "equal": True, "keys": n, "rows": 0})
 
     # End to end: the fixture databases, then a synthetic City database.
+    ipv4_seeded_phase(torch, kernels, pipeline, phase)
     cpu = parser(city, "cpu")
     launches = run_end_to_end(
         torch, kernels, gpu, cpu, lines, "end_to_end_geo",
         ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"), path_bound, smi)
+    require_geo_launches(launches, t, "end_to_end_geo")
     for name in ("ipv4_spans", "geo_lookup"):
         rows[name]["launches"] = launches[name]
     agg_parity(torch, kernels, gpu, cpu, lines, "agg_parity_geo", smi)
@@ -1439,15 +1465,72 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     syn_lines = demolog.geoip_synthetic_lines(N_LINES, nets) + edge
     ranges = len(gpu_syn.executor.unit_tables[0].geo[0].table)
     cpu_syn = parser(syn, "cpu")
-    run_end_to_end(torch, kernels, gpu_syn, cpu_syn, syn_lines,
-                   "end_to_end_geo_synthetic",
-                   ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"),
-                   None, smi, db_write_seconds=None if existed else write_s,
-                   table_build_seconds=build_s, ranges=ranges)
+    launches = run_end_to_end(
+        torch, kernels, gpu_syn, cpu_syn, syn_lines, "end_to_end_geo_synthetic",
+        ("split", "span_stages", "ipv4_spans", "geo_lookup", "pack_rows"),
+        None, smi, db_write_seconds=None if existed else write_s,
+        table_build_seconds=build_s, ranges=ranges)
+    require_geo_launches(launches, gpu_syn.executor.unit_tables[0],
+                         "end_to_end_geo_synthetic")
     agg_parity(torch, kernels, gpu_syn, cpu_syn, syn_lines, "agg_parity_geo_synthetic", smi)
     geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, syn_lines,
                      smi)
     run_wide(gpu, parser(city, "cpu"), demolog.geoip_chain_lines(256) + edge, "geo")
+
+    # City and ASN over two IP tokens: one ipv4_spans launch a token.
+    two = [TorchBatchParser(demolog.GEOIP_TWO_TOKEN_FORMAT, demolog.GEOIP_TWO_TOKEN_FIELDS,
+                            device=device, extra_dissectors=[GeoIPCityDissector(city),
+                                                             GeoIPASNDissector(asn)])
+           for device in (None, "cpu")]
+    (t2,) = two[0].executor.unit_tables
+    if len(t2.geo) != 4 or len(t2.ip) != 2:
+        fail(f"geoip_two_tokens has {len(t2.geo)} geo groups over {len(t2.ip)} IP tokens, "
+             "not 4 over 2")
+    two_lines = demolog.geoip_two_token_lines(4096)
+    kernels.reset_launch_counts()
+    res = two[0].parse_batch(two_lines)
+    launches = kernels.launch_counts()
+    require_geo_launches(launches, t2, "end_to_end_geo_two_tokens")
+    compare_results(res, two[1].parse_batch(two_lines), "end_to_end_geo_two_tokens")
+    emit({"phase": "end_to_end_geo_two_tokens", "B": len(two_lines), "equal_to_cpu": True,
+          "valid": int(res.valid.sum()), "needs_host": len(res.needs_host),
+          "launches": {k: launches[k] for k in ("ipv4_spans", "geo_lookup")}})
+
+
+def require_geo_launches(launches, t, tag) -> None:
+    """One ipv4_spans launch per IP token of the unit's geo groups and one
+    geo_lookup per group, in the path's one pass."""
+    want = {"ipv4_spans": len(t.ip), "geo_lookup": len(t.geo)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{tag}: launches {got}, expected {want} (one ipv4_spans a token)")
+
+
+def ipv4_seeded_phase(torch, kernels, pipeline, phase):
+    """ipv4_spans on tools.kernel_ab's seeded spans over two tokens (leading
+    zeros, octets past 255, uint32 wraps, empty octets, ':' inside and past
+    the span, every width 0 to 16, spans past L, starts above the gather
+    mask) at L = 384, one launch a token, equal to its plain version."""
+    from logparser_tpu_torch.tools import kernel_ab
+
+    buf, s, e = kernel_ab.seeded_ipv4_case(N_LINES + 11, 384, seed=15)
+    dbuf, starts, ends = (torch.from_numpy(x).cuda() for x in (buf, s, e))
+    B, L = buf.shape
+    ips = [pipeline.IpTables(tok, 4 * tok) for tok in (0, 1)]
+    block = torch.zeros((8, B), dtype=torch.int32, device="cuda")
+
+    def run(fn):
+        def go():
+            out = block.clone() if fn is pipeline.ipv4_spans_plain else block
+            for ip in ips:
+                fn(ip, dbuf, starts, ends, out=out[ip.base:ip.base + 4])
+            return out
+        return go
+
+    inside = kernel_ab.window_inside(s[0], L, 15)
+    phase("ipv4_spans_seeded", run(kernels.ipv4_spans), run(pipeline.ipv4_spans_plain),
+          *ipv4_cost(torch, starts, ends, (0, 1), B), kernel="ipv4_spans", n=B, width=L,
+          extra={"window_inside": int(inside.sum()), "byte_reads": int((~inside).sum())})
 
 
 def geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, syn_lines,
@@ -1953,9 +2036,10 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
           lambda: kernels.muid(m, dbuf, starts, ends),
           lambda: pipeline.muid_plain(
               m, dbuf, starts, ends, torch.empty((6, B), dtype=torch.int32, device="cuda")),
-          bytes_moved=(24 + 8 + 24) * B, ops=10 * 24 * B, n=B, width=L)
+          *muid_cost(torch, starts[m.token_index], ends[m.token_index], B, L), n=B, width=L)
     for name in ("setcookie_split", "muid"):
         rows[name]["launches"] = launches[name]
+    muid_seeded_phases(torch, kernels, pipeline, phase)
 
     nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi)
 
@@ -2000,6 +2084,29 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
         fail("the over-long cookie line was not routed to the host")
     emit({"phase": "wide_bucket_cookies", "B": len(wide), "L": 8191,
           "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
+
+
+def muid_seeded_phases(torch, kernels, pipeline, phase):
+    """muid on tools.kernel_ab's seeded tokens (a byte outside the
+    alphabet at each of the 24 positions, widths 0, 23, 24 and 25, tokens
+    running past L, starts past L and above the gather mask, rows of
+    random bytes) at L = 2,048 (``muid_seeded``) and 64
+    (``muid_seeded_64``), each equal to its plain version."""
+    from logparser_tpu_torch.tools import kernel_ab
+
+    m = pipeline.MuidTables(pipeline._MuidGroup("seeded", 0, 0))
+    for L, name in ((2048, "muid_seeded"), (64, "muid_seeded_64")):
+        buf, s, e = kernel_ab.seeded_muid_case(N_LINES + 11, L, seed=L)
+        dbuf = torch.from_numpy(buf).cuda()
+        starts, ends = torch.from_numpy(s)[None].cuda(), torch.from_numpy(e)[None].cuda()
+        B = buf.shape[0]
+        inside = kernel_ab.window_inside(s, L, kernel_ab.MUID_TOKEN)
+        phase(name, lambda: kernels.muid(m, dbuf, starts, ends),
+              lambda: pipeline.muid_plain(m, dbuf, starts, ends,
+                                          torch.empty((6, B), dtype=torch.int32,
+                                                      device="cuda")),
+              *muid_cost(torch, starts[0], ends[0], B, L), kernel="muid", n=B, width=L,
+              extra={"window_inside": int(inside.sum()), "byte_reads": int((~inside).sum())})
 
 
 NUL_FORMAT = "%h\x00%u\x00%>s"

@@ -1,43 +1,70 @@
 // Kernel 8: strict dotted-quad parse of one IP token per line.
 //
 // Replaces logparser_tpu/tpu/postproc.py parse_ipv4_spans (the parse half
-// of the geo stage of pipeline.py compute_rows).  One thread per line
-// reads the token's first 15 bytes through lp::Row::at (the reference's
-// gather_span_bytes: start wrapped, zeros past L) and writes four int32
-// rows [4, B]: the address (uint32 bit pattern), ok (ipaddress-strict:
-// four octets 0-255, no leading zeros, width 7..15), has_colon (a ':' in
-// the first 15 bytes: an IPv6 literal) and chain_ok (1: a token's own
-// span).  Octets accumulate in uint32 (the reference's int32 wraparound)
-// and the octet bound compares signed, so a rejected span's value equals
-// the reference's too.
+// of the geo stage of pipeline.py compute_rows).  The reference parses a
+// token once per GeoIP group inside one jitted function; the port launches
+// this kernel once per IP token, and every geo group over the token reads
+// its rows (pipeline.unit_components' ip_groups).
+//
+// A thread a line.  The token's first 15 bytes, read the way lp::Row::at
+// reads them (the start's bits above the gather mask ignored, zeros at or
+// past L), become four little-endian words in registers: where they lie
+// inside the line ((start & mask) + 15 <= L) as the 1 or 2 aligned 16-byte
+// chunks that cover them (lp::load_window), elsewhere a byte at a time
+// through Row::at.  The state machine then runs over the register bytes,
+// unrolled, and writes four int32 rows [4, B]: the address (uint32 bit
+// pattern), ok (ipaddress-strict: four octets 0-255, no leading zeros,
+// width 7..15), has_colon (a ':' in the first min(width, 15) bytes: an
+// IPv6 literal) and chain_ok (1: a token's own span).  Octets accumulate
+// in uint32 (the reference's int32 wraparound) and the octet bound
+// compares signed, so a rejected span's value equals the reference's too.
 //
 // Bound: bytes -- at most 15 span bytes and 8 cursor bytes in, 16 bytes
-// out per line; the byte reads of one thread sit in one or two 128-byte
-// lines.
+// out per line.  Lines lie L bytes apart: a warp's load touches 32 lines
+// of memory, so the design issues 1 or 2 loads of 16 bytes a line where
+// the byte loop issued 15.
 
+#include "line_stage.cuh"
 #include "lp_common.cuh"
 
 namespace {
 
+constexpr int THREADS = 256;
 constexpr int MAX_IP = 15;
 
-__global__ void ipv4_spans_kernel(const uint8_t* __restrict__ buf, int B, int L, int mask,
-                                  const int32_t* __restrict__ starts,
-                                  const int32_t* __restrict__ ends,
-                                  int32_t* __restrict__ out) {
-  for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < B;
-       b += gridDim.x * blockDim.x) {
-    const lp::Row row{buf + static_cast<size_t>(b) * L, L, mask};
+__global__ void __launch_bounds__(THREADS) ipv4_spans_kernel(
+    const uint8_t* __restrict__ buf, int B, int L, int mask,
+    const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
+    int32_t* __restrict__ out) {
+  const uint8_t* buf_end = buf + static_cast<size_t>(B) * L;
+  for (int b = blockIdx.x * THREADS + threadIdx.x; b < B; b += gridDim.x * THREADS) {
+    const uint8_t* line = buf + static_cast<size_t>(b) * L;
     const int s = starts[b];
     const int w = ends[b] - s;
+    const int q = s & mask;
+    uint32_t x[4];
+    if (q + MAX_IP <= L) {
+      lp::load_window<MAX_IP>(line + q, buf, buf_end, x);
+    } else {
+      const lp::Row row{line, L, mask};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * i + j < MAX_IP) x[i] |= static_cast<uint32_t>(row.at(s, 4 * i + j)) << (8 * j);
+        }
+      }
+    }
     uint32_t octet = 0, value = 0;
     int ndig = 0, ndots = 0;
     bool lead0 = false, good = true, colon = false;
+#pragma unroll
     for (int i = 0; i < MAX_IP; ++i) {
       const bool in_span = i < w;
-      const int c = row.at(s, i);
+      const uint32_t c = (x[i >> 2] >> (8 * (i & 3))) & 0xFFu;
       colon = colon || (in_span && c == ':');
-      const uint32_t d = static_cast<uint32_t>(c - '0') & 0xFFu;
+      const uint32_t d = (c - '0') & 0xFFu;
       const bool digit = d <= 9u;
       const bool dot = c == '.';
       lead0 = lead0 || (in_span && digit && ndig == 1 && octet == 0u);
@@ -70,8 +97,7 @@ __global__ void ipv4_spans_kernel(const uint8_t* __restrict__ buf, int B, int L,
 LP_EXPORT int lp_ipv4_spans(const void* buf, int B, int L, const void* starts,
                             const void* ends, void* out, void* stream) {
   if (B <= 0) return 0;
-  const int threads = 256;
-  ipv4_spans_kernel<<<lp::grid_for(B, threads), threads, 0,
+  ipv4_spans_kernel<<<lp::grid_for(B, THREADS), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(buf), B, L, lp::gather_mask(L),
       static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),

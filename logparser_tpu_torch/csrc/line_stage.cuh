@@ -1,6 +1,7 @@
 // A warp's 32 lines staged into shared memory, a thread a line afterwards
-// (uri_split.cu, setcookie_split.cu), and the guarded 16-byte load they and
-// csr_split.cu share (load16_in).
+// (uri_split.cu, setcookie_split.cu), the guarded 16-byte load they and
+// csr_split.cu share (load16_in), and a short window realigned into
+// registers from such loads (load_window: muid.cu, ipv4_spans.cu).
 //
 // stage_lines: lane l names a run of its own line's bytes as up to 8
 // aligned 16-byte chunks (its first chunk's address and the count); the
@@ -42,6 +43,42 @@ __device__ __forceinline__ uint4 load16_in(const uint8_t* c0, const uint8_t* buf
     if (c0 + i >= buf && c0 + i < buf_end) w[i >> 2] |= static_cast<uint32_t>(c0[i]) << (8 * (i & 3));
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The N bytes from p, every one inside [buf, buf_end), as (N + 3) / 4
+// little-endian words: the aligned 16-byte chunks that cover them (a chunk
+// past the last of them is not loaded), realigned with funnel shifts.
+// Bytes of the last word past N are undefined.
+template <int N>
+__device__ __forceinline__ void load_window(const uint8_t* p, const uint8_t* buf,
+                                            const uint8_t* buf_end,
+                                            uint32_t (&w)[(N + 3) / 4]) {
+  constexpr int NW = (N + 3) / 4;
+  constexpr int NC = (N + 30) / 16;   // chunks at the worst offset (15)
+  constexpr int NR = 4 * NC;
+  static_assert(NR >= NW + 4, "a word past the window after a 3-word shift");
+  const uint8_t* c0 = align_down16(p);
+  const int off = static_cast<int>(p - c0);
+  uint32_t raw[NR];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (16 * c < off + N) v = load16_in(c0 + 16 * c, buf, buf_end);
+    raw[4 * c] = v.x;
+    raw[4 * c + 1] = v.y;
+    raw[4 * c + 2] = v.z;
+    raw[4 * c + 3] = v.w;
+  }
+  if (off & 8) {
+#pragma unroll
+    for (int i = 0; i + 2 < NR; ++i) raw[i] = raw[i + 2];
+  }
+  if (off & 4) {
+#pragma unroll
+    for (int i = 0; i + 1 < NR; ++i) raw[i] = raw[i + 1];
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i) w[i] = __funnelshift_r(raw[i], raw[i + 1], 8 * (off & 3));
 }
 
 // The warp's loads of one staging, held in registers until stored (so a

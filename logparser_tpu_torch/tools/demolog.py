@@ -355,13 +355,51 @@ def geoip_edge_lines() -> List[str]:
     def line(host: str) -> str:
         return f'{host} - - [01/Jan/2024:00:00:00 +0000] "GET /x HTTP/1.1" 200 5 "-" "u"'
 
-    hosts = ["80.100.47.0", "80.100.47.255", "80.100.46.255", "80.100.48.0",
-             "0.0.0.0", "255.255.255.255", "128.0.0.0", "080.100.47.1",
-             "80.100.47.256", "80..47.1", "80.100.47", "80.100.47.1.2",
-             "80.100.47.1.", "1.2.3.4:80", "123.123.123.123:8080",
-             "2001:980::1", "::ffff:80.100.47.1", "example.com", "-",
-             "80.100.47.001", "1234567890123456", ""]
-    return [line(h) for h in hosts] + ["completely broken line", ""]
+    return [line(h) for h in GEOIP_EDGE_HOSTS] + ["completely broken line", ""]
+
+
+GEOIP_EDGE_HOSTS = [
+    "80.100.47.0", "80.100.47.255", "80.100.46.255", "80.100.48.0",
+    "0.0.0.0", "255.255.255.255", "128.0.0.0", "080.100.47.1",
+    "80.100.47.256", "80..47.1", "80.100.47", "80.100.47.1.2",
+    "80.100.47.1.", "1.2.3.4:80", "123.123.123.123:8080",
+    "2001:980::1", "::ffff:80.100.47.1", "example.com", "-",
+    "80.100.47.001", "1234567890123456", ""]
+
+# GeoIP groups over two IP tokens: NGINX's client and server addresses,
+# City and ASN over each (four groups, two tokens).
+GEOIP_TWO_TOKEN_FORMAT = "$remote_addr $server_addr $status"
+GEOIP_TWO_TOKEN_FIELDS = [
+    "IP:connection.client.host",
+    "STRING:connection.client.host.country.name",
+    "ASN:connection.client.host.asn.number",
+    "STRING:connection.server.ip.city.name",
+    "ASN:connection.server.ip.asn.number",
+    "STRING:request.status.last",
+]
+
+
+def geoip_two_token_lines(n: int) -> List[str]:
+    """n lines of GEOIP_TWO_TOKEN_FORMAT (numpy, seed 47): each address
+    one of GEOIP_KNOWN_IPS, a random dotted quad or one of
+    GEOIP_EDGE_HOSTS that holds no space, a third each; then every edge
+    host (but the empty one) as client and as server address."""
+    import numpy as np
+
+    rng = np.random.default_rng(47)
+    pool = [h for h in GEOIP_EDGE_HOSTS if h]
+
+    def host() -> str:
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            return GEOIP_KNOWN_IPS[int(rng.integers(0, len(GEOIP_KNOWN_IPS)))]
+        if kind == 1:
+            return ".".join(str(int(o)) for o in rng.integers(0, 256, size=4))
+        return pool[int(rng.integers(0, len(pool)))]
+
+    lines = [f"{host()} {host()} {200 + int(rng.integers(0, 3))}" for _ in range(n)]
+    return lines + [f"{h} 80.100.47.1 200" for h in pool] + [f"80.100.47.2 {h} 404"
+                                                              for h in pool]
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ they include; ``.kernel_ab_parent/`` is git-ignored for it).  KERNEL picks
 the kernels to compare -- ``zone_lookup``, ``geo_lookup``, ``split``,
 ``agg_reduce``, ``csr_split``, ``sp_program``, ``uri_split``,
 ``setcookie_split``, ``pack_rows``, ``span_stages``, ``timestamp``,
-``agg_group`` -- all twelve by default.
+``agg_group``, ``muid``, ``ipv4_spans`` -- all fourteen by default.
 
 The parent's kernels are built with nvcc into a temporary directory.  Each
 runs through this checkout's wrapper (``kernels.split`` and so on) with the
@@ -22,6 +22,9 @@ through the parent's own wrapper instead (:func:`parent_timestamp`,
 :func:`parent_agg_group`: its argument list, its scratch allocated as it
 allocated it), since this checkout's wrappers pass other arguments and
 allocate other scratch; there each side pays its own wrapper's enqueue.
+``ipv4_spans``' parent ran once per geo group, this checkout once per IP
+token: :func:`parent_ipv4_spans` launches the parent per group, each held
+to the plain version of its own token.
 The cases:
 
 - ``zone_lookup`` (every transition key +-1 minute, the window and clip
@@ -77,7 +80,13 @@ The cases:
   1, 4, 24, 1,000 or B distinct keys at B = 4,095, 65,547 and 262,144,
   and at B = 65,547 24 keys with every row or no row selected), beside
   ``torch.unique`` on the int lanes.  agg_group's output order is
-  arbitrary, so these compare key -> count maps (:func:`group_map`).
+  arbitrary, so these compare key -> count maps (:func:`group_map`);
+- ``muid_cookies`` (the cookies batch, L = 2,048) and ``muid_seeded_64`` /
+  ``muid_seeded_2048`` (:func:`seeded_muid_case`'s 65,547 tokens);
+- ``ipv4_spans_geoip_chain`` (City and ASN over ``%h``: the parent's two
+  launches against one) and ``ipv4_spans_seeded`` (:func:`seeded_ipv4_case`'s
+  65,547 lines, L = 384: two groups over token 0 and one over token 1, the
+  parent's three launches against two).
 
 Each case holds parent and change to the plain version bit for bit (a
 difference fails the run), except that a case which names a known
@@ -116,7 +125,7 @@ from ..analytics import device as agg_device
 REPS = 25
 CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce", "csr_split",
                 "sp_program", "uri_split", "setcookie_split", "pack_rows", "span_stages",
-                "timestamp", "agg_group")
+                "timestamp", "agg_group", "muid", "ipv4_spans")
 NO_PARENT_LIBRARY = ("sp_program",)   # its "parent" is the per-op path
 SEEDED_B = (4095, 4096, 4097, 65547, 262144)
 
@@ -1000,6 +1009,152 @@ def seeded_timestamp_case(B: int, L: int, seed: int):
 # zero_null leading zero of %B under BYTESCLF, and the probe unit of the
 # format the split cannot run, "%h%l"), and view fields that seven units
 # decode.
+MUID_ALPHABET = np.frombuffer(
+    b"ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789-_", dtype=np.uint8)
+MUID_BAD_BYTES = b"+/=@\x00\x80\xff"   # base64's own, '@', NUL, two past 0x7F
+MUID_TOKEN = 24
+
+
+def gather_mask(L: int) -> int:
+    """The bits of a start that Row::at (gather_span_bytes) reads."""
+    return (1 << max(int(L - 1).bit_length(), 1)) - 1
+
+
+def window_inside(start: np.ndarray, L: int, n: int) -> np.ndarray:
+    """Per span: whether its first n bytes lie inside the line ((start &
+    mask) + n <= L), where muid and ipv4_spans load them as aligned
+    16-byte chunks; elsewhere they read a byte at a time."""
+    return (start.astype(np.int64) & gather_mask(L)) + n <= L
+
+
+def _lifts(rng, L: int, n: int) -> np.ndarray:
+    """n shifts of a start by multiples of the gather mask's span (bits
+    above the mask, negative starts too): Row::at reads the same bytes."""
+    span = gather_mask(L) + 1
+    return rng.choice(np.array([-span, span, 3 * span, (1 << 30) // span * span]), size=n)
+
+
+def seeded_muid_case(B: int, L: int, seed: int):
+    """(buf [B, L] uint8, start [B] int32, end [B] int32) on the CPU:
+    mod_unique_id tokens for ``muid``.  The buffer's bytes are the alphabet
+    [A-Za-z0-9-_] but for those placed.  Crafted rows first: a byte of
+    MUID_BAD_BYTES at each of the 24 positions; widths 0, 23, 24 and 25;
+    a token that runs 0 to 24 bytes past L; starts at or past L, below the
+    mask's end (where L is not a power of two); then all of them again with
+    start and end lifted above the mask (:func:`_lifts`).  Then random
+    rows: a width-24 token at a random start inside the line (half of
+    them), a random width from 0 to 30, a random byte at a random
+    position, a random start up to the mask, a lifted start, a row of
+    random bytes."""
+    rng = np.random.default_rng(seed)
+    mask = gather_mask(L)
+    buf = MUID_ALPHABET[rng.integers(0, len(MUID_ALPHABET), size=(B, L))]
+    items = [(None, MUID_TOKEN, pos, c) for pos in range(MUID_TOKEN) for c in MUID_BAD_BYTES]
+    items += [(None, w, -1, 0) for w in (0, 23, 24, 25)]
+    items += [(L - MUID_TOKEN + past, MUID_TOKEN, -1, 0) for past in range(MUID_TOKEN + 1)]
+    items += [(q, MUID_TOKEN, -1, 0) for q in range(L, mask + 1, max((mask + 1 - L) // 8, 1))]
+    n = min(2 * len(items), B)
+    start = np.zeros(B, dtype=np.int64)
+    width = np.full(B, MUID_TOKEN, dtype=np.int64)
+    for row in range(B):
+        if row < n:
+            q, w, pos, c = items[row % len(items)]
+            kind = -1
+        else:
+            q, w, pos, c = None, MUID_TOKEN, -1, 0
+            kind = int(rng.integers(0, 10))
+            if kind == 5:
+                w = int(rng.integers(0, 31))
+            elif kind == 6:
+                pos, c = int(rng.integers(0, MUID_TOKEN)), int(rng.integers(0, 256))
+            elif kind == 7:
+                q = int(rng.integers(0, mask + 1))
+            elif kind == 8:
+                buf[row] = rng.integers(0, 256, size=L)
+        if q is None:
+            q = int(rng.integers(0, L - MUID_TOKEN + 1))
+        if pos >= 0:
+            buf[row, q + pos] = c
+        start[row] = q
+        width[row] = w
+        if len(items) <= row < n or kind == 9:
+            start[row] += int(_lifts(rng, L, 1)[0])
+    return buf, start.astype(np.int32), (start + width).astype(np.int32)
+
+
+IPV4_CRAFTED = (
+    b"1.2.3.4", b"255.255.255.255", b"0.0.0.0", b"128.0.0.0", b"10.0.0.255",
+    b"01.2.3.4", b"1.02.3.4", b"1.2.3.04", b"1.2.3.00", b"00.0.0.0", b"0.0.0.00",
+    b"256.1.1.1", b"1.256.1.1", b"1.1.1.256", b"999.1.1.1", b"1.1.1.999",
+    b"4294967296.1.1", b"4294967297", b"99999999999999", b"123456789012345",
+    b"1.2.3.4294967296", b"1..2.3", b"1.2..3", b".1.2.3", b"1.2.3.", b"1.2.3.4.",
+    b"1.2.3.4.5", b"1.2.3", b"...", b"1.2.3.4:80", b"123.123.123.123:8080", b"::1",
+    b"2001:db8::1", b"1.2.3.4:", b":1.2.3.4", b"1.2.3.4 ", b"-", b"", b"1.2.3.4\x00",
+    b"1.2.3.\x804", b"1.2.3.4/8", b"a.b.c.d", b"255.255.255.255:9",
+)
+_IPV4_ALPHABET = np.frombuffer(b"0123456789012345.....::-x ", dtype=np.uint8)
+
+
+def _ipv4_crafted_items(L: int) -> list:
+    """(at, text, cut[, past]) items of :func:`seeded_ipv4_case`."""
+    items = []
+    for text in IPV4_CRAFTED:
+        for at in dict.fromkeys((0, 1, 14, 17, max(L - len(text), 0))):
+            items.append((at, text))
+    colon = b"255.255.255.255:9"   # every width 0 to 16, a ':' at byte 15
+    items += [(3, colon, w) for w in range(17)]
+    items += [(3, b"1.2.3.4:80", 7), (3, b"1.2.3.4.5.6.7.8:", 16)]   # ':' outside the span
+    items += [(L - k, b"1.2.3.4.5.6.7.8.9", k, 15 - k) for k in range(1, 16)]   # past L
+    return items
+
+
+def seeded_ipv4_case(B: int, L: int, seed: int):
+    """(buf [B, L] uint8, starts [2, B] int32, ends [2, B] int32) on the
+    CPU: IP spans for ``ipv4_spans`` over two tokens.  Token 0: each of
+    IPV4_CRAFTED (leading zeros, octets of 256 and 999, digit runs that
+    wrap uint32, empty octets, a trailing dot, three and five octets, ':'
+    inside the span, IPv6 literals, bytes past 0x7F) at bytes 0, 1, 14, 17
+    (across a 16-byte chunk) and at the line's end; every width 0 to 16 of
+    a span with a ':' at byte 15, and ':' just past the span; spans that
+    run 1 to 15 bytes past L; then those again with start and end lifted
+    above the gather mask (:func:`_lifts`); then random rows: valid
+    dotted quads at a random offset, IP-shaped runs of digits, dots and
+    colons, random spans (their start from -2 to the mask's end, their
+    width from -3 to 20), lifted starts.  Token 1: a random span of the
+    same line, start from -2 to L + 5, width from -3 to 20."""
+    rng = np.random.default_rng(seed)
+    mask = gather_mask(L)
+    buf = rng.choice(_IPV4_ALPHABET, size=(B, L)).astype(np.uint8)
+    start = np.zeros(B, dtype=np.int32)
+    end = np.zeros(B, dtype=np.int32)
+    crafted = _ipv4_crafted_items(L)
+    n = min(2 * len(crafted), B)
+    for row in range(B):
+        if row < n:
+            item = crafted[row % len(crafted)]
+        else:
+            kind = int(rng.integers(0, 4))
+            if kind == 0:
+                text = b".".join(b"%d" % o for o in rng.integers(0, 256, size=4))
+                item = (int(rng.integers(0, L - len(text) + 1)), text)
+            elif kind == 1:
+                text = bytes(rng.choice(np.frombuffer(b"0123456789..:", np.uint8),
+                                        size=int(rng.integers(0, 18))))
+                item = (int(rng.integers(0, L - len(text) + 1)), text)
+            else:
+                s = int(rng.integers(-2, mask + 1))
+                item = (None, (s, s + int(rng.integers(-3, 21))))
+        _place(buf, start, end, row, item)
+        if len(crafted) <= row < n or (row >= n and rng.random() < 0.1):
+            lift = int(_lifts(rng, L, 1)[0])
+            start[row] += lift
+            end[row] += lift
+    s1 = rng.integers(-2, L + 6, size=B)
+    e1 = s1 + rng.integers(-3, 21, size=B)
+    return (buf, np.stack([start, s1.astype(np.int32)]),
+            np.stack([end, e1.astype(np.int32)]))
+
+
 SEEDED_PACK_FORMATS = (
     "combined",
     '%h %l %u %t "%r" %>s %B',
@@ -1224,6 +1379,25 @@ def parent_timestamp(rows: ParentTsRows, tables, buf, starts, ends, out=None,
     return out
 
 
+def parent_ipv4_spans(groups, buf, starts, ends):
+    """The parent's ``kernels.ipv4_spans`` as its executor ran it: one
+    launch per geo group (GeoTables), each into [4, B] rows of its own."""
+    from ..tpu import kernels as k
+
+    B, L = k._check_buf(buf)
+    dev = buf.device
+    outs = []
+    for g in groups:
+        k._check_tables(g, dev)
+        k._check_cursors(g.token_index, buf, starts, ends)
+        out = k._out(None, (4, B), dev)
+        if B:
+            k._launch("ipv4_spans", dev, k._ptr(buf), B, L, k._ptr(starts[g.token_index]),
+                      k._ptr(ends[g.token_index]), k._ptr(out))
+        outs.append(out)
+    return outs
+
+
 def parent_agg_group(lane, buf, spans: bool):
     """The parent's ``kernels.agg_group``: its uninitialised table and
     counts of ``group_capacity(B)`` slots each, which its entry point
@@ -1309,11 +1483,9 @@ def geo_cases(smoke, kernels, pipeline):
         dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
         starts, ends, _ = kernels.split(t.split, dbuf, dlen)
         groups = [g for g in t.geo if not city_only or "location.latitude" in g.table.columns]
-        out = []
-        for g in groups:
-            ip = kernels.ipv4_spans(g, dbuf, starts, ends)
-            out.append((g, ip[0].clone(), ip[1].clone()))
-        return out
+        ips = {ip.token_index: kernels.ipv4_spans(ip, dbuf, starts, ends) for ip in t.ip}
+        return [(g, ips[g.token_index][0].clone(), ips[g.token_index][1].clone())
+                for g in groups]
 
     def case(name, joins):
         lib = [(g.starts.to(torch.int64) & mask, k.to(torch.int64) & mask) for g, k, _ in joins]
@@ -1828,10 +2000,86 @@ def group_cases(smoke, kernels, pipeline):
                            torch.from_numpy(lane).cuda(), spans, sbuf)
 
 
+def muid_cases(smoke, kernels, pipeline):
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, m, dbuf, starts, ends):
+        B, L = dbuf.shape
+        return Case(name, "muid", lambda: kernels.muid(m, dbuf, starts, ends),
+                    lambda: pipeline.muid_plain(
+                        m, dbuf, starts, ends,
+                        torch.empty((6, B), dtype=torch.int32, device="cuda")),
+                    None, *smoke.muid_cost(torch, starts[m.token_index],
+                                           ends[m.token_index], B, L))
+
+    lines = demolog.cookie_lines(smoke.N_LINES) + demolog.cookie_edge_lines()
+    buf, lengths, _ = runtime.encode_batch(lines)
+    dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+    (t,) = TorchBatchParser(demolog.COOKIE_FORMAT, demolog.COOKIE_FIELDS,
+                            type_remappings=demolog.COOKIE_REMAPPINGS).executor.unit_tables
+    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    (m,) = t.muid
+    yield case("muid_cookies", m, dbuf, starts, ends)
+    seeded = pipeline.MuidTables(pipeline._MuidGroup("seeded", 0, 0))
+    for L in (64, 2048):
+        sbuf, s, e = seeded_muid_case(smoke.N_LINES + 11, L, seed=L)
+        yield case(f"muid_seeded_{L}", seeded,
+                   *_cuda(torch.from_numpy(sbuf), torch.from_numpy(s)[None],
+                          torch.from_numpy(e)[None]))
+
+
+def ipv4_cases(smoke, kernels, pipeline):
+    from ..geoip import GeoDeviceTable, GeoIPASNDissector, GeoIPCityDissector
+    from ..tools import demolog, geoip_testdata
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, dbuf, starts, ends, ips, groups):
+        """ips: the IpTables this checkout launches once each; groups: the
+        GeoTables the parent launched once each."""
+        B = dbuf.shape[0]
+
+        def rows():
+            return torch.empty((4, B), dtype=torch.int32, device="cuda")
+
+        return Case(name, "ipv4_spans",
+                    lambda: [kernels.ipv4_spans(ip, dbuf, starts, ends) for ip in ips],
+                    lambda: [pipeline.ipv4_spans_plain(ip, dbuf, starts, ends, rows())
+                             for ip in ips],
+                    None, *smoke.ipv4_cost(torch, starts, ends,
+                                           [ip.token_index for ip in ips], B),
+                    parent_run=lambda: parent_ipv4_spans(groups, dbuf, starts, ends),
+                    parent_plain=lambda: [pipeline.ipv4_spans_plain(
+                        pipeline.IpTables(g.token_index, 0), dbuf, starts, ends, rows())
+                        for g in groups])
+
+    fixtures = geoip_testdata.ensure_test_databases()
+    parser = TorchBatchParser("combined", demolog.GEOIP_FIELDS, extra_dissectors=[
+        GeoIPCityDissector(os.path.join(fixtures, "GeoIP2-City-Test.mmdb")),
+        GeoIPASNDissector(os.path.join(fixtures, "GeoLite2-ASN-Test.mmdb"))])
+    (t,) = parser.executor.unit_tables
+    lines = demolog.geoip_chain_lines(smoke.N_LINES) + demolog.geoip_edge_lines()
+    buf, lengths, _ = runtime.encode_batch(lines)
+    dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    yield case("ipv4_spans_geoip_chain", dbuf, starts, ends, list(t.ip), list(t.geo))
+    # Two groups over token 0 and one over token 1: 3 parent launches, 2 here.
+    empty = GeoDeviceTable.from_ranges(np.zeros(0, np.uint32), np.zeros(0, np.uint32))
+    groups = [pipeline.GeoTables(pipeline._GeoGroup(f"g{i}", tok, empty)).cuda()
+              for i, tok in enumerate((0, 0, 1))]
+    ips = [pipeline.IpTables(tok, 0) for tok in (0, 1)]
+    sbuf, s, e = seeded_ipv4_case(smoke.N_LINES + 11, 384, seed=15)
+    yield case("ipv4_spans_seeded", *_cuda(torch.from_numpy(sbuf), torch.from_numpy(s),
+                                           torch.from_numpy(e)), ips, groups)
+
+
 CASES = {"zone_lookup": zone_cases, "geo_lookup": geo_cases, "split": split_cases,
          "agg_reduce": agg_cases, "csr_split": csr_cases, "sp_program": sp_cases,
          "uri_split": uri_cases, "setcookie_split": setcookie_cases, "pack_rows": pack_cases,
-         "span_stages": span_cases, "timestamp": timestamp_cases, "agg_group": group_cases}
+         "span_stages": span_cases, "timestamp": timestamp_cases, "agg_group": group_cases,
+         "muid": muid_cases, "ipv4_spans": ipv4_cases}
 
 
 def _same(a, b) -> bool:

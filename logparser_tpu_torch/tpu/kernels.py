@@ -46,6 +46,7 @@ from .pipeline import (
     CSR_SLOTS_MAX,
     CsrTables,
     GeoTables,
+    IpTables,
     MuidTables,
     PackTables,
     SplitTables,
@@ -491,12 +492,12 @@ def muid(
 
 
 def ipv4_spans(
-    tables: GeoTables, buf: torch.Tensor, starts: torch.Tensor,
+    tables: IpTables, buf: torch.Tensor, starts: torch.Tensor,
     ends: torch.Tensor, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel 8: one geo group's dotted-quad parse of its token, [4, B]
-    int32 rows (value as the uint32 bit pattern, ok, has_colon,
-    chain_ok)."""
+    """Kernel 8: the dotted-quad parse of one IP token, which every geo
+    group over the token reads: [4, B] int32 rows (value as the uint32 bit
+    pattern, ok, has_colon, chain_ok)."""
     B, L = _check_buf(buf)
     dev = buf.device
     _check_tables(tables, dev)

@@ -27,10 +27,11 @@ run by :class:`UnitsExecutor`, the port of ``build_units_jnp_fn``:
                      rejoin and its bad rows (:func:`setcookie_split_plain`);
    ``muid``        — one mod_unique_id decode per group
                      (:func:`muid_plain`);
-   ``ipv4_spans``  — one dotted-quad parse per GeoIP group (the value,
-                     ok, has_colon; :func:`ipv4_spans_plain`), then
-   ``geo_lookup``  — its range join into the flattened .mmdb table
-                     (:func:`geo_lookup_plain`);
+   ``ipv4_spans``  — one dotted-quad parse per IP token that GeoIP
+                     groups read (the value, ok, has_colon;
+                     :func:`ipv4_spans_plain`), then
+   ``geo_lookup``  — one range join per GeoIP group into its flattened
+                     .mmdb table (:func:`geo_lookup_plain`);
 6. ``pack_rows``   — bit-packing of every component into ``[K, B]``, the
                      row-0 verdict bits and line constraints in plan
                      order, and the winner-merged view rows
@@ -546,9 +547,10 @@ CONS_FORBID = 3        # valid &= comp == 0 (an IPv6 literal on a geo token,
                        # a Set-Cookie quirk, a zero_null leading zero)
 CONS_NEVER = 4         # valid = False (a plausibility-only probe unit)
 
-# Rows of one geo group in its unit's component block: ipv4_spans writes
-# the first four, geo_lookup the fifth.
-GEO_VALUE, GEO_IP_OK, GEO_COLON, GEO_CHAIN_OK, GEO_ROW = range(5)
+# The rows ipv4_spans writes for one IP token in its unit's component
+# block, which every geo group over the token reads (each writes its own
+# geo_lookup row).
+GEO_VALUE, GEO_IP_OK, GEO_COLON, GEO_CHAIN_OK = range(4)
 
 # Rows of one muid group, in the order the muid kernel writes them.
 MUID_ROWS = ("time", "ip", "pid", "thread", "counter", "ok")
@@ -688,19 +690,23 @@ class _MuidGroup:
 @dataclass
 class _GeoGroup:
     """One GeoIP range join (one per ``geo_group_key``): its token, its
-    GeoDeviceTable and its first component row (GEO_VALUE .. GEO_ROW)."""
+    GeoDeviceTable, the first of its token's 4 ipv4_spans rows (GEO_VALUE
+    .. GEO_CHAIN_OK, shared by every group over the token) and its own
+    geo_lookup row."""
 
     key: str
     token: int
     table: object
-    base: int = -1
+    ip: int = -1
+    row: int = -1
 
 
 @dataclass
 class _UnitComps:
     """Component rows of one unit: span_stages tasks (rows [0,
-    n_stage_rows)), then 4 rows (c1, c2, off, ok) per timestamp group and
-    5 per geo group, then the URI and CSR groups' rows; the line
+    n_stage_rows)), then 4 rows (c1, c2, off, ok) per timestamp group, 4
+    per IP token of the geo groups (``ip_groups``: (token, first row)) and
+    one per geo group, then the URI and CSR groups' rows; the line
     constraints in the order pack_rows applies them and the slot every
     component is packed into."""
 
@@ -708,6 +714,7 @@ class _UnitComps:
     n_stage_rows: int = 0
     ts_groups: List[Tuple[str, int, object]] = dataclass_field(default_factory=list)
     geo_groups: List[_GeoGroup] = dataclass_field(default_factory=list)
+    ip_groups: List[Tuple[int, int]] = dataclass_field(default_factory=list)
     muid_groups: List[_MuidGroup] = dataclass_field(default_factory=list)
     uri_groups: List[_UriGroup] = dataclass_field(default_factory=list)
     csr_groups: List[_CsrGroup] = dataclass_field(default_factory=list)
@@ -836,12 +843,15 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
     for key, _, _ in uc.ts_groups:
         for comp in ("c1", "c2", "off", "ok"):
             row(key, comp)
+    ip_rows: Dict[int, int] = {}
     for g in uc.geo_groups:
-        g.base = row(None, "geo_value")
-        row(None, "geo_ip_ok")
-        row(None, "geo_colon")
-        row(g.key, "ok")
-        row(g.key, "row")
+        if g.token not in ip_rows:
+            ip_rows[g.token] = row(None, "geo_value")
+            for comp in ("geo_ip_ok", "geo_colon", "geo_chain_ok"):
+                row(None, comp)
+        g.ip = ip_rows[g.token]
+        g.row = row(g.key, "row")
+    uc.ip_groups = list(ip_rows.items())
     for g in uc.muid_groups:
         g.base = len(names)
         for comp in MUID_ROWS:
@@ -919,16 +929,17 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
     # Pass 3: line constraints in plan order (the reference's running
     # `valid`), the URI constraints last (its line_constraints).
     seen = set()
-    geo_base = {g.key: g.base for g in uc.geo_groups}
+    geo_ip = {g.key: g.ip for g in uc.geo_groups}
     for plan in plans:
         if plan.kind in ("long", "secmillis") and not plan.steps:
             uc.constraints.append((long_ok[plan.field_id], CONS_REQUIRE))
             if plan.field_id in lead0:
                 uc.constraints.append((lead0[plan.field_id], CONS_FORBID))
-        elif plan.kind == "geo" and geo_group_key(plan) not in seen:
+        elif plan.kind == "geo" and ("geo", plan.token_index) not in seen:
             # An IPv6 literal: the host looks it up, the table is IPv4.
-            seen.add(geo_group_key(plan))
-            uc.constraints.append((geo_base[geo_group_key(plan)] + GEO_COLON, CONS_FORBID))
+            # One constraint a token: its groups share the row.
+            seen.add(("geo", plan.token_index))
+            uc.constraints.append((geo_ip[geo_group_key(plan)] + GEO_COLON, CONS_FORBID))
         elif plan.kind == "ts" and ts_group_key(plan) not in seen:
             seen.add(ts_group_key(plan))
             g = [k for k, _, _ in uc.ts_groups].index(ts_group_key(plan))
@@ -951,6 +962,8 @@ def unit_components(unit: FormatUnit, view_fields: Sequence[str]) -> _UnitComps:
             uc.puts.append((r, (slots[key][f"s{comp[2:]}_vstart"][0], 0, 0)))
         else:
             uc.puts.append((r, slots[key][comp]))
+    for g in uc.geo_groups:   # the token's chain_ok row, into each group's slot
+        uc.puts.append((g.ip + GEO_CHAIN_OK, slots[g.key]["ok"]))
     return uc
 
 
@@ -1148,10 +1161,22 @@ def _ts_index(dl: timeparse.DeviceTimeLayout) -> List[int]:
 GEO_SPLITTERS = 8192
 
 
+class IpTables(nn.Module):
+    """One IP token for ``ipv4_spans``: the token and the first of the 4
+    component rows (GEO_VALUE .. GEO_CHAIN_OK) that every geo group over
+    it reads."""
+
+    def __init__(self, token: int, base: int):
+        super().__init__()
+        self.token_index = token
+        self.base = base
+
+
 class GeoTables(nn.Module):
-    """One GeoIP group for ``ipv4_spans`` and ``geo_lookup``: the token,
-    the first of its 5 component rows, and the table's ``starts`` /
-    ``ends`` as int32 buffers (uint32 bit patterns), uploaded once.
+    """One GeoIP group for ``geo_lookup``: the token, the first of its
+    token's 4 ipv4_spans rows (``ip``), its own row (``row``), and the
+    table's ``starts`` / ``ends`` as int32 buffers (uint32 bit patterns),
+    uploaded once.
 
     For the kernel's two-level search, ``image`` is what each block
     stages into shared memory: the splitters, every S-th start (S =
@@ -1168,7 +1193,7 @@ class GeoTables(nn.Module):
         super().__init__()
         self.key = g.key
         self.token_index = g.token
-        self.base = g.base
+        self.ip, self.row = g.ip, g.row
         self.table = g.table
         starts, ends = g.table.starts, g.table.ends
         K = len(starts)
@@ -1252,6 +1277,7 @@ class UnitTables(nn.Module):
         self.split = SplitTables(unit.program)
         self.stages = StageTables(uc)
         self.ts = nn.ModuleList(TsTables(tok, dl) for _, tok, dl in uc.ts_groups)
+        self.ip = nn.ModuleList(IpTables(tok, base) for tok, base in uc.ip_groups)
         self.geo = nn.ModuleList(GeoTables(g) for g in uc.geo_groups)
         self.muid = nn.ModuleList(MuidTables(g) for g in uc.muid_groups)
         window = URI_WINDOW_PER_SLOT * unit.layout.csr_slots
@@ -1445,12 +1471,12 @@ def zone_lookup_plain(
 
 
 def ipv4_spans_plain(
-    tables: GeoTables, buf: torch.Tensor, starts: torch.Tensor,
+    tables: IpTables, buf: torch.Tensor, starts: torch.Tensor,
     ends: torch.Tensor, out: torch.Tensor,
 ) -> torch.Tensor:
-    """Fill ``out`` [4, B] with a geo group's (value, ip_ok, has_colon,
-    chain_ok) of its token's spans (``parse_ipv4_spans``; a token's own
-    span is always there, chain_ok 1)."""
+    """Fill ``out`` [4, B] with (value, ip_ok, has_colon, chain_ok) of an
+    IP token's spans (``parse_ipv4_spans``; a token's own span is always
+    there, chain_ok 1)."""
     value, ok, colon = postproc.parse_ipv4_spans(
         buf, starts[tables.token_index], ends[tables.token_index])
     out[0] = value
@@ -1710,7 +1736,8 @@ class UnitsExecutor(nn.Module):
     Holds every per-parser table as a buffer, so ``.to(device)`` uploads
     them once.  Per unit it launches split, span_stages, one timestamp
     kernel per timestamp group (followed by one zone_lookup for a %Z
-    layout), one ipv4_spans and one geo_lookup per GeoIP group, one muid
+    layout), one ipv4_spans per IP token of the GeoIP groups, then one
+    geo_lookup per GeoIP group, one muid
     per mod_unique_id group, one uri_split per URI group, one csr_split
     per query-string or cookie group and one setcookie_split per
     Set-Cookie group, then one pack_rows over all units.  The CUDA
@@ -1766,11 +1793,11 @@ class UnitsExecutor(nn.Module):
                 zone = torch.empty(B, dtype=torch.int32, device=buf.device)
                 kernels.timestamp(ts, buf, starts, ends, out=rows, zone_out=zone)
                 kernels.zone_lookup(ts.zone, zone, rows[2], gate=rows[3], out=rows[2:4])
+            for ip in t.ip:
+                kernels.ipv4_spans(ip, buf, starts, ends, out=block[ip.base:ip.base + 4])
             for g in t.geo:
-                kernels.ipv4_spans(g, buf, starts, ends, out=block[g.base:g.base + 4])
-                kernels.geo_lookup(g, block[g.base + GEO_VALUE],
-                                   gate=block[g.base + GEO_IP_OK],
-                                   out=block[g.base + GEO_ROW])
+                kernels.geo_lookup(g, block[g.ip + GEO_VALUE],
+                                   gate=block[g.ip + GEO_IP_OK], out=block[g.row])
             for u in t.uri:
                 kernels.uri_split(u, buf, starts, ends, block)
             for m in t.muid:

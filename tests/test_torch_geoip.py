@@ -3,11 +3,14 @@
 The port's .mmdb writer, reader and flattened ``GeoDeviceTable`` against
 the reference's; the plain versions of the two kernels of the geo stage
 (``parse_ipv4_spans``, the range join of ``lookup_rows``) on seeded bytes
-and keys; then the ``geoip_chain`` configuration (the reference's bench
-config over the fixture City and ASN databases) and ``geoip_synthetic``
-(the same fields over a seeded synthetic City database): packed rows bit
-for bit through the harness, ``to_dict()`` and ``needs_host`` against
-``TpuBatchParser(..., extra_dissectors=[...])``.  Every comparison is
+and keys, and on ``tools.kernel_ab.seeded_ipv4_case``'s edge spans; then
+the ``geoip_chain`` configuration (the reference's bench config over the
+fixture City and ASN databases), ``geoip_synthetic`` (the same fields
+over a seeded synthetic City database) and ``geoip_two_tokens`` (City and
+ASN over NGINX's client and server addresses): packed rows bit for bit
+through the harness, ``to_dict()`` and ``needs_host`` against
+``TpuBatchParser(..., extra_dissectors=[...])``, and one ``ipv4_spans``
+call per IP token, which every geo group over it reads.  Every comparison is
 exact.  One reference parser per configuration (module-scoped): each
 jit compile costs seconds.
 """
@@ -35,7 +38,8 @@ from logparser_tpu_torch.geoip import (
     lookup_rows_plain,
 )
 from logparser_tpu_torch.tools import demolog, geoip_testdata
-from logparser_tpu_torch.tpu import pipeline, postproc
+from logparser_tpu_torch.tools.kernel_ab import seeded_ipv4_case, window_inside
+from logparser_tpu_torch.tpu import kernels, pipeline, postproc
 from logparser_tpu_torch.tpu.carry import units_from_reference
 from logparser_tpu_torch.tpu.runtime import encode_batch
 from test_torch_harness import first_mismatch, jax_unit_plain, reference_packed
@@ -149,6 +153,30 @@ def test_parse_ipv4_spans_matches_reference(seed):
     assert colon[IP_EDGES.index(b"1.2.3.4:80")]
     assert not colon[IP_EDGES.index(b"123.123.123.123:8080")]
     assert got[0][IP_EDGES.index(b"128.0.0.0")].item() == -(1 << 31)
+
+
+@pytest.mark.parametrize("L", [64, 384, 2048])
+def test_seeded_ipv4_spans_match_reference(L):
+    """The seeded edge spans over two tokens (leading zeros, octets of 256
+    and 999, digit runs that wrap uint32, empty octets, a trailing dot,
+    ':' inside and past min(width, 15), every width 0 to 16, spans past L,
+    starts above the gather mask) through the port's parse_ipv4_spans and
+    the reference's, bit for bit: the value row of rejected spans too."""
+    buf, s, e = seeded_ipv4_case(3000, L, seed=L)
+    inside = window_inside(s[0], L, postproc.MAX_IP)
+    assert inside.any() and not inside.all()
+    for tok in (0, 1):
+        want = ref_postproc.parse_ipv4_spans(jnp.asarray(buf), jnp.asarray(s[tok]),
+                                             jnp.asarray(e[tok]))
+        got = postproc.parse_ipv4_spans(torch.from_numpy(buf), torch.from_numpy(s[tok]),
+                                        torch.from_numpy(e[tok]))
+        np.testing.assert_array_equal(np.asarray(want[0]).view(np.int32), got[0].numpy())
+        np.testing.assert_array_equal(np.asarray(want[1]), got[1].numpy())
+        np.testing.assert_array_equal(np.asarray(want[2]), got[2].numpy())
+        if tok == 0:
+            ok, colon, value = got[1].numpy(), got[2].numpy(), got[0].numpy()
+            assert ok.any() and colon.any() and (~ok & ~colon).any()
+            assert (value[~ok] != 0).any()   # rejected spans keep their values
 
 
 def _keys_for(starts, ends, seed):
@@ -395,6 +423,54 @@ def test_packed_rows_match_reference(reference, dbs, name):
     own = _ours(name, dbs).executor
     got = own(torch.from_numpy(buf), torch.from_numpy(lengths)).numpy()
     assert first_mismatch(parser.units, specs, got, want) is None
+
+
+def _two_token_parsers(dbs, device="cpu"):
+    """(the port's, the reference's) parser of geoip_two_tokens."""
+    ours = TorchBatchParser(demolog.GEOIP_TWO_TOKEN_FORMAT, demolog.GEOIP_TWO_TOKEN_FIELDS,
+                            device=device, extra_dissectors=[GeoIPCityDissector(dbs["city"]),
+                                                             GeoIPASNDissector(dbs["asn"])])
+    ref = TpuBatchParser(demolog.GEOIP_TWO_TOKEN_FORMAT, list(demolog.GEOIP_TWO_TOKEN_FIELDS),
+                         extra_dissectors=[RefCity(dbs["city"]), RefASN(dbs["asn"])])
+    return ours, ref
+
+
+@pytest.mark.parametrize("name,tokens", [("geoip_chain", 1), ("geoip_two_tokens", 2)])
+def test_one_ipv4_parse_per_ip_token(reference, dbs, monkeypatch, name, tokens):
+    """The executor parses each IP token once (``ipv4_spans``, its 4 rows
+    shared by every geo group over the token) and looks each group up in
+    its table, and the packed rows, ``to_dict()`` and ``needs_host`` still
+    equal TpuBatchParser's: geoip_chain's City and ASN over ``%h`` (one
+    parse), and City and ASN over each of two NGINX addresses (two)."""
+    if name == "geoip_chain":
+        ref, lines, ref_res = reference(name)
+        ours = _ours(name, dbs)
+    else:
+        ours, ref = _two_token_parsers(dbs)
+        lines = demolog.geoip_two_token_lines(600)
+        ref_res = ref.parse_batch(lines)
+    (unit,) = ours.executor.unit_tables
+    assert len(unit.ip) == tokens and len(unit.geo) == 2 * tokens
+    bases = {ip.token_index: ip.base for ip in unit.ip}
+    assert all(g.ip == bases[g.token_index] for g in unit.geo)
+    assert len({g.row for g in unit.geo}) == len(unit.geo)
+    calls, launch = [], kernels.ipv4_spans
+
+    def counted(tables, *args, **kwargs):
+        calls.append(tables.token_index)
+        return launch(tables, *args, **kwargs)
+
+    monkeypatch.setattr(kernels, "ipv4_spans", counted)
+    res = ours.parse_batch(lines)
+    assert sorted(calls) == sorted(bases)
+    _compare(res, ref_res, lines)
+    if name == "geoip_chain":   # its packed rows: test_packed_rows_match_reference
+        return
+    specs = ref._view_specs()
+    buf, lengths, _ = encode_batch(lines)
+    got = ours.executor(torch.from_numpy(buf), torch.from_numpy(lengths)).numpy()
+    want = reference_packed(ref.units, specs, buf, lengths)
+    assert first_mismatch(ref.units, specs, got, want) is None
 
 
 def test_widest_bucket_matches_reference(dbs):

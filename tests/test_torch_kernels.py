@@ -25,6 +25,8 @@ from logparser_tpu_torch.tools.demolog import (
     DASHBOARD_OPS,
     COMBINEDIO_STRFTIME_FORMAT,
     GEOIP_FIELDS,
+    GEOIP_TWO_TOKEN_FIELDS,
+    GEOIP_TWO_TOKEN_FORMAT,
     HEADLINE_FIELDS,
     NGINX_TIMING_FIELDS,
     NGINX_TIMING_FORMAT,
@@ -38,6 +40,7 @@ from logparser_tpu_torch.tools.demolog import (
     generate_combined_lines,
     geoip_chain_lines,
     geoip_edge_lines,
+    geoip_two_token_lines,
     nginx_edge_lines,
     nginx_timing_lines,
     nginx_uri_lines,
@@ -49,8 +52,11 @@ from logparser_tpu_torch.tools.demolog import (
 from logparser_tpu_torch.tools.kernel_ab import (
     SEEDED_B,
     SPLIT_WIDTHS,
+    seeded_ipv4_case,
+    seeded_muid_case,
     seeded_reduce_case,
     seeded_split_case,
+    window_inside,
 )
 from logparser_tpu_torch.tpu import kernels, pipeline
 from logparser_tpu_torch.tpu.runtime import encode_batch
@@ -404,11 +410,12 @@ def test_geo_kernels_equal_plain_versions(cuda_device, line_len):
     lengths = torch.from_numpy(lengths).to(cuda_device)
     (t,) = ex.unit_tables
     starts, ends, _ = kernels.split(t.split, buf, lengths)
-    assert len(t.geo) == 2
+    assert len(t.geo) == 2 and len(t.ip) == 1
+    (ip,) = t.ip
+    rows = kernels.ipv4_spans(ip, buf, starts, ends)
+    want = pipeline.ipv4_spans_plain(ip, buf, starts, ends, torch.empty_like(rows))
+    assert torch.equal(rows, want)
     for g in t.geo:
-        rows = kernels.ipv4_spans(g, buf, starts, ends)
-        want = pipeline.ipv4_spans_plain(g, buf, starts, ends, torch.empty_like(rows))
-        assert torch.equal(rows, want)
         for gate in (None, rows[1]):
             got = kernels.geo_lookup(g, rows[0], gate=gate)
             assert torch.equal(got, pipeline.geo_lookup_plain(g, rows[0], gate,
@@ -493,8 +500,10 @@ def test_geo_and_nginx_parse_on_the_card_equals_the_cpu(cuda_device, name):
     kernels.reset_launch_counts()
     gpu = gpu_parser.parse_batch(lines)
     counts = kernels.launch_counts()
-    geo = 2 if name == "geoip_chain" else 0
-    assert counts["ipv4_spans"] == geo and counts["geo_lookup"] == geo
+    # One ipv4_spans launch per IP token (City and ASN both read %h), one
+    # geo_lookup per group.
+    tokens, groups = (1, 2) if name == "geoip_chain" else (0, 0)
+    assert counts["ipv4_spans"] == tokens and counts["geo_lookup"] == groups
     cpu = cpu_parser.parse_batch(lines)
     assert gpu.to_dict() == cpu.to_dict()
     assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
@@ -901,6 +910,70 @@ def test_pack_rows_kernel_on_seeded_lines(cuda_device, B, offset):
     want = pipeline.pack_rows_plain(ex.pack, flags, comps)
     assert torch.equal(got, want)
     assert ex.pack.U == pipeline.MAX_UNITS and contested_lines(want.cpu().numpy(), ex.pack) > 0
+
+
+def test_geo_two_token_parse_on_the_card_equals_the_cpu(cuda_device):
+    """City and ASN over two IP tokens: one ipv4_spans launch a token."""
+    from logparser_tpu_torch.geoip import GeoIPASNDissector, GeoIPCityDissector
+    from logparser_tpu_torch.tools import geoip_testdata
+
+    fixtures = geoip_testdata.ensure_test_databases()
+    parsers = [TorchBatchParser(GEOIP_TWO_TOKEN_FORMAT, GEOIP_TWO_TOKEN_FIELDS, device=d,
+                                extra_dissectors=[
+                                    GeoIPCityDissector(f"{fixtures}/GeoIP2-City-Test.mmdb"),
+                                    GeoIPASNDissector(f"{fixtures}/GeoLite2-ASN-Test.mmdb")])
+               for d in (cuda_device, "cpu")]
+    lines = geoip_two_token_lines(3000)
+    kernels.reset_launch_counts()
+    gpu = parsers[0].parse_batch(lines)
+    counts = kernels.launch_counts()
+    assert counts["ipv4_spans"] == 2 and counts["geo_lookup"] == 4
+    cpu = parsers[1].parse_batch(lines)
+    assert gpu.to_dict() == cpu.to_dict()
+    assert gpu.needs_host.tolist() == cpu.needs_host.tolist()
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("B,L", [(4095, 64), (4097, 384), (65547, 2048), (4097, 100)])
+def test_muid_kernel_on_seeded_tokens(cuda_device, B, L, offset):
+    """muid against its plain version on the seeded edge cases
+    (tools.kernel_ab.seeded_muid_case: a byte outside the alphabet at each
+    of the 24 positions, widths 0, 23, 24 and 25, tokens running past L,
+    starts past L and above the gather mask, rows of random bytes), read
+    as aligned chunks and a byte at a time.  ``offset`` starts the buffer
+    that many bytes past an allocation.  Exact equality."""
+    buf, s, e = seeded_muid_case(B, L, seed=B + L)
+    inside = window_inside(s, L, 24)
+    assert inside.any() and not inside.all()
+    dbuf = _offset_buffer(buf, offset, cuda_device)
+    starts = torch.from_numpy(s)[None].to(cuda_device)
+    ends = torch.from_numpy(e)[None].to(cuda_device)
+    m = pipeline.MuidTables(pipeline._MuidGroup("seeded", 0, 0))
+    got = kernels.muid(m, dbuf, starts, ends)
+    want = pipeline.muid_plain(m, dbuf, starts, ends, torch.empty_like(got))
+    assert torch.equal(got, want)
+    assert got[5].any() and not got[5].all()
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("B,L", [(4095, 64), (4097, 384), (65547, 384), (4097, 2048)])
+def test_ipv4_spans_kernel_on_seeded_spans(cuda_device, B, L, offset):
+    """ipv4_spans against its plain version on the seeded edge cases
+    (tools.kernel_ab.seeded_ipv4_case over two tokens: leading zeros,
+    octets past 255, uint32 wraps, empty octets, ':' inside and past the
+    span, every width 0 to 16, spans past L, starts above the gather
+    mask).  ``offset`` starts the buffer that many bytes past an
+    allocation.  Exact equality, the value row of rejected spans too."""
+    buf, s, e = seeded_ipv4_case(B, L, seed=B + L)
+    dbuf = _offset_buffer(buf, offset, cuda_device)
+    starts, ends = torch.from_numpy(s).to(cuda_device), torch.from_numpy(e).to(cuda_device)
+    for tok in (0, 1):
+        ip = pipeline.IpTables(tok, 0)
+        got = kernels.ipv4_spans(ip, dbuf, starts, ends)
+        want = pipeline.ipv4_spans_plain(ip, dbuf, starts, ends, torch.empty_like(got))
+        assert torch.equal(got, want)
+        if tok == 0:
+            assert got[1].any() and got[2].any() and not got[1].all()
 
 
 def test_cookie_parse_on_the_card_equals_the_cpu(cuda_device):

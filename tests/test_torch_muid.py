@@ -4,9 +4,11 @@ The plain PyTorch ``parse_mod_unique_id`` (the CPU side of the ``muid``
 kernel) against logparser_tpu's on numpy-seeded tokens and spans; the
 reference's token list through ``TorchBatchParser(device="cpu")`` with
 the reference's type remapping against ``TpuBatchParser`` (packed words,
-``to_dict()``, ``needs_host``); the known decodes; and the port's
-``mod_unique_id.decode`` against the reference's dissector.  Every
-comparison is exact.
+``to_dict()``, ``needs_host``); the seeded edge tokens of
+``tools.kernel_ab.seeded_muid_case`` (the ``muid`` kernel's card tests and
+``chip_smoke.py`` hold the kernel to the plain version on the same
+tokens); the known decodes; and the port's ``mod_unique_id.decode``
+against the reference's dissector.  Every comparison is exact.
 """
 import base64
 
@@ -21,6 +23,12 @@ from logparser_tpu.tpu import postproc as ref_postproc
 from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser
 from logparser_tpu_torch.dissectors import mod_unique_id
+from logparser_tpu_torch.tools.kernel_ab import (
+    MUID_BAD_BYTES,
+    MUID_TOKEN,
+    seeded_muid_case,
+    window_inside,
+)
 from logparser_tpu_torch.tpu import postproc
 from logparser_tpu_torch.tpu.runtime import encode_batch
 from test_torch_harness import packed_mismatch
@@ -85,6 +93,30 @@ def test_parse_mod_unique_id_matches_reference(L):
     for k in ("time", "ip", "pid", "counter", "thread"):
         np.testing.assert_array_equal(words[k].numpy(), np.asarray(ref_words[k]), err_msg=k)
     assert ok.sum() > 200 and (~ok).sum() > 20
+
+
+@pytest.mark.parametrize("L", [64, 384, 2048])
+def test_seeded_tokens_match_reference(L):
+    """The seeded edge tokens (a byte of MUID_BAD_BYTES at each of the 24
+    positions, widths 0, 23, 24 and 25, tokens running 0 to 24 bytes past
+    L, starts past L below the mask's end at L = 384, all of them again
+    with starts above the gather mask; then random rows) through the
+    port's parse_mod_unique_id and the reference's, bit for bit: the
+    words of tokens that do not decode too."""
+    buf, s, e = seeded_muid_case(3000, L, seed=L)
+    inside = window_inside(s, L, MUID_TOKEN)
+    assert inside.any() and not inside.all()
+    assert (s < 0).any() and (s > L).any()
+    words, ok = postproc.parse_mod_unique_id(_t(buf), _t(s), _t(e))
+    ref_words, ref_ok = ref_postproc.parse_mod_unique_id(
+        jnp.asarray(buf), jnp.asarray(s), jnp.asarray(e))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref_ok))
+    for k in ("time", "ip", "pid", "counter", "thread"):
+        np.testing.assert_array_equal(words[k].numpy(), np.asarray(ref_words[k]), err_msg=k)
+    n_bad = MUID_TOKEN * len(MUID_BAD_BYTES)
+    assert not ok[:n_bad].any() and ok[n_bad:].any()
+    # The words of a token with a bad byte still differ from a good one's.
+    assert len(np.unique(words["time"][:n_bad].numpy())) > 1
 
 
 def test_reference_tokens_match():

@@ -20,7 +20,9 @@ VARIANT_FILES = {"split_phases.json": "split", "uri_variants.json": "uri_split",
                  "pack_rows_variants.json": "pack_rows",
                  "span_stages_variants.json": "span_stages",
                  "timestamp_variants.json": "timestamp",
-                 "agg_group_variants.json": "agg_group"}
+                 "agg_group_variants.json": "agg_group",
+                 "muid_variants.json": "muid",
+                 "ipv4_spans_variants.json": "ipv4_spans"}
 
 
 def test_every_variant_file_names_its_kernel():
