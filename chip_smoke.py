@@ -25,7 +25,8 @@ gather utilities), and fails (non-zero exit, no result line) on the
 first phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the nineteen kernels from logparser_tpu_torch/csrc, in parallel,
+2. build   -- the nineteen kernels from logparser_tpu_torch/csrc, in parallel
+   (ptxas's register and stack-frame lines of each in the phase line),
    and beside them the g++ line framer (logparser_tpu_torch/native), which
    must build: the blob and stream phases fail on a numpy framing;
    2b. timing -- the yardstick (DeviceClock): a kernel's or a library
@@ -53,7 +54,11 @@ first phase that fails:
    5b. runtime.run_program (the split-only entry) on the headline batch
    against compute_split; the unescape utility (postproc.
    unescape_compact_spans) over the user-agent spans of 65,536 headline
-   lines with 5% escaped quotes, against its plain version, and the spec's
+   lines with 5% escaped quotes, against its plain version, then on
+   tools.kernel_ab's seeded spans (``unescape_seeded``: L = 384, width
+   121, B = 65,547; ``unescape_seeded_8191`` at width 8,191, the direct
+   path, and ``unescape_seeded_cap`` at width 512, the widest staged one,
+   B = 4,107 each; every read and walk kind present), and the spec's
    fuzz cases; parse_blob of the headline batch as one blob (CRLF on some
    lines, a trailing newline), equal to the CPU's parse_batch of the same
    lines, with its encode seconds beside parse_batch's;
@@ -108,7 +113,9 @@ first phase that fails:
    sections 5 to 9 also runs its configuration's representative_spec
    (the reference bench's parity sweep) on the card against the CPU
    (phases ``agg_parity_*``), and the URI chain a count_by over the query
-   key ``q`` passed as an AggregateSpec (phase ``agg_query_key``);
+   key ``q`` passed as an AggregateSpec (phase ``agg_query_key``) and
+   agg_lanes on QUERY_KEY_OPS' query-key lane over its batch against the
+   plain version (``agg_lanes_query_key``);
 11. cookies, Set-Cookie and mod_unique_id (``cookies_uniqueid``: 65,536
    generated lines, seed 50, plus the cookie edge lines): parse_batch end
    to end on a fresh parser, which regrows 16 -> 128 slots on the card,
@@ -364,7 +371,8 @@ def main() -> int:
     kernels.build()
     framer_build.join()
     info = kernels.build_info()
-    regs = {k: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = {k: [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "stack frame" in ln]
             for k, log in info["ptxas"].items()}
     if not native.native_available():
         fail("the g++ framer (logparser_tpu_torch/native/logframe.cc) did not build")
@@ -661,27 +669,53 @@ UNESCAPE_CASES = [
 ]
 
 
-def unescape_phases(torch, kernels, runtime, phase, rows, smi):
-    """The unescape utility over the user-agent spans of the headline
-    corpus with 5% of lines carrying an escaped quote (the reference
-    bench's corpus, B = 65,536): postproc.unescape_compact_spans driven
-    once with the counts zeroed, then the kernel against its plain version
-    (out, out_len, exact), timed; then the spec's fuzz cases."""
+def unescape_corpus(runtime):
+    """(lines, buf, starts, ends, width) of the unescape phase: the
+    user-agent spans of the headline corpus with 5% of lines carrying an
+    escaped quote (the reference bench's corpus, B = 65,536), the window
+    one byte wider than the longest span."""
     import numpy as np
 
     from logparser_tpu_torch.tools.demolog import (
         force_escaped_quote_lines,
         generate_combined_lines,
     )
-    from logparser_tpu_torch.tpu import postproc
 
     lines = force_escaped_quote_lines(generate_combined_lines(N_LINES, seed=42), 5)
     buf, lengths, _ = runtime.encode_batch(lines)
-    B, L = buf.shape
     # The UA span is the final quoted field, opened by the last ' "'.
     starts = np.array([ln.rindex(' "') + 2 for ln in lines], dtype=np.int32)
     ends = np.array([len(ln) - 1 for ln in lines], dtype=np.int32)
-    width = min(int((ends - starts).max()) + 1, L)
+    width = min(int((ends - starts).max()) + 1, buf.shape[1])
+    return lines, buf, starts, ends, width
+
+
+def unescape_cost(torch, s, e, B, L, width):
+    """(bytes, operations) of unescape: each row's window bytes that lie
+    inside the line (min(n, width) from its start, Row::at's 0 past L),
+    the cursors in, the [B, width] window, out_len and exact out; ~10
+    operations a byte read."""
+    width = min(width, L)
+    mask = (1 << max(1, (L - 1).bit_length())) - 1
+    m = (e.to(torch.int64) - s).clamp(0, width)
+    n_read = int(torch.minimum(m, (L - (s.to(torch.int64) & mask)).clamp(min=0)).sum())
+    return n_read + 8 * B + B * width + 5 * B, 10 * n_read
+
+
+def unescape_phases(torch, kernels, runtime, phase, rows, smi):
+    """The unescape utility over the user-agent spans of the headline
+    corpus (unescape_corpus): postproc.unescape_compact_spans driven once
+    with the counts zeroed, then the kernel against its plain version
+    (out, out_len, exact), timed; then tools.kernel_ab's seeded spans at
+    three (L, width) shapes (every kind of read and walk present); then
+    the spec's fuzz cases."""
+    import numpy as np
+
+    from logparser_tpu_torch.tools import kernel_ab
+    from logparser_tpu_torch.tpu import postproc
+
+    lines, buf, starts, ends, width = unescape_corpus(runtime)
+    B, L = buf.shape
     dbuf, ds, de = (torch.from_numpy(a).cuda() for a in (buf, starts, ends))
     kernels.reset_launch_counts()
     out, out_len, exact = postproc.unescape_compact_spans(dbuf, ds, de, width)
@@ -689,18 +723,31 @@ def unescape_phases(torch, kernels, runtime, phase, rows, smi):
     launches = kernels.launch_counts()["unescape"]
     if launches < 1:
         fail("unescape_compact_spans did not launch the unescape kernel")
-    n_read = int(np.minimum(ends - starts, width).clip(0).sum())
     escaped = sum('"esc \\" quote' in ln for ln in lines)
     span_len = torch.from_numpy(ends - starts).cuda()
     phase("unescape", lambda: kernels.unescape(dbuf, ds, de, width),
           lambda: postproc.unescape_compact_spans_plain(dbuf, ds, de, width),
-          bytes_moved=n_read + 8 * B + B * width + 5 * B, ops=10 * n_read, n=B,
-          width=width, extra={"L": L, "launches": launches, "escaped_lines": escaped,
-                              "exact_rows": int(exact.sum())})
+          *unescape_cost(torch, ds, de, B, L, width), n=B, width=width,
+          extra={"L": L, "launches": launches, "escaped_lines": escaped,
+                 "exact_rows": int(exact.sum()),
+                 "kinds": kernel_ab.unescape_kinds(buf, starts, ends, width)})
     rows["unescape"]["launches"] = launches
     if int((out_len < span_len).sum()) != escaped or not bool(exact.all()):
         fail("unescape: the escaped-quote lines did not each lose one byte, "
              "or a row was inexact")
+
+    for tag, (sL, swidth, sB) in zip(("unescape_seeded", "unescape_seeded_8191",
+                                      "unescape_seeded_cap"), kernel_ab.UNESCAPE_SEEDED):
+        sbuf, s, e = kernel_ab.seeded_unescape_case(sB, sL, swidth, seed=sL + swidth)
+        kinds = kernel_ab.unescape_kinds(sbuf, s, e, swidth)
+        if not all(kinds[k] for k in ("chunks", "bytes", "backslash_free", "walked")):
+            fail(f"{tag}: the seeded spans lost a path kind: {kinds}")
+        sd, ss, se = (torch.from_numpy(a).cuda() for a in (sbuf, s, e))
+        phase(tag, lambda: kernels.unescape(sd, ss, se, swidth),
+              lambda: postproc.unescape_compact_spans_plain(sd, ss, se, swidth),
+              *unescape_cost(torch, ss, se, sB, sL, swidth), kernel="unescape", n=sB,
+              width=swidth, extra={"L": sL, "kinds": kinds})
+        del sd, ss, se
 
     case = np.zeros((len(UNESCAPE_CASES), 64), dtype=np.uint8)
     for i, (c, _, _) in enumerate(UNESCAPE_CASES):
@@ -997,6 +1044,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     out = agg_parity(torch, kernels, gpu, cpu, lines, "agg_query_key", smi, key_spec)
     if not out.state.data[0]:
         fail("agg_query_key: no query key counted")
+    agg_lanes_query_key_phase(torch, kernels, runtime, phase, gpu, lines)
 
     wide = generate_combined_lines(256, seed=7, garbage_fraction=0.05) + edge + [
         edge[0].replace("/x/y?", "/p?" + "&".join(f"k{i}" for i in range(200)) + "&"),
@@ -1719,22 +1767,54 @@ def canonical_groups(groups, n, buf, spans):
     return out
 
 
-def agg_lanes_cost(agg, t, B):
-    """(bytes, operations) of agg_lanes: the packed rows its tables name
-    (each unit's row 0, each lane's slots, the overflow slots) read once,
-    the host_kill byte in, the class byte and the lane rows out; a few
-    operations a slot, ~150 a limbs lane (19 digits), ~60 a time lane."""
-    rows = set(t.units_py)
-    for d in t.udesc_py:
-        if d[0] == agg.UNIT_SLOTS:
-            rows.update(d[k] for k in range(2, len(d), 3))
-        elif d[0] == agg.UNIT_QS:
-            rows.update([d[2]] + [d[5] + j for j in range(2 * d[6])])
-    for o in t.ovf_py:
-        rows.update(o[k] for k in (1, 4, 7, 10))
-    per_lane = {agg.LANE_SPAN: 10, agg.LANE_LIMBS: 150, agg.LANE_TIME: 60}
-    ops = 10 * len(t.units_py) + 10 * len(t.ovf_py) + sum(per_lane[x[0]] for x in t.lanes_py)
-    return B * (4 * len(rows) + 2 + 4 * t.n_lane_rows), B * ops
+def agg_lanes_query_key_phase(torch, kernels, runtime, phase, gpu, lines):
+    """agg_lanes on QUERY_KEY_OPS (the query-key lane beside a span and a
+    limbs lane) over the URI chain's batch at the parser's grown slots,
+    every other line's request URI replaced by one of kernel_ab's
+    LANES_QUERIES (the key ``q`` in either case, repeated, empty,
+    %-encoded, past 16 slots), against its plain version; some rows must
+    select a key."""
+    import re
+
+    import numpy as np
+
+    from logparser_tpu_torch.analytics import AggregateSpec
+    from logparser_tpu_torch.analytics import device as agg
+    from logparser_tpu_torch.tools.demolog import QUERY_KEY_OPS
+    from logparser_tpu_torch.tools.kernel_ab import LANES_QUERIES
+
+    lines = [ln if i % 2 else re.sub(r'"(\w+) \S+ ', lambda m, i=i: '"%s %s ' % (
+        m.group(1), LANES_QUERIES[(i // 2) % len(LANES_QUERIES)]), ln, count=1)
+        for i, ln in enumerate(lines)]
+    buf, lengths, overflow = runtime.encode_batch(lines)
+    B, L = buf.shape
+    ex = gpu._agg_executor(AggregateSpec.parse(QUERY_KEY_OPS))
+    t = ex.tables
+    if not any(d[0] == agg.UNIT_QS for d in t.udesc_py):
+        fail("agg_lanes_query_key: the spec has no query-key lane")
+    kill = np.zeros(B, dtype=np.uint8)
+    kill[np.asarray(overflow, dtype=np.int64)] = 1
+    dbuf, dlen, kill = (torch.from_numpy(x).cuda() for x in (buf, lengths, kill))
+    packed = ex.units(dbuf, dlen)
+    cls, lanes = phase(
+        "agg_lanes_query_key", lambda: kernels.agg_lanes(t, packed, dbuf, B, kill),
+        lambda: agg.agg_lanes_plain(t, packed, dbuf, B, kill,
+                                    torch.empty(B, dtype=torch.uint8, device="cuda"),
+                                    torch.empty((t.n_lane_rows, B), dtype=torch.int32,
+                                                device="cuda")),
+        *agg_lanes_cost(t, packed, B, kill), kernel="agg_lanes", n=B,
+        extra={"csr_slots": gpu.csr_slots})
+    if not bool((lanes[t.lanes_py[0][1]] != -1).any()):
+        fail("agg_lanes_query_key: no row selected a query key")
+
+
+def agg_lanes_cost(t, packed, n_rows, kill):
+    """(bytes, operations) of agg_lanes on this launch's data
+    (``kernel_ab.lanes_cost``: each unit's row 0 for every row, the winner's
+    words and compared key bytes only for the rows that walk their lanes)."""
+    from logparser_tpu_torch.tools.kernel_ab import lanes_cost
+
+    return lanes_cost(t, packed.cpu().numpy(), n_rows, kill.cpu().numpy())
 
 
 def agg_reduce_cost(t, B, ntiles):
@@ -1813,7 +1893,7 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
         "agg_lanes", lambda: kernels.agg_lanes(t, packed, dbuf, B, kill),
         lambda: agg.agg_lanes_plain(t, packed, dbuf, B, kill, empty(B, dtype=torch.uint8),
                                     empty(t.n_lane_rows, B)),
-        *agg_lanes_cost(agg, t, B), n=B)
+        *agg_lanes_cost(t, packed, B, kill), n=B)
 
     tile, ntiles = agg.sum_tiling(B)
     phase("agg_reduce", lambda: kernels.agg_reduce(t, cls, lanes),

@@ -182,7 +182,9 @@ class AggTables(nn.Module):
     of every unit, for the global Long-overflow fold.  ``sums`` rows
     (limbs lane row); ``hists`` rows (limbs lane row, first edge, edge
     count, first bin) over ``edges`` rows (always, A, B, C).  The grouping
-    lanes are ``groups_py`` (lanes row, is-span)."""
+    lanes are ``groups_py`` (lanes row, is-span).  Lane ``i``'s unit rows
+    are ``udesc`` rows ``i * U`` to ``i * U + U - 1``; ``max_row`` is the
+    highest packed row the tables name."""
 
     def __init__(self, parser, spec: AggregateSpec):
         super().__init__()
@@ -261,6 +263,14 @@ class AggTables(nn.Module):
                     self.groups_py.append((row, kind == LANE_SPAN))
             self.op_partial.append(seen[key])
         self.n_bins = n_bins
+
+        # The highest packed row agg_lanes reads: each unit's row 0, every
+        # slot a lane or the overflow fold names, a query key's segment words.
+        self.max_row = max(
+            self.units_py
+            + [d[k] for d in self.udesc_py if d[0] == UNIT_SLOTS for k in range(2, len(d), 3)]
+            + [r for d in self.udesc_py if d[0] == UNIT_QS for r in (d[2], d[5] + 2 * d[6] - 1)]
+            + [d[k] for d in self.ovf_py for k in range(1, len(d), 3)])
 
         self.register_buffer("units", torch.tensor(self.units_py or [0], dtype=torch.int32))
         self.register_buffer("lanes", _i32(self.lanes_py or [()], LANEW))

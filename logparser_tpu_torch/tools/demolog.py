@@ -507,6 +507,18 @@ DASHBOARD_OPS = [
 ]
 
 
+# The query-key lane (a count_by over one concrete query key) beside a
+# span lane and a limbs lane summed and binned, over URI_CHAIN_FIELDS.
+# Reached only through an AggregateSpec instance: validate_for refuses a
+# count_by over a concrete query key (group "wild").
+QUERY_KEY_OPS = [
+    {"op": "count_by", "field": "STRING:request.firstline.uri.query.q"},
+    {"op": "top_k", "field": "HTTP.PATH:request.firstline.uri.path", "k": 3},
+    {"op": "sum", "field": "HTTP.PORT:request.referer.port"},
+    {"op": "histogram", "field": "HTTP.PORT:request.referer.port", "edges": [-1, 80, 8080]},
+]
+
+
 def representative_spec(parser):
     """The reference bench's parity-sweep spec, derived from whatever the
     parser requests: count + count_by / top_k on the first string-group

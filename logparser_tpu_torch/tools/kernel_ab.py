@@ -10,7 +10,8 @@ they include; ``.kernel_ab_parent/`` is git-ignored for it).  KERNEL picks
 the kernels to compare -- ``zone_lookup``, ``geo_lookup``, ``split``,
 ``agg_reduce``, ``csr_split``, ``sp_program``, ``uri_split``,
 ``setcookie_split``, ``pack_rows``, ``span_stages``, ``timestamp``,
-``agg_group``, ``muid``, ``ipv4_spans`` -- all fourteen by default.
+``agg_group``, ``muid``, ``ipv4_spans``, ``agg_lanes``, ``unescape`` -- all
+sixteen by default.
 
 The parent's kernels are built with nvcc into a temporary directory.  Each
 runs through this checkout's wrapper (``kernels.split`` and so on) with the
@@ -86,7 +87,17 @@ The cases:
 - ``ipv4_spans_geoip_chain`` (City and ASN over ``%h``: the parent's two
   launches against one) and ``ipv4_spans_seeded`` (:func:`seeded_ipv4_case`'s
   65,547 lines, L = 384: two groups over token 0 and one over token 1, the
-  parent's three launches against two).
+  parent's three launches against two);
+- ``agg_lanes_dashboard`` (the dashboard batch, B = 65,547),
+  ``agg_lanes_query_key`` (QUERY_KEY_OPS over the URI chain's batch: the
+  query-key lane) and ``agg_lanes_seeded`` (:func:`seeded_lanes_case`'s
+  65,547 lines of the eight formats, 16 lanes, host_kill rows and
+  padding; :func:`lanes_kinds` counts its paths);
+- ``unescape_headline`` (the smoke's user-agent spans, 5% escaped quotes,
+  L = 384, width 121) and ``unescape_seeded_<L>_<width>``
+  (:func:`seeded_unescape_case` at L = 384 / width 121, B = 65,547, and
+  L = 8,191 / width 8,191 and 512, B = 4,107; :func:`unescape_kinds`
+  counts its paths).
 
 Each case holds parent and change to the plain version bit for bit (a
 difference fails the run), except that a case which names a known
@@ -121,11 +132,12 @@ import numpy as np
 import torch
 
 from ..analytics import device as agg_device
+from ..tpu.kernels import csrc_constant
 
 REPS = 25
 CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce", "csr_split",
                 "sp_program", "uri_split", "setcookie_split", "pack_rows", "span_stages",
-                "timestamp", "agg_group", "muid", "ipv4_spans")
+                "timestamp", "agg_group", "muid", "ipv4_spans", "agg_lanes", "unescape")
 NO_PARENT_LIBRARY = ("sp_program",)   # its "parent" is the per-op path
 SEEDED_B = (4095, 4096, 4097, 65547, 262144)
 
@@ -1234,6 +1246,288 @@ def contested_lines(packed: np.ndarray, pack) -> int:
 
 
 # ---------------------------------------------------------------------------
+# seeded inputs of agg_lanes and unescape (also the tests')
+# ---------------------------------------------------------------------------
+
+# agg_lanes over eight formats (SEEDED_PACK_FORMATS with a time in each):
+# 7 span lanes (a query key among them), 2 limbs lanes (every null mode:
+# %b and %B under BYTES and BYTESCLF) and 7 time lanes, 16 in all.
+SEEDED_LANES_FORMATS = (
+    "combined",
+    '%h %l %u %t "%r" %>s %B',
+    '%h%l %u %t "%r" %>s %b',
+    "common",
+    '%h %u %t "%r" %>s %b',
+    '%u %h %t "%r" %b %>s',
+    '%h %l %u %t "%r" %>s %B "%{Referer}i"',
+    '%>s %h %u %t "%r" %b',
+)
+SEEDED_LANES_FORMAT = "\n".join(SEEDED_LANES_FORMATS)
+SEEDED_LANES_FIELDS = SEEDED_PACK_FIELDS + ["BYTES:response.body.bytes",
+                                            "TIME.EPOCH:request.receive.time.epoch",
+                                            "STRING:request.firstline.uri.query.q"]
+SEEDED_LANES_WIDTHS = (1, 7, 60, 3600, 86400, 604800, 31622400)
+SEEDED_LANES_OPS = (   # 16 ops, the most a spec takes: one a lane
+    [{"op": "count_by", "field": f} for f in (
+        "STRING:request.status.last", "HTTP.URI:request.firstline.uri",
+        "HTTP.PATH:request.firstline.uri.path", "HTTP.HOST:request.firstline.uri.host",
+        "STRING:connection.client.user", "IP:connection.client.host",
+        "STRING:request.firstline.uri.query.q")]
+    + [{"op": "sum", "field": "BYTES:response.body.bytes"},
+       {"op": "sum", "field": "BYTESCLF:response.body.bytes"}]
+    + [{"op": "time_bucket", "field": "TIME.EPOCH:request.receive.time.epoch", "width_s": w}
+       for w in SEEDED_LANES_WIDTHS])
+AGG_FETCH_CAP = csrc_constant("agg_lanes", "KCAP")   # the packed words a row fetches in one round
+_LANES_TIMES = ("13/Dec/1901:20:45:52 +0000", "31/Dec/1901:23:59:59 -0100",
+                "01/Jan/1902:00:00:00 +1400", "01/Jan/1902:00:00:00 -1400",
+                "31/Dec/2037:23:59:59 +1400", "31/Dec/2037:23:59:59 -1400",
+                "01/Jan/2038:00:00:00 +0000", "19/Jan/2038:03:14:07 -0700",
+                "29/Feb/2000:12:00:00 +0530", "01/Mar/1970:00:00:00 +0000")
+LANES_QUERIES = ("/s?q=a", "/s?Q=B&q=c", "/s?x=1&q=&q=d", "/s?%71=e", "/s?q=%zz",
+                  "/s?qq=1&q", "/s?" + "&".join(f"k{i}=v" for i in range(40)) + "&q=z",
+                  "/s?&q=f", "/s?q=" + "v" * 60)
+
+
+def _lanes_bytes(rng) -> str:
+    """A byte count of 0 to 20 digits (a leading zero, '-', garbage too)."""
+    k = int(rng.integers(0, 24))
+    if k > 20:
+        return ("-", "007", "12a")[k - 21]
+    if k == 0:
+        return ""
+    return str(int(rng.integers(1, 10))) + "".join(map(str, rng.integers(0, 10, size=k - 1)))
+
+
+def seeded_lanes_case(B: int, seed: int):
+    """(lines, n_rows, host_kill [B] uint8) for ``agg_lanes`` under
+    SEEDED_LANES_FORMAT / SEEDED_LANES_FIELDS / SEEDED_LANES_OPS: generated
+    combined lines rendered in the eight formats in turn (contested lines
+    as in :func:`seeded_pack_case`), half of them with the byte count
+    replaced (every digit count 0 to 20, '-', a leading zero, garbage),
+    the time by one at the device window's edges (1901, 1902, 2037, 2038)
+    with +-14 h offsets, or the URI by a query string (the key ``q`` in
+    either case, repeated, empty, %-encoded, past the CSR slots).  The
+    last 37 lines lie past ``n_rows`` (padding); 1 row in 50 has
+    host_kill set."""
+    rng = np.random.default_rng(seed)
+    from .demolog import generate_combined_lines
+
+    base = generate_combined_lines(max(B // 4, 1), seed=seed)
+    out = []
+    for i in range(B):
+        m = _COMBINED.match(base[i % len(base)])
+        h, l, u, t, r, s, b, ref, ua = m.groups() if m else ("1.2.3.4", "-", "-", "[x]",
+                                                             "GET / HTTP/1.1", "200", "0",
+                                                             "-", "-")
+        what = int(rng.integers(0, 6))
+        if what == 0:
+            b = _lanes_bytes(rng)
+        elif what == 1:
+            t = "[" + _LANES_TIMES[int(rng.integers(0, len(_LANES_TIMES)))] + "]"
+        elif what == 2:
+            r = f"GET {LANES_QUERIES[int(rng.integers(0, len(LANES_QUERIES)))]} HTTP/1.1"
+        fmt = i % len(SEEDED_LANES_FORMATS)
+        out.append([
+            f'{h} {l} {u} {t} "{r}" {s} {b} "{ref}" "{ua}"',
+            f'{h} {l} {u} {t} "{r}" {s} {b}',
+            f'{h}{l} {u} {t} "{r}" {s} {b}',
+            f'{h} {l} {u} {t} "{r}" {s} {b}',
+            f'{h} {u} {t} "{r}" {s} {b}',
+            f'{u} {h} {t} "{r}" {b} {s}',
+            f'{h} {l} {u} {t} "{r}" {s} {b} "{ref}"',
+            f'{s} {h} {u} {t} "{r}" {b}',
+        ][fmt])
+    host_kill = (rng.random(B) < 0.02).astype(np.uint8)
+    return out, B - 37, host_kill
+
+
+def _lane_slots(kind: int) -> int:
+    """The (row, shift, bits) slots a lane of this kind reads."""
+    return {agg_device.LANE_SPAN: 1, agg_device.LANE_LIMBS: 7}.get(kind, 4)
+
+
+def lanes_fetch_words(tables) -> List[int]:
+    """Per unit: the packed words agg_lanes fetches for a row that unit
+    wins (each lane's slots or query-key segment words, its overflow
+    slots), in the kernel's walking order."""
+    U = len(tables.units_py)
+    words = []
+    for w in range(U):
+        n = 0
+        for kind, _, _, u0 in tables.lanes_py:
+            d = tables.udesc_py[u0 + w]
+            if d[0] == agg_device.UNIT_SLOTS:
+                n += _lane_slots(kind)
+            elif d[0] == agg_device.UNIT_QS:
+                n += 1 + 2 * d[6]
+        words.append(n + 4 * sum(o[0] == w for o in tables.ovf_py))
+    return words
+
+
+def lanes_walk(tables, packed: np.ndarray, n_rows: int,
+               host_kill: np.ndarray) -> Tuple[np.ndarray, np.ndarray, Dict[str, int]]:
+    """(walked [B] bool, winner [B], counts) of an agg_lanes launch: the
+    rows that walk their winner's lanes (base-valid), each row's winner,
+    and the rows that never reach a lane by why: ``padding`` (at or past
+    n_rows), ``force_fold`` (host_kill or a CSR overflow), ``contested``
+    (a unit valid but an earlier one plausible), ``invalid`` (none
+    valid)."""
+    B = packed.shape[1]
+    row0 = np.stack([packed[r] for r in tables.units_py])
+    valid, plaus = (row0 & 1) != 0, (row0 & 2) != 0
+    any_valid = valid.any(0)
+    winner = np.where(any_valid, valid.argmax(0), 0)
+    earlier = np.cumsum(plaus, axis=0) - plaus
+    contested = any_valid & (earlier[winner, np.arange(B)] > 0)
+    live = np.arange(B) < n_rows
+    force = live & ((host_kill != 0) | ((row0 & 4) != 0).any(0))
+    rest = live & ~force
+    walked = rest & any_valid & ~contested
+    return walked, winner, {"padding": int((~live).sum()), "force_fold": int(force.sum()),
+                            "contested": int((rest & contested).sum()),
+                            "invalid": int((rest & ~any_valid).sum())}
+
+
+def lanes_kinds(tables, packed: np.ndarray, n_rows: int, host_kill: np.ndarray) -> Dict[str, int]:
+    """Rows of an agg_lanes launch by the path they take: those that never
+    reach a lane (:func:`lanes_walk`'s counts) and the base-valid rows
+    that walk their winner's lanes, ``walked_one_round`` /
+    ``walked_rounds`` by whether the words they fetch fit the kernel's
+    shared-memory column at once (AGG_FETCH_CAP) or take several
+    rounds."""
+    walked, winner, kinds = lanes_walk(tables, packed, n_rows, host_kill)
+    past = np.array(lanes_fetch_words(tables))[winner] > AGG_FETCH_CAP
+    return {**kinds, "walked_one_round": int((walked & ~past).sum()),
+            "walked_rounds": int((walked & past).sum())}
+
+
+def lanes_cost(tables, packed: np.ndarray, n_rows: int, host_kill: np.ndarray) -> Tuple[int, int]:
+    """(bytes, operations) an agg_lanes launch needs on this data, each
+    word read once: every row reads each unit's row 0 and its host_kill
+    byte and writes its class byte and lane rows; a row that walks its
+    winner's lanes also reads the other packed rows the winner's
+    descriptors name and, for each query-key slot whose name is as long as
+    the key, the name's bytes.  A few operations a unit and a word, ~150 a
+    limbs lane (19 digits), ~60 a time lane, for the walked rows."""
+    B = packed.shape[1]
+    U = len(tables.units_py)
+    walked, winner, _ = lanes_walk(tables, packed, n_rows, host_kill)
+    fetch = np.array(lanes_fetch_words(tables))
+    n_walked = np.bincount(winner[walked], minlength=U)
+    rows = [set(tables.units_py) for _ in range(U)]
+    for kind, _, _, u0 in tables.lanes_py:
+        for w in range(U):
+            d = tables.udesc_py[u0 + w]
+            if d[0] == agg_device.UNIT_SLOTS:
+                rows[w].update(d[2 + 3 * k] for k in range(_lane_slots(kind)))
+            elif d[0] == agg_device.UNIT_QS:
+                rows[w].update([d[2]] + [d[5] + j for j in range(2 * d[6])])
+    for o in tables.ovf_py:
+        rows[o[0]].update(o[k] for k in (1, 4, 7, 10))
+    extra = np.array([len(r) - U for r in rows])
+    key_bytes = 0
+    for _, _, _, u0 in tables.lanes_py:
+        for w in range(U):
+            d = tables.udesc_py[u0 + w]
+            if d[0] != agg_device.UNIT_QS or not n_walked[w]:
+                continue
+            won = walked & (winner == w)
+            for k in range(d[6]):
+                nl = (packed[d[5] + 2 * k] >> 13) & 8191
+                key_bytes += d[9] * int((won & (nl == d[9]) & (nl != 0)).sum())
+    per_lane = {agg_device.LANE_SPAN: 10, agg_device.LANE_LIMBS: 150, agg_device.LANE_TIME: 60}
+    lane_ops = sum(per_lane[ln[0]] for ln in tables.lanes_py)
+    words = U * B + int((extra * n_walked).sum())
+    return (4 * words + 2 * B + key_bytes + 4 * tables.n_lane_rows * B,
+            10 * U * B + int(n_walked.sum()) * lane_ops + 3 * int((fetch * n_walked).sum()))
+
+
+UNESCAPE_STAGE_CAP = csrc_constant("unescape", "STAGE_CAP")   # the widest row staged in shared memory
+UNESCAPE_CRAFTED = (
+    b'esc \\" quote', b"a\\\\b", b'a\\\\\\"b', b'run\\\\\\\\\\"x', b'\\" \\" \\"', b"plain",
+    b"tail\\\\", b"a\\qb", b"odd\\", b"a\\nb", b"\\x41z", b"\\b\\n\\r\\t\\v\\x\\q",
+    b"\\" * 15 + b'"', b"\\" * 16 + b'"', b"\\" * 17 + b"n", b'\\\\"\\"', b"\x00\\\x00\\\"",
+)
+_UNESCAPE_ALPHABET = np.frombuffer(b'\\\\\\"bnrtvxq a0\x00', dtype=np.uint8)
+_UNESCAPE_PLAIN = np.frombuffer(b"Mozilla/5.0 (X11; Linux x86_64) Gecko", dtype=np.uint8)
+
+
+def seeded_unescape_case(B: int, L: int, width: int, seed: int):
+    """(buf [B, L] uint8, start [B] int32, end [B] int32) on the CPU: spans
+    for ``unescape`` at this width.  Lines are backslash-free text.  Crafted
+    rows first (at most half of B): empty and negative spans; starts at
+    or past L below the mask's end; spans of width - 1, width and
+    width + 1 bytes (and 511 to 513 where the line holds them: the staging
+    cap), of random escape bytes and backslash-free; each of
+    UNESCAPE_CRAFTED at every offset 0 to 16 (its backslash runs across a
+    16-byte chunk's edge) and ending 0 to 3 bytes past L; then all of them
+    again with start and end lifted above the mask (:func:`_lifts`).
+    Then random rows: a span of
+    0 to width + 8 bytes at a random start, its bytes backslash-free, from
+    ``\\ " b n r t v x q``, or with one escape pair placed; a lifted
+    start now and then."""
+    rng = np.random.default_rng(seed)
+    mask = gather_mask(L)
+    buf = _UNESCAPE_PLAIN[rng.integers(0, len(_UNESCAPE_PLAIN), size=(B, L))]
+    items = [(None, (5, 5)), (None, (9, 3)), (None, (L, L + 7)), (None, (mask, mask + 3))]
+    for w in sorted({width - 1, width, width + 1, 511, 512, 513}):
+        if 0 < w <= L:
+            esc = bytes(rng.choice(_UNESCAPE_ALPHABET, size=w))
+            items += [(0, esc), (L - w, esc), (None, (0, w))]
+    for text in UNESCAPE_CRAFTED:
+        items += [(at, text) for at in range(min(17, L - len(text) + 1))]
+        items += [(L - len(text) + past, text, len(text), past) for past in range(4)]
+    n = min(2 * len(items), B // 2)
+    start = np.zeros(B, dtype=np.int32)
+    end = np.zeros(B, dtype=np.int32)
+    for row in range(B):
+        if row < n:
+            item = items[row % len(items)]
+        else:
+            w = int(rng.integers(0, min(width + 9, L) + 1))
+            at = int(rng.integers(0, L - w + 1))
+            kind = int(rng.integers(0, 3))
+            if kind == 0:
+                text = bytes(buf[row, at:at + w])
+            elif kind == 1:
+                text = bytes(rng.choice(_UNESCAPE_ALPHABET, size=w))
+            else:
+                text = bytearray(buf[row, at:at + w])
+                if w >= 2:
+                    p = int(rng.integers(0, w - 1))
+                    text[p:p + 2] = b"\\" + bytes([int(rng.choice(_UNESCAPE_ALPHABET))])
+                text = bytes(text)
+            item = (at, text)
+        _place(buf, start, end, row, item)
+        if len(items) <= row < n or (row >= n and rng.random() < 0.05):
+            lift = int(_lifts(rng, L, 1)[0])
+            start[row] += lift
+            end[row] += lift
+    return buf, start, end
+
+
+def unescape_kinds(buf: np.ndarray, start: np.ndarray, end: np.ndarray,
+                   width: int) -> Dict[str, int]:
+    """Rows of an unescape launch by path: ``staged`` / ``direct`` (the
+    output through a shared-memory tile, width <= UNESCAPE_STAGE_CAP, or
+    straight to out), ``chunks`` / ``bytes`` (the window read as aligned
+    16-byte chunks, (start & mask) + min(n, width) <= L, or through
+    Row::at), and ``backslash_free`` / ``walked`` (a window with no
+    backslash copied whole, else walked byte by byte where one is)."""
+    B, L = buf.shape
+    width = min(width, L)
+    q = start.astype(np.int64) & gather_mask(L)
+    m = np.minimum(np.maximum(end.astype(np.int64) - start, 0), width)
+    chunks = q + m <= L
+    walked = np.array([bool((buf[b, min(q[b], L):min(q[b] + m[b], L)] == 92).any())
+                       for b in range(B)], dtype=bool)
+    staged = width <= UNESCAPE_STAGE_CAP
+    return {"staged": B if staged else 0, "direct": 0 if staged else B,
+            "chunks": int(chunks.sum()), "bytes": int((~chunks).sum()),
+            "backslash_free": int((~walked).sum()), "walked": int(walked.sum())}
+
+
+# ---------------------------------------------------------------------------
 # the parent's libraries
 # ---------------------------------------------------------------------------
 
@@ -2075,11 +2369,71 @@ def ipv4_cases(smoke, kernels, pipeline):
                                            torch.from_numpy(e)), ips, groups)
 
 
+def lanes_cases(smoke, kernels, pipeline):
+    from ..analytics import AggregateSpec
+    from ..tools import demolog
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, parser, ops, lines, n_rows=None, host_kill=None):
+        buf, lengths, overflow = runtime.encode_batch(lines)
+        ex = parser._agg_executor(AggregateSpec.parse(ops))
+        t = ex.tables
+        kill = np.zeros(len(lines), np.uint8) if host_kill is None else host_kill.copy()
+        kill[overflow] = 1
+        dbuf, dlen, dkill = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths),
+                                  torch.from_numpy(kill))
+        B = dbuf.shape[0]
+        n = B if n_rows is None else n_rows
+        packed = ex.units(dbuf, dlen)
+        return Case(name, "agg_lanes", lambda: kernels.agg_lanes(t, packed, dbuf, n, dkill),
+                    lambda: agg_device.agg_lanes_plain(
+                        t, packed, dbuf, n, dkill,
+                        torch.empty(B, dtype=torch.uint8, device="cuda"),
+                        torch.empty((t.n_lane_rows, B), dtype=torch.int32, device="cuda")),
+                    None, *smoke.agg_lanes_cost(t, packed, n, dkill))
+
+    lines = (demolog.generate_combined_lines(smoke.N_LINES, seed=42, garbage_fraction=0.01)
+             + demolog.aggregate_edge_lines())
+    yield case("agg_lanes_dashboard", TorchBatchParser("combined", demolog.HEADLINE_FIELDS),
+               demolog.DASHBOARD_OPS, lines)
+    lines = (demolog.generate_combined_lines(smoke.N_LINES, seed=53) + demolog.uri_edge_lines()
+             + demolog.aggregate_edge_lines())
+    yield case("agg_lanes_query_key", TorchBatchParser("combined", demolog.URI_CHAIN_FIELDS),
+               demolog.QUERY_KEY_OPS, lines)
+    lines, n_rows, kill = seeded_lanes_case(smoke.N_LINES + 11, seed=16)
+    yield case("agg_lanes_seeded", TorchBatchParser(SEEDED_LANES_FORMAT, SEEDED_LANES_FIELDS),
+               SEEDED_LANES_OPS, lines, n_rows, kill)
+
+
+# (L, width, B) of the seeded unescape cases: the smoke's shape, the widest
+# line whole (the direct path) and at the staging cap.
+UNESCAPE_SEEDED = ((384, 121, 65547), (8191, 8191, 4107), (8191, UNESCAPE_STAGE_CAP, 4107))
+
+
+def unescape_cases(smoke, kernels, pipeline):
+    from ..tpu import postproc, runtime
+
+    def case(name, buf, s, e, width):
+        dbuf, ds, de = _cuda(torch.from_numpy(buf), torch.from_numpy(s), torch.from_numpy(e))
+        B, L = buf.shape
+        return Case(name, "unescape", lambda: kernels.unescape(dbuf, ds, de, width),
+                    lambda: postproc.unescape_compact_spans_plain(dbuf, ds, de, width),
+                    None, *smoke.unescape_cost(torch, ds, de, B, L, width))
+
+    _, buf, s, e, width = smoke.unescape_corpus(runtime)
+    yield case("unescape_headline", buf, s, e, width)
+    for L, width, B in UNESCAPE_SEEDED:
+        buf, s, e = seeded_unescape_case(B, L, width, seed=L + width)
+        yield case(f"unescape_seeded_{L}_{width}", buf, s, e, width)
+
+
 CASES = {"zone_lookup": zone_cases, "geo_lookup": geo_cases, "split": split_cases,
          "agg_reduce": agg_cases, "csr_split": csr_cases, "sp_program": sp_cases,
          "uri_split": uri_cases, "setcookie_split": setcookie_cases, "pack_rows": pack_cases,
          "span_stages": span_cases, "timestamp": timestamp_cases, "agg_group": group_cases,
-         "muid": muid_cases, "ipv4_spans": ipv4_cases}
+         "muid": muid_cases, "ipv4_spans": ipv4_cases, "agg_lanes": lanes_cases,
+         "unescape": unescape_cases}
 
 
 def _same(a, b) -> bool:

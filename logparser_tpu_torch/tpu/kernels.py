@@ -27,6 +27,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -130,6 +131,16 @@ def source_digest() -> str:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def csrc_constant(kernel: str, name: str) -> int:
+    """A kernel's design constant, ``constexpr int NAME = N;`` in its
+    source: the one place that value lives, for the tools that say which
+    path a row takes."""
+    m = re.search(rf"\bconstexpr int {name} = (\d+);", (CSRC / f"{kernel}.cu").read_text())
+    if m is None:
+        raise KeyError(f"{kernel}.cu has no constexpr int {name}")
+    return int(m.group(1))
 
 
 def _nvcc() -> str:
@@ -590,14 +601,9 @@ def agg_lanes(
     if packed.dim() != 2 or packed.shape[1] != B:
         raise ValueError(f"packed must be [R, {B}], got {tuple(packed.shape)}")
     _check("packed", packed, _I32, packed.shape, dev)
-    need = max([r for r in tables.units_py]
-               + [d[k] for d in tables.udesc_py for k in range(2, len(d), 3)
-                  if d[0] == agg_device.UNIT_SLOTS]
-               + [d[5] + 2 * d[6] - 1 for d in tables.udesc_py
-                  if d[0] == agg_device.UNIT_QS]
-               + [d[k] for d in tables.ovf_py for k in range(1, len(d), 3)])
-    if packed.shape[0] <= need:
-        raise ValueError(f"packed has {packed.shape[0]} rows, tables read row {need}")
+    if packed.shape[0] <= tables.max_row:
+        raise ValueError(f"packed has {packed.shape[0]} rows, tables read row "
+                         f"{tables.max_row}")
     _check("host_kill", host_kill, torch.uint8, (B,), dev)
     _check_tables(tables, dev)
     cls = torch.empty(B, dtype=torch.uint8, device=dev)

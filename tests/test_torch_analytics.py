@@ -30,6 +30,7 @@ from logparser_tpu_torch.analytics.state import merge_states
 from logparser_tpu_torch.tools.demolog import (
     DASHBOARD_OPS,
     HEADLINE_FIELDS,
+    QUERY_KEY_OPS,
     URI_CHAIN_FIELDS,
     aggregate_edge_lines,
     generate_combined_lines,
@@ -43,14 +44,6 @@ from test_torch_harness import EDGE_LINES, assert_aggregate_matches_reference, r
 
 pa = pytest.importorskip("pyarrow")
 
-# The query-key lane is reached only through an AggregateSpec instance:
-# validate_for rejects count_by over a concrete query key (group "wild").
-QUERY_KEY_OPS = [
-    {"op": "count_by", "field": "STRING:request.firstline.uri.query.q"},
-    {"op": "top_k", "field": "HTTP.PATH:request.firstline.uri.path", "k": 3},
-    {"op": "sum", "field": "HTTP.PORT:request.referer.port"},
-    {"op": "histogram", "field": "HTTP.PORT:request.referer.port", "edges": [-1, 80, 8080]},
-]
 CASES = {
     "dashboard": ("combined", HEADLINE_FIELDS, DASHBOARD_OPS),
     "query_key": ("combined", URI_CHAIN_FIELDS, QUERY_KEY_OPS),

@@ -51,14 +51,21 @@ from logparser_tpu_torch.tools.demolog import (
 )
 from logparser_tpu_torch.tools.kernel_ab import (
     SEEDED_B,
+    SEEDED_LANES_FIELDS,
+    SEEDED_LANES_FORMAT,
+    SEEDED_LANES_OPS,
     SPLIT_WIDTHS,
+    lanes_kinds,
     seeded_ipv4_case,
+    seeded_lanes_case,
     seeded_muid_case,
     seeded_reduce_case,
     seeded_split_case,
+    seeded_unescape_case,
+    unescape_kinds,
     window_inside,
 )
-from logparser_tpu_torch.tpu import kernels, pipeline
+from logparser_tpu_torch.tpu import kernels, pipeline, postproc
 from logparser_tpu_torch.tpu.runtime import encode_batch
 
 pytestmark = pytest.mark.cuda
@@ -1290,3 +1297,62 @@ def test_agg_group_kernel_on_seeded_cases(cuda_device, B, distinct):
             a = group_map(*got, buf, spans)
             assert a == group_map(*want, buf, spans)
             assert int(got[1][0]) == len(a)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("B", [4095, 65547])
+def test_agg_lanes_kernel_on_seeded_lines(cuda_device, B, offset):
+    """agg_lanes against its plain version on tools.kernel_ab's seeded
+    lines (eight formats with contested lines, 16 lanes: a query key,
+    every null mode, byte counts of 0 to 20 digits, times at the 1902-2037
+    window's edges with +-14 h offsets; host_kill rows, CSR overflows,
+    rows past n_rows), every row kind present; then the dashboard spec,
+    whose rows fetch their words in one round.  ``offset`` starts the
+    buffer that many bytes past an allocation.  Exact equality."""
+    lines, n_rows, kill = seeded_lanes_case(B, seed=B)
+    buf, lengths, overflow = encode_batch(lines)
+    kill[np.asarray(overflow, dtype=np.int64)] = 1
+    dbuf = _offset_buffer(buf, offset, cuda_device)
+    dlen = torch.from_numpy(lengths).to(cuda_device)
+    dkill = torch.from_numpy(kill).to(cuda_device)
+    for fmt, fields, ops in ((SEEDED_LANES_FORMAT, SEEDED_LANES_FIELDS, SEEDED_LANES_OPS),
+                             ("combined", HEADLINE_FIELDS, DASHBOARD_OPS)):
+        ex = TorchBatchParser(fmt, fields)._agg_executor(AggregateSpec.parse(ops))
+        t = ex.tables
+        packed = ex.units(dbuf, dlen)
+        kinds = lanes_kinds(t, packed.cpu().numpy(), n_rows, kill)
+        if fmt == SEEDED_LANES_FORMAT:
+            assert len(t.units_py) == 8 and len(t.lanes_py) == 16
+            assert all(v for k, v in kinds.items() if k != "walked_one_round"), kinds
+        else:
+            assert kinds["walked_one_round"] and not kinds["walked_rounds"], kinds
+        got = kernels.agg_lanes(t, packed, dbuf, n_rows, dkill)
+        want = agg_device.agg_lanes_plain(
+            t, packed, dbuf, n_rows, dkill, torch.empty_like(got[0]), torch.empty_like(got[1]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), fmt
+        assert (got[0] == 0).any() and (got[0] == 1).any() and (got[0] == 3).any()
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("L,width,B", [(384, 121, 4097), (384, 121, 65547), (384, 16, 4095),
+                                       (64, 100, 4095), (2048, 513, 4097),
+                                       (8191, 512, 1027), (8191, 8191, 1027)])
+def test_unescape_kernel_on_seeded_spans(cuda_device, L, width, B, offset):
+    """unescape against its plain version on tools.kernel_ab's seeded
+    spans (the escape bytes \\ " b n r t v x q, the reference spec's
+    cases at every offset of a 16-byte chunk, spans at and past the
+    window's width and the staging cap, past L, lifted above the gather
+    mask), read as chunks and through Row::at, backslash-free and walked,
+    the output staged (width <= 512) or written straight (above).  B is
+    not a multiple of 32.  Exact equality."""
+    buf, s, e = seeded_unescape_case(B, L, width, seed=B + L + width)
+    kinds = unescape_kinds(buf, s, e, width)
+    assert all(kinds[k] for k in ("chunks", "bytes", "backslash_free", "walked")), kinds
+    dbuf = _offset_buffer(buf, offset, cuda_device)
+    ds = torch.from_numpy(s).to(cuda_device)
+    de = torch.from_numpy(e).to(cuda_device)
+    got = kernels.unescape(dbuf, ds, de, width)
+    want = postproc.unescape_compact_spans_plain(dbuf, ds, de, width)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2].any() and not got[2].all()

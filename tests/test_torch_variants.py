@@ -22,7 +22,8 @@ VARIANT_FILES = {"split_phases.json": "split", "uri_variants.json": "uri_split",
                  "timestamp_variants.json": "timestamp",
                  "agg_group_variants.json": "agg_group",
                  "muid_variants.json": "muid",
-                 "ipv4_spans_variants.json": "ipv4_spans"}
+                 "ipv4_spans_variants.json": "ipv4_spans",
+                 "agg_lanes_variants.json": "agg_lanes"}
 
 
 def test_every_variant_file_names_its_kernel():
