@@ -91,9 +91,11 @@ first phase that fails:
    both GeoIP configurations, each with exactly one ipv4_spans launch per
    IP token (the synthetic one also reports the seconds
    to write the database and to build its table), geo_lookup on the
-   synthetic City table (``geo_lookup_synthetic``), GeoDeviceTable.gather
-   of every synthetic City column by the batch's looked-up rows and
-   crafted out-of-range ones (beside torch.index_select), the
+   synthetic City table (``geo_lookup_synthetic``),
+   GeoDeviceTable.gather_columns of every synthetic City column by the
+   batch's looked-up rows and crafted out-of-range ones in one launch,
+   timed for one column (``geo_gather``) and the whole table
+   (``geo_gather_table``) beside torch.index_select, the
    8191-byte bucket, and City and ASN over two IP tokens
    (``end_to_end_geo_two_tokens``: two ipv4_spans launches, card = CPU);
 9. NGINX: span_stages (the secmillis tasks) and pack_rows under the
@@ -156,9 +158,10 @@ first phase that fails:
    ``sp_long`` (8,192 lines of 8,192 to 32,000 bytes, seed 63, L = 32,768
    on 1 x 4: one sp_program launch, equal to its plain version and to the
    per-op path, every non-garbage row valid, both paths timed, lines/s);
-   ``aggregate_counters`` (valid
-   and ~valid of the headline parse over 4 shards = valid.sum(); the
-   counters kernel timed beside torch.stack((good, bad)).sum(1));
+   ``counters`` (valid and ~valid of the headline parse over 4 shards
+   on one card: one launch, = valid.sum(); the kernel timed beside
+   torch.stack((good, bad)).sum(1)), ``counters_runner`` (the whole
+   aggregate_counters call's wall, the host included);
    ``mesh_multi_card`` (mesh_dp, parser_dp and sp_split again on
    distinct cards when the machine has two or more -- SP there takes the
    per-op path: sp_split launched, sp_program not -- each equal to one
@@ -1586,13 +1589,15 @@ def geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, sy
     """geo_lookup on the synthetic City table (131,072 networks: a
     two-level search with 16 starts a splitter) for the geoip_synthetic
     batch, against its plain version and torch.searchsorted (phase
-    ``geo_lookup_synthetic``); then GeoDeviceTable.gather on that table
-    for every column, by the rows geo_lookup finds plus crafted
-    out-of-range rows: driven once per column with the
-    counts zeroed before the first and read after the last, each column
-    held to its plain version (bit for bit: the float columns hold NaN),
-    and the float latitude timed beside torch.index_select over the same
-    rows with the index rule applied beforehand."""
+    ``geo_lookup_synthetic``); then GeoDeviceTable.gather_columns on that
+    table for every column, by the rows geo_lookup finds plus crafted
+    out-of-range rows: driven once with the counts zeroed just before and
+    read just after (exactly one geo_gather launch), each column held to
+    its plain version (bit for bit: the float columns hold NaN); then
+    gather of the float latitude alone (phase ``geo_gather``) and the
+    whole table's call (``geo_gather_table``), each timed beside
+    torch.index_select over the same rows with the index rule applied
+    beforehand (one call a column for the table, timed as one)."""
     import numpy as np
 
     from logparser_tpu_torch.geoip.device import geo_gather_plain
@@ -1621,34 +1626,62 @@ def geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, sy
                            dtype=torch.int32, device="cuda")
     rows_t = torch.cat([found, crafted]).contiguous()
     B = rows_t.shape[0]
+    cols = table.columns
     kernels.reset_launch_counts()
-    got = {c: table.gather(c, rows_t) for c in table.columns}
+    got = table.gather_columns(cols, rows_t)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()["geo_gather"]
-    if launches < len(table.columns):
-        fail(f"geo_gather launched {launches} times for {len(table.columns)} columns")
+    if launches != 1:
+        fail(f"gather_columns launched geo_gather {launches} times for {len(cols)} columns, "
+             "not once")
 
     def bits(x):
         return x.view(torch.int32) if x.dtype == torch.float32 else x
 
-    for c, out in got.items():
-        col = torch.from_numpy(table.arrays[c]).cuda()
-        if out.dtype != col.dtype or not torch.equal(bits(out), bits(geo_gather_plain(col, rows_t))):
+    def same_bits(a, b):
+        return all(x.dtype == y.dtype and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+    dcols = [table._device_arrays[(c, rows_t.device)] for c in cols]
+    for c, col in zip(cols, dcols):
+        if not same_bits([got[c]], [geo_gather_plain(col, rows_t)]):
             fail(f"geo_gather on {c} differs from its plain version")
     if int((found > 0).sum()) < 0.45 * N_LINES:   # half the hosts are inside
         fail(f"geo_gather: only {int((found > 0).sum())} lookups hit")
     col = table._device_arrays[("location.latitude", rows_t.device)]
-    idx = torch.where(rows_t < 0, rows_t.to(torch.int64) + n, rows_t.to(torch.int64)).clamp(0, n - 1)
-    distinct = int(torch.unique(idx).numel())
+    idx = gather_index(torch, rows_t, n)
     phase("geo_gather", lambda: table.gather("location.latitude", rows_t),
-          lambda: geo_gather_plain(col, rows_t),
-          bytes_moved=4 * B + 4 * B + 4 * distinct, ops=4 * B, n=B, width=0,
-          library=lambda: torch.index_select(col, 0, idx),
-          compare=lambda a, b: 0.0 if torch.equal(bits(a), bits(b)) else fail(
+          lambda: geo_gather_plain(col, rows_t), *gather_cost(torch, [col], rows_t),
+          n=B, width=0, library=lambda: torch.index_select(col, 0, idx),
+          compare=lambda a, b: 0.0 if same_bits([a], [b]) else fail(
               "geo_gather on location.latitude differs from its plain version"),
-          extra={"columns": table.columns, "rows": len(table) + 1,
-                 "launches": launches, "hits": int((found > 0).sum())})
+          extra={"columns": cols, "rows": n, "launches": launches,
+                 "hits": int((found > 0).sum())})
     rows["geo_gather"]["launches"] = launches
+    phase("geo_gather_table", lambda: list(table.gather_columns(cols, rows_t).values()),
+          lambda: [geo_gather_plain(c, rows_t) for c in dcols],
+          *gather_cost(torch, dcols, rows_t), kernel="geo_gather", n=B, width=0,
+          library=lambda: [torch.index_select(c, 0, idx) for c in dcols],
+          compare=lambda a, b: 0.0 if same_bits(a, b) else fail(
+              "geo_gather_table differs from its plain version"),
+          extra={"columns": len(cols), "launches": 1,
+                 "library_calls": len(cols), "library": "torch.index_select a column "
+                 "over the index clamped beforehand, timed as one call"})
+
+
+def gather_index(torch, rows, n):
+    """geo_gather's index rule applied beforehand: [B] int64 in [0, n)."""
+    r = rows.to(torch.int64)
+    return torch.where(r < 0, r + n, r).clamp(0, n - 1)
+
+
+def gather_cost(torch, columns, rows):
+    """(bytes, operations) of geo_gather over ``columns`` (one table's,
+    each [N]): the int32 rows read once, each output written once, and the
+    distinct elements of each column read; a clamp per row."""
+    B = rows.shape[0]
+    distinct = int(torch.unique(gather_index(torch, rows, columns[0].shape[0])).numel())
+    elem = sum(c.element_size() for c in columns)
+    return 4 * B + elem * (B + distinct), 4 * B
 
 
 def nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows, smi):
@@ -2734,9 +2767,11 @@ def sp_long_phase(torch, kernels, runtime, mesh, gpu, smi, clock):
 
 
 def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
-    """aggregate_counters over 4 shards of the headline parse's valid and
-    ~valid: equal to valid.sum() and (~valid).sum(); the four launches
-    against the plain version."""
+    """aggregate_counters over 4 shards on one card of the headline
+    parse's valid and ~valid: one counters launch, equal to valid.sum()
+    and (~valid).sum() in int32; that launch against the plain version and
+    torch.stack((good, bad)).sum(1); then the whole call's wall, the host
+    included (``counters_runner``)."""
     import numpy as np
 
     res = gpu.parse_batch(lines)
@@ -2747,10 +2782,11 @@ def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
     g, b = mesh.aggregate_counters(m, good, bad)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()["counters"]
-    if launches < 1:
-        fail("counters was not launched by aggregate_counters")
+    if launches != 1:
+        fail(f"aggregate_counters launched counters {launches} times on a one-card 4 x 1 "
+             "mesh, not once")
     want = (int(res.valid.sum()), int((~res.valid).sum()))
-    if (int(g), int(b)) != want or g.dtype != torch.int32:
+    if (int(g), int(b)) != want or g.dtype != torch.int32 or b.dtype != torch.int32:
         fail(f"aggregate_counters: {(int(g), int(b))} ({g.dtype}) != {want}")
     calls = recorded(kernels, "counters", lambda: mesh.aggregate_counters(m, good, bad))
     B = good.shape[0]
@@ -2758,8 +2794,21 @@ def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
           lambda: [mesh.counters_plain(*a) for a, _ in calls],
           bytes_moved=2 * B + 8 * len(calls), ops=2 * B, n=B, width=1,
           library=lambda: [torch.stack((g, b)).sum(1) for (g, b), _ in calls],
-          extra={"shards": len(calls), "good": want[0], "bad": want[1]})
+          extra={"shards": m.shape[0], "launches": len(calls), "good": want[0],
+                 "bad": want[1]})
     rows["counters"]["launches"] = launches
+
+    def runner():
+        return mesh.aggregate_counters(m, good, bad)
+
+    with swapped(kernels, "counters", mesh.counters_plain):
+        plain_g, plain_b = runner()
+    if (int(plain_g), int(plain_b)) != want:
+        fail("aggregate_counters over the plain version differs")
+    runner()   # warm
+    emit({"phase": "counters_runner", "B": B, "shards": m.shape[0],
+          "wall_ms": time_wall(torch, runner, KERNEL_REPS),
+          "enqueue_ms": phase.clock.enqueue_ms(runner), "card": smi})
 
 
 def compare_results(got, want, what, arrow=True) -> None:

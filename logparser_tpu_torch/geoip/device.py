@@ -14,8 +14,9 @@ key: the ``geo_lookup`` kernel on the card (``tpu/kernels.py``), and
 :func:`lookup_rows_plain` -- ``torch.searchsorted`` in int64 -- as its
 plain version.  The parser gathers the columns on the host at
 materialization; :meth:`GeoDeviceTable.gather` is the public column
-gather by looked-up row (the ``geo_gather`` kernel on the card,
-:func:`geo_gather_plain` its plain version).
+gather by looked-up row, :meth:`GeoDeviceTable.gather_columns` the same
+for several columns at once (one ``geo_gather`` launch on the card,
+:func:`geo_gather_plain` its plain version, column by column).
 """
 from __future__ import annotations
 
@@ -102,17 +103,29 @@ class GeoDeviceTable:
         tensor the ``geo_gather`` kernel gathers from a device copy of the
         column, made once per column and device.  Out-of-range rows follow
         the reference's rule (:func:`geo_gather_plain`)."""
+        return self.gather_columns([column], rows, device)[column]
+
+    def gather_columns(self, columns: Sequence[str], rows,
+                       device=None) -> Dict[str, torch.Tensor]:
+        """``{c: gather(c, rows) for c in columns}`` from one conversion of
+        ``rows`` and one ``geo_gather`` launch for all the columns."""
         from ..tpu import kernels
         from ..tpu.runtime import device_tensor
 
+        names = list(dict.fromkeys(columns))
         if not isinstance(rows, torch.Tensor):
             rows = np.asarray(rows, dtype=np.int32)
         rows = device_tensor(rows, device)
-        key = (column, rows.device)
-        col = self._device_arrays.get(key)
-        if col is None:
-            col = self._device_arrays[key] = torch.from_numpy(self.arrays[column]).to(rows.device)
-        return kernels.geo_gather(col, rows)
+        if not names:
+            return {}
+        cols = []
+        for c in names:
+            key = (c, rows.device)
+            col = self._device_arrays.get(key)
+            if col is None:
+                col = self._device_arrays[key] = torch.from_numpy(self.arrays[c]).to(rows.device)
+            cols.append(col)
+        return dict(zip(names, kernels.geo_gather(cols, rows)))
 
     @classmethod
     def from_ranges(cls, starts: np.ndarray, ends: np.ndarray) -> "GeoDeviceTable":

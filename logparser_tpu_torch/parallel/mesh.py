@@ -34,8 +34,10 @@ default; tests and ``chip_smoke.py`` replace it to stand in for several.
   held to).  As in the reference there is no escape parity on this path,
   and any L that ``n_seq`` divides is taken, past the 8,191-byte span cap
   of the packed rows (SP emits cursors, not packed rows).
-- :func:`aggregate_counters`: the ``counters`` kernel on each data
-  shard's rows, the partials added on the home device.
+- :func:`aggregate_counters`: one ``counters`` launch over the rows of
+  each stretch of data shards that share a device (:func:`counter_runs`;
+  one launch for a mesh on one card), the partials added on the home
+  device where there are several.
 
 A cross-device copy is PyTorch's ``copy_``, which runs after the source
 device's current stream and makes the destination device's current
@@ -490,27 +492,45 @@ def counters_plain(good: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
     return torch.stack([good.sum(), bad.sum()]).to(torch.int32)
 
 
+def counter_runs(mesh: DeviceMesh, B: int) -> List[Shard]:
+    """The ``counters`` launches of :func:`aggregate_counters` over ``B``
+    rows: one (device, first row, end row) per maximal stretch of
+    consecutive data shards on one device, cut at ``B`` (the padding rows
+    are zero and add nothing; a stretch of padding alone is dropped)."""
+    runs: List[Shard] = []
+    for dev, r0, r1 in dp_shardings(mesh, padded_rows(mesh, B)):
+        if runs and runs[-1][0] == dev:
+            runs[-1] = (dev, runs[-1][1], r1)
+        else:
+            runs.append((dev, r0, r1))
+    return [(dev, r0, min(r1, B)) for dev, r0, r1 in runs if r0 < B]
+
+
 def aggregate_counters(mesh: DeviceMesh, good, bad) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global good / bad line counters over the data axis (the
-    reference's Hadoop counters, RecordReader.java:118-120): the
-    ``counters`` kernel on each data shard's rows on its device, the
-    partials added on the home device.  ``good`` / ``bad`` are [B] bool or
-    int32 (tensors or numpy arrays); returns two int32 scalars on the
-    home device.  Any B: the last shards are zero-padded."""
+    reference's Hadoop counters, RecordReader.java:118-120): one
+    ``counters`` launch per :func:`counter_runs` stretch, over its rows of
+    the masks in place (copied to its device only where they lie
+    elsewhere), the stretches' counters added on the home device where
+    there are several.  ``good`` / ``bad`` are [B] bool or int32 (tensors
+    or numpy arrays), any B; returns two int32 scalars on the home device."""
     from ..tpu import kernels
 
     good, bad = _as_tensor(good), _as_tensor(bad)
-    B = good.shape[0]
-    shards = dp_shardings(mesh, padded_rows(mesh, B))
-    parts = [kernels.counters(g, b).to(mesh.home) for g, b in
-             zip(scatter_rows(good, shards, B), scatter_rows(bad, shards, B))]
-    total = torch.stack(parts).sum(dim=0, dtype=torch.int32)
+    parts = [kernels.counters(good[r0:r1].to(dev), bad[r0:r1].to(dev))
+             for dev, r0, r1 in counter_runs(mesh, good.shape[0])]
+    if len(parts) == 1 and parts[0].device == mesh.home:
+        total = parts[0]
+    elif parts:
+        total = torch.stack([p.to(mesh.home) for p in parts]).sum(dim=0, dtype=torch.int32)
+    else:
+        total = torch.zeros(2, dtype=torch.int32, device=mesh.home)
     return total[0], total[1]
 
 
 __all__ = [
     "AXES", "DeviceMesh", "ShardedUnits", "SpTables", "aggregate_counters",
-    "batch_parallel_runner", "counters_plain", "data_parallel_runner",
+    "batch_parallel_runner", "counter_runs", "counters_plain", "data_parallel_runner",
     "dp_device_count", "dp_shardings", "gather_columns", "local_devices",
     "make_mesh", "padded_rows", "scatter_rows", "sequence_parallel_runner",
     "sp_halo_width", "sp_per_op", "sp_program_plain", "sp_split_plain",

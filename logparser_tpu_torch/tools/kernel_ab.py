@@ -10,8 +10,8 @@ they include; ``.kernel_ab_parent/`` is git-ignored for it).  KERNEL picks
 the kernels to compare -- ``zone_lookup``, ``geo_lookup``, ``split``,
 ``agg_reduce``, ``csr_split``, ``sp_program``, ``uri_split``,
 ``setcookie_split``, ``pack_rows``, ``span_stages``, ``timestamp``,
-``agg_group``, ``muid``, ``ipv4_spans``, ``agg_lanes``, ``unescape`` -- all
-sixteen by default.
+``agg_group``, ``muid``, ``ipv4_spans``, ``agg_lanes``, ``unescape``,
+``geo_gather``, ``counters`` -- all eighteen by default.
 
 The parent's kernels are built with nvcc into a temporary directory.  Each
 runs through this checkout's wrapper (``kernels.split`` and so on) with the
@@ -25,7 +25,10 @@ allocated it), since this checkout's wrappers pass other arguments and
 allocate other scratch; there each side pays its own wrapper's enqueue.
 ``ipv4_spans``' parent ran once per geo group, this checkout once per IP
 token: :func:`parent_ipv4_spans` launches the parent per group, each held
-to the plain version of its own token.
+to the plain version of its own token.  ``geo_gather``'s parent took one
+column a launch (:func:`parent_geo_gather`); ``counters``' parent ran on
+each data shard's copied rows, and its whole runner is
+:func:`parent_aggregate_counters`.
 The cases:
 
 - ``zone_lookup`` (every transition key +-1 minute, the window and clip
@@ -97,7 +100,22 @@ The cases:
   L = 384, width 121) and ``unescape_seeded_<L>_<width>``
   (:func:`seeded_unescape_case` at L = 384 / width 121, B = 65,547, and
   L = 8,191 / width 8,191 and 512, B = 4,107; :func:`unescape_kinds`
-  counts its paths).
+  counts its paths);
+- ``geo_gather_latitude`` (one column) and ``geo_gather_table`` (all 9
+  columns: the parent's 9 launches against one) on the synthetic City
+  table, by the smoke's looked-up rows of the geoip_synthetic batch plus
+  crafted out-of-range ones, and ``geo_gather_seeded``
+  (:func:`seeded_gather_case`: float32, int32 and int64 columns of 131,073
+  rows, 65,543 rows from [-2N, 2N) with the int32 edges, one call for each
+  start offset 0-3 of a 16-byte word), beside ``torch.index_select`` a
+  column; outputs compared as bits (NaN);
+- ``counters_headline_4`` (the headline parse's valid / ~valid on a
+  4 x 1 one-card mesh: the parent's 4 shard calls against one launch),
+  ``counters_seeded_<B>_<bool|int32>`` (B = 0, 1, 31, 100,003, good and
+  bad sliced at different offsets, :func:`seeded_counters_case`), beside
+  ``torch.stack((good, bad)).sum(1)``, and ``counters_runner`` (the whole
+  ``aggregate_counters`` call against :func:`parent_aggregate_counters`:
+  copies, stacks and host enqueue included).
 
 Each case holds parent and change to the plain version bit for bit (a
 difference fails the run), except that a case which names a known
@@ -137,7 +155,8 @@ from ..tpu.kernels import csrc_constant
 REPS = 25
 CASE_KERNELS = ("zone_lookup", "geo_lookup", "split", "agg_reduce", "csr_split",
                 "sp_program", "uri_split", "setcookie_split", "pack_rows", "span_stages",
-                "timestamp", "agg_group", "muid", "ipv4_spans", "agg_lanes", "unescape")
+                "timestamp", "agg_group", "muid", "ipv4_spans", "agg_lanes", "unescape",
+                "geo_gather", "counters")
 NO_PARENT_LIBRARY = ("sp_program",)   # its "parent" is the per-op path
 SEEDED_B = (4095, 4096, 4097, 65547, 262144)
 
@@ -1711,6 +1730,39 @@ def parent_agg_group(lane, buf, spans: bool):
     return groups, n_groups
 
 
+def parent_geo_gather(columns, rows):
+    """The parent's ``kernels.geo_gather``: one launch a column."""
+    from ..tpu import kernels as k
+
+    dev = rows.device
+    k._check("rows", rows, torch.int32, rows.shape, dev)
+    outs = []
+    for column in columns:
+        k._check("column", column, column.dtype, column.shape, dev)
+        B = rows.shape[0]
+        out = torch.empty(B, dtype=column.dtype, device=dev)
+        if B:
+            k._launch("geo_gather", dev, k._ptr(column), column.shape[0],
+                      column.element_size(), k._ptr(rows), B, k._ptr(out))
+        outs.append(out)
+    return outs
+
+
+def parent_aggregate_counters(m, good, bad):
+    """The parent's ``mesh.aggregate_counters``: each data shard's rows
+    copied (the last zero-padded), one ``counters`` call a shard (a memset
+    and a launch), each moved to the home device, stacked and summed."""
+    from ..parallel import mesh
+    from ..tpu import kernels
+
+    B = good.shape[0]
+    shards = mesh.dp_shardings(m, mesh.padded_rows(m, B))
+    parts = [kernels.counters(g, b).to(m.home) for g, b in
+             zip(mesh.scatter_rows(good, shards, B), mesh.scatter_rows(bad, shards, B))]
+    total = torch.stack(parts).sum(dim=0, dtype=torch.int32)
+    return total[0], total[1]
+
+
 # ---------------------------------------------------------------------------
 # the cases
 # ---------------------------------------------------------------------------
@@ -2428,12 +2480,141 @@ def unescape_cases(smoke, kernels, pipeline):
         yield case(f"unescape_seeded_{L}_{width}", buf, s, e, width)
 
 
+GATHER_SEEDED_N = 131073   # the synthetic City table's rows
+
+
+def seeded_gather_case(n: int, B: int, seed: int):
+    """(columns, rows) for geo_gather: float32 (NaN every 7th), int32 and
+    int64 (past 2**32) columns of ``n`` rows, and B int32 rows drawn from
+    [-2n, 2n) with the edges -1, -n, -n - 1, n, n + 1, 2**31 - 1 and
+    -2**31 among them; a case takes ``rows[o:]`` for o = 0..3, so the rows
+    start at every offset of a 16-byte word and B % 4 varies."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(-90, 90, n).astype(np.float32)
+    f[::7] = np.nan
+    cols = [f, rng.integers(0, 1 << 20, n, dtype=np.int32),
+            rng.integers(-1, 1 << 40, n, dtype=np.int64)]
+    rows = rng.integers(-2 * n, 2 * n, B).astype(np.int32)
+    edges = np.array([-1, -n, -n - 1, n, n + 1, 2**31 - 1, -2**31], dtype=np.int32)
+    at = rng.choice(np.arange(4, B), len(edges), replace=False)
+    rows[at] = edges
+    return cols, rows
+
+
+def _gather_bits(outs):
+    """geo_gather outputs as integers: float columns hold NaN."""
+    return [o.view(torch.int32) if o.dtype == torch.float32 else o for o in outs]
+
+
+def gather_cases(smoke, kernels, pipeline):
+    from ..geoip import GeoIPASNDissector, GeoIPCityDissector
+    from ..geoip.device import geo_gather_plain
+    from ..tools import demolog, geoip_testdata
+    from ..tpu import runtime
+    from .. import TorchBatchParser
+
+    def case(name, calls):
+        """calls: [(columns, rows)], each one launch here and one a column
+        in the parent."""
+        idx = [(cols, smoke.gather_index(torch, rows, cols[0].shape[0])) for cols, rows in calls]
+        cost = [smoke.gather_cost(torch, cols, rows) for cols, rows in calls]
+        return Case(name, "geo_gather",
+                    lambda: [o for cols, rows in calls for o in kernels.geo_gather(cols, rows)],
+                    lambda: [geo_gather_plain(c, rows) for cols, rows in calls for c in cols],
+                    lambda: [torch.index_select(c, 0, i) for cols, i in idx for c in cols],
+                    sum(b for b, _ in cost), sum(o for _, o in cost),
+                    parent_run=lambda: [o for cols, rows in calls
+                                        for o in parent_geo_gather(cols, rows)],
+                    canonical=_gather_bits)
+
+    fixtures = geoip_testdata.ensure_test_databases()
+    syn = geoip_testdata.ensure_synthetic_city_database(seed=smoke.GEO_SYNTHETIC_SEED)
+    parser = TorchBatchParser("combined", demolog.GEOIP_FIELDS, extra_dissectors=[
+        GeoIPCityDissector(syn),
+        GeoIPASNDissector(os.path.join(fixtures, "GeoLite2-ASN-Test.mmdb"))])
+    (t,) = parser.executor.unit_tables
+    g = next(g for g in t.geo if "location.latitude" in g.table.columns)
+    nets = geoip_testdata.synthetic_networks(geoip_testdata.SYNTHETIC_NETWORKS,
+                                             smoke.GEO_SYNTHETIC_SEED)
+    lines = demolog.geoip_synthetic_lines(smoke.N_LINES, nets) + demolog.geoip_edge_lines()
+    buf, lengths, _ = runtime.encode_batch(lines)
+    dbuf, dlen = _cuda(torch.from_numpy(buf), torch.from_numpy(lengths))
+    starts, ends, _ = kernels.split(t.split, dbuf, dlen)
+    ip = kernels.ipv4_spans(g, dbuf, starts, ends)
+    found = kernels.geo_lookup(g, ip[0], gate=ip[1])
+    n = len(g.table) + 1
+    crafted = torch.tensor([-1, -n, -n - 5, n, n + 100, 2**31 - 1, -2**31],
+                           dtype=torch.int32, device="cuda")
+    rows = torch.cat([found, crafted]).contiguous()
+    cols = [torch.from_numpy(g.table.arrays[c]).cuda() for c in g.table.columns]
+    lat = cols[g.table.columns.index("location.latitude")]
+    yield case("geo_gather_latitude", [([lat], rows)])
+    yield case("geo_gather_table", [(cols, rows)])
+    seeded, srows = seeded_gather_case(GATHER_SEEDED_N, smoke.N_LINES + 7, seed=17)
+    seeded = _cuda(*[torch.from_numpy(c) for c in seeded])
+    srows = torch.from_numpy(srows).cuda()
+    yield case("geo_gather_seeded", [(seeded, srows[o:]) for o in range(4)])
+
+
+# (B, good's offset, bad's offset) of the seeded counters cases: the masks
+# are slices of larger ones, so each starts at its own alignment.
+COUNTERS_SEEDED = ((0, 0, 0), (1, 3, 0), (31, 7, 1), (100003, 5, 2))
+
+
+def seeded_counters_case(B: int, dtype, seed: int):
+    """(good, bad) [B] bool or int32 numpy masks; int32 ones take -5 ..
+    2**20 and 0 .. 2 (good's sum wraps at 32 bits past ~8,000 rows)."""
+    rng = np.random.default_rng(seed)
+    if dtype is np.bool_:
+        good = rng.random(B) < 0.7
+        return good, ~good
+    return (rng.integers(-5, 1 << 20, B, dtype=np.int32),
+            rng.integers(0, 3, B, dtype=np.int32))
+
+
+def counters_cases(smoke, kernels, pipeline):
+    from ..parallel import mesh
+    from ..tools import demolog
+    from .. import TorchBatchParser
+
+    cuda0 = torch.device("cuda", 0)
+    m = mesh.make_mesh(4, devices=[cuda0] * 4)
+
+    def case(name, good, bad, **parent):
+        es = good.element_size()
+        return Case(name, "counters", lambda: kernels.counters(good, bad),
+                    lambda: mesh.counters_plain(good, bad),
+                    lambda: torch.stack((good, bad)).sum(1),
+                    2 * es * good.shape[0] + 8, 2 * good.shape[0], **parent)
+
+    parser = TorchBatchParser("combined", demolog.HEADLINE_FIELDS)
+    lines = demolog.generate_combined_lines(smoke.N_LINES, seed=42,
+                                            garbage_fraction=0.01) + smoke.EDGE_LINES
+    good = torch.from_numpy(np.asarray(parser.parse_batch(lines).valid, dtype=bool)).cuda()
+    bad = ~good
+    B = good.shape[0]
+    shards = mesh.dp_shardings(m, mesh.padded_rows(m, B))
+    parts = list(zip(mesh.scatter_rows(good, shards, B), mesh.scatter_rows(bad, shards, B)))
+    yield case("counters_headline_4", good, bad,
+               parent_run=lambda: [kernels.counters(g, b) for g, b in parts],
+               parent_plain=lambda: [mesh.counters_plain(g, b) for g, b in parts])
+    for dtype, tag in ((np.bool_, "bool"), (np.int32, "int32")):
+        for n, og, ob in COUNTERS_SEEDED:
+            g_np, b_np = seeded_counters_case(n, dtype, seed=n + og)
+            big_g, big_b = _cuda(torch.from_numpy(np.concatenate([np.zeros(og, g_np.dtype), g_np])),
+                                 torch.from_numpy(np.concatenate([np.zeros(ob, b_np.dtype), b_np])))
+            yield case(f"counters_seeded_{n}_{tag}", big_g[og:], big_b[ob:])
+    yield Case("counters_runner", "counters", lambda: list(mesh.aggregate_counters(m, good, bad)),
+               lambda: list(mesh.counters_plain(good, bad)), None, 2 * B + 8, 2 * B,
+               parent_run=lambda: list(parent_aggregate_counters(m, good, bad)))
+
+
 CASES = {"zone_lookup": zone_cases, "geo_lookup": geo_cases, "split": split_cases,
          "agg_reduce": agg_cases, "csr_split": csr_cases, "sp_program": sp_cases,
          "uri_split": uri_cases, "setcookie_split": setcookie_cases, "pack_rows": pack_cases,
          "span_stages": span_cases, "timestamp": timestamp_cases, "agg_group": group_cases,
          "muid": muid_cases, "ipv4_spans": ipv4_cases, "agg_lanes": lanes_cases,
-         "unescape": unescape_cases}
+         "unescape": unescape_cases, "geo_gather": gather_cases, "counters": counters_cases}
 
 
 def _same(a, b) -> bool:

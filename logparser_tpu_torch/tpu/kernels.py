@@ -23,6 +23,7 @@ utilities' ``unescape`` and ``geo_gather``, and the mesh's ``sp_split``,
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import fcntl
 import hashlib
@@ -32,7 +33,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -100,7 +101,7 @@ _SIGNATURES = {
                    _P],
     "agg_group": [_INT, _INT, _P, _P, _INT, _INT, _P, _P, _P, _P, _P],
     "unescape": [_P, _INT, _INT, _P, _P, _INT, _P, _P, _P, _P],
-    "geo_gather": [_P, _INT, _INT, _P, _INT, _P, _P],
+    "geo_gather": [_P, _INT, _INT, _P, _INT, _P],
     "sp_split": [_INT, _P, _INT, _INT, _INT, _P, _P, _P, _INT, _P, _INT, _INT, _P,
                  _P, _P],
     "sp_program": [_P, _INT, _INT, _INT, _INT, _P, _P, _INT, _P, _INT, _P, _INT, _INT,
@@ -709,29 +710,41 @@ def unescape(
 
 
 _GATHER_DTYPES = (torch.float32, torch.int32, torch.int64)
+# The columns one geo_gather launch takes: a GeoIP table's 13 extractors.
+GATHER_MAX_COLUMNS = csrc_constant("geo_gather", "MAX_COLS")
 
 
-def geo_gather(column: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Kernel 16: ``column[rows]`` [B] for a GeoIP column (float32, int32
-    or int64) under the reference's index rule (``geo_gather_plain``)."""
-    if column.dim() != 1 or column.shape[0] == 0:
-        raise ValueError(f"column must be [N > 0], got {tuple(column.shape)}")
-    if column.dtype not in _GATHER_DTYPES:
-        raise TypeError(f"column has dtype {column.dtype}, expected one of {_GATHER_DTYPES}")
+def geo_gather(columns: Sequence[torch.Tensor], rows: torch.Tensor) -> List[torch.Tensor]:
+    """Kernel 16: ``[column[rows] for column in columns]``, each [B] in its
+    column's dtype (float32, int32 or int64), for the columns of one GeoIP
+    table (every one [N]) under the reference's index rule
+    (``geo_gather_plain``): one launch for all of them."""
+    if not 1 <= len(columns) <= GATHER_MAX_COLUMNS:
+        raise ValueError(f"geo_gather takes 1 to {GATHER_MAX_COLUMNS} columns, "
+                         f"got {len(columns)}")
     if rows.dim() != 1:
         raise ValueError(f"rows must be [B], got {tuple(rows.shape)}")
-    dev = column.device
-    _check("column", column, column.dtype, column.shape, dev)
+    dev = rows.device
+    n = columns[0].shape[0] if columns[0].dim() == 1 else 0
+    for column in columns:
+        if column.dim() != 1 or column.shape[0] == 0 or column.shape[0] != n:
+            raise ValueError(f"columns must all be [N > 0] of one N, got "
+                             f"{[tuple(c.shape) for c in columns]}")
+        if column.dtype not in _GATHER_DTYPES:
+            raise TypeError(f"column has dtype {column.dtype}, expected one of {_GATHER_DTYPES}")
+        _check("column", column, column.dtype, column.shape, dev)
     _check("rows", rows, _I32, rows.shape, dev)
-    if not _route(column):
-        return geo_gather_plain(column, rows)
+    if not _route(rows):
+        return [geo_gather_plain(column, rows) for column in columns]
     B = rows.shape[0]
-    out = torch.empty(B, dtype=column.dtype, device=dev)
+    outs = [torch.empty(B, dtype=column.dtype, device=dev) for column in columns]
     if B:
-        _launch("geo_gather", dev, _ptr(column), column.shape[0],
-                column.element_size(), _ptr(rows), B, _ptr(out))
+        # The C side's descriptor: (column, out, element size) a column.
+        desc = array.array("q", [v for column, out in zip(columns, outs)
+                                 for v in (_ptr(column), _ptr(out), column.element_size())])
+        _launch("geo_gather", dev, desc.buffer_info()[0], len(columns), n, _ptr(rows), B)
         geo_gather.launches += 1
-    return out
+    return outs
 
 
 def sp_split(
@@ -838,7 +851,8 @@ def sp_program(
 
 def counters(good: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
     """Kernel 18: [2] int32, the sums of the [B] ``good`` and ``bad``
-    masks (both bool or both int32; 32-bit wrapping sums)."""
+    masks (both bool or both int32; 32-bit wrapping sums): one launch,
+    which writes both elements of its output (none for B = 0)."""
     if good.dim() != 1:
         raise ValueError(f"good must be [B], got {tuple(good.shape)}")
     if good.dtype not in (torch.bool, _I32):
@@ -851,7 +865,7 @@ def counters(good: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
         return mesh.counters_plain(good, bad)
     if not B:
         return torch.zeros(2, dtype=_I32, device=dev)
-    out = torch.empty(2, dtype=_I32, device=dev)   # the kernel zeroes it
+    out = torch.empty(2, dtype=_I32, device=dev)   # the kernel writes both
     _launch("counters", dev, _ptr(good), _ptr(bad), B, good.element_size(), _ptr(out))
     counters.launches += 1
     return out

@@ -1043,9 +1043,41 @@ def test_geo_gather_kernel_equals_plain_version(cuda_device, dtype):
                            [-1, -n, -n - 1, n, n + 1, 2**31 - 1, -2**31]]).astype(np.int32)
     col_t = torch.from_numpy(col).to(cuda_device)
     rows_t = torch.from_numpy(rows).to(cuda_device)
-    got = kernels.geo_gather(col_t, rows_t)
+    (got,) = kernels.geo_gather([col_t], rows_t)
     want = geo_gather_plain(col_t, rows_t)
     assert got.dtype == col_t.dtype and torch.equal(got, want)
+
+
+def test_geo_gather_kernel_on_mixed_columns_and_unaligned_rows(cuda_device):
+    """One launch for float32 (NaN included), int32 and int64 columns of
+    one table, rows starting at offsets 0-3 of a 16-byte word (the scalar
+    row loads) and B % 4 from 0 to 3 (the tail): each column bit for bit
+    its plain version, in its dtype; more columns than a table has raise."""
+    from logparser_tpu_torch.geoip.device import geo_gather_plain
+
+    rng = np.random.default_rng(8)
+    n = 131073
+    f = rng.standard_normal(n).astype(np.float32)
+    f[::5] = np.nan
+    cols = [torch.from_numpy(c).to(cuda_device) for c in (
+        f, rng.integers(-2**31, 2**31, n, dtype=np.int32),
+        rng.integers(-2**62, 2**62, n, dtype=np.int64), f[::-1].copy())]
+    big = torch.from_numpy(np.concatenate([
+        rng.integers(-2 * n, 2 * n, 70000), [-1, -n, -n - 1, n, n + 1, 2**31 - 1, -2**31],
+    ]).astype(np.int32)).to(cuda_device)
+    for offset in range(4):
+        for B in (0, 1, 2, 3, 5, 4097, 70003 - offset):
+            rows = big[offset:offset + B]
+            before = kernels.geo_gather.launches
+            got = kernels.geo_gather(cols, rows)
+            assert kernels.geo_gather.launches == before + (1 if B else 0)
+            for g, c in zip(got, cols):
+                w = geo_gather_plain(c, rows)
+                assert g.dtype == c.dtype and g.shape == (B,)
+                bits = torch.int32 if c.dtype == torch.float32 else c.dtype
+                assert torch.equal(g.view(bits), w.view(bits)), (offset, B, c.dtype)
+    with pytest.raises(ValueError, match="columns"):
+        kernels.geo_gather(cols * 4, big)
 
 
 def test_new_entry_points_on_the_card_equal_the_cpu(cuda_device):
@@ -1218,6 +1250,17 @@ def test_counters_kernel_equals_plain_version(cuda_device, B, dtype):
     assert torch.equal(got.cpu(), mesh.counters_plain(good, bad))
     m = mesh.make_mesh(4, devices=[cuda_device] * 4)
     g, b = mesh.aggregate_counters(m, good, bad)
+    assert (int(g), int(b)) == tuple(mesh.counters_plain(good, bad).tolist())
+    # One launch for the 4 x 1 one-card mesh, on masks sliced at odd
+    # offsets of larger ones (good and bad at different alignments).
+    big_g = torch.cat([torch.ones(7, dtype=dtype), good, torch.ones(5, dtype=dtype)])
+    big_b = torch.cat([torch.ones(3, dtype=dtype), bad, torch.ones(9, dtype=dtype)])
+    big_g, big_b = big_g.to(cuda_device), big_b.to(cuda_device)
+    dg, db = big_g[7:7 + B], big_b[3:3 + B]
+    before = kernels.counters.launches
+    g, b = mesh.aggregate_counters(m, dg, db)
+    assert kernels.counters.launches == before + (1 if B else 0)
+    assert g.dtype == torch.int32 and g.device == dg.device
     assert (int(g), int(b)) == tuple(mesh.counters_plain(good, bad).tolist())
 
 

@@ -367,6 +367,61 @@ def test_gather_equals_the_reference_on_the_fixture_tables():
     assert sizes == [2, 2, 3002]
 
 
+def test_gather_columns_equals_the_reference_gather_per_column():
+    """gather_columns on the fixture tables -- every column in one call,
+    and a subset in another order -- equals the reference's gather of each
+    column (by value, NaN for NaN; int64 below 2**31), from one plain
+    call and no launch on the CPU."""
+    from logparser_tpu_torch.tpu import kernels
+
+    rng = np.random.default_rng(75)
+    for name, ref, ours in _tables():
+        n = len(ours) + 1
+        rows = np.concatenate([rng.integers(-2 * n, 2 * n, 300),
+                               [-1, -n, -n - 1, n, 2**31 - 1, -2**31]]).astype(np.int32)
+        subset = ["asn.number", "location.latitude", "city.name", "country.iso"]
+        kernels.reset_launch_counts()
+        for columns in (ours.columns, subset):
+            got = ours.gather_columns(columns, rows, device="cpu")
+            assert list(got) == list(columns), name
+            for column in columns:
+                want = np.asarray(ref.gather(column, jnp.asarray(rows)))
+                g = got[column]
+                assert g.dtype == torch.from_numpy(ours.arrays[column]).dtype
+                g = g.numpy()
+                if g.dtype.kind == "f":
+                    assert np.array_equal(g, want, equal_nan=True), (name, column)
+                else:
+                    assert int(np.abs(g).max()) < 2**31
+                    assert np.array_equal(g.astype(np.int64), want.astype(np.int64)), \
+                        (name, column)
+        assert kernels.launch_counts()["geo_gather"] == 0   # CPU: the plain version
+        assert ours.gather_columns([], rows, device="cpu") == {}
+
+
+def test_geo_gather_wrapper_checks_its_inputs():
+    """One launch takes 1 to 13 columns (a table's extractors) of one N,
+    float32, int32 or int64, on the rows' device."""
+    from logparser_tpu_torch.geoip.device import _EXTRACTORS
+    from logparser_tpu_torch.tpu import kernels
+
+    rows = torch.tensor([0, -1, 5], dtype=torch.int32)
+    col = torch.arange(4, dtype=torch.int32)
+    assert kernels.GATHER_MAX_COLUMNS == len(_EXTRACTORS)
+    with pytest.raises(ValueError, match="columns"):
+        kernels.geo_gather([], rows)
+    with pytest.raises(ValueError, match="columns"):
+        kernels.geo_gather([col] * (len(_EXTRACTORS) + 1), rows)
+    with pytest.raises(ValueError, match="one N"):
+        kernels.geo_gather([col, torch.arange(5, dtype=torch.int32)], rows)
+    with pytest.raises(TypeError):
+        kernels.geo_gather([col.to(torch.int16)], rows)
+    with pytest.raises(TypeError):
+        kernels.geo_gather([col], rows.to(torch.int64))
+    got = kernels.geo_gather([col, col.to(torch.int64) * 2**40], rows)
+    assert [g.tolist() for g in got] == [[0, 3, 3], [0, 3 * 2**40, 3 * 2**40]]
+
+
 def test_kernel_signatures_match_the_sources():
     """Each kernel's ctypes argument list has one entry per parameter of
     its C entry point (the stream last): an entry short would pass the

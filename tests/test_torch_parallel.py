@@ -263,6 +263,48 @@ def test_aggregate_counters_match_the_reference(n, dtype):
     assert kernels.launch_counts()["counters"] == 0   # CPU: the plain version
 
 
+_C = [torch.device("cuda", i) for i in range(4)]
+
+
+@pytest.mark.parametrize("devices, B, want", [
+    ([_C[0]] * 4, 64, [(_C[0], 0, 64)]),                          # one card: one launch
+    (_C, 64, [(_C[i], 16 * i, 16 * (i + 1)) for i in range(4)]),   # four cards: four
+    ([_C[0], _C[0], _C[1], _C[1]], 64, [(_C[0], 0, 32), (_C[1], 32, 64)]),
+    ([_C[0], _C[1], _C[0], _C[1]], 64, [(_C[i % 2], 16 * i, 16 * (i + 1)) for i in range(4)]),
+    ([_C[0]] * 4, 10, [(_C[0], 0, 10)]),                          # cut at B, not the padding
+    (_C, 10, [(_C[0], 0, 3), (_C[1], 3, 6), (_C[2], 6, 9), (_C[3], 9, 10)]),
+    (_C, 5, [(_C[0], 0, 2), (_C[1], 2, 4), (_C[2], 4, 5)]),       # a shard of padding alone
+    (_C, 0, []),
+])
+def test_counter_runs_one_launch_a_stretch_of_one_device(devices, B, want):
+    """counter_runs plans aggregate_counters' launches from the mesh's
+    devices alone (no card needed): a maximal stretch of consecutive data
+    shards on one device is one run, cut at B."""
+    assert mesh.counter_runs(mesh.make_mesh(4, devices=devices), B) == want
+
+
+@pytest.mark.parametrize("n", [4097, 61, 1])
+@pytest.mark.parametrize("dtype", [np.bool_, np.int32])
+def test_aggregate_counters_on_one_device_match_the_reference(n, dtype):
+    """A 4 x 1 mesh whose shards share one device: one run over the
+    unpadded masks (tensors sliced in place, numpy arrays too), equal to
+    the reference's sums and dtype; int32 masks wrap at 32 bits."""
+    rng = np.random.default_rng(n + 7)
+    good = rng.random(n) < 0.6
+    bad = ~good
+    if dtype is np.int32:
+        good = rng.integers(-5, 1 << 30, n, dtype=np.int32)
+        bad = rng.integers(0, 3, n, dtype=np.int32)
+    m = mesh.make_mesh(4, devices=["cpu"] * 4)
+    assert mesh.counter_runs(m, n) == [(CPU, 0, n)]
+    want = ref_aggregate_counters(ref_make_mesh(4), good, bad)
+    for g_in, b_in in ((good, bad), (torch.from_numpy(good), torch.from_numpy(bad))):
+        got = mesh.aggregate_counters(m, g_in, b_in)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and g.dim() == 0 and g.device == CPU
+            assert int(g) == int(w) and np.asarray(w).dtype == np.int32
+
+
 def test_wrappers_check_their_inputs(programs):
     _, prog = programs
     tables = mesh.sp_tables(prog, CPU)

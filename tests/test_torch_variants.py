@@ -23,7 +23,9 @@ VARIANT_FILES = {"split_phases.json": "split", "uri_variants.json": "uri_split",
                  "agg_group_variants.json": "agg_group",
                  "muid_variants.json": "muid",
                  "ipv4_spans_variants.json": "ipv4_spans",
-                 "agg_lanes_variants.json": "agg_lanes"}
+                 "agg_lanes_variants.json": "agg_lanes",
+                 "geo_gather_variants.json": "geo_gather",
+                 "counters_variants.json": "counters"}
 
 
 def test_every_variant_file_names_its_kernel():
