@@ -49,8 +49,10 @@ first phase that fails:
    to their plain versions;
 5. end to end -- TorchBatchParser(...).parse_batch on the card, with the
    launch counts zeroed just before and read just after, compared with
-   the same parser on the CPU (to_dict and needs_host); then a small batch
-   at the widest line bucket (8191 bytes, one line past it);
+   the same parser on the CPU (to_dict, valid, reject_reasons and
+   needs_host -- the rows the host oracle rescued -- equal); then a small
+   batch at the widest line bucket (8191 bytes, one line past it, which
+   the host oracle must return valid with the CPU's values);
    5b. runtime.run_program (the split-only entry) on the headline batch
    against compute_split; the unescape utility (postproc.
    unescape_compact_spans) over the user-agent spans of 65,536 headline
@@ -96,8 +98,13 @@ first phase that fails:
    batch's looked-up rows and crafted out-of-range ones in one launch,
    timed for one column (``geo_gather``) and the whole table
    (``geo_gather_table``) beside torch.index_select, the
-   8191-byte bucket, and City and ASN over two IP tokens
-   (``end_to_end_geo_two_tokens``: two ipv4_spans launches, card = CPU);
+   8191-byte bucket, City and ASN over two IP tokens
+   (``end_to_end_geo_two_tokens``: two ipv4_spans launches, card = CPU),
+   and ``host_fields``: 4,096 geoip_chain lines with country.name under
+   both the City and the Country dissector (two producers: a host field),
+   split launched, every row equal to the CPU, every device-valid row
+   rescued by the host oracle (rescue_reasons["host_fields"]), with the
+   oracle's lines per second;
 9. NGINX: span_stages (the secmillis tasks) and pack_rows under the
    nginx_timing tables against their plain versions; parse_batch end to
    end on both NGINX configurations and the 8191-byte bucket;
@@ -131,7 +138,9 @@ first phase that fails:
    a multi-format parser with a plausibility-only probe unit, NGINX
    upstream-list elements, BYTESCLF over ``%B``, the cookie path's
    8191-byte bucket.  Every end-to-end comparison in sections 5 to 11
-   holds needs_host, to_dict() and to_arrow(strings="copy") equal;
+   holds needs_host (the oracle's rows), valid, reject_reasons, to_dict()
+   and to_arrow(strings="copy") equal, and every end-to-end phase line
+   carries the oracle's share: oracle_rows, rescue_reasons, rescue_wall_s;
 12. streams: parse_batch_stream over six batches of 65,536 lines
    (headline, the URI chain regrowing 16 -> 128 mid-stream, headline),
    each equal to its parse_batch on the card, the stream wall beside the
@@ -235,6 +244,13 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
+
+
+def rescue(res) -> dict:
+    """The host oracle's share of one result (a BatchResult, or an
+    AggregateOutcome's fold replay): rows it visited, why, its wall."""
+    return {"oracle_rows": res.oracle_rows, "rescue_reasons": res.rescue_reasons,
+            "rescue_wall_s": res.rescue_wall_s}
 
 
 def card_line() -> str:
@@ -543,7 +559,7 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
     if n_valid < 0.98 * N_LINES:
         fail(f"only {n_valid} of {B} lines valid on device")
     emit({"phase": "end_to_end", "B": B, "L": L, "equal_to_cpu": True,
-          "valid": n_valid, "needs_host": len(res.needs_host),
+          "valid": n_valid, "needs_host": len(res.needs_host), **rescue(res),
           "path_bound_ms": sum(phase.bounds[k] for k in
                                ("split", "span_stages", "timestamp", "pack_rows")),
           "stage_seconds": res.stage_seconds, "wall_seconds": wall,
@@ -562,8 +578,10 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
     hold_timestamp(gpu, wide, "wide_bucket")
     if len(wide) - 1 not in res_w.needs_host.tolist():
         fail("the over-long line was not routed to the host")
+    if not res_w.valid[len(wide) - 1]:
+        fail("the over-long line came back invalid from the host oracle")
     emit({"phase": "wide_bucket", "B": len(wide), "L": 8191,
-          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
+          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist(), **rescue(res_w)})
 
     # ---- 5b. the split-only entry, the unescape utility, the blob ------
     run_program_phase(torch, kernels, pipeline, runtime, phase, unit, dbuf, dlen, B, L)
@@ -799,7 +817,7 @@ def blob_phase(kernels, gpu, lines, ref, res, smi):
     if native_res.framer != "native":
         fail(f"parse_batch without empty lines framed with {native_res.framer}")
     emit({"phase": "end_to_end_blob", "B": len(lines), "blob_bytes": len(blob),
-          "equal_to_cpu": True, "framer": got.framer, "wall_seconds": wall,
+          "equal_to_cpu": True, "framer": got.framer, **rescue(got), "wall_seconds": wall,
           "lines_per_s": len(lines) / wall, "stage_seconds": got.stage_seconds,
           "encode_seconds": got.stage_seconds["encode"],
           "parse_batch_framer": res.framer,
@@ -1017,7 +1035,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     if n_valid < 0.98 * N_LINES:
         fail(f"only {n_valid} of {B} URI lines valid on device")
     emit({"phase": "end_to_end_uri", "B": B, "L": L, "equal_to_cpu": True,
-          "valid": n_valid, "needs_host": len(res.needs_host),
+          "valid": n_valid, "needs_host": len(res.needs_host), **rescue(res),
           "path_bound_ms_16_slots": path_bound,
           "csr_slots": gpu.csr_slots, "csr_regrows": res.csr_regrows,
           "stage_seconds": res.stage_seconds, "wall_seconds": wall,
@@ -1031,7 +1049,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     wall2 = time.perf_counter() - t0
     compare_results(res2, ref, "end_to_end_uri_grown")
     emit({"phase": "end_to_end_uri_grown", "B": B, "L": L, "equal_to_cpu": True,
-          "csr_slots": gpu.csr_slots, "csr_regrows": res2.csr_regrows,
+          "csr_slots": gpu.csr_slots, "csr_regrows": res2.csr_regrows, **rescue(res2),
           "stage_seconds": res2.stage_seconds, "wall_seconds": wall2,
           "lines_per_s": B / wall2,
           "device_lines_per_s": B / res2.stage_seconds["kernels"],
@@ -1064,7 +1082,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     if not {len(wide) - 2, len(wide) - 1} <= set(host):
         fail("the 200-parameter or the 5,000-byte URI line is not in needs_host")
     emit({"phase": "wide_bucket_uri", "B": len(wide), "L": 8191,
-          "equal_to_cpu": True, "csr_slots": gpu_w.csr_slots, "needs_host": host})
+          "equal_to_cpu": True, "csr_slots": gpu_w.csr_slots, "needs_host": host, **rescue(res_w)})
 
 
 def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
@@ -1177,7 +1195,7 @@ def strftime_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
         if n_valid < 0.98 * N_LINES:
             fail(f"only {n_valid} of {B} {tag} lines valid on device")
         emit({"phase": f"end_to_end_{tag}", "B": B, "L": L, "equal_to_cpu": True,
-              "valid": n_valid, "needs_host": len(res.needs_host),
+              "valid": n_valid, "needs_host": len(res.needs_host), **rescue(res),
               "needs_host_generated": len(host_generated),
               "path_bound_ms": sum(phase.bounds[k] for k in path_phases),
               "stage_seconds": res.stage_seconds, "wall_seconds": wall,
@@ -1310,7 +1328,7 @@ def run_end_to_end(torch, kernels, gpu, cpu, lines, tag, must, path_bound, smi,
     if n_valid < 0.98 * N_LINES:
         fail(f"only {n_valid} of {len(lines)} {tag} lines valid on device")
     emit({"phase": tag, "B": len(lines), "L": int(res.buf.shape[1]),
-          "equal_to_cpu": True, "valid": n_valid, "needs_host": len(res.needs_host),
+          "equal_to_cpu": True, "valid": n_valid, "needs_host": len(res.needs_host), **rescue(res),
           "path_bound_ms": path_bound, "stage_seconds": res.stage_seconds,
           "wall_seconds": wall, "lines_per_s": len(lines) / wall,
           "device_lines_per_s": len(lines) / res.stage_seconds["kernels"],
@@ -1331,8 +1349,10 @@ def run_wide(gpu, cpu, lines, tag):
     hold_timestamp(gpu, lines, f"wide_bucket_{tag}")
     if len(lines) - 1 not in res.needs_host.tolist():
         fail(f"the over-long {tag} line was not routed to the host")
+    if not res.valid[len(lines) - 1]:
+        fail(f"the over-long {tag} line came back invalid from the host oracle")
     emit({"phase": f"wide_bucket_{tag}", "B": len(lines), "L": 8191,
-          "equal_to_cpu": True, "needs_host": res.needs_host.tolist()})
+          "equal_to_cpu": True, "needs_host": res.needs_host.tolist(), **rescue(res)})
 
 
 def hold_timestamp(gpu, lines, tag) -> None:
@@ -1527,6 +1547,9 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     geo_gather_phase(torch, kernels, pipeline, runtime, phase, rows, gpu_syn, syn_lines,
                      smi)
     run_wide(gpu, parser(city, "cpu"), demolog.geoip_chain_lines(256) + edge, "geo")
+    host_fields_phase(TorchBatchParser, kernels, smi, city,
+                      os.path.join(fixtures, "GeoIP2-Country-Test.mmdb"),
+                      demolog.geoip_chain_lines(4096))
 
     # City and ASN over two IP tokens: one ipv4_spans launch a token.
     two = [TorchBatchParser(demolog.GEOIP_TWO_TOKEN_FORMAT, demolog.GEOIP_TWO_TOKEN_FIELDS,
@@ -1544,8 +1567,47 @@ def geo_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     require_geo_launches(launches, t2, "end_to_end_geo_two_tokens")
     compare_results(res, two[1].parse_batch(two_lines), "end_to_end_geo_two_tokens")
     emit({"phase": "end_to_end_geo_two_tokens", "B": len(two_lines), "equal_to_cpu": True,
-          "valid": int(res.valid.sum()), "needs_host": len(res.needs_host),
+          "valid": int(res.valid.sum()), "needs_host": len(res.needs_host), **rescue(res),
           "launches": {k: launches[k] for k in ("ipv4_spans", "geo_lookup")}})
+
+
+def host_fields_phase(TorchBatchParser, kernels, smi, city, country, lines) -> None:
+    """country.name under both a City and a Country dissector has two
+    producers, so the host oracle delivers it: the unit's kernels still run
+    on the card, and every line the device accepts visits the oracle.
+    Fails unless split was launched, every row (country.name included)
+    equals the CPU's, and rescue_reasons["host_fields"] is the number of
+    rows the device found valid; reports the oracle's lines per second."""
+    from logparser_tpu_torch.geoip import GeoIPCityDissector, GeoIPCountryDissector
+
+    fields = ["STRING:connection.client.host.country.name", "IP:connection.client.host"]
+
+    def parser(device=None):
+        return TorchBatchParser("combined", fields, device=device,
+                                extra_dissectors=[GeoIPCityDissector(city),
+                                                  GeoIPCountryDissector(country)])
+
+    gpu = parser()
+    if gpu.plan_by_id[fields[0]].kind != "host":
+        fail("host_fields: country.name under City and Country is not a host field")
+    gpu.parse_batch(lines[:64])   # warm the caching allocator
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = gpu.parse_batch(lines)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if launches["split"] < 1:
+        fail("host_fields: split was not launched")
+    compare_results(res, parser("cpu").parse_batch(lines), "host_fields")
+    device_valid = int((res.format_index >= 0).sum())
+    if res.rescue_reasons["host_fields"] != device_valid or device_valid < 0.9 * len(lines):
+        fail(f"host_fields: {res.rescue_reasons} for {device_valid} device-valid rows")
+    named = sum(v is not None for v in res.to_pylist(fields[0]))
+    emit({"phase": "host_fields", "B": len(lines), "equal_to_cpu": True,
+          "device_valid": device_valid, "country_names": named, **rescue(res),
+          "oracle_lines_per_s": res.oracle_rows / res.rescue_wall_s,
+          "wall_seconds": wall, "stage_seconds": res.stage_seconds,
+          "launches": launches, "card": smi})
 
 
 def require_geo_launches(launches, t, tag) -> None:
@@ -1743,15 +1805,17 @@ def nginx_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, row
 
 
 def compare_aggregates(got, want, what) -> None:
-    """The card's AggregateOutcome against the CPU's: state, needs_host
-    and the row accounting."""
+    """The card's AggregateOutcome against the CPU's: state, needs_host,
+    the row accounting and the reject ledger."""
     if got.state != want.state:
         diff = [(a["op"], a.get("field")) for a, b in
                 zip(got.state.summary(), want.state.summary()) if a != b]
         fail(f"{what}: the card's aggregate state differs from the CPU's in {diff}")
     if got.needs_host.tolist() != want.needs_host.tolist():
         fail(f"{what}: needs_host differs: {got.needs_host[:10]} vs {want.needs_host[:10]}")
-    acct = ("good_lines", "bad_lines", "device_rows", "fold_rows")
+    if got.reject_items != want.reject_items:
+        fail(f"{what}: reject_items differ: {got.reject_items[:3]} vs {want.reject_items[:3]}")
+    acct = ("good_lines", "bad_lines", "device_rows", "fold_rows", "oracle_rows")
     if [getattr(got, k) for k in acct] != [getattr(want, k) for k in acct]:
         fail(f"{what}: row accounting differs: "
              f"{[getattr(got, k) for k in acct]} vs {[getattr(want, k) for k in acct]}")
@@ -1777,7 +1841,7 @@ def agg_parity(torch, kernels, gpu, cpu, lines, tag, smi, spec=None):
           "ops": [op.as_dict() for op in spec.ops],
           "groups": [len(d) for d in out.state.data if isinstance(d, dict)],
           "device_rows": out.device_rows, "fold_rows": out.fold_rows,
-          "needs_host": len(out.needs_host), "stage_seconds": out.stage_seconds,
+          "needs_host": len(out.needs_host), **rescue(out), "stage_seconds": out.stage_seconds,
           "wall_seconds": wall, "lines_per_s": len(lines) / wall,
           "d2h_bytes": out.d2h_bytes, "row_path_d2h_bytes": out.row_path_d2h_bytes,
           "launches": launches, "card": smi})
@@ -2006,7 +2070,7 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
           "summary": [{**d, "buckets": len(d["buckets"])} if "buckets" in d else d
                       for d in out.state.summary()],
           "device_rows": out.device_rows, "fold_rows": out.fold_rows,
-          "needs_host": out.needs_host.tolist(),
+          "needs_host": out.needs_host.tolist(), **rescue(out),
           "aggregate_wall_seconds": walls["aggregate"],
           "parse_batch_wall_seconds": walls["parse_batch"],
           "aggregate_lines_per_s": B / agg_s, "parse_batch_lines_per_s": B / parse_s,
@@ -2032,6 +2096,7 @@ def agg_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi):
     emit({"phase": "end_to_end_agg_blob", "B": B, "blob_bytes": len(blob),
           "equal_to_cpu": True, "wall_seconds": wall, "lines_per_s": B / wall,
           "stage_seconds": blob_out.stage_seconds, "fold_rows": blob_out.fold_rows,
+          **rescue(blob_out),
           "d2h_bytes": blob_out.d2h_bytes, "launches": launches, "card": smi})
 
 
@@ -2079,7 +2144,7 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
     if 1798761600000 not in res.to_pylist("TIME.EPOCH:response.cookies.sid.expires"):
         fail("cookies: no sid expires reads Thu, 01-Jan-2027 00:00:00 GMT")
     emit({"phase": "end_to_end_cookies", "B": B, "L": L, "equal_to_cpu": True,
-          "valid": n_valid, "needs_host": len(res.needs_host),
+          "valid": n_valid, "needs_host": len(res.needs_host), **rescue(res),
           "csr_slots": gpu_fresh.csr_slots, "csr_regrows": res.csr_regrows,
           "stage_seconds": res.stage_seconds, "wall_seconds": wall,
           "lines_per_s": B / wall,
@@ -2091,7 +2156,7 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
     wall2 = time.perf_counter() - t0
     compare_results(res2, ref, "end_to_end_cookies_grown")
     emit({"phase": "end_to_end_cookies_grown", "B": B, "L": L, "equal_to_cpu": True,
-          "csr_slots": gpu_fresh.csr_slots, "csr_regrows": res2.csr_regrows,
+          "csr_slots": gpu_fresh.csr_slots, "csr_regrows": res2.csr_regrows, **rescue(res2),
           "stage_seconds": res2.stage_seconds, "wall_seconds": wall2,
           "lines_per_s": B / wall2,
           "device_lines_per_s": B / res2.stage_seconds["kernels"],
@@ -2181,7 +2246,7 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
         compare_results(res_s, TorchBatchParser(fmt, fields, device="cpu").parse_batch(leg),
                         tag)
         emit({"phase": f"leg_{tag}", "B": len(leg), "equal_to_cpu": True,
-              "valid": int(res_s.valid.sum()), "needs_host": len(res_s.needs_host)})
+              "valid": int(res_s.valid.sum()), "needs_host": len(res_s.needs_host), **rescue(res_s)})
     wide = demolog.cookie_lines(256) + edge
     pad = 8191 - len(wide[0].encode())
     wide += [wide[0].replace('"GET ', '"GET /' + "w" * (pad - 1), 1),
@@ -2196,7 +2261,7 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
     if len(wide) - 1 not in res_w.needs_host.tolist():
         fail("the over-long cookie line was not routed to the host")
     emit({"phase": "wide_bucket_cookies", "B": len(wide), "L": 8191,
-          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist()})
+          "equal_to_cpu": True, "needs_host": res_w.needs_host.tolist(), **rescue(res_w)})
 
 
 def muid_seeded_phases(torch, kernels, pipeline, phase):
@@ -2279,7 +2344,7 @@ def nul_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, smi):
     if launches["split"] < 1 or int(res.valid.sum()) < 0.8 * B:
         fail(f"split_nul: {launches['split']} split launches, {int(res.valid.sum())} valid")
     emit({"phase": "end_to_end_nul", "B": B, "L": L, "equal_to_cpu": True,
-          "valid": int(res.valid.sum()), "needs_host": len(res.needs_host),
+          "valid": int(res.valid.sum()), "needs_host": len(res.needs_host), **rescue(res),
           "launches": launches, "card": smi})
 
 
@@ -2343,6 +2408,9 @@ def stream_phases(torch, TorchBatchParser, kernels, smi):
           "lines_per_s": sum(map(len, batches)) / stream_wall,
           "serial_lines_per_s": sum(map(len, batches)) / sum(walls),
           "csr_regrows": [r.csr_regrows for r in got],
+          "oracle_rows": [r.oracle_rows for r in got],
+          "rescue_reasons": [r.rescue_reasons for r in got],
+          "rescue_wall_s": [r.rescue_wall_s for r in got],
           "stage_seconds": [r.stage_seconds for r in got],
           "serial_stage_seconds": [r.stage_seconds for r in want],
           "launches": launches, "card": smi})
@@ -2374,6 +2442,9 @@ def stream_phases(torch, TorchBatchParser, kernels, smi):
         walls_after.append(time.perf_counter() - t0)
     emit({"phase": "aggregate_stream", "batches": len(agg), "depth": 2,
           "equal_to_aggregate_batch": True, "stream_wall_seconds": stream_wall,
+          "oracle_rows": [o.oracle_rows for o in got],
+          "rescue_reasons": [o.rescue_reasons for o in got],
+          "rescue_wall_s": [o.rescue_wall_s for o in got],
           "serial_wall_seconds": walls, "serial_wall_sum": sum(walls),
           "serial_after_wall_seconds": walls_after,
           "serial_after_wall_sum": sum(walls_after),
@@ -2606,7 +2677,7 @@ def mesh_dp_uri_phase(torch, TorchBatchParser, kernels, smi):
              f"unsharded {want.csr_regrows} to {solo.csr_slots}")
     compare_results(got, want, "mesh_dp_uri")
     emit({"phase": "mesh_dp_uri", "B": len(lines), "mesh_devices": dp.mesh_devices,
-          "equal_to_unsharded": True, "csr_regrows": got.csr_regrows,
+          "equal_to_unsharded": True, "csr_regrows": got.csr_regrows, **rescue(got),
           "csr_slots": dp.csr_slots, "wall_seconds": wall, "unsharded_wall_seconds": solo_wall,
           "stage_seconds": got.stage_seconds, "unsharded_stage_seconds": want.stage_seconds,
           "launches": launches, "card": smi})
@@ -2657,7 +2728,7 @@ def parser_dp_phase(torch, TorchBatchParser, kernels, gpu, lines, smi, width=4,
         if agg_launches[name] < width:
             fail(f"{tag}: {name} launched {agg_launches[name]} times over {width} shards")
     emit({"phase": tag, "B": len(lines), "mesh_devices": dp.mesh_devices,
-          "equal_to_unsharded": True, "wall_seconds": wall,
+          "equal_to_unsharded": True, **rescue(got), "wall_seconds": wall,
           "unsharded_wall_seconds": solo_wall, "stage_seconds": got.stage_seconds,
           "unsharded_stage_seconds": want.stage_seconds,
           "aggregate_wall_seconds": agg_wall, "aggregate_d2h_bytes": agg.d2h_bytes,
@@ -2812,10 +2883,18 @@ def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
 
 
 def compare_results(got, want, what, arrow=True) -> None:
-    """needs_host, to_dict() and (with ``arrow``) to_arrow(strings="copy")
-    of the card's result equal the CPU's."""
-    if got.needs_host.tolist() != want.needs_host.tolist():
-        fail(f"{what}: needs_host differs: {got.needs_host[:10]} vs {want.needs_host[:10]}")
+    """needs_host (the oracle_row_ids), valid, reject_reasons, to_dict()
+    and (with ``arrow``) to_arrow(strings="copy") of the card's result
+    equal the CPU's -- the host oracle's rescued rows included."""
+    if got.oracle_row_ids.tolist() != want.oracle_row_ids.tolist():
+        fail(f"{what}: oracle_row_ids differ: {got.oracle_row_ids[:10]} vs "
+             f"{want.oracle_row_ids[:10]}")
+    if got.valid.tolist() != want.valid.tolist():
+        i = next(i for i, (a, b) in enumerate(zip(got.valid, want.valid)) if a != b)
+        fail(f"{what}: valid differs at row {i}: {got.valid[i]} vs {want.valid[i]}")
+    if got.reject_reasons != want.reject_reasons:
+        fail(f"{what}: reject_reasons differ: {sorted(got.reject_reasons.items())[:5]} vs "
+             f"{sorted(want.reject_reasons.items())[:5]}")
     got_d, want_d = got.to_dict(), want.to_dict()
     for fid in want_d:
         if got_d[fid] != want_d[fid]:

@@ -132,14 +132,16 @@ def plan_aggregate(parser, spec: AggregateSpec) -> List[_OpPlan]:
     """Resolve the spec against the parser's units.  A unit contributes on
     the device only when its plan for the field decodes to the exact
     delivered value with no host involvement; everything else folds,
-    statically per (op, unit).  Every unit of the port is a full device
-    unit with no oracle fields (a field the port cannot decode raises at
-    parser construction), so the reference's probe-unit and oracle-field
-    folds do not arise."""
+    statically per (op, unit).  Probe units never win; a unit with oracle
+    fields has every row it wins folded (``AggTables``' oracle fold), so
+    its descriptors are moot."""
     plans: List[_OpPlan] = []
     for op in spec.ops:
         descs: List[Optional[dict]] = []
-        for u in parser.units:
+        for ui, u in enumerate(parser.units):
+            if u.plausibility_only or parser._unit_oracle_fields[ui]:
+                descs.append(None)
+                continue
             if op.op == "count":
                 descs.append({})
                 continue
@@ -220,6 +222,18 @@ class AggTables(nn.Module):
 
         self.ovf_py: List[List[int]] = []
         for ui, u in enumerate(units):
+            if u.plausibility_only:
+                continue
+            if parser._unit_oracle_fields[ui]:
+                # Oracle fold: the host oracle visits every line this unit
+                # wins, so each of them folds -- an overflow row whose ok and
+                # big slots read the unit's valid bit (set on every row it
+                # wins) and whose null slot reads the escaped-quote bit
+                # (rows with it fold anyway).
+                valid_bit = (u.row_offset, 0, 1)
+                esc_bit = (u.row_offset, ESC_QUOTE_BIT.bit_length() - 1, 1)
+                self.ovf_py.append([ui, *valid_bit, *esc_bit, *valid_bit, *valid_bit])
+                continue
             for fid in parser.requested:
                 if u.plan_for(fid).kind not in ("long", "secmillis"):
                     continue

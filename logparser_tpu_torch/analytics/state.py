@@ -27,6 +27,8 @@ import io
 from bisect import bisect_right
 from typing import Any, Dict, List
 
+import numpy as np
+
 from .spec import AggregateSpec
 
 
@@ -244,20 +246,19 @@ class AggregateState:
 
 class AggregateOutcome:
     """One batch's aggregate result: the partial state plus the row
-    accounting (the reference's good / bad counts) and the pushdown
-    accounting (rows the device finished, bytes fetched).
+    accounting (the reference's good / bad counts, ``oracle_rows`` and the
+    ``reject_items`` ledger, mirroring :class:`BatchResult`'s) and the
+    pushdown accounting (rows the device finished, bytes fetched).
 
-    ``needs_host`` takes the place of the reference's ``oracle_rows``: the
-    folded rows that the port's row path leaves to the host oracle (a
-    later slice), in batch row numbers; they are in no count of ``state``.
-    ``reject_rows`` are the bad rows (the reference's ``reject_items``
-    without reasons, which the port's row path does not give).
-    ``fold_rows`` counts the rows replayed through ``parse_batch``;
-    ``row_path_d2h_bytes`` is what ``parse_batch`` would copy back for
-    the same batch."""
+    ``needs_host`` are the batch rows the host oracle visited (during the
+    fold replay); they are counted in ``state`` like every other row.
+    ``reject_items`` are ``[(row, reason, raw bytes)]`` sorted by row and
+    ``reject_rows`` their rows.  ``fold_rows`` counts the rows replayed
+    through ``parse_batch``; ``row_path_d2h_bytes`` is what
+    ``parse_batch`` would copy back for the same batch."""
 
     def __init__(self, state: AggregateState, lines_read: int,
-                 good_lines: int, bad_lines: int, needs_host, reject_rows,
+                 good_lines: int, bad_lines: int, needs_host, reject_items,
                  device_rows: int, fold_rows: int, d2h_bytes: int,
                  row_path_d2h_bytes: int, stage_seconds: Dict[str, float]):
         self.state = state
@@ -265,12 +266,17 @@ class AggregateOutcome:
         self.good_lines = good_lines
         self.bad_lines = bad_lines
         self.needs_host = needs_host
-        self.reject_rows = reject_rows
+        self.oracle_rows = len(needs_host)
+        self.reject_items = reject_items
+        self.reject_rows = np.asarray([row for row, _, _ in reject_items], dtype=np.int64)
         self.device_rows = device_rows
         self.fold_rows = fold_rows
         self.d2h_bytes = d2h_bytes
         self.row_path_d2h_bytes = row_path_d2h_bytes
         self.stage_seconds = stage_seconds
+        # The fold replay's oracle share (BatchResult's keys).
+        self.rescue_reasons: Dict[str, int] = {}
+        self.rescue_wall_s = 0.0
 
 
 def merge_states(spec: AggregateSpec,

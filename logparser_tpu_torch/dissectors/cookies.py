@@ -14,16 +14,22 @@
 
 The device splits (``split_csr`` in cookie mode, ``split_setcookie_csr``
 in ``tpu/postproc.py`` and their kernels) reproduce the first two; the
-host keeps the per-value work (trimming, URL-decoding, attributes).
+host keeps the per-value work (trimming, URL-decoding, attributes).  The
+host oracle's three dissectors (:class:`RequestCookieListDissector`,
+:class:`ResponseSetCookieListDissector`,
+:class:`ResponseSetCookieDissector`) deliver what these functions give.
 """
 from __future__ import annotations
 
 import datetime as _dt
 import functools
 import re
-from typing import Dict, Optional
+from typing import Callable, Dict, FrozenSet, List, Optional, Set
 from zoneinfo import ZoneInfo
 
+from ..core.casts import Cast, STRING_ONLY, STRING_OR_LONG
+from ..core.dissector import Dissector, extract_field_name
+from ..core.exceptions import DissectionFailure
 from .timelayout import DAYS_SHORT, MONTHS_SHORT, _ZONE_ABBREVIATIONS
 from .utils import resilient_url_decode
 
@@ -33,20 +39,24 @@ _SPLIT_BY = ", "
 _MINIMAL_EXPIRES_LENGTH = len("expires=XXXXXXX")
 
 
-def request_cookies(value: str) -> Dict[str, str]:
-    """{name: value} of a Cookie header (a later name wins); raises
-    ValueError where the URL-decode does (the host fails the line)."""
+def request_cookies(value: str,
+                    wanted: Optional[Callable[[str], bool]] = None) -> Dict[str, str]:
+    """{name: value} of a Cookie header (a later name wins), only the names
+    ``wanted`` accepts when it is given; raises ValueError where the
+    URL-decode of a kept value does (the host fails the line)."""
     out: Dict[str, str] = {}
     if not value:
         return out
     for part in value.split("; "):
         equal_pos = part.find("=")
         if equal_pos == -1:
-            if part != "":
-                out[part.strip().lower()] = ""
+            name = part.strip().lower()
+            if part != "" and (wanted is None or wanted(name)):
+                out[name] = ""
         else:
-            out[part[:equal_pos].strip().lower()] = resilient_url_decode(
-                part[equal_pos + 1:].strip())
+            name = part[:equal_pos].strip().lower()
+            if wanted is None or wanted(name):
+                out[name] = resilient_url_decode(part[equal_pos + 1:].strip())
     return out
 
 
@@ -210,3 +220,117 @@ def _zone_offset(zone: str, wall_s: int) -> int:
     """The zone's fold=0 UTC offset (seconds) at a wall-clock time."""
     local = _dt.datetime(1970, 1, 1) + _dt.timedelta(seconds=wall_s)
     return int(local.replace(tzinfo=ZoneInfo(zone), fold=0).utcoffset().total_seconds())
+
+
+class RequestCookieListDissector(Dissector):
+    """``HTTP.COOKIES`` -> ``HTTP.COOKIE:*`` (RequestCookieListDissector.java
+    :77-111), through :func:`request_cookies`."""
+
+    INPUT_TYPE = "HTTP.COOKIES"
+
+    def __init__(self):
+        self.requested: Set[str] = set()
+        self.want_all = False
+
+    def get_input_type(self) -> str:
+        return self.INPUT_TYPE
+
+    def get_possible_output(self) -> List[str]:
+        return ["HTTP.COOKIE:*"]
+
+    def prepare_for_dissect(self, input_name: str, output_name: str) -> FrozenSet[Cast]:
+        self.requested.add(extract_field_name(input_name, output_name))
+        return STRING_ONLY
+
+    def prepare_for_run(self) -> None:
+        self.want_all = "*" in self.requested
+
+    def get_new_instance(self) -> "Dissector":
+        return RequestCookieListDissector()
+
+    def _wanted(self, name: str) -> bool:
+        return self.want_all or name in self.requested
+
+    def dissect(self, parsable, input_name: str) -> None:
+        field = parsable.get_parsable_field(self.INPUT_TYPE, input_name)
+        try:
+            cookies = request_cookies(field.value.get_string(), self._wanted)
+        except ValueError as e:
+            raise DissectionFailure(str(e)) from e
+        for name, value in cookies.items():
+            parsable.add_dissection(input_name, "HTTP.COOKIE", name, value)
+
+
+class ResponseSetCookieListDissector(Dissector):
+    """``HTTP.SETCOOKIES`` -> ``HTTP.SETCOOKIE:*``
+    (ResponseSetCookieListDissector.java:78-115), through
+    :func:`response_setcookies`."""
+
+    INPUT_TYPE = "HTTP.SETCOOKIES"
+
+    def __init__(self):
+        self.requested: Set[str] = set()
+        self.want_all = False
+
+    def get_input_type(self) -> str:
+        return self.INPUT_TYPE
+
+    def get_possible_output(self) -> List[str]:
+        return ["HTTP.SETCOOKIE:*"]
+
+    def prepare_for_dissect(self, input_name: str, output_name: str) -> FrozenSet[Cast]:
+        self.requested.add(extract_field_name(input_name, output_name))
+        return STRING_ONLY
+
+    def prepare_for_run(self) -> None:
+        self.want_all = "*" in self.requested
+
+    def get_new_instance(self) -> "Dissector":
+        return ResponseSetCookieListDissector()
+
+    def dissect(self, parsable, input_name: str) -> None:
+        field = parsable.get_parsable_field(self.INPUT_TYPE, input_name)
+        for name, part in response_setcookies(field.value.get_string()).items():
+            if self.want_all or name in self.requested:
+                parsable.add_dissection(input_name, "HTTP.SETCOOKIE", name, part)
+
+
+class ResponseSetCookieDissector(Dissector):
+    """One Set-Cookie value -> value / expires (STRING seconds and
+    TIME.EPOCH millis) / path / domain / comment
+    (ResponseSetCookieDissector.java:63-105), through :func:`parse_attrs`."""
+
+    INPUT_TYPE = "HTTP.SETCOOKIE"
+
+    def __init__(self):
+        self.requested: Set[str] = set()
+
+    def get_input_type(self) -> str:
+        return self.INPUT_TYPE
+
+    def get_possible_output(self) -> List[str]:
+        return ["STRING:value", "STRING:expires", "TIME.EPOCH:expires",
+                "STRING:path", "STRING:domain", "STRING:comment"]
+
+    def prepare_for_dissect(self, input_name: str, output_name: str) -> FrozenSet[Cast]:
+        name = extract_field_name(input_name, output_name)
+        self.requested.add(name)
+        return STRING_OR_LONG if name == "expires" else STRING_ONLY
+
+    def get_new_instance(self) -> "Dissector":
+        return ResponseSetCookieDissector()
+
+    def dissect(self, parsable, input_name: str) -> None:
+        field = parsable.get_parsable_field(self.INPUT_TYPE, input_name)
+        value = field.value.get_string()
+        if not value:
+            return
+        attrs = parse_attrs(value)
+        parsable.add_dissection(input_name, "STRING", "value", attrs["value"])
+        if "expires" in attrs:
+            parsable.add_dissection(input_name, "STRING", "expires", attrs["expires"])
+            parsable.add_dissection(input_name, "TIME.EPOCH", "expires",
+                                    attrs["expires_epoch"])
+        for key in ("domain", "comment", "path"):
+            if key in attrs:
+                parsable.add_dissection(input_name, "STRING", key, attrs[key])

@@ -5,15 +5,23 @@ copy of ``compile_strftime`` from the reference package's
 A strftime(3) format becomes a :class:`~.timelayout.TimeLayout`: ``%X``
 directives map to layout items, everything else is a literal, adjacent
 literals merge, and a format without ``%z`` / ``%Z`` assumes
-:data:`DEFAULT_ZONE`.  The dissector classes (and the per-line engine
-they feed) are not part of the port yet: plan resolution only needs the
-layout.
+:data:`DEFAULT_ZONE`.
+
+The host oracle's dissectors are copies of the reference's:
+:class:`StrfTimeStampDissector` (StrfTimeStampDissector.java: wraps a
+TimeStampDissector with the converted layout, :40-68) and
+:class:`LocalizedTimeDissector`, the fallback that re-emits the raw value
+as ``TIME.LOCALIZEDSTRING`` (:104-157).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import FrozenSet, List, Optional
 
+from ..core.casts import Cast, STRING_ONLY
+from ..core.dissector import Dissector
+from ..core.fields import ParsedField
 from .timelayout import Item, TimeLayout
+from .timestamp import TimeStampDissector
 
 DEFAULT_ZONE = "UTC"
 
@@ -117,3 +125,108 @@ def compile_strftime(
         else:
             merged.append(it)
     return TimeLayout(merged, None if has_zone else default_zone)
+
+
+class StrfTimeStampDissector(Dissector):
+    """Handles ``%{strfformat}t``: converts the strftime pattern to a layout
+    and delegates to an embedded TimeStampDissector."""
+
+    def __init__(self):
+        self.timestamp_dissector = TimeStampDissector()
+        self.strf_pattern: Optional[str] = None
+        self._input_type = "TIME.?????"
+        # One LocalizedTimeDissector per instance: create_additional runs
+        # again on every re-assembly (e.g. after set_locale), and
+        # add_dissector dedups by identity — a fresh instance per call
+        # would accumulate duplicates.
+        self._localized: Optional["LocalizedTimeDissector"] = None
+
+    def set_date_time_pattern(self, pattern: Optional[str]) -> None:
+        if pattern is None:
+            self.timestamp_dissector.set_date_time_pattern("")
+            return
+        if pattern == self.strf_pattern:
+            return
+        self.strf_pattern = pattern
+        layout = compile_strftime(pattern)
+        if layout is None:
+            raise UnsupportedStrfField(pattern)
+        self.timestamp_dissector.set_layout(layout)
+
+    def initialize_from_settings_parameter(self, settings: str) -> bool:
+        self.set_date_time_pattern(settings)
+        return True
+
+    def set_locale(self, locale) -> "StrfTimeStampDissector":
+        """Delegates to the embedded TimeStampDissector (the reference's
+        wrapped-dissector shape keeps one locale, TimeStampDissector.java
+        :73-78)."""
+        self.timestamp_dissector.set_locale(locale)
+        return self
+
+    def dissect(self, parsable, input_name: str) -> None:
+        field: ParsedField = parsable.get_parsable_field(self._input_type, input_name)
+        self.timestamp_dissector.dissect_field(parsable, input_name, field)
+
+    def get_input_type(self) -> str:
+        return self._input_type
+
+    def set_input_type(self, new_input_type: str) -> None:
+        self._input_type = new_input_type
+
+    def get_possible_output(self) -> List[str]:
+        return self.timestamp_dissector.get_possible_output()
+
+    def prepare_for_dissect(self, input_name: str, output_name: str) -> FrozenSet[Cast]:
+        return self.timestamp_dissector.prepare_for_dissect(input_name, output_name)
+
+    def prepare_for_run(self) -> None:
+        self.timestamp_dissector.prepare_for_run()
+
+    def get_new_instance(self) -> "Dissector":
+        new = StrfTimeStampDissector()
+        self.initialize_new_instance(new)
+        return new
+
+    def initialize_new_instance(self, new_instance: "Dissector") -> None:
+        new_instance.set_input_type(self._input_type)
+        new_instance.set_locale(self.timestamp_dissector.locale)
+        if self.strf_pattern is not None:
+            new_instance.set_date_time_pattern(self.strf_pattern)
+
+    def create_additional_dissectors(self, parser) -> None:
+        if self._localized is None:
+            self._localized = LocalizedTimeDissector(self._input_type)
+        self._localized.set_input_type(self._input_type)
+        parser.add_dissector(self._localized)
+
+
+class LocalizedTimeDissector(Dissector):
+    """Fallback that re-emits the raw strftime timestamp value as
+    ``TIME.LOCALIZEDSTRING`` (StrfTimeStampDissector.java:104-157)."""
+
+    def __init__(self, input_type: Optional[str] = None):
+        self._input_type = input_type
+
+    def set_input_type(self, new_input_type: str) -> None:
+        self._input_type = new_input_type
+
+    def initialize_from_settings_parameter(self, settings: str) -> bool:
+        self.set_input_type(settings)
+        return True
+
+    def dissect(self, parsable, input_name: str) -> None:
+        field = parsable.get_parsable_field(self._input_type, input_name)
+        parsable.add_dissection(input_name, "TIME.LOCALIZEDSTRING", "", field.value)
+
+    def get_input_type(self) -> str:
+        return self._input_type
+
+    def get_possible_output(self) -> List[str]:
+        return ["TIME.LOCALIZEDSTRING:"]
+
+    def prepare_for_dissect(self, input_name: str, output_name: str) -> FrozenSet[Cast]:
+        return STRING_ONLY
+
+    def get_new_instance(self) -> "Dissector":
+        return LocalizedTimeDissector(self._input_type)

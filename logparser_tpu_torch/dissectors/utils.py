@@ -7,10 +7,16 @@ Tolerant URL decoding that survives chopped %-escapes and the rejected
 ``%00%hh`` and ``%uABCD`` becomes ``%AB%CD``, then the whole string is
 URL-decoded as UTF-16.  Malformed interior escapes raise ValueError (Java:
 IllegalArgumentException from URLDecoder), which callers catch per field.
+
+:func:`decode_apache_httpd_log_value` (Utils.java:147-201) is the inverse
+of Apache HTTPD's ap_escape_logitem -- ``\\"``, ``\\\\``, C-style whitespace
+escapes and ``\\xhh`` -- with the Java ``(char)(byte)`` sign-extension quirk:
+bytes >= 0x80 become U+FF80..U+FFFF, not U+0080..U+00FF.
 """
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 _VALID_STANDARD = re.compile("%([0-9A-Fa-f]{2})")
 _CHOPPED_STANDARD = re.compile("%[0-9A-Fa-f]?$")
@@ -86,3 +92,45 @@ def resilient_url_decode(input_str: str) -> str:
             cooked = _VALID_NON_STANDARD.sub("%\\1%\\2", cooked)
             cooked = _CHOPPED_NON_STANDARD.sub("", cooked)
     return _url_decode_utf16(cooked)
+
+
+def decode_apache_httpd_log_value(input_str: Optional[str]) -> Optional[str]:
+    if input_str is None or input_str == "":
+        return input_str
+    if "\\" not in input_str:
+        return input_str
+
+    out = []
+    i = 0
+    n = len(input_str)
+    while i < n:
+        chr_ = input_str[i]
+        if chr_ == "\\":
+            i += 1
+            chr_ = input_str[i]  # IndexError mirrors Java's StringIndexOutOfBounds
+            if chr_ in ('"', "\\"):
+                out.append(chr_)
+            elif chr_ == "b":
+                out.append("\b")
+            elif chr_ == "n":
+                out.append("\n")
+            elif chr_ == "r":
+                out.append("\r")
+            elif chr_ == "t":
+                out.append("\t")
+            elif chr_ == "v":
+                out.append("\x0b")
+            elif chr_ == "x":
+                b = hex_chars_to_byte(input_str[i + 1], input_str[i + 2])
+                i += 2
+                # Java appends (char)(byte)b — sign-extension maps >=0x80
+                # to U+FF80..U+FFFF.
+                out.append(chr(b if b < 0x80 else 0xFF00 | b))
+            else:
+                # Shouldn't happen; append unmodified.
+                out.append("\\")
+                out.append(chr_)
+        else:
+            out.append(chr_)
+        i += 1
+    return "".join(out)

@@ -1,10 +1,15 @@
-"""NGINX variable modules (the port's copy of the reference package's
-``httpd/nginx_modules``): each module contributes ``$var`` token parsers
-(and optionally helper dissectors) to the NGINX format."""
+"""NGINX variable modules (the port's own copy of the reference package's
+``httpd/nginx_modules``).
+
+Rebuild of httpdlog/httpdlog-parser/.../dissectors/nginxmodules/: each module
+contributes ``$var`` token parsers (and optionally helper dissectors) to the
+NGINX format dissector.
+"""
 from __future__ import annotations
 
 from typing import List
 
+from ...core.dissector import Dissector
 from ...dissectors.tokenformat import TokenParser
 
 
@@ -12,7 +17,7 @@ class NginxModule:
     def get_token_parsers(self) -> List[TokenParser]:
         raise NotImplementedError
 
-    def get_dissectors(self) -> list:
+    def get_dissectors(self) -> List[Dissector]:
         return []
 
 

@@ -7,9 +7,8 @@ from __future__ import annotations
 
 from typing import List
 
+from ...core.casts import STRING_ONLY, STRING_OR_LONG
 from ...dissectors.tokenformat import (
-    STRING_ONLY,
-    STRING_OR_LONG,
     FORMAT_CLF_IP,
     FORMAT_CLF_NUMBER,
     FORMAT_HEXDIGIT,

@@ -3,7 +3,8 @@ from __future__ import annotations
 
 from typing import List
 
-from ...dissectors.tokenformat import STRING_ONLY, FORMAT_STRING, TokenParser
+from ...core.casts import STRING_ONLY
+from ...dissectors.tokenformat import FORMAT_STRING, TokenParser
 from . import NginxModule
 
 _PREFIX = "nginxmodule.kubernetes"

@@ -3,8 +3,8 @@ from __future__ import annotations
 
 from typing import List
 
+from ...core.casts import STRING_ONLY
 from ...dissectors.tokenformat import (
-    STRING_ONLY,
     FORMAT_NO_SPACE_STRING,
     FORMAT_STRING,
     TokenParser,

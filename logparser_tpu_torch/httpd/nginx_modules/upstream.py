@@ -1,25 +1,29 @@
-"""NGINX upstream module variables + the upstream list dissector's
-outputs (the port's copy of the reference package's
+"""NGINX upstream module variables + the upstream list dissector (the
+port's own copy of the reference package's
 ``httpd/nginx_modules/upstream.py``).
 
-Upstream variables are ``", "``-separated lists with ``": "`` redirect
-groups; the list dissector splits them into indexed ``N.value`` /
-``N.redirected`` outputs.  Its split is not on the device path yet: plan
-resolution reads only its input type and outputs, and a field through it
-raises ``UnsupportedFieldError``.
+Rebuild of .../nginxmodules/UpstreamModule.java and UpstreamListDissector.java:
+upstream variables are ``", "``-separated lists with ``": "`` redirect groups;
+the list dissector splits them into indexed ``N.value``/``N.redirected``
+outputs (UpstreamListDissector.java:78-109).
 """
 from __future__ import annotations
 
 from typing import FrozenSet, List, Optional
 
+from ...core.casts import (
+    Cast,
+    NO_CASTS,
+    STRING_ONLY,
+    STRING_OR_LONG,
+    STRING_OR_LONG_OR_DOUBLE,
+)
+from ...core.dissector import Dissector, extract_field_name
 from ...dissectors.tokenformat import (
     FORMAT_NO_SPACE_STRING,
     FORMAT_NUMBER,
     FORMAT_NUMBER_DECIMAL,
     FORMAT_STRING,
-    STRING_ONLY,
-    STRING_OR_LONG,
-    STRING_OR_LONG_OR_DOUBLE,
     NamedTokenParser,
     TokenParser,
 )
@@ -32,7 +36,7 @@ def _upstream_list_of(regex: str) -> str:
     return regex + "(?: *, *" + regex + "(?: *: *" + regex + ")?)*"
 
 
-class UpstreamListDissector:
+class UpstreamListDissector(Dissector):
     OUTPUT_ORIGINAL_NAME = ".value"
     OUTPUT_REDIRECTED_NAME = ".redirected"
 
@@ -40,9 +44,9 @@ class UpstreamListDissector:
         self,
         input_type: Optional[str] = None,
         output_original_type: Optional[str] = None,
-        output_original_casts: Optional[FrozenSet[str]] = None,
+        output_original_casts: Optional[FrozenSet[Cast]] = None,
         output_redirected_type: Optional[str] = None,
-        output_redirected_casts: Optional[FrozenSet[str]] = None,
+        output_redirected_casts: Optional[FrozenSet[Cast]] = None,
     ):
         self.input_type = input_type
         self.output_original_type = output_original_type
@@ -61,6 +65,45 @@ class UpstreamListDissector:
                 f"{self.output_redirected_type}:{i}{self.OUTPUT_REDIRECTED_NAME}"
             )
         return result
+
+    def prepare_for_dissect(self, input_name: str, output_name: str) -> FrozenSet[Cast]:
+        name = extract_field_name(input_name, output_name)
+        if name.endswith(self.OUTPUT_ORIGINAL_NAME):
+            return self.output_original_casts
+        if name.endswith(self.OUTPUT_REDIRECTED_NAME):
+            return self.output_redirected_casts
+        return NO_CASTS
+
+    def get_new_instance(self) -> "Dissector":
+        return UpstreamListDissector(
+            self.input_type,
+            self.output_original_type,
+            self.output_original_casts,
+            self.output_redirected_type,
+            self.output_redirected_casts,
+        )
+
+    def dissect(self, parsable, input_name: str) -> None:
+        field = parsable.get_parsable_field(self.input_type, input_name)
+        value = field.value.get_string()
+        if value is None:
+            return
+        for server_nr, server in enumerate(value.split(", ")):
+            parts = server.split(": ")
+            original = parts[0].strip()
+            redirected = parts[1].strip() if len(parts) > 1 else original
+            parsable.add_dissection(
+                input_name,
+                self.output_original_type,
+                f"{server_nr}{self.OUTPUT_ORIGINAL_NAME}",
+                original,
+            )
+            parsable.add_dissection(
+                input_name,
+                self.output_redirected_type,
+                f"{server_nr}{self.OUTPUT_REDIRECTED_NAME}",
+                redirected,
+            )
 
 
 class UpstreamModule(NginxModule):
@@ -117,7 +160,7 @@ class UpstreamModule(NginxModule):
                         "UPSTREAM_SECOND_MILLIS_LIST", STRING_ONLY, time_list),
         ]
 
-    def get_dissectors(self) -> List[UpstreamListDissector]:
+    def get_dissectors(self) -> List[Dissector]:
         return [
             UpstreamListDissector("UPSTREAM_ADDR_LIST",
                                   "UPSTREAM_ADDR", STRING_ONLY,

@@ -3,9 +3,8 @@ from __future__ import annotations
 
 from typing import List
 
+from ...core.casts import STRING_ONLY, STRING_OR_LONG
 from ...dissectors.tokenformat import (
-    STRING_ONLY,
-    STRING_OR_LONG,
     FORMAT_NO_SPACE_STRING,
     FORMAT_NUMBER_OPTIONAL_DECIMAL,
     FORMAT_STRING,

@@ -12,11 +12,12 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
   bundle of ``%t`` / ``$time_local`` and of each strftime ``%{format}t``
   type, the CLF <-> number conversions, NGINX's seconds-with-millis and
   milli -> micro conversions and upstream-list elements, mod_unique_id,
-  the ``type_remappings`` edges, and the GeoIP dissectors given as
-  ``extra_dissectors``); a field reached any other way, or by more than
-  one path, raises :class:`UnsupportedFieldError` naming the ROADMAP item
-  that brings it; a format the split cannot run becomes a
-  plausibility-only probe unit;
+  the ``type_remappings`` edges, a remapped wildcard parameter's screen
+  resolution, and the GeoIP dissectors given as ``extra_dissectors``); a
+  field reached any other way, or by more than one path, is a "host"
+  plan that the host oracle delivers, except the fields of a later slice
+  and fields with no producer, which raise :class:`UnsupportedFieldError`;
+  a format the split cannot run becomes a plausibility-only probe unit;
 - a batch goes host -> device once (framed straight into pinned memory
   by the native framer, or pinned after the numpy loop; ``non_blocking``
   copies), through the kernels (``UnitsExecutor``), and back once as the
@@ -35,10 +36,13 @@ The port of the reference package's ``tpu/batch.py`` for this slice:
   columns (vocabulary strings, NaN / -1 -> None); ``to_arrow`` builds
   the reference's Arrow columns.
 
-Lines the reference sends to its host oracle (device-invalid but still
-plausible, contested, truncated) are returned in ``needs_host`` with all
-fields None and ``valid`` False: the per-line oracle is a later slice.
-Definitely-bad lines (implausible for every format) are plain invalid.
+Lines the device cannot finish (invalid but still plausible, contested,
+truncated, or a query value whose decode fails) and lines won by a
+format that cannot supply every requested field go to the host oracle,
+the reference's per-line engine (``httpd.parser.HttpdLoglineParser``),
+one serial pass; their values are its values, and ``needs_host`` lists
+them.  Definitely-bad lines (implausible for every format) are invalid
+without a visit.
 
 ``aggregate_batch`` / ``aggregate_blob`` / ``aggregate_batch_stream``
 are the analytics pushdown: the same kernels, then the aggregate kernels
@@ -64,7 +68,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.casts import Cast
+from ..core.exceptions import OracleEngineError
 from ..dissectors.cookies import parse_attrs
+from ..dissectors.screenres import ScreenResolutionDissector
 from ..dissectors.strftime_stamp import UnsupportedStrfField, compile_strftime
 from ..dissectors.timelayout import APACHE_LAYOUT, TimeLayout
 from ..dissectors.tokenformat import STRING_ONLY, UnsupportedFormatError
@@ -75,6 +82,7 @@ from ..geoip.dissectors import AbstractGeoIPDissector
 from ..geoip.mmdb import MMDBReader
 from ..httpd.apache import ApacheLogFormat, looks_like_apache_format
 from ..httpd.nginx import NginxLogFormat, additional_consumers, looks_like_nginx_format
+from ..httpd.parser import HttpdLoglineParser
 from ..native import _count_lines, encode_blob, framer
 from ..parallel.mesh import (
     ShardedUnits,
@@ -199,30 +207,15 @@ def _strftime_layout(strfformat: str) -> Optional[TimeLayout]:
         return None
 
 
-# Where each unported edge lands in ROADMAP.md.
+# The fields this port does not deliver yet, and the ROADMAP item that
+# brings each; every other field the device cannot decode is a "host" plan,
+# delivered by the host oracle.
 _LATER = {
     "localized": "TIME.LOCALIZEDSTRING values of strftime timestamps "
                  "(ROADMAP queue A item 5)",
-    "timestamp": "the host oracle port (ROADMAP queue A item 6)",
-    "multi": "the host oracle port (ROADMAP queue A item 6): more than one producer",
     "none": "no producer in this LogFormat",
     "iso8601": "compile_java_pattern for TIME.ISO8601 (ROADMAP queue A item 5)",
-    "ulist": "the host oracle port (ROADMAP queue A item 6): "
-             "a numeric upstream-list element",
-    "binary_ip": "the host oracle port (ROADMAP queue A item 6): "
-                 "BinaryIPDissector (IP_BINARY)",
-    "geo": "the host oracle port (ROADMAP queue A item 6): "
-           "a GeoIP output without a device table",
-    "millis_to_micros": "the host oracle port (ROADMAP queue A item 6): "
-                        "a scaled plain long",
-    "extra": "the host oracle port (ROADMAP queue A item 6): an extra dissector",
-    "wild": "the host oracle port (ROADMAP queue A item 6): "
-            "a wildcard over a converted value",
 }
-
-
-def _host(field_id: str, why: str) -> FieldPlan:
-    return FieldPlan(field_id, "host", meta=_LATER[why])
 
 
 class TorchBatchParser:
@@ -295,26 +288,75 @@ class TorchBatchParser:
             self.units.append(FormatUnit(prog, plans,
                                          PackedLayout.for_plans(plans, self.csr_slots)))
         assign_row_offsets(self.units)
-        decoding = [u for u in self.units if not u.plausibility_only]
-        if not decoding:
+        if all(u.plausibility_only for u in self.units):
             raise UnsupportedFormatError(
                 f"no format of {log_format!r} compiles to a device split")
-        self.plan_by_id = {fid: decoding[0].plan_for(fid) for fid in self.requested}
-        for fid, plan in self.plan_by_id.items():
-            groups = {_plan_group(u.plan_for(fid)) for u in decoding}
-            if len(groups) != 1:
-                raise UnsupportedFieldError(
-                    f"{fid}: decoded differently per format ({sorted(groups)}); "
-                    f"needs {_LATER['timestamp']}"
-                )
-        self.view_specs = [
-            (fid, tuple(i for i, u in enumerate(self.units) if not u.plausibility_only))
-            for fid in self.requested if _plan_group(self.plan_by_id[fid]) == "span"
+        for fid in self.requested:
+            if all(u.plan_for(fid).meta == _LATER["none"]
+                   for u in self.units if not u.plausibility_only):
+                raise UnsupportedFieldError(f"{fid}: {_LATER['none']}")
+        # The merged plan of each field: the first non-host plan across the
+        # formats (the columns' kind); lines won by a format whose plan
+        # decodes differently, or not at all, take the field from the host
+        # oracle (_unit_decodable).
+        self.plan_by_id = {fid: self._merged_plan(fid) for fid in self.requested}
+        # Without a device field the row path runs no device pass.
+        self._device_fields = any(p.kind != "host" for u in self.units for p in u.plans)
+        self._build_oracle(log_format, type_remappings, extra_dissectors)
+        # Per unit: the fields the oracle supplies for the lines it wins.
+        self._unit_oracle_fields: List[List[str]] = [
+            [fid for fid in self.requested if not self._unit_decodable(u, fid)]
+            for u in self.units
         ]
+        self.view_specs = []
+        for fid in self.requested:
+            if _plan_group(self.plan_by_id[fid]) != "span":
+                continue
+            unit_idx = tuple(i for i, u in enumerate(self.units)
+                             if not u.plausibility_only and self._unit_decodable(u, fid))
+            if unit_idx:
+                self.view_specs.append((fid, unit_idx))
         self._sharded: Dict[bool, ShardedUnits] = {}   # by emit_views
         self._copy_stream = None   # the side stream of staged H2D copies
         # (canonical spec, device) -> (CSR slots it was built at, AggregateExecutor)
         self._agg_executors: Dict[Tuple[str, torch.device], Tuple[int, Any]] = {}
+
+    def _build_oracle(self, log_format: str, type_remappings, extra_dissectors) -> None:
+        """The host oracle (the reference's): a stateless multi-format root
+        -- a line's format is chosen by registration order alone, as on the
+        device -- with the same remappings and extra dissectors, delivering
+        every requested field; the casts of each field type its values."""
+        self.oracle = HttpdLoglineParser(_CollectingRecord, log_format)
+        self.oracle.all_dissectors[0].stateless = True
+        self.oracle.apply_config(type_remappings, extra_dissectors)
+        self.oracle.add_parse_target("set_value", list(self.requested))
+        self.oracle.assemble_dissectors()
+        casts = {fid: self.oracle.get_casts(fid) for fid in self.requested}
+        # Setter-cast dispatch flags (LONG, DOUBLE) per field.
+        self._cast_flags = {fid: (Cast.LONG in c, Cast.DOUBLE in c)
+                            for fid, c in casts.items() if c is not None}
+        # Long-overflow delivery per field: a STRING cast stores the digits
+        # (delivered as the exact int), LONG alone stores None, anything
+        # else re-parses the line on the host.
+        self._overflow_delivery = {
+            fid: ("int" if c is not None and Cast.STRING in c
+                  else "null" if c is not None and Cast.LONG in c and Cast.DOUBLE not in c
+                  else "oracle")
+            for fid, c in casts.items()}
+
+    def _merged_plan(self, field_id: str) -> FieldPlan:
+        for u in self.units:
+            p = u.plan_for(field_id)
+            if p.kind != "host":
+                return p
+        return FieldPlan(field_id, "host")
+
+    def _unit_decodable(self, unit: FormatUnit, field_id: str) -> bool:
+        """Can lines won by ``unit`` take this field from the device?"""
+        merged = self.plan_by_id[field_id]
+        if merged.kind == "host":
+            return False
+        return _plan_group(unit.plan_for(field_id)) == _plan_group(merged)
 
     @staticmethod
     def _build_mesh(data_parallel: Optional[int], device: torch.device):
@@ -363,26 +405,30 @@ class TorchBatchParser:
     # -- plan resolution -------------------------------------------------
 
     def _resolve(self, program: DeviceProgram, field_id: str) -> FieldPlan:
-        """The one device plan producing ``field_id``; raises unless
-        exactly one chase path reaches it and every step is ported."""
+        """The device plan producing ``field_id``, or a "host" plan (the
+        oracle delivers it) unless exactly one chase path reaches it and
+        every step is ported: with more than one producer the oracle
+        delivers every value in graph order and the record keeps the last.
+        Raises for the fields of a later slice (``_LATER``); a field with
+        no producer in this format is a host plan whose meta says so."""
         ftype, _, path = field_id.partition(":")
         candidates: List[FieldPlan] = []
         for tok in program.tokens:
             for out_type, out_name in tok.outputs:
                 candidates.extend(self._chase(
                     field_id, ftype, path, tok, out_type, out_name,
-                    vctx=("", "", 1), steps=(), device_ok=True, why="",
+                    vctx=("", "", 1), steps=(), device_ok=True, why=None,
                     depth=6, visited=frozenset(),
                 ))
         if len(candidates) == 1 and candidates[0].kind != "host":
             return candidates[0]
         if not candidates:
-            why = _LATER["none"]
-        elif len(candidates) > 1:
-            why = _LATER["multi"]
-        else:
-            why = candidates[0].meta
-        raise UnsupportedFieldError(f"{field_id}: {why}")
+            # Raised by __init__ when no format has a producer.
+            return FieldPlan(field_id, "host", meta=_LATER["none"])
+        later = [c.meta for c in candidates if c.kind == "host" and c.meta]
+        if later:
+            raise UnsupportedFieldError(f"{field_id}: {later[0]}")
+        return FieldPlan(field_id, "host")
 
     @staticmethod
     def _terminal_plan(field_id, tok, vctx, steps, device_ok, why) -> FieldPlan:
@@ -433,20 +479,19 @@ class TorchBatchParser:
         if consumer == "number_to_clf" and parse == "":
             return ("value", ("long", "zero_null", vctx[2]), steps, device_ok, why)
         if consumer == "muid":
-            return ("muid", vctx, steps, device_ok and parse == "",
-                    why or _LATER["timestamp"], oname, None)
+            return ("muid", vctx, steps, device_ok and parse == "", why, oname, None)
         if consumer == "secmillis" and parse == "":
             return ("value", ("secmillis", "", vctx[2]), steps, device_ok, why)
         if consumer == "millis_to_micros":
             # Only a seconds-with-millis value scales on the device.
             return ("value", (parse or "long", vctx[1], vctx[2] * 1000), steps,
-                    device_ok and parse == "secmillis", why or _LATER[consumer])
+                    device_ok and parse == "secmillis", why)
         if consumer == "geo":
             table = self._geo_table_for(dissector) if device_ok and parse == "" else None
             if table is not None and oname in table.columns:
                 tag = f"{type(dissector).__name__}:{dissector.database_file_name}"
                 return ("geo", vctx, steps, device_ok, why, oname, (tag, oname, table))
-            return ("geo", vctx, steps, False, why or _LATER["geo"], oname, None)
+            return ("geo", vctx, steps, False, why, oname, None)
         if consumer == "ulist":
             # An indexed upstream-list element; only a STRING-only output
             # is delivered from the span (numeric lists type their values
@@ -455,7 +500,7 @@ class TorchBatchParser:
             casts = (dissector.output_original_casts if which == "value"
                      else dissector.output_redirected_casts)
             ok = parse == "" and index.isdigit() and casts == STRING_ONLY
-            return ("ulist", vctx, steps, device_ok and ok, why or _LATER["ulist"],
+            return ("ulist", vctx, steps, device_ok and ok, why,
                     oname, (int(index), which) if index.isdigit() else None)
         if consumer == "firstline" and parse == "":
             return ("span", vctx, steps + (("fl", oname),), device_ok, why)
@@ -476,11 +521,10 @@ class TorchBatchParser:
                     dl = compile_layout_for_device(layout)
                 except ValueError:
                     dl = None   # a format the layout compiler rejects: host
-            return ("ts", vctx, steps, device_ok and dl is not None,
-                    why or _LATER["timestamp"], oname, dl)
+            return ("ts", vctx, steps, device_ok and dl is not None, why, oname, dl)
         if consumer == "iso8601":
             return ("ts", vctx, steps, False, why or _LATER["iso8601"], oname, None)
-        return ("value", vctx, steps, False, why or _LATER.get(consumer, _LATER["timestamp"]))
+        return ("value", vctx, steps, False, why or _LATER.get(consumer))
 
     def _chase(self, field_id, ftype, path, tok, t, name, vctx, steps,
                device_ok, why, depth, visited, remapped=False) -> List[FieldPlan]:
@@ -496,7 +540,8 @@ class TorchBatchParser:
         if not (name == "" or path == name or path.startswith(name + ".")):
             return []
         if depth == 0:
-            return [_host(field_id, "multi")]
+            # A truncated path may still be a producer: count it as host.
+            return [FieldPlan(field_id, "host")]
         visited = visited | {(t, name)}
         plans: List[FieldPlan] = []
         if not remapped:
@@ -510,6 +555,10 @@ class TorchBatchParser:
                 if oname == "*":
                     plans.extend(self._wildcard(field_id, ftype, path, tok, consumer,
                                                 ot, name, vctx, steps, device_ok, why))
+                    if not remapped:
+                        plans.extend(self._wildcard_remaps(
+                            field_id, ftype, path, tok, consumer, name, vctx, steps,
+                            device_ok))
                     continue
                 new_name = (name + "." + oname if name else oname) if oname else name
                 if not (path == new_name or path.startswith(new_name + ".")):
@@ -548,12 +597,12 @@ class TorchBatchParser:
             return []
         rest = path[len(name) + 1:]
         device = vctx[0] == "" and device_ok
-        mode = _CSR_MODE[consumer]
+        mode = _CSR_MODE.get(consumer)
         if ot == ftype:
-            if device:
+            if device and mode is not None:
                 return [FieldPlan(field_id, "qscsr", tok.index, steps, comp=rest,
                                   meta=mode)]
-            return [FieldPlan(field_id, "host", meta=why or _LATER["wild"])]
+            return [FieldPlan(field_id, "host", meta=why)]
         cname, _, attr = rest.rpartition(".")
         typed = ((ftype == "STRING" and attr in _SETCOOKIE_ATTRS)
                  or (ftype == "TIME.EPOCH" and attr == "expires"))
@@ -561,8 +610,48 @@ class TorchBatchParser:
             if device:
                 return [FieldPlan(field_id, "qscsr", tok.index, steps, comp=cname,
                                   meta=mode, attr=attr)]
-            return [FieldPlan(field_id, "host", meta=why or _LATER["wild"])]
+            return [FieldPlan(field_id, "host", meta=why)]
         return []
+
+    def _wildcard_remaps(self, field_id, ftype, path, tok, consumer, name, vctx,
+                         steps, device_ok) -> List[FieldPlan]:
+        """Plans through a wildcard parameter that a type remapping
+        re-types (the reference's query.res -> SCREENRESOLUTION): the
+        remapped value itself is a ``qscsr`` plan of a query or cookie
+        wildcard, a ScreenResolutionDissector's width / height one with
+        ``attr`` ("sres", separator, part); any other consumer of the
+        remapped type is a host producer."""
+        mode = {"querystring": "query", "cookies": "cookie"}.get(consumer)
+        device = mode is not None and vctx[0] == "" and device_ok
+        plans: List[FieldPlan] = []
+        prefix = name + "."
+        for remap_key, ntypes in self._remaps.items():
+            if not remap_key.startswith(prefix):
+                continue
+            param = remap_key[len(prefix):]
+            if path == remap_key:
+                plans.extend(FieldPlan(field_id, "qscsr", tok.index, steps, comp=param,
+                                       meta=mode) if device else FieldPlan(field_id, "host")
+                             for ntype in ntypes if ntype == ftype)
+                continue
+            if not path.startswith(remap_key + "."):
+                continue
+            sub = path[len(remap_key) + 1:]
+            for ntype in ntypes:
+                for _, outputs, d in self._consumers_of(ntype):
+                    for ot2, oname2 in outputs:
+                        if oname2 == sub and ot2 == ftype:
+                            if (device and isinstance(d, ScreenResolutionDissector)
+                                    and oname2 in ("width", "height")):
+                                plans.append(FieldPlan(
+                                    field_id, "qscsr", tok.index, steps, comp=param,
+                                    meta=mode, attr=("sres", d.separator, oname2)))
+                            else:
+                                plans.append(FieldPlan(field_id, "host"))
+                        elif sub.startswith(oname2 + "."):
+                            # Deeper chains through the remapped type: host.
+                            plans.append(FieldPlan(field_id, "host"))
+        return plans
 
     # -- parsing ---------------------------------------------------------
     #
@@ -674,7 +763,7 @@ class TorchBatchParser:
     def _stage_h2d(self, batch: "_Batch") -> None:
         """Start the batch's H2D copy on the side copy stream, so that it
         overlaps the work already on the card (a no-op on the CPU)."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self._device_fields:
             return
         with torch.cuda.device(self.device):
             if self._copy_stream is None:
@@ -682,9 +771,13 @@ class TorchBatchParser:
             self._upload(batch, self._copy_stream)
 
     def _dispatch(self, batch: "_Batch", emit_views: Optional[bool]) -> "_Pending":
-        """Enqueue the batch's device pass at the current slot count."""
-        executor = self._executor_for(emit_views)
+        """Enqueue the batch's device pass at the current slot count (none
+        when every requested field is the host oracle's, as in the
+        reference: the oracle then judges every line)."""
         pend = _Pending(batch, emit_views, self.csr_slots)
+        if not self._device_fields:
+            return pend
+        executor = self._executor_for(emit_views)
         if self.device.type == "cpu":
             t0 = time.perf_counter()
             B = batch.buf.shape[0]
@@ -725,6 +818,8 @@ class TorchBatchParser:
                 batch.add("d2h", ev[1].elapsed_time(ev[2]) / 1e3)
                 pend.packed = pend.host_out.numpy()
             packed = pend.packed
+            if packed is None:   # no device pass
+                return batch, packed, regrows
             row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
             if not ((row0 & CSR_OVERFLOW_BIT) != 0).any() or not self._grow_csr_slots():
                 return batch, packed, regrows
@@ -740,7 +835,7 @@ class TorchBatchParser:
                                    batch.overflow, packed)
         batch.add("materialize", time.perf_counter() - t1)
         result.stage_seconds = batch.stage
-        result.d2h_bytes = int(packed.nbytes)
+        result.d2h_bytes = 0 if packed is None else int(packed.nbytes)
         result.csr_regrows = regrows
         result.framer = batch.framer
         return result
@@ -884,40 +979,54 @@ class TorchBatchParser:
         n_device = int(np.count_nonzero(cls == 0))
         fold_rows = np.nonzero(cls == 1)[0]
         bad_rows = np.nonzero(cls == 2)[0]
+        reject_items = [(int(i), "implausible", _raw_line_bytes(lines[int(i)]))
+                        for i in bad_rows]
         needs_host = np.zeros(0, dtype=np.int64)
-        good = n_device
+        good, bad = n_device, len(bad_rows)
+        sub = None
         if len(fold_rows):
-            # Exactness fold: every flagged row replays the row path and is
-            # aggregated from its delivered values; rows that path leaves to
-            # the host oracle are reported, not counted.
+            # Exactness fold: every flagged row replays the row path (the
+            # host oracle's rescue included) and is aggregated from its
+            # delivered values.
             t2 = time.perf_counter()
-            sub = self.parse_batch([lines[int(i)] for i in fold_rows])
+            sub = self.parse_batch([lines[int(i)] for i in fold_rows], emit_views=False)
             state.update_from_result(sub)
             stage["fold"] = time.perf_counter() - t2
             needs_host = fold_rows[sub.needs_host].astype(np.int64)
-            sub_bad = ~sub.valid
-            sub_bad[sub.needs_host] = False
-            good += int(sub.valid.sum())
-            bad_rows = np.sort(np.concatenate([bad_rows, fold_rows[sub_bad]]))
+            good += sub.good_lines
+            bad += sub.bad_lines
+            reject_items += [(int(fold_rows[j]), reason, sub.raw_line(j))
+                             for j, reason in sub.reject_reasons.items()]
+            reject_items.sort(key=lambda item: item[0])
         row_bytes = 4 * B * (packed_row_count(self.units)
                              + VIEW_ROWS_PER_FIELD * len(self.view_specs))
-        return AggregateOutcome(
-            state, B, good, len(bad_rows), needs_host, bad_rows.astype(np.int64),
+        out = AggregateOutcome(
+            state, B, good, bad, needs_host, reject_items,
             device_rows=n_device, fold_rows=len(fold_rows), d2h_bytes=nbytes,
             row_path_d2h_bytes=row_bytes, stage_seconds=stage,
         )
+        if sub is not None:
+            out.rescue_reasons, out.rescue_wall_s = sub.rescue_reasons, sub.rescue_wall_s
+        return out
 
     def _materialize(self, lines, buf, lengths, overflow, packed) -> "BatchResult":
-        """Per-line verdicts (the reference's _fetch_packed) and the span /
-        long / ts columns (its _materialize_packed) from the packed rows."""
+        """Per-line verdicts (the reference's _fetch_packed), the span /
+        long / ts columns (its _materialize_packed) from the packed rows,
+        and the host oracle's rescue of the rows the device cannot finish."""
         B = len(lines)
-        row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
-        validity = (row0 & 1) != 0
-        plausible = (row0 & 2) != 0
-        valid = validity.any(axis=0)
-        winner = np.where(valid, validity.argmax(axis=0), -1)
-        plausible_any = plausible.any(axis=0)
-        if len(self.units) > 1:
+        if packed is None:
+            # No device verdict: the oracle judges every line.
+            valid = np.zeros(B, dtype=bool)
+            winner = np.full(B, -1, dtype=np.int64)
+            plausible_any = np.ones(B, dtype=bool)
+        else:
+            row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
+            validity = (row0 & 1) != 0
+            plausible = (row0 & 2) != 0
+            valid = validity.any(axis=0)
+            winner = np.where(valid, validity.argmax(axis=0), -1)
+            plausible_any = plausible.any(axis=0)
+        if packed is not None and len(self.units) > 1:
             earlier = np.cumsum(plausible, axis=0) - plausible
             contested = np.take_along_axis(
                 earlier, np.maximum(winner, 0)[None, :], axis=0
@@ -944,9 +1053,11 @@ class TorchBatchParser:
                 col["fix_mode"] = (merged.steps[-1][1] if merged.steps
                                    and merged.steps[-1][0] == "uri" else "")
             columns[fid] = col
-            if group == "wild":
-                continue  # query parameters: _materialize_csr below
+            if group in ("wild", "host"):
+                continue  # _materialize_csr below / the oracle
             for ui, u in enumerate(self.units):
+                if not self._unit_decodable(u, fid):
+                    continue   # lines won by this unit take the oracle's value
                 sel = winner == ui
                 if not sel.any():
                     continue
@@ -1028,21 +1139,25 @@ class TorchBatchParser:
                     if plan.null_mode == "dash_zero":
                         col["null_zero"] = np.where(sel, True, col["null_zero"])
 
-        # Long overflow (every direct token of this port has a STRING cast,
-        # so the reference delivers the exact integer): 19-digit values
-        # beyond Long.MAX from the uint64 frame, >19-digit runs
-        # byte-patched from the buffer; a run whose unchecked tail is not
-        # all digits, and any overflow of a chained long (the URI port)
-        # or of the number -> CLF conversion, goes to the host like a
-        # device reject.
+        # Long overflow: 19-digit values beyond Long.MAX from the uint64
+        # frame, >19-digit runs byte-patched from the buffer, delivered as
+        # the oracle's casts would (_overflow_delivery); a run whose
+        # unchecked tail is not all digits, and an overflow of any other
+        # plan, re-parses the line on the host.
         overrides: Dict[str, Dict[int, Any]] = {fid: {} for fid in columns}
         demoted = set()
         span_mask = (1 << _SPAN_BITS) - 1
         for fid, plan, big_rows, ovf_rows, wide, hi_row in patches:
-            if plan.steps or plan.null_mode == "zero_null":
+            mode = self._overflow_delivery.get(fid, "oracle")
+            if (plan.kind != "long" or plan.steps or plan.scale != 1
+                    or plan.null_mode == "zero_null" or mode not in ("int", "null")):
                 demoted.update(int(i) for i in np.nonzero(big_rows | ovf_rows)[0])
                 continue
             ov = overrides[fid]
+            if mode == "null":
+                for i in np.nonzero(big_rows | ovf_rows)[0]:
+                    ov[int(i)] = None
+                continue
             for i in np.nonzero(ovf_rows)[0]:
                 ov[int(i)] = int(wide[i])
             for i in np.nonzero(big_rows)[0]:
@@ -1060,18 +1175,114 @@ class TorchBatchParser:
             plausible_any[i] = True
             for ov in overrides.values():
                 ov.pop(i, None)
+        inv = ~valid
+        bad = int(np.count_nonzero(inv & ~plausible_any))
+        invalid_rows = set(np.nonzero(inv & plausible_any)[0].tolist())
+        # Every row that ends invalid carries a reason: "implausible" (no
+        # format plausible, no oracle visit), "oracle_reject" (the oracle
+        # refused it) or "oracle_error" (the oracle itself failed).
+        reject_reasons: Dict[int, str] = {
+            int(i): "implausible" for i in np.nonzero(inv & ~plausible_any)[0]}
+        # The oracle visits the lines no format accepted (but some format
+        # could still match) and the lines won by a format that cannot
+        # supply every requested field.
+        need_oracle = set(invalid_rows)
+        for ui, flds in enumerate(self._unit_oracle_fields):
+            if flds:
+                need_oracle.update(np.nonzero(winner == ui)[0].tolist())
         # Query parameters; a value whose decode fails fails the line on
         # the host, so those rows go there.
         for i in self._materialize_csr(packed, winner, valid, columns, overrides,
                                        buf, B):
             valid[i] = False
             winner[i] = -1
-            plausible_any[i] = True
             for ov in overrides.values():
                 ov.pop(i, None)
-        needs_host = np.nonzero(~valid & plausible_any)[0].astype(np.int64)
-        return BatchResult(lines, buf, lengths, valid, columns, overrides,
-                           needs_host, winner)
+            invalid_rows.add(i)
+            need_oracle.add(i)
+        overflow_rows = {int(i) for i in overflow if 0 <= int(i) < B}
+        rescue_reasons = {"overflow": 0, "device_reject": 0, "host_fields": 0}
+        if need_oracle:
+            rescue_reasons["overflow"] = len(overflow_rows & need_oracle)
+            rescue_reasons["device_reject"] = len(invalid_rows - overflow_rows)
+            rescue_reasons["host_fields"] = len(need_oracle - invalid_rows - overflow_rows)
+        t_oracle = time.perf_counter()
+        oracle_rows = sorted(need_oracle)
+        results = self._run_oracle_many([lines[i] for i in oracle_rows])
+        plans: Dict[Tuple[bool, int], tuple] = {}
+        for i, values in zip(oracle_rows, results):
+            is_invalid = i in invalid_rows
+            if values is None or isinstance(values, OracleEngineError):
+                # The oracle refused the line (or failed on it): an invalid
+                # line is a reject; a device-valid one keeps its device
+                # columns, its host fields unresolved.
+                if is_invalid:
+                    bad += 1
+                    reject_reasons[i] = ("oracle_error" if isinstance(
+                        values, OracleEngineError) else "oracle_reject")
+                continue
+            if is_invalid:
+                valid[i] = True
+            key = (is_invalid, int(winner[i]))
+            if key not in plans:
+                plans[key] = self._delivery_plan(
+                    self.requested if is_invalid else self._unit_oracle_fields[winner[i]],
+                    int(winner[i]), overrides)
+            concrete, wild = plans[key]
+            for fid, ov, mode in concrete:
+                v = values.get(fid)
+                if v is None or mode == "plain":
+                    ov[i] = v
+                elif mode == "num":
+                    try:
+                        ov[i] = int(v)
+                    except (TypeError, ValueError):
+                        ov[i] = None
+                else:
+                    ov[i] = _apply_setter_casts(v, *mode)
+            for fid, ov, prefix in wild:
+                # {relative name: value} from every delivered field under the
+                # prefix (the oracle stores them under their TYPE:path ids).
+                ov[i] = {k[len(prefix):]: v for k, v in values.items()
+                         if k.startswith(prefix)}
+        result = BatchResult(lines, buf, lengths, valid, columns, overrides,
+                             np.asarray(oracle_rows, dtype=np.int64), winner)
+        result.good_lines = B - bad
+        result.bad_lines = bad
+        result.reject_reasons = reject_reasons
+        result.rescue_reasons = rescue_reasons
+        result.rescue_wall_s = time.perf_counter() - t_oracle
+        return result
+
+    def _delivery_plan(self, fields, winner: int, overrides):
+        """How the oracle's values of ``fields`` are delivered on a line
+        won by ``winner`` (-1: none): (concrete [(fid, overrides, mode)],
+        wildcards [(fid, overrides, prefix)]); the mode types the value as
+        the winner's column would ("num"), by the field's setter casts
+        ((has LONG, has DOUBLE)), or not at all ("plain")."""
+        concrete, wild = [], []
+        for fid in fields:
+            if fid.endswith(".*"):
+                wild.append((fid, overrides[fid], fid[:-1]))
+                continue
+            plan = self.units[winner].plan_for(fid) if winner >= 0 else self.plan_by_id[fid]
+            flags = self._cast_flags.get(fid)
+            if _plan_group(plan) == "numeric":
+                mode = "num"
+            elif flags and (flags[0] or flags[1]):
+                mode = flags
+            else:
+                mode = "plain"
+            concrete.append((fid, overrides[fid], mode))
+        return concrete, wild
+
+    def _run_oracle_many(self, lines) -> List[Any]:
+        """The oracle over ``lines``, one serial pass: per line its values
+        dict, None (refused) or an OracleEngineError."""
+        decoded = [ln.decode("utf-8", errors="replace") if isinstance(ln, bytes) else ln
+                   for ln in lines]
+        return [rec if rec is None or isinstance(rec, OracleEngineError) else rec.values
+                for rec in self.oracle.parse_many(decoded, _CollectingRecord)]
 
     def _materialize_csr(self, packed, winner, valid, columns, overrides, buf, B) -> set:
         """Query-string parameters, cookies and Set-Cookie cookies from the
@@ -1157,6 +1368,16 @@ class TorchBatchParser:
                     if p.comp == "*":
                         ov.update(segs.dicts())
                         ov.update((i, d) for i, d in slow_dicts.items() if d is not None)
+                    elif isinstance(p.attr, tuple):
+                        # A remapped screen resolution: the last segment's
+                        # value split on the separator.
+                        texts = segs.last_values(p.comp)
+                        texts.update((i, d.get(p.comp)) for i, d in slow_dicts.items() if d)
+                        for i, text in texts.items():
+                            value = _sres_value(p.attr, text)
+                            if value is not None:
+                                ov[i] = _apply_setter_casts(
+                                    value, *self._cast_flags.get(fid, (False, False)))
                     elif p.attr:
                         akey = ("expires_epoch" if p.attr == "expires"
                                 and fid.startswith("TIME.EPOCH:") else p.attr)
@@ -1319,6 +1540,51 @@ def _fix_uri_part(value: str, mode: str) -> str:
     if mode in ("path", "userinfo"):
         value = _percent_decode(value)
     return value
+
+
+def _raw_line_bytes(line) -> bytes:
+    """One line as ingested bytes (strings UTF-8, surrogates escaped)."""
+    if isinstance(line, bytes):
+        return line
+    if isinstance(line, (bytearray, memoryview)):
+        return bytes(line)
+    return str(line).encode("utf-8", errors="surrogateescape")
+
+
+def _sres_value(attr, text: Optional[str]) -> Optional[str]:
+    """ScreenResolutionDissector on one value: the part before / after the
+    separator; None (nothing delivered) without one."""
+    _, sep, part = attr
+    if text and sep in text:
+        parts = text.split(sep)
+        return parts[0] if part == "width" else parts[1]
+    return None
+
+
+def _apply_setter_casts(value, has_long: bool, has_double: bool):
+    """The record setter's dispatch: LONG, then DOUBLE, then the value as
+    it is."""
+    if has_long:
+        try:
+            return int(value)
+        except (TypeError, ValueError):
+            pass
+    if has_double:
+        try:
+            return float(value)
+        except (TypeError, ValueError):
+            pass
+    return value
+
+
+class _CollectingRecord:
+    """The oracle's record: every delivered value by field id."""
+
+    def __init__(self) -> None:
+        self.values: Dict[str, Any] = {}
+
+    def set_value(self, name: str, value) -> None:
+        self.values[name] = value
 
 
 # Octet -> its decimal text, for dotted quads.
@@ -1525,7 +1791,9 @@ def _plan_group(plan: FieldPlan) -> str:
 
 
 def _empty_column(group: str, B: int) -> Dict[str, Any]:
-    if group in ("span", "wild"):
+    """A column's arrays before any unit fills them (a "host" column is
+    never filled: every value is an oracle override)."""
+    if group in ("span", "wild", "host"):
         col = {"kind": "span", "starts": np.zeros(B, dtype=np.int32),
                "ends": np.zeros(B, dtype=np.int32),
                "ok": np.zeros(B, dtype=bool), "null": np.zeros(B, dtype=bool)}
@@ -1543,9 +1811,17 @@ def _empty_column(group: str, B: int) -> Dict[str, Any]:
 class BatchResult:
     """Columnar parse result over one batch.
 
-    ``valid[i]`` is the device verdict; ``needs_host`` lists the rows the
-    reference would re-parse on its host oracle (their fields read None
-    here); ``format_index[i]`` is the winning format (-1 = none)."""
+    ``valid[i]`` is the line's verdict, the host oracle's on the rows it
+    visited; ``needs_host`` (the reference's ``oracle_row_ids``) lists the
+    rows the oracle visited -- lines the device could not accept but some
+    format could still match, truncated lines, and lines won by a format
+    that cannot supply every requested field -- and their values are the
+    oracle's; ``format_index[i]`` is the winning format (-1 = none).
+    ``reject_reasons`` maps every invalid row to "implausible",
+    "oracle_reject" or "oracle_error"; ``rescue_reasons`` counts the
+    visited rows by why they left the device ("overflow",
+    "device_reject", "host_fields"); ``rescue_wall_s`` is the oracle's
+    wall time."""
 
     def __init__(self, lines, buf, lengths, valid, columns, overrides,
                  needs_host, format_index):
@@ -1558,10 +1834,29 @@ class BatchResult:
         self.needs_host = needs_host
         self.format_index = format_index
         self.lines_read = len(lines)
+        self.good_lines = int(np.count_nonzero(valid))
+        self.bad_lines = self.lines_read - self.good_lines
+        self.reject_reasons: Dict[int, str] = {}
+        self.rescue_reasons: Dict[str, int] = {}
+        self.rescue_wall_s = 0.0
         self.stage_seconds: Dict[str, float] = {}
         self.d2h_bytes = 0
         self.csr_regrows = 0
         self.framer: Optional[str] = None   # "native" or "numpy"
+
+    @property
+    def oracle_row_ids(self) -> np.ndarray:
+        """The reference's name for ``needs_host``."""
+        return self.needs_host
+
+    @property
+    def oracle_rows(self) -> int:
+        """How many rows the oracle visited."""
+        return len(self.needs_host)
+
+    def raw_line(self, i: int) -> bytes:
+        """The raw bytes of line ``i`` as ingested (strings UTF-8)."""
+        return _raw_line_bytes(self._lines[i])
 
     def field_ids(self) -> List[str]:
         return list(self._columns)

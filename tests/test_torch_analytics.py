@@ -7,9 +7,10 @@ the reference's ``build_aggregate_fn`` outputs (``cls``, ``n_device``,
 version the reference's groups in canonical ``{key bytes: count}`` form
 (the reference may split one key in two groups; the port may not).  End
 to end: ``TorchBatchParser(..., device="cpu").aggregate_batch`` equals
-``TpuBatchParser.aggregate_batch`` over the lines outside the port's
-``needs_host``, and ``needs_host`` is exactly the folded rows the
-reference replays into its host oracle.  Then the reference's own cases
+``TpuBatchParser.aggregate_batch`` over the whole batch (state, good /
+bad counts, ``oracle_rows``, ``reject_items``), the rows its host oracle
+rescues folded in, and ``needs_host`` is exactly the folded rows the
+reference replays into its oracle.  Then the reference's own cases
 (tests/test_analytics.py), each held to the port's row-path referee.
 """
 import functools
@@ -440,7 +441,8 @@ def test_truncated_and_overflowing_lines_fold():
     assert cls.tolist() == [0, 1, 1]
     out = p.aggregate_batch(lines, sp)
     assert out.fold_rows == 2 and out.needs_host.tolist() == [1]
-    assert out.state.data[0] == 2
+    # The truncated line is the host oracle's, and valid: all three count.
+    assert out.state.data[0] == 3 and out.reject_items == []
 
 
 def test_empty_batch():

@@ -3,7 +3,8 @@ reference bench's ``representative_spec`` (count, count_by and top_k on
 the first string field, sum on the first numeric field, an hourly
 time_bucket on the first epoch field) on the strftime and NGINX
 configurations, held to ``TpuBatchParser.aggregate_batch`` (state,
-``needs_host`` = the reference's oracle rows among the folded ones).
+``needs_host`` = the reference's oracle rows among the folded ones,
+whose rescued values are folded in).
 Where the spec's field has no device lane (NGINX's ``$msec`` epoch and
 ``$request_time`` are seconds-with-millis values) every row folds to the
 row path, as in the reference.

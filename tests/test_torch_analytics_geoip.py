@@ -2,7 +2,8 @@
 reference bench's ``representative_spec`` on the URI chain (its string
 field is the client IP) and on both GeoIP configurations, held to
 ``TpuBatchParser(..., extra_dissectors=[...]).aggregate_batch`` (state,
-``needs_host`` = the reference's oracle rows among the folded ones); and
+``needs_host`` = the reference's oracle rows among the folded ones,
+whose rescued values are folded in); and
 a count_by over a GeoIP country, an ``obj`` field with no device lane,
 which folds every row it reads to the row path.
 """

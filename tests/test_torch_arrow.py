@@ -7,16 +7,14 @@ combinedio_strftime, strftime_zonetext, geoip_chain, nginx_uri,
 nginx_timing, cookies_uniqueid), a few hundred generated lines plus each
 configuration's edge lines: with ``strings="copy"`` the tables are equal
 (``Table.equals``: types, nulls, values, the ``__valid__`` column), with
-``strings="view"`` the schemas and values are, on every row the
-reference decodes on device (the rows it gives its host oracle are
-``needs_host`` in the port).  Also the three faults this repairs: a long
+``strings="view"`` the schemas and values are, on every row, the rows
+the host oracle rescues (``needs_host``) included.  Also the three faults this repairs: a long
 at or past 2^63 reads null in the int64 column, a query-string wildcard
 is a ``map<string, string>``, and the signature has the reference's
 parameters.
 """
 import os
 
-import numpy as np
 import pyarrow as pa
 import pytest
 
@@ -26,7 +24,7 @@ from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser
 from logparser_tpu_torch.geoip import GeoIPASNDissector, GeoIPCityDissector
 from logparser_tpu_torch.tools import demolog, geoip_testdata
-from test_torch_harness import EDGE_LINES
+from test_torch_harness import EDGE_LINES, assert_results_equal
 
 _E = '1.2.3.4 - - [01/Jan/2024:10:00:00 +0000] "GET /x HTTP/1.1" 200 '
 BIG_LINES = [_E + '9223372036854775808 "-" "u"', _E + '12345678901234567890 "-" "u"']
@@ -88,19 +86,15 @@ def _pair(name):
                                   "nginx_timing", "cookies_uniqueid"])
 def test_to_arrow_matches_reference(name):
     ref, ours, lines = _pair(name)
-    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    keep = np.array([i for i in range(len(lines)) if i not in host], dtype=np.int64)
+    assert_results_equal(ours, ref)
     got = ours.to_arrow(strings="copy")
     want = ref.to_arrow(include_validity=True, strings="copy")
     assert got.column_names == want.column_names and got.column_names[-1] == "__valid__"
-    assert got.take(keep).equals(want.take(keep)), [
-        n for n in want.column_names
-        if not got.column(n).take(keep).equals(want.column(n).take(keep))]
+    assert got.equals(want), [
+        n for n in want.column_names if not got.column(n).equals(want.column(n))]
     got_v, want_v = ours.to_arrow(), ref.to_arrow()
     assert got_v.schema.equals(want_v.schema)
-    rows_g, rows_w = got_v.to_pylist(), want_v.to_pylist()
-    assert all(rows_g[i] == rows_w[i] for i in keep.tolist())
+    assert got_v.to_pylist() == want_v.to_pylist()
 
 
 def test_longs_past_int64_read_null():

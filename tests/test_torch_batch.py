@@ -1,14 +1,14 @@
 """End to end on the CPU: TorchBatchParser equals TpuBatchParser.
 
 ``to_dict()`` of the port (plain versions of the kernels on the CPU) must
-equal the reference's on every row the reference decodes on device, and
-``needs_host`` must be exactly the rows the reference routes to its host
-oracle.  The corpus is the benchmark's (in-repo generator, seed 42, 1%
+equal the reference's on every row, the rows its host oracle rescues
+included, and ``needs_host`` must be exactly the rows the reference
+routes to its oracle (``valid``, ``reject_reasons`` and
+``rescue_reasons`` equal too).  The corpus is the benchmark's (in-repo generator, seed 42, 1%
 garbage) plus crafted edge lines; the URI chain adds the seed-53 corpus,
 its own edge lines, a batch that regrows the query-string slots and one
 that overflows at the 128-slot cap.
 """
-import numpy as np
 import pytest
 import torch
 
@@ -16,7 +16,13 @@ from logparser_tpu.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
 from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser, UnsupportedFieldError
 from logparser_tpu_torch.tools.demolog import URI_CHAIN_FIELDS, uri_edge_lines
-from test_torch_harness import EDGE_LINES, corpus, reference_parser
+from test_torch_harness import (
+    EDGE_LINES,
+    assert_parse_matches_reference,
+    assert_results_equal,
+    corpus,
+    reference_parser,
+)
 
 CONFIGS = [
     ("combined", HEADLINE_FIELDS),
@@ -45,18 +51,7 @@ def _compare(fmt, fields, lines):
         else reference_parser(fmt, fields)
     ref = ref_parser.parse_batch(lines)
     ours = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
-    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    got, want = ours.to_dict(), ref.to_dict()
-    assert list(got) == list(want)
-    for fid in want:
-        for i, (a, b) in enumerate(zip(got[fid], want[fid])):
-            if i in host:
-                assert a is None and not ours.valid[i], (fid, i)
-            else:
-                assert a == b and type(a) is type(b), (fid, i, a, b)
-    on_device = ~np.isin(np.arange(len(lines)), ours.needs_host)
-    np.testing.assert_array_equal(ours.valid[on_device], ref.valid[on_device])
+    assert_results_equal(ours, ref)
     if _grows(fields):
         assert ours.buf.shape == ref.buf.shape
     return ours, ref
@@ -105,12 +100,24 @@ def test_stage_seconds_are_recorded():
     ("%h [%{%d/%b/%Y}t] %>s", "TIME.LOCALIZEDSTRING:request.receive.time", 5),
     # NGINX $time_iso8601 (compile_java_pattern)
     ("$remote_addr [$time_iso8601] $status", "TIME.EPOCH:request.receive.time.epoch", 5),
-    # an IP_BINARY output (the host oracle)
-    ("$binary_remote_addr $status", "IP:connection.client.host", 6),
 ])
 def test_unsupported_field_raises(fmt, field, item):
     with pytest.raises(UnsupportedFieldError, match=f"ROADMAP queue A item {item}"):
         TorchBatchParser(fmt, ["STRING:request.status.last", field], device="cpu")
+
+
+BINARY_IP_LINES = ["\\x7F\\x00\\x00\\x01 200", "\\xC0\\xA8\\x01\\x80 404",
+                   "\\xc0\\xa8\\x01 500", "1.2.3.4 200", "- 301", "", "x"]
+
+
+def test_binary_ip_is_delivered_by_the_host_oracle():
+    """$binary_remote_addr's IP (BinaryIPDissector, a host plan) equals the
+    reference on every line; the status stays a device span."""
+    fields = ["STRING:request.status.last", "IP:connection.client.host"]
+    ours = assert_parse_matches_reference("$binary_remote_addr $status", fields,
+                                          BINARY_IP_LINES)
+    assert ours.to_pylist(fields[1])[:2] == ["127.0.0.1", "-64.-88.1.-128"]
+    assert ours.rescue_reasons["host_fields"] == 5
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -28,7 +28,7 @@ from logparser_tpu_torch.dissectors import cookies
 from logparser_tpu_torch.tools.demolog import cookie_lines
 from logparser_tpu_torch.tpu import kernels, postproc
 from logparser_tpu_torch.tpu.runtime import encode_batch
-from test_torch_harness import packed_mismatch
+from test_torch_harness import assert_results_equal, packed_mismatch
 
 ALPHABET = np.frombuffer(b",,  ;;==ExPiREs-setCOOKIE:a0%+", dtype=np.uint8)
 PREFIX = '1.1.1.1 - - [07/Mar/2026:10:00:00 +0000] "GET /x HTTP/1.1" 200 5 '
@@ -142,14 +142,7 @@ def test_reference_cases_match(case):
     if ref.csr_slots > 16:   # the packed words again at the grown slots
         assert packed_mismatch(ref, lines) is None
     ours = TorchBatchParser(fmt, fields, device="cpu").parse_batch(lines)
-    assert ours.needs_host.tolist() == want.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    g, w = ours.to_dict(), want.to_dict()
-    for fid in fields:
-        for i in range(len(lines)):
-            if i not in host:
-                assert g[fid][i] == w[fid][i] and type(g[fid][i]) is type(w[fid][i]), \
-                    (fid, values[i], g[fid][i], w[fid][i])
+    host = assert_results_equal(ours, want, fields)
     assert ours.csr_regrows == (0 if case == "attrs" else 1)
     if case == "setcookie":
         assert len(host) == 3       # the double hold and the two prefixes

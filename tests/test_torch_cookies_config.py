@@ -4,16 +4,15 @@
 remapping over ``cookie_lines(2000)`` plus ``cookie_edge_lines()``:
 ``TorchBatchParser(device="cpu")`` against ``TpuBatchParser`` on the
 packed ``[K + 4V, B]`` words, ``needs_host``, ``to_dict()`` and Arrow (``strings="copy"`` tables equal,
-``strings="view"`` schema and values equal) on every row the reference
-decodes on device; the port regrows its slots 16 -> 128 as the
+``strings="view"`` schema and values equal) on every row, the host
+oracle's included; the port regrows its slots 16 -> 128 as the
 reference does.
 """
-import numpy as np
 import pytest
 
 from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser
-from test_torch_harness import packed_mismatch
+from test_torch_harness import assert_results_equal, packed_mismatch
 
 from logparser_tpu_torch.tools.demolog import (
     COOKIE_FIELDS,
@@ -41,7 +40,8 @@ def test_cookies_uniqueid_matches_reference(cookie_reference):
     equal the reference executor's; the port regrows 16 -> 128 slots;
     needs_host, to_dict(),
     to_arrow(strings="copy") (Table.equals) and the string_view schema
-    and values equal the reference's on every row it decodes on device."""
+    and values equal the reference's on every row, the host oracle's
+    included."""
     ref_p = cookie_reference
     assert ref_p._unit_oracle_fields == [[]]
     lines = cookie_lines(2000) + cookie_edge_lines()
@@ -51,21 +51,13 @@ def test_cookies_uniqueid_matches_reference(cookie_reference):
                               type_remappings=COOKIE_REMAPPINGS)
     ours = ours_p.parse_batch(lines)
     assert ours.csr_regrows == 3 and ours_p.csr_slots == 128
-    assert ours.needs_host.tolist() == want.oracle_row_ids.tolist()
-    assert len(lines) - 1 in ours.needs_host.tolist()          # past the cap
-    host = set(ours.needs_host.tolist())
-    keep = np.array([i for i in range(len(lines)) if i not in host])
-    g, w = ours.to_dict(), want.to_dict()
-    for fid in COOKIE_FIELDS:
-        for i in keep.tolist():
-            assert g[fid][i] == w[fid][i] and type(g[fid][i]) is type(w[fid][i]), \
-                (fid, i, g[fid][i], w[fid][i])
-    assert ours.to_arrow(strings="copy").take(keep).equals(
-        want.to_arrow(include_validity=True, strings="copy").take(keep))
+    host = assert_results_equal(ours, want, COOKIE_FIELDS)
+    assert len(lines) - 1 in host          # past the cap: the oracle's values
+    assert ours.to_arrow(strings="copy").equals(
+        want.to_arrow(include_validity=True, strings="copy"))
     a, b = ours.to_arrow(), want.to_arrow()
     assert a.schema.equals(b.schema)
-    pa_, pb = a.to_pylist(), b.to_pylist()
-    assert all(pa_[i] == pb[i] for i in keep.tolist())
+    assert a.to_pylist() == b.to_pylist()
     sid = ours.to_pylist("HTTP.COOKIE:request.cookies.sid")
     assert sum(v is not None for v in sid) > 400
     exp = ours.to_pylist("TIME.EPOCH:response.cookies.sid.expires")

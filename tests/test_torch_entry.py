@@ -2,16 +2,16 @@
 
 - ``TorchBatchParser.parse_blob`` against ``TpuBatchParser.parse_blob`` on
   the same blob (CRLF on some lines, a trailing newline): ``needs_host``
-  is the reference's oracle rows, and ``to_dict()`` and
-  ``to_arrow(strings="copy")`` equal the reference's on every other row
+  is the reference's oracle rows, and ``to_dict()``, ``valid`` and
+  ``to_arrow(strings="copy")`` equal the reference's on every row
   -- on headline and on the URI chain, where the port regrows its CSR
   slots 16 -> 32 inside the call (the reference parser is grown to 32
   before its first batch: one compile, values do not depend on the slot
   count; the URI edge line past the 128-slot cap is left to the stream
   tests, which regrow to 128 on the port alone);
 - ``aggregate_blob`` against the reference's ``aggregate_blob`` over the
-  lines outside the port's ``needs_host`` (the reference's host oracle
-  gives those rows values; the port leaves them to the host);
+  same lines, the host oracle's rows folded in (state, counts,
+  ``oracle_rows``, ``reject_items``);
 - ``parse_batch_stream`` at depth 1 and 2, with the staged H2D on and off,
   and ``aggregate_batch_stream(depth=2)`` against one ``parse_batch`` /
   ``aggregate_batch`` per batch, across a mid-stream regrow;
@@ -19,7 +19,6 @@
 
 Inputs come from the seeded generator; every comparison is exact.
 """
-import numpy as np
 import pytest
 
 from logparser_tpu.tpu.batch import TpuBatchParser
@@ -28,7 +27,7 @@ from logparser_tpu_torch import TorchBatchParser
 from logparser_tpu_torch.tools import demolog
 from logparser_tpu_torch.tpu import batch as batch_mod
 from logparser_tpu_torch.tpu.batch import _BlobLines, _SliceLines
-from test_torch_harness import EDGE_LINES, reference_parser
+from test_torch_harness import EDGE_LINES, assert_results_equal, reference_parser
 
 N = 600
 
@@ -70,17 +69,11 @@ def test_parse_blob_equals_the_reference(blob_pair):
     name, lines, blob, want, got, parser = blob_pair
     assert got.framer == "native" and got.lines_read == want.lines_read == len(lines)
     assert got.csr_regrows == (1 if name == "uri_chain" else 0)
-    assert got.needs_host.tolist() == want.oracle_row_ids.tolist()
-    host = set(got.needs_host.tolist())
-    keep = np.array([i for i in range(len(lines)) if i not in host], dtype=np.int64)
-    assert len(keep) > 0.9 * len(lines)
-    got_d, want_d = got.to_dict(), want.to_dict()
-    assert list(got_d) == list(want_d)
-    for fid in want_d:
-        assert [got_d[fid][i] for i in keep] == [want_d[fid][i] for i in keep], fid
+    host = assert_results_equal(got, want)
+    assert len(host) < 0.1 * len(lines)
     got_t = got.to_arrow(strings="copy")
     want_t = want.to_arrow(include_validity=True, strings="copy")
-    assert got_t.take(keep).equals(want_t.take(keep))
+    assert got_t.equals(want_t)
 
 
 def test_parse_blob_equals_parse_batch_of_its_lines(blob_pair):
@@ -106,13 +99,14 @@ def test_aggregate_blob_equals_the_reference():
     assert len(out.needs_host) and out.fold_rows >= 4
     same = ours.aggregate_batch(lines, demolog.DASHBOARD_OPS)
     assert out.state == same.state and out.needs_host.tolist() == same.needs_host.tolist()
-    host = set(out.needs_host.tolist())
-    keep = [ln for i, ln in enumerate(lines) if i not in host]
     ref = reference_parser("combined", demolog.HEADLINE_FIELDS)
-    want = ref.aggregate_blob(_blob(keep, crlf_every=3), demolog.DASHBOARD_OPS)
+    want = ref.aggregate_blob(_blob(lines, crlf_every=3), demolog.DASHBOARD_OPS)
     assert out.state.summary() == want.state.summary()
     assert out.state.to_ipc_bytes() == want.state.to_ipc_bytes()
-    assert out.good_lines + out.bad_lines + len(host) == len(lines)
+    assert (out.good_lines, out.bad_lines, out.oracle_rows) == \
+        (want.good_lines, want.bad_lines, want.oracle_rows)
+    assert out.reject_items == want.reject_items
+    assert out.good_lines + out.bad_lines == len(lines)
 
 
 @pytest.mark.parametrize("blob", [b"", b"\n", b"a\r\n\r\nb", b"a\nb\n", b"x\r", b"\r\n\r\n"])

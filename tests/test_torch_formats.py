@@ -22,7 +22,11 @@ from logparser_tpu_torch import TorchBatchParser
 from logparser_tpu_torch.tools.demolog import generate_combined_lines
 from logparser_tpu_torch.tpu import pipeline
 from logparser_tpu_torch.tpu.runtime import encode_batch
-from test_torch_harness import packed_mismatch
+from test_torch_harness import (
+    assert_parse_matches_reference,
+    assert_results_equal,
+    packed_mismatch,
+)
 
 NUL_FIELDS = ["IP:connection.client.host", "STRING:connection.client.user",
               "STRING:request.status.last"]
@@ -44,14 +48,7 @@ def _nul_lines(seed):
 
 
 def _compare(ours, ref, lines, fields):
-    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    g, w = ours.to_dict(), ref.to_dict()
-    for fid in fields:
-        for i in range(len(lines)):
-            if i not in host:
-                assert g[fid][i] == w[fid][i] and type(g[fid][i]) is type(w[fid][i]), \
-                    (fid, lines[i], g[fid][i], w[fid][i])
+    return assert_results_equal(ours, ref, fields)
 
 
 @pytest.mark.parametrize("fmt", ["%h\x00%u\x00%>s", "%h\x00\x00%u %>s\x00"])
@@ -120,13 +117,14 @@ def test_upstream_list_elements_match_reference():
     _compare(ours_p.parse_batch(lines), ref.parse_batch(lines), lines, ULIST_FIELDS)
 
 
-def test_numeric_upstream_list_element_stays_unported():
-    from logparser_tpu_torch import UnsupportedFieldError
-
-    with pytest.raises(UnsupportedFieldError, match="upstream-list"):
-        TorchBatchParser('$remote_addr "$upstream_response_length"',
-                         ["BYTES:nginxmodule.upstream.response.length.0.value"],
-                         device="cpu")
+def test_numeric_upstream_list_element_matches_reference():
+    """A numeric upstream-list element is typed by the host's casts: the
+    oracle delivers it, equal to the reference on every line."""
+    ours = assert_parse_matches_reference(
+        '$remote_addr "$upstream_response_length"',
+        ["BYTES:nginxmodule.upstream.response.length.0.value", "IP:connection.client.host"],
+        ['1.2.3.4 "12, 34"', '1.2.3.4 "-"', '1.2.3.4 "7 : 8"', '1.2.3.4 "x"', "junk"])
+    assert ours.to_pylist("BYTES:nginxmodule.upstream.response.length.0.value")[0] == 12
 
 
 BYTES_FIELDS = ["BYTESCLF:response.body.bytes", "BYTES:response.body.bytes",

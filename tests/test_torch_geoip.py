@@ -23,12 +23,15 @@ import torch
 
 from logparser_tpu.geoip import GeoIPASNDissector as RefASN
 from logparser_tpu.geoip import GeoIPCityDissector as RefCity
+from logparser_tpu.geoip import GeoIPCountryDissector as RefCountry
+from logparser_tpu.core.exceptions import InvalidDissectorException as RefInvalidDissector
 from logparser_tpu.geoip.device import GeoDeviceTable as RefTable
 from logparser_tpu.geoip.mmdb import MMDBReader as RefReader
 from logparser_tpu.tools import geoip_testdata as ref_testdata
 from logparser_tpu.tpu import postproc as ref_postproc
 from logparser_tpu.tpu.batch import TpuBatchParser
 from logparser_tpu_torch import TorchBatchParser, UnsupportedFieldError
+from logparser_tpu_torch.core.exceptions import InvalidDissectorException
 from logparser_tpu_torch.geoip import (
     GeoDeviceTable,
     GeoIPASNDissector,
@@ -42,7 +45,13 @@ from logparser_tpu_torch.tools.kernel_ab import seeded_ipv4_case, window_inside
 from logparser_tpu_torch.tpu import kernels, pipeline, postproc
 from logparser_tpu_torch.tpu.carry import units_from_reference
 from logparser_tpu_torch.tpu.runtime import encode_batch
-from test_torch_harness import first_mismatch, jax_unit_plain, reference_packed
+from test_torch_harness import (
+    assert_parse_matches_reference,
+    assert_results_equal,
+    first_mismatch,
+    jax_unit_plain,
+    reference_packed,
+)
 
 SYNTHETIC_NETWORKS = 2048
 SYNTHETIC_SEED = 4
@@ -95,18 +104,7 @@ def _ours(name, dbs, device="cpu"):
 
 
 def _compare(ours, ref, lines):
-    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    got, want = ours.to_dict(), ref.to_dict()
-    assert list(got) == list(want)
-    for fid in want:
-        for i, (a, b) in enumerate(zip(got[fid], want[fid])):
-            if i in host:
-                assert a is None and not ours.valid[i], (fid, i)
-            else:
-                assert a == b and type(a) is type(b), (fid, i, a, b, lines[i])
-    on_device = ~np.isin(np.arange(len(lines)), ours.needs_host)
-    np.testing.assert_array_equal(ours.valid[on_device], ref.valid[on_device])
+    return assert_results_equal(ours, ref)
 
 
 # -- the plain versions of the kernels ---------------------------------------
@@ -499,15 +497,34 @@ def test_two_dissectors_on_one_token_are_two_groups(dbs):
 
 
 def test_unsupported_geo_fields_name_the_host_oracle(dbs, tmp_path):
-    city = dbs["city"]
-    with pytest.raises(UnsupportedFieldError, match="host oracle"):
-        TorchBatchParser("combined", ["NUMBER:connection.client.host.country.getconfidence"],
-                         device="cpu", extra_dissectors=[GeoIPCityDissector(city)])
+    """A GeoIP dissector whose database cannot be read fails the build, as
+    in the reference (the oracle opens it); without the dissector the field
+    has no producer at all."""
     missing = str(tmp_path / "missing.mmdb")
-    with pytest.raises(UnsupportedFieldError, match="host oracle"):
-        TorchBatchParser("combined", ["STRING:connection.client.host.country.name"],
-                         device="cpu", extra_dissectors=[GeoIPCountryDissector(missing)])
-    # Without the dissector the field has no producer at all.
+    field = "STRING:connection.client.host.country.name"
+    with pytest.raises(RefInvalidDissector):
+        TpuBatchParser("combined", [field], extra_dissectors=[RefCountry(missing)])
+    with pytest.raises(InvalidDissectorException):
+        TorchBatchParser("combined", [field], device="cpu",
+                         extra_dissectors=[GeoIPCountryDissector(missing)])
     with pytest.raises(UnsupportedFieldError, match="no producer"):
-        TorchBatchParser("combined", ["STRING:connection.client.host.country.name"],
-                         device="cpu")
+        TorchBatchParser("combined", [field], device="cpu")
+
+
+def test_host_geo_fields_match_reference(dbs):
+    """GeoIP fields the device cannot decode are host plans, the oracle's
+    values on every line the format wins, equal to the reference:
+    country.getconfidence has no device table column, and country.name
+    under both a City and a Country dissector has two producers (the
+    oracle delivers both in graph order and the record keeps the last)."""
+    lines = demolog.geoip_chain_lines(48) + demolog.geoip_edge_lines()
+    fields = ["NUMBER:connection.client.host.country.getconfidence",
+              "STRING:connection.client.host.country.name",
+              "STRING:connection.client.host.city.name", "IP:connection.client.host"]
+    ours = assert_parse_matches_reference(
+        "combined", fields, lines,
+        extra_dissectors=[GeoIPCityDissector(dbs["city"]),
+                          GeoIPCountryDissector(dbs["country"])],
+        ref_kwargs={"extra_dissectors": [RefCity(dbs["city"]), RefCountry(dbs["country"])]})
+    assert ours.rescue_reasons["host_fields"] > 40
+    assert any(v is not None for v in ours.to_pylist(fields[1]))

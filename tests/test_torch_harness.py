@@ -78,6 +78,44 @@ def corpus(seed: int, n: int = 96, garbage: float = 0.2, n_random: int = 24):
     return lines
 
 
+def assert_results_equal(ours, ref, fields=None):
+    """The port's BatchResult equals the reference's on every row, the rows
+    its host oracle visited included: needs_host == oracle_row_ids,
+    valid, reject_reasons, rescue_reasons, the good / bad counts and
+    every value of to_dict() (types included).  Returns the oracle rows."""
+    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
+    np.testing.assert_array_equal(ours.valid, ref.valid)
+    assert ours.reject_reasons == ref.reject_reasons
+    assert ours.rescue_reasons == ref.rescue_reasons
+    assert (ours.good_lines, ours.bad_lines) == (ref.good_lines, ref.bad_lines)
+    got, want = ours.to_dict(), ref.to_dict()
+    assert list(got) == list(want)
+    for fid in fields or want:
+        for i, (a, b) in enumerate(zip(got[fid], want[fid])):
+            assert a == b and type(a) is type(b), (fid, i, a, b)
+    return set(ours.needs_host.tolist())
+
+
+def assert_parse_matches_reference(fmt, fields, lines, ref_kwargs=None, **kwargs):
+    """Parse ``lines`` with a fresh TorchBatchParser (CPU, ``kwargs``) and
+    a TpuBatchParser of the same configuration (``ref_kwargs``, the
+    reference's own extra dissectors; without them the shared parser of
+    ``kwargs``): assert_results_equal, and to_arrow(strings="copy")
+    equal.  Returns the port's result."""
+    from logparser_tpu.tpu.batch import TpuBatchParser
+    from logparser_tpu_torch import TorchBatchParser
+
+    if ref_kwargs is None:
+        ref = shared_parser(fmt, fields, **kwargs).parse_batch(lines)
+    else:
+        ref = TpuBatchParser(fmt, list(fields), **ref_kwargs).parse_batch(lines)
+    ours = TorchBatchParser(fmt, fields, device="cpu", **kwargs).parse_batch(lines)
+    assert_results_equal(ours, ref)
+    assert ours.to_arrow(strings="copy").equals(
+        ref.to_arrow(include_validity=True, strings="copy"))
+    return ours
+
+
 def reference_parser(fmt, fields):
     return shared_parser(fmt, list(fields))
 
@@ -272,12 +310,14 @@ def test_jax_unit_plain_covers_the_headline_units():
 
 
 def assert_aggregate_matches_reference(ref, ours, lines, spec):
-    """The port's outcome equals the reference's aggregate over the lines
-    outside the port's needs_host, and needs_host is exactly the folded
-    rows the reference's row path sends to its oracle (row results do not
-    depend on the batch, so the full batch's oracle rows stand for those of
-    the reference's fold replay).  An AggregateSpec instance goes to both
-    as an instance (no validate_for), an op list as a list."""
+    """The port's outcome equals the reference's over the whole batch, the
+    rows its host oracle rescues folded in: state, good / bad counts,
+    oracle_rows and reject_items; the folded rows are the reference
+    kernel's, and needs_host is exactly the folded rows the reference's row
+    path sends to its oracle (row results do not depend on the batch, so
+    the full batch's oracle rows stand for those of the fold replay).  An
+    AggregateSpec instance goes to both as an instance (no validate_for),
+    an op list as a list."""
     out = ours.aggregate_batch(lines, spec)
     instance = isinstance(spec, AggregateSpec)
     ref_spec = RefAggregateSpec.parse(
@@ -294,12 +334,13 @@ def assert_aggregate_matches_reference(ref, ours, lines, spec):
     oracle = set() if oracle is None else set(oracle.tolist())
     folded = np.nonzero(cls == 1)[0].tolist()
     assert out.needs_host.tolist() == [i for i in folded if i in oracle]
-    host = set(out.needs_host.tolist())
-    keep = [ln for i, ln in enumerate(lines) if i not in host]
-    want = ref.aggregate_batch(keep, ref_spec if instance else spec)
+    want = ref.aggregate_batch(lines, ref_spec if instance else spec)
     assert out.state.summary() == want.state.summary()
     assert out.state.to_ipc_bytes() == want.state.to_ipc_bytes()
-    assert out.device_rows == int((cls == 0).sum())
+    assert (out.good_lines, out.bad_lines, out.oracle_rows) == \
+        (want.good_lines, want.bad_lines, want.oracle_rows)
+    assert out.reject_items == want.reject_items
+    assert out.device_rows == want.device_rows == int((cls == 0).sum())
     assert out.fold_rows == len(folded)
-    assert out.good_lines + out.bad_lines + len(host) == len(lines)
+    assert out.good_lines + out.bad_lines == len(lines)
     return out

@@ -26,6 +26,8 @@ from logparser_tpu_torch.tpu.carry import units_from_reference
 from logparser_tpu_torch.tpu.program import compile_device_program
 from logparser_tpu_torch.tpu.runtime import encode_batch
 from test_torch_harness import (
+    assert_parse_matches_reference,
+    assert_results_equal,
     assert_plain_equal,
     first_mismatch,
     jax_program_plain,
@@ -64,18 +66,7 @@ def reference():
 
 
 def _compare(ours, ref, lines):
-    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    got, want = ours.to_dict(), ref.to_dict()
-    assert list(got) == list(want)
-    for fid in want:
-        for i, (a, b) in enumerate(zip(got[fid], want[fid])):
-            if i in host:
-                assert a is None and not ours.valid[i], (fid, i)
-            else:
-                assert a == b and type(a) is type(b), (fid, i, a, b, lines[i])
-    on_device = ~np.isin(np.arange(len(lines)), ours.needs_host)
-    np.testing.assert_array_equal(ours.valid[on_device], ref.valid[on_device])
+    return assert_results_equal(ours, ref)
 
 
 # -- the plain version of the secmillis task ----------------------------------
@@ -201,16 +192,38 @@ def test_widest_bucket_matches_reference():
 
 
 @pytest.mark.parametrize("fmt,field,why", [
-    ("$remote_addr $upstream_response_length",
-     "BYTES:nginxmodule.upstream.response.length.0.value", "upstream-list"),
-    ("$remote_addr $upstream_response_time",
-     "SECOND_MILLIS:nginxmodule.upstream.response.time.1.redirected", "upstream-list"),
-    ("$binary_remote_addr $status", "IP:connection.client.host", "BinaryIPDissector"),
     ("$time_iso8601 $status", "TIME.EPOCH:request.receive.time.epoch",
      "compile_java_pattern"),
-    ("$msec [$time_local]", "TIME.EPOCH:request.receive.time.epoch",
-     "more than one producer"),
 ])
 def test_unported_nginx_fields_raise(fmt, field, why):
     with pytest.raises(UnsupportedFieldError, match=why):
         TorchBatchParser(fmt, [field], device="cpu")
+
+
+_UPSTREAM_LINES = ["1.2.3.4 12, 34 : 56, 78", "1.2.3.4 0.001, 0.250 : 1.500",
+                   "1.2.3.4 -", "1.2.3.4 5", "1.2.3.4 x, y", "1.2.3.4 ", "garbage"]
+
+
+@pytest.mark.parametrize("fmt,fields,lines", [
+    # Numeric upstream-list elements: typed by the host's casts.
+    ("$remote_addr $upstream_response_length",
+     ["BYTES:nginxmodule.upstream.response.length.0.value",
+      "BYTES:nginxmodule.upstream.response.length.1.redirected"], _UPSTREAM_LINES),
+    ("$remote_addr $upstream_response_time",
+     ["SECOND_MILLIS:nginxmodule.upstream.response.time.1.redirected",
+      "IP:connection.client.host"], _UPSTREAM_LINES),
+    # $binary_remote_addr's IP_BINARY -> IP (BinaryIPDissector).
+    ("$binary_remote_addr $status", ["IP:connection.client.host", "STRING:request.status.last"],
+     ["\\x0A\\x00\\x00\\xFF 200", "\\x0a\\x00\\x00 200", "- 200", "1.2.3.4 404"]),
+    # More than one producer: $msec and $time_local both give the epoch.
+    ("$msec [$time_local]", ["TIME.EPOCH:request.receive.time.epoch"],
+     ["1704067200.123 [01/Jan/2024:00:00:00 +0000]", "1.5 [02/Jan/2024:00:00:00 +0100]",
+      "1704067200.123 [bad]", "x [01/Jan/2024:00:00:00 +0000]"]),
+])
+def test_host_nginx_fields_match_reference(fmt, fields, lines):
+    """The fields these formats' device plans cannot deliver are the host
+    oracle's, equal to the reference on every line."""
+    plan = TorchBatchParser(fmt, fields, device="cpu").plan_by_id[fields[0]]
+    assert plan.kind == "host"
+    ours = assert_parse_matches_reference(fmt, fields, lines)
+    assert len(ours.needs_host) and ours.valid.any()

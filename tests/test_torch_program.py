@@ -26,7 +26,12 @@ from logparser_tpu_torch.tools.demolog import (
     ZONETEXT_FORMAT,
 )
 from logparser_tpu_torch.tpu.carry import unit_to_plain, units_from_reference
-from test_torch_harness import assert_plain_equal, jax_unit_plain, reference_parser
+from test_torch_harness import (
+    assert_parse_matches_reference,
+    assert_plain_equal,
+    jax_unit_plain,
+    reference_parser,
+)
 
 HEADLINE = ref_demolog.HEADLINE_FIELDS
 STRFTIME_PAIR = ('%h [%{begin:%d/%B/%Y:%I:%M:%S %p}t] [%{end:%Y-%m-%dT%H:%M:%S%z}t] '
@@ -78,7 +83,7 @@ def test_tokenizer_matches_reference(fmt):
     for a, b in zip(ours, ref):
         assert isinstance(a, FixedStringToken) == isinstance(b, RefFixedStringToken)
         assert a.regex == b.regex and a.length == b.length and a.prio == b.prio
-        assert [(f.type, f.name, set(f.casts)) for f in a.output_fields] == [
+        assert [(f.type, f.name, {c.name for c in f.casts}) for f in a.output_fields] == [
             (f.type, f.name, {c.name for c in f.casts}) for f in b.output_fields
         ]
 
@@ -142,12 +147,25 @@ def test_unported_formats_raise(fmt):
      "TIME.LOCALIZEDSTRING values"),
     ("$remote_addr [$time_iso8601]", "TIME.EPOCH:request.receive.time.epoch",
      "compile_java_pattern"),
-    ("$binary_remote_addr $status", "IP:connection.client.host", "BinaryIPDissector"),
     ('%h %t "%r" %>s %b', "STRING:no.such.field", "no producer"),
 ])
 def test_unported_fields_raise_naming_the_slice(fmt, field, where):
     with pytest.raises(UnsupportedFieldError, match=where):
         TorchBatchParser(fmt, [field], device="cpu")
+
+
+def test_binary_ip_resolves_to_a_host_plan():
+    """$binary_remote_addr's IP has no device plan: a host plan, every line
+    won by the format visits the oracle, and the values are the
+    reference's."""
+    p = TorchBatchParser("$binary_remote_addr $status", ["IP:connection.client.host"],
+                         device="cpu")
+    assert p.plan_by_id["IP:connection.client.host"].kind == "host"
+    assert p._unit_oracle_fields == [["IP:connection.client.host"]]
+    lines = ["\\x01\\x02\\x03\\x04 200", "\\xff\\xfe\\x00\\x10 200", "- 200"]
+    ours = assert_parse_matches_reference("$binary_remote_addr $status",
+                                          ["IP:connection.client.host"], lines)
+    assert ours.to_pylist("IP:connection.client.host")[:2] == ["1.2.3.4", "-1.-2.0.16"]
 
 
 def test_charset_tables_are_bool_copies():

@@ -9,7 +9,6 @@ compiler, its packed ``[K + 4V, B]`` rows against the reference executor
 lines plus ``demolog.strftime_edge_lines()``.  One reference parser per
 configuration (module-scoped): each jit compile costs tens of seconds.
 """
-import numpy as np
 import pytest
 import torch
 
@@ -27,7 +26,7 @@ from logparser_tpu_torch.tools import demolog
 from logparser_tpu_torch.tpu import pipeline
 from logparser_tpu_torch.tpu.carry import units_from_reference
 from logparser_tpu_torch.tpu.runtime import encode_batch
-from test_torch_harness import first_mismatch, jax_unit_plain, reference_packed
+from test_torch_harness import assert_results_equal, first_mismatch, jax_unit_plain, reference_packed
 
 CONFIGS = {
     "combinedio_strftime": (demolog.COMBINEDIO_STRFTIME_FORMAT,
@@ -64,18 +63,7 @@ def _lines(name):
 
 
 def _compare(ours, ref, lines):
-    assert ours.needs_host.tolist() == ref.oracle_row_ids.tolist()
-    host = set(ours.needs_host.tolist())
-    got, want = ours.to_dict(), ref.to_dict()
-    assert list(got) == list(want)
-    for fid in want:
-        for i, (a, b) in enumerate(zip(got[fid], want[fid])):
-            if i in host:
-                assert a is None and not ours.valid[i], (fid, i)
-            else:
-                assert a == b and type(a) is type(b), (fid, i, a, b, lines[i])
-    on_device = ~np.isin(np.arange(len(lines)), ours.needs_host)
-    np.testing.assert_array_equal(ours.valid[on_device], ref.valid[on_device])
+    return assert_results_equal(ours, ref)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
