@@ -146,6 +146,14 @@ first phase that fails:
    each equal to its parse_batch on the card, the stream wall beside the
    serial walls; aggregate_batch_stream(depth=2) over three dashboard
    batches, each state equal to aggregate_batch's;
+   12b. columnar delivery (``arrow_delivery_<path>``, then
+   ``arrow_delivery``) on the headline, URI chain, cookies_uniqueid and
+   geoip_chain batches: a fresh parse on the card, then to_arrow() (every
+   view field interleaved from the card's view rows by
+   native.views_interleave, the count printed), to_arrow(strings="copy"),
+   span_bytes_many, the to_pylist walk and parse_to_ipc, each timed, each
+   table equal to the CPU's; a view table held across the next batch's
+   parse keeps its values; the native library must be built;
 13. the device mesh, each phase over ``parallel.mesh.local_devices``
    replaced with ``[cuda:0] * 4`` (one card holds every shard; restored
    after): ``mesh_dp`` (the headline batch, padded with 3 empty rows to
@@ -212,6 +220,11 @@ REPLACES = {
     "counters": "logparser_tpu/parallel/mesh.py:243",
 }
 SOURCES = {k: f"logparser_tpu_torch/csrc/{k}.cu" for k in REPLACES}
+# Section 12b's batches: path -> (card parser, CPU parser, lines, the CPU's
+# result), kept by each path's end-to-end phase.
+DELIVERY = {}
+DELIVERY_PATHS = ("headline", "uri_chain", "cookies_uniqueid", "geoip_chain")
+CPU_IPC_PATHS = ("headline", "geoip_chain")
 EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
 EDGE_LINES = [
     EDGE_PREFIX + ' "x" "esc \\" quote"',                 # \" in the UA: final op, exact
@@ -555,6 +568,7 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
     cpu = TorchBatchParser("combined", HEADLINE_FIELDS, device="cpu")
     ref = cpu.parse_batch(lines)
     compare_results(res, ref, "end to end")
+    DELIVERY["headline"] = (gpu, cpu, lines, ref)
     n_valid = int(res.valid.sum())
     if n_valid < 0.98 * N_LINES:
         fail(f"only {n_valid} of {B} lines valid on device")
@@ -610,6 +624,9 @@ def single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phas
 
     # ---- 12. streams -----------------------------------------------------
     stream_phases(torch, TorchBatchParser, kernels, smi)
+
+    # ---- 12b. columnar delivery --------------------------------------------
+    arrow_delivery_phases(kernels, smi)
 
 
 def seeded_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase):
@@ -1022,6 +1039,7 @@ def uri_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, rows,
     cpu = TorchBatchParser("combined", fields, device="cpu")
     ref = cpu.parse_batch(lines)
     compare_results(res, ref, "end_to_end_uri")
+    DELIVERY["uri_chain"] = (gpu, cpu, lines, ref)
     hold_timestamp(gpu, lines, "uri")
     twenty = len(lines) - len(edge) + next(
         i for i, x in enumerate(edge) if "k19=v19" in x)
@@ -1322,7 +1340,10 @@ def run_end_to_end(torch, kernels, gpu, cpu, lines, tag, must, path_bound, smi,
     for name in must:
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the {tag} path")
-    compare_results(res, cpu.parse_batch(lines), tag)
+    ref = cpu.parse_batch(lines)
+    compare_results(res, ref, tag)
+    if tag == "end_to_end_geo":
+        DELIVERY["geoip_chain"] = (gpu, cpu, lines, ref)
     hold_timestamp(gpu, lines, tag)
     n_valid = int(res.valid.sum())
     if n_valid < 0.98 * N_LINES:
@@ -2133,6 +2154,7 @@ def cookie_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase, ro
             fail(f"kernel {name} was not launched on the cookies path")
     ref = cpu.parse_batch(lines)
     compare_results(res, ref, "end_to_end_cookies")
+    DELIVERY["cookies_uniqueid"] = (gpu_fresh, cpu, lines, ref)
     hold_timestamp(gpu_fresh, lines, "cookies")
     if gpu_fresh.csr_slots != 128 or res.csr_regrows != 3:
         fail(f"cookies: {gpu_fresh.csr_slots} slots after {res.csr_regrows} regrows")
@@ -2450,6 +2472,128 @@ def stream_phases(torch, TorchBatchParser, kernels, smi):
           "serial_after_wall_sum": sum(walls_after),
           "stage_seconds": [o.stage_seconds for o in got],
           "launches": launches, "card": smi})
+
+
+def arrow_delivery_phases(kernels, smi) -> None:
+    """Section 12b: the delivery tier on the four paths' batches (65,536
+    lines each, kept by their end-to-end phases).  Per path: a fresh
+    parse on the card (launch counts zeroed just before, read just
+    after), then to_arrow() -- every span column with device view rows
+    interleaved from the card's block by native.views_interleave, their
+    count printed and equal to the parser's view fields --,
+    to_arrow(strings="copy"), span_bytes_many over the span columns, the
+    to_pylist walk (to_dict) and parse_to_ipc, each timed; both tables
+    equal to the CPU result's, the IPC table equal to the CPU parser's
+    parse_to_ipc (headline, geoip_chain) or to the CPU result's copy-mode
+    table (URI chain, cookies: a CPU parse of a minute or more each).
+    span_bytes_many is timed on the generated lines (``slice(0,
+    N_LINES)``): a column with a rescued row's override takes the
+    per-row path.  The previous path's view table, held across this
+    path's parse and delivery, must still equal its copy-mode twin (a
+    pinned buffer or a pooled view array reused under live views would
+    show there); after the last path one more headline parse checks the
+    last table.  The native library must be built: the host tier may
+    not take its numpy paths on the card's machine."""
+    import pyarrow as pa
+
+    from logparser_tpu_torch import native
+    from logparser_tpu_torch.tpu.arrow_bridge import parse_to_ipc, table_from_ipc_bytes
+
+    if not native.native_available():
+        fail("arrow_delivery: the native library did not build (numpy delivery)")
+
+    def held_intact(held, after):
+        path, view, copy = held
+        for name in copy.column_names:
+            col = view.column(name)
+            if pa.types.is_string_view(col.type):
+                col = col.cast(pa.string())
+            if not col.equals(copy.column(name)):
+                fail(f"arrow_delivery: {path}'s view table changed under the {after} "
+                     f"batch in {name}")
+
+    held = None
+    real = native.views_interleave
+    for path in DELIVERY_PATHS:
+        gpu, cpu, lines, ref = DELIVERY[path]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = gpu.parse_batch(lines)
+        parse_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        if launches["pack_rows"] < 1:
+            fail(f"arrow_delivery: pack_rows was not launched on {path}")
+        interleaved = []
+
+        def counting(packed, field_rows, *args, **kw):
+            interleaved.append(len(field_rows))
+            return real(packed, field_rows, *args, **kw)
+
+        native.views_interleave = counting
+        try:
+            t0 = time.perf_counter()
+            view = res.to_arrow()
+            view_s = time.perf_counter() - t0
+        finally:
+            native.views_interleave = real
+        t0 = time.perf_counter()
+        copy = res.to_arrow(strings="copy")
+        copy_s = time.perf_counter() - t0
+        span_ids = [f for f in res.field_ids()
+                    if res.column(f)["kind"] == "span" and not f.endswith(".*")]
+        # A column with an override (a rescued row) takes the per-row path,
+        # as in the reference: the flat gather is timed on the generated
+        # lines, whose rows the device finishes.
+        window = res.slice(0, N_LINES)
+        t0 = time.perf_counter()
+        flats = window.span_bytes_many(span_ids, include_fix=True)
+        many_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res.to_dict()
+        walk_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ipc = parse_to_ipc(gpu, lines)
+        ipc_s = time.perf_counter() - t0
+        n_views = len(gpu.view_specs)
+        if (sorted(res.device_views) != sorted(f for f, _ in gpu.view_specs)
+                or interleaved != [n_views] or not n_views):
+            fail(f"arrow_delivery: {path}: {interleaved} columns interleaved from the "
+                 f"device block, {n_views} view fields")
+        if not all(pa.types.is_string_view(view.schema.field(f).type)
+                   for f in res.device_views):
+            fail(f"arrow_delivery: {path}: a view field is not a string_view column")
+        if held is not None:
+            held_intact(held, path)
+        if not copy.equals(ref.to_arrow(strings="copy")):
+            fail(f"arrow_delivery: {path}: to_arrow(strings='copy') differs from the CPU's")
+        if not view.equals(ref.to_arrow()):
+            fail(f"arrow_delivery: {path}: to_arrow() differs from the CPU's")
+        # The CPU's own parse_to_ipc where its parse is short; on the two
+        # paths whose CPU parse takes a minute or more, the CPU result's
+        # copy-mode table (parse_to_ipc's table is that table, and the CPU
+        # tests hold the two equal).
+        t0 = time.perf_counter()
+        cpu_ipc = (table_from_ipc_bytes(parse_to_ipc(cpu, lines)) if path in CPU_IPC_PATHS
+                   else ref.to_arrow(strings="copy"))
+        cpu_ipc_s = time.perf_counter() - t0
+        if not table_from_ipc_bytes(ipc).equals(cpu_ipc):
+            fail(f"arrow_delivery: {path}: parse_to_ipc's table differs from the CPU's")
+        held = (path, view, copy)
+        emit({"phase": f"arrow_delivery_{path}", "B": len(lines), "equal_to_cpu": True,
+              "view_columns_interleaved": sum(interleaved), "view_fields": n_views,
+              "span_columns_gathered": len(flats), "span_columns": len(span_ids),
+              "ipc_bytes": len(ipc), "cpu_ipc": ("parse_to_ipc" if path in CPU_IPC_PATHS
+                                                 else "to_arrow_copy"),
+              "parse_seconds": parse_s, "materialize_seconds": res.stage_seconds["materialize"],
+              "to_arrow_view_seconds": view_s, "to_arrow_copy_seconds": copy_s,
+              "span_bytes_many_seconds": many_s, "to_pylist_walk_seconds": walk_s,
+              "parse_to_ipc_seconds": ipc_s, "cpu_parse_to_ipc_seconds": cpu_ipc_s,
+              "stage_seconds": res.stage_seconds, "launches": launches, "card": smi})
+    gpu, _, lines, _ = DELIVERY["headline"]
+    gpu.parse_batch(lines).to_arrow()
+    held_intact(held, "next headline")
+    emit({"phase": "arrow_delivery", "paths": list(DELIVERY_PATHS), "equal_to_cpu": True,
+          "held_view_tables_intact": True, "native_available": True, "card": smi})
 
 
 class swapped:

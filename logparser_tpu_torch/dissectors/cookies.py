@@ -137,9 +137,11 @@ _ZONE_TEXT = re.compile(r"[A-Za-z_/+\-0-9]+")
 _OFFSET = re.compile(r"([+-])([0-9]{2}):?([0-9]{2})")
 
 
+@functools.lru_cache(maxsize=4096)
 def parse_expire(text: str) -> int:
     """Epoch millis of an expires date in the first of the three layouts
-    that parses it; 0 when none does."""
+    that parses it; 0 when none does (memoized: a batch repeats a few
+    dates)."""
     for layout in _EXPIRES_LAYOUTS:
         try:
             return _parse(layout, text)

@@ -233,13 +233,18 @@ class TorchBatchParser:
     the largest power of two <= it of ``parallel.mesh.local_devices()``
     (of the parser's device type) holds the batch's row shards, and the
     mesh's first device becomes ``device``; <= 1, or a resolution of 1,
-    makes a one-device mesh of ``device``."""
+    makes a one-device mesh of ``device``.  ``assembly_workers`` is the
+    reference's keyword too: the width of the delivery path's host pool
+    (``hostpool.AssemblyPool``; default min(8, cpu_count)), which fans
+    ``to_arrow``'s columns out, budgets the native passes' threads and
+    runs the host oracle beside the query-string columns; 1 is serial."""
 
     def __init__(self, log_format: str, fields: Sequence[str],
                  device: Union[str, torch.device, None] = None,
                  extra_dissectors: Optional[Sequence[Any]] = None,
                  type_remappings: Optional[Dict[str, Any]] = None,
-                 data_parallel: Optional[int] = None):
+                 data_parallel: Optional[int] = None,
+                 assembly_workers: Optional[int] = None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -249,6 +254,8 @@ class TorchBatchParser:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         self.data_parallel = data_parallel
+        self.assembly_workers = assembly_workers
+        self._assembly_pool = None
         self._mesh = self._build_mesh(data_parallel, self.device)
         if self._mesh.home.type != self.device.type:
             raise ValueError(f"data_parallel={data_parallel}: the mesh's devices are "
@@ -364,6 +371,23 @@ class TorchBatchParser:
         this host; ``device`` alone for no request or a 1-wide one."""
         n = dp_device_count(int(data_parallel)) if data_parallel and int(data_parallel) > 1 else 1
         return make_mesh(n_data=n) if n > 1 else make_mesh(1, devices=[device])
+
+    def assembly_pool(self):
+        """The delivery path's host worker pool (built at first use);
+        every BatchResult carries it, so ``to_arrow`` keeps the width
+        wherever the result goes."""
+        if self._assembly_pool is None:
+            from .hostpool import AssemblyPool
+
+            self._assembly_pool = AssemblyPool(self.assembly_workers)
+        return self._assembly_pool
+
+    def close(self) -> None:
+        """Release the host worker pool; results already made still
+        deliver (their pool runs serially once closed)."""
+        if self._assembly_pool is not None:
+            self._assembly_pool.close()
+        self._assembly_pool = None
 
     @property
     def mesh_devices(self) -> int:
@@ -1084,6 +1108,9 @@ class TorchBatchParser:
                     comp, ok, derive_memo = ts_cache[key]
                     values = timefields.derive(comp, plan.comp, derive_memo,
                                                locale=plan.meta.locale)
+                    # A non-geo fill: the bridge's dictionary / typed
+                    # paths see only geo-written state.
+                    col["mixed_fill"] = True
                     col["values"] = np.where(sel, values, col["values"])
                     col["ok"] = np.where(sel, ok, col["ok"])
                 elif plan.kind == "muid":
@@ -1092,6 +1119,7 @@ class TorchBatchParser:
                     row = {"epoch": "time", "ip": "ip", "processid": "pid",
                            "counter": "counter", "threadindex": "thread"}[plan.comp]
                     u32 = get(key, row).astype(np.int64) & 0xFFFFFFFF
+                    col["mixed_fill"] = True   # see the ts branch
                     if plan.comp == "ip":
                         dot = np.full(B, ".", dtype=object)
                         values = (_OCTETS[u32 >> 24] + dot + _OCTETS[(u32 >> 16) & 255]
@@ -1107,10 +1135,26 @@ class TorchBatchParser:
                     key = geo_group_key(plan)
                     arr = table.arrays[column][get(key, "row")]
                     if column in table.vocabs:
-                        values = table.vocab_arrays[column][arr]
+                        vocab = table.vocab_arrays[column]
+                        values = vocab[arr]
+                        # The vocabulary codes, for the bridge's
+                        # dictionary.take(codes); a second vocabulary in
+                        # one column (two databases) turns that path off.
+                        if "dict_codes" not in col:
+                            col["dict_codes"] = np.full(B, -1, dtype=np.int64)
+                            col["dict_values"] = vocab
+                        if col.get("dict_values") is vocab:
+                            col["dict_codes"] = np.where(sel, arr.astype(np.int64),
+                                                         col["dict_codes"])
+                        else:
+                            col["dict_values"] = None
                     else:   # float NaN / int -1: the miss
+                        kind_ch = "f" if arr.dtype.kind == "f" else "i"
+                        miss = np.isnan(arr) if kind_ch == "f" else arr < 0
                         values = arr.astype(object)
-                        values[np.isnan(arr) if arr.dtype.kind == "f" else arr < 0] = None
+                        values[miss] = None
+                        _geo_typed_fill(col, sel, arr.astype(
+                            np.float64 if kind_ch == "f" else np.int64), miss, kind_ch)
                     col["values"] = np.where(sel, values, col["values"])
                     col["ok"] = np.where(sel, get(key, "ok") != 0, col["ok"])
                 else:  # long / secmillis
@@ -1144,7 +1188,8 @@ class TorchBatchParser:
         # the oracle's casts would (_overflow_delivery); a run whose
         # unchecked tail is not all digits, and an overflow of any other
         # plan, re-parses the line on the host.
-        overrides: Dict[str, Dict[int, Any]] = {fid: {} for fid in columns}
+        overrides: Dict[str, Any] = {
+            fid: _LazyWildcard() if fid.endswith(".*") else {} for fid in columns}
         demoted = set()
         span_mask = (1 << _SPAN_BITS) - 1
         for fid, plan, big_rows, ovf_rows, wide, hi_row in patches:
@@ -1190,8 +1235,16 @@ class TorchBatchParser:
         for ui, flds in enumerate(self._unit_oracle_fields):
             if flds:
                 need_oracle.update(np.nonzero(winner == ui)[0].tolist())
+        # The oracle's pass over those rows starts first: on a pool of more
+        # than one worker it runs on a pool thread while the query-string
+        # and cookie columns materialize.
+        t_submit = time.perf_counter()
+        rescue_rows = sorted(need_oracle)
+        collect_rescue = self._start_rescue(rescue_rows, lines)
+        rescue_wall = time.perf_counter() - t_submit
         # Query parameters; a value whose decode fails fails the line on
-        # the host, so those rows go there.
+        # the host, so those rows go there (parsed after the pass above).
+        extra_rows: List[int] = []
         for i in self._materialize_csr(packed, winner, valid, columns, overrides,
                                        buf, B):
             valid[i] = False
@@ -1199,7 +1252,9 @@ class TorchBatchParser:
             for ov in overrides.values():
                 ov.pop(i, None)
             invalid_rows.add(i)
-            need_oracle.add(i)
+            if i not in need_oracle:
+                need_oracle.add(i)
+                extra_rows.append(i)
         overflow_rows = {int(i) for i in overflow if 0 <= int(i) < B}
         rescue_reasons = {"overflow": 0, "device_reject": 0, "host_fields": 0}
         if need_oracle:
@@ -1208,9 +1263,12 @@ class TorchBatchParser:
             rescue_reasons["host_fields"] = len(need_oracle - invalid_rows - overflow_rows)
         t_oracle = time.perf_counter()
         oracle_rows = sorted(need_oracle)
-        results = self._run_oracle_many([lines[i] for i in oracle_rows])
+        by_row = dict(zip(rescue_rows, collect_rescue()))
+        extra_rows.sort()
+        by_row.update(zip(extra_rows, self._run_oracle_many([lines[i] for i in extra_rows])))
         plans: Dict[Tuple[bool, int], tuple] = {}
-        for i, values in zip(oracle_rows, results):
+        for i in oracle_rows:
+            values = by_row[i]
             is_invalid = i in invalid_rows
             if values is None or isinstance(values, OracleEngineError):
                 # The oracle refused the line (or failed on it): an invalid
@@ -1245,14 +1303,45 @@ class TorchBatchParser:
                 # prefix (the oracle stores them under their TYPE:path ids).
                 ov[i] = {k[len(prefix):]: v for k, v in values.items()
                          if k.startswith(prefix)}
+        rescue_wall += time.perf_counter() - t_oracle
+        # The device's view rows (4 a span field, after the unit rows) go
+        # to the Arrow bridge, which interleaves them into string_view
+        # structs without reading the batch buffer; only that block is
+        # kept (a contiguous copy).  Truncated rows are dirty: the device
+        # judged a prefix, so their views are zeroed and patched.
+        view_block = device_views = dirty_rows = None
+        k0 = packed_row_count(self.units)
+        n_views = VIEW_ROWS_PER_FIELD * len(self.view_specs)
+        if packed is not None and n_views and packed.shape[0] >= k0 + n_views:
+            view_block = packed[k0:k0 + n_views].copy()
+            device_views = {fid: VIEW_ROWS_PER_FIELD * i
+                            for i, (fid, _) in enumerate(self.view_specs)}
+            dirty_rows = np.asarray([i for i in overflow if i < B], dtype=np.int64)
         result = BatchResult(lines, buf, lengths, valid, columns, overrides,
-                             np.asarray(oracle_rows, dtype=np.int64), winner)
+                             np.asarray(oracle_rows, dtype=np.int64), winner,
+                             packed=view_block, device_views=device_views,
+                             dirty_rows=dirty_rows, assembly_pool=self.assembly_pool())
         result.good_lines = B - bad
         result.bad_lines = bad
         result.reject_reasons = reject_reasons
         result.rescue_reasons = rescue_reasons
-        result.rescue_wall_s = time.perf_counter() - t_oracle
+        result.rescue_wall_s = rescue_wall
         return result
+
+    def _start_rescue(self, rows: List[int], lines):
+        """Begin the oracle's pass over ``rows`` (sorted): a callable that
+        returns its results in row order.  On a pool of more than one
+        worker the pass runs on a pool thread, overlapping the caller's
+        column materialization."""
+        if not rows:
+            return lambda: []
+        batch_lines = [lines[i] for i in rows]
+        pool = self.assembly_pool()
+        if pool.workers > 1:
+            fut = pool.submit(lambda: self._run_oracle_many(batch_lines))
+            if fut is not None:
+                return fut.result
+        return lambda: self._run_oracle_many(batch_lines)
 
     def _delivery_plan(self, fields, winner: int, overrides):
         """How the oracle's values of ``fields`` are delivered on a line
@@ -1286,19 +1375,27 @@ class TorchBatchParser:
 
     def _materialize_csr(self, packed, winner, valid, columns, overrides, buf, B) -> set:
         """Query-string parameters, cookies and Set-Cookie cookies from the
-        packed segment tables (the reference's _materialize_csr), for the
-        rows each unit claims.  A concrete name fills its span column with
-        the value of the last segment of that name (an override when that
-        value was decoded); a ``.*`` field gets one dict per row; a
-        Set-Cookie attribute parses the last matching cookie's text.
-        Segments that need per-value Python take the reference's per-row
-        path: a URI query name that needs %-repair, a flagged value of a
-        query string over a token, a cookie with a flagged value or a
-        whitespace / non-ASCII byte at a name or value edge (the host
-        trims), a Set-Cookie name with such an edge.  The other rows
-        decode flagged URI query values with the left-to-right '+' / %XX
-        rule.  Returns the rows whose value decode failed."""
+        packed segment tables (the reference's vectorized
+        _materialize_csr), for the rows each unit claims.
+
+        The emitted segments are flattened with numpy gathers into one
+        name buffer and one value buffer; a concrete name fills its span
+        column with the value of the last segment of that name (an
+        override where that value was decoded); a ``.*`` field gets the
+        flat buffers as a ``_LazyWildcard`` chunk; a Set-Cookie attribute
+        or a remapped screen resolution parses the last matching value.
+        Only rows whose segments need per-value Python take the per-row
+        path (``_csr_dict_slow``): a URI query name that needs %-repair, a
+        flagged value of a direct capture or a cookie that the
+        left-to-right decode cannot prove, a cookie with a whitespace /
+        non-ASCII byte at a name or value edge (the host trims), a
+        Set-Cookie name with such an edge.  The other flagged values
+        decode vectorized; where the reference takes a cookie's flagged
+        values one by one, this gives the same strings.  Returns the rows
+        whose value decode failed."""
         failed: set = set()
+        if packed is None:
+            return failed
         L = buf.shape[1]
         flat_buf = buf.reshape(-1)
         for ui, u in enumerate(self.units):
@@ -1312,90 +1409,261 @@ class TorchBatchParser:
             for fid, p in qs:
                 by_key.setdefault(csr_group_key(p), []).append((fid, p))
             for key, flist in by_key.items():
-                mode = flist[0][1].meta
-                uri_chain = bool(flist[0][1].steps)
-                slots = u.layout.slots[key]
-                K = u.layout.csr_slots
-                # Each slot packs into two rows (start... and vstart...):
-                # gather both [K, rows] word blocks once, then the fields.
-                words = {part: block[[slots[f"s{k}_{part}"][0] for k in range(K)]][:, rows]
-                         for part in ("start", "vstart")}
-
-                def mat(comp, _slots=slots, _words=words):
-                    _, shift, bits = _slots[f"s0_{comp}"]
-                    part = "vstart" if comp.startswith("v") else "start"
-                    return ((_words[part] >> shift) & ((1 << bits) - 1)).astype(np.int64)
-
-                ok = (u.layout.get(block, key, "ok")[:B][rows] != 0)
-                SS, NL, VS, VL = mat("start"), mat("nlen"), mat("vstart"), mat("vlen")
-                HE, DC, ND = (mat(c).astype(bool) for c in ("eq", "dec", "ndec"))
-                emit = (NL > 0) & ok[None, :]
-
-                def edge(S, N, _rows=rows):
-                    # A byte <= 0x20 or >= 0x80 at either end of a span.
-                    a = _rows[None, :] * L + S
-                    first = flat_buf[np.where(N > 0, a, 0)]
-                    last = flat_buf[np.where(N > 0, a + N - 1, 0)]
-                    return (N > 0) & ((first <= 0x20) | (first >= 0x80)
-                                      | (last <= 0x20) | (last >= 0x80))
-
-                if mode == "setcookie":
-                    emit &= HE
-                    flag = edge(SS, NL)
-                    VLe = VL
-                elif mode == "cookie":
-                    flag = DC | edge(SS, NL) | edge(VS, VL)
-                    VLe = np.where(HE, VL, 0)
-                else:
-                    flag = ND if uri_chain else DC
-                    VLe = np.where(HE, VL, 0)
-                slow = (flag & emit).any(axis=0)
-                fast = ~slow
-                segs = _QuerySegments(buf, rows[fast], emit[:, fast], SS[:, fast],
-                                      NL[:, fast], VS[:, fast], VLe[:, fast],
-                                      DC[:, fast] & uri_chain)
-                slow_dicts = {}
-                for j in np.nonzero(slow)[0].tolist():
-                    i = int(rows[j])
-                    d = _csr_dict_slow(buf[i], mode, uri_chain, NL[:, j], HE[:, j],
-                                       SS[:, j], VS[:, j], VL[:, j], DC[:, j], ND[:, j])
-                    if d is None:
-                        failed.add(i)
-                    slow_dicts[i] = d
-                attrs_memo: Dict[str, dict] = {}
-                for fid, p in flist:
-                    ov = overrides[fid]
-                    if p.comp == "*":
-                        ov.update(segs.dicts())
-                        ov.update((i, d) for i, d in slow_dicts.items() if d is not None)
-                    elif isinstance(p.attr, tuple):
-                        # A remapped screen resolution: the last segment's
-                        # value split on the separator.
-                        texts = segs.last_values(p.comp)
-                        texts.update((i, d.get(p.comp)) for i, d in slow_dicts.items() if d)
-                        for i, text in texts.items():
-                            value = _sres_value(p.attr, text)
-                            if value is not None:
-                                ov[i] = _apply_setter_casts(
-                                    value, *self._cast_flags.get(fid, (False, False)))
-                    elif p.attr:
-                        akey = ("expires_epoch" if p.attr == "expires"
-                                and fid.startswith("TIME.EPOCH:") else p.attr)
-                        texts = segs.last_values(p.comp)
-                        texts.update((i, d.get(p.comp)) for i, d in slow_dicts.items() if d)
-                        for i, text in texts.items():
-                            if not text:
-                                continue
-                            attrs = attrs_memo.get(text)
-                            if attrs is None:
-                                attrs = attrs_memo[text] = parse_attrs(text)
-                            if akey in attrs:
-                                ov[i] = attrs[akey]
-                    else:
-                        segs.fill_column(columns[fid], ov, p.comp)
-                        ov.update((i, d.get(p.comp) if d else None)
-                                  for i, d in slow_dicts.items())
+                self._csr_group(u, block, key, flist, rows, buf, flat_buf, L, B,
+                                columns, overrides, failed)
         return failed
+
+    def _csr_group(self, u, block, key, flist, rows, buf, flat_buf, L, B,
+                   columns, overrides, failed) -> None:
+        """One segment table (one query string, cookie or Set-Cookie
+        header of a unit) over the unit's ``rows``.  Only the emitted
+        segments are decoded, one entry each; a row on the per-row path
+        decodes its own slots."""
+        mode = flist[0][1].meta
+        uri_chain = bool(flist[0][1].steps)
+        cookie, setcookie = mode == "cookie", mode == "setcookie"
+        slots = u.layout.slots[key]
+        K = u.layout.csr_slots
+        # Each slot packs into two rows (start, nlen, eq, dec, ndec in the
+        # "start" word; vstart, vlen in the "vstart" word): gather both
+        # [K, rows] word blocks once.
+        words = [block[[slots[f"s{k}_{part}"][0] for k in range(K)]][:, rows]
+                 for part in ("start", "vstart")]
+
+        def field(comp, w):
+            _, shift, bits = slots[f"s0_{comp}"]
+            return (w >> shift) & ((1 << bits) - 1)
+
+        ok = u.layout.get(block, key, "ok")[:B][rows] != 0
+        # A segment is emitted iff its name is non-empty (an empty slot
+        # packs nlen 0; "=value" matches nothing); a Set-Cookie cookie
+        # also needs its '='.
+        emit = (field("nlen", words[0]) > 0) & ok[None, :]
+        if setcookie:
+            emit &= field("eq", words[0]) != 0
+        # The emitted segments in row and slot order: their row position,
+        # row, spans and flags.
+        pr, pk = np.nonzero(emit.T)
+        w0, w1 = words[0][pk, pr], words[1][pk, pr]
+        s_row = rows[pr]
+        s_ss = field("start", w0).astype(np.int64)
+        s_nl = field("nlen", w0).astype(np.int64)
+        s_vs = field("vstart", w1).astype(np.int64)
+        s_vl = field("vlen", w1).astype(np.int64)
+        s_he = field("eq", w0) != 0
+        s_dc = field("dec", w0) != 0
+
+        def edge(S, N):
+            # A byte <= 0x20 or >= 0x80 at either end of a span.
+            a = s_row * L + S
+            first = flat_buf[np.where(N > 0, a, 0)]
+            last = flat_buf[np.where(N > 0, a + N - 1, 0)]
+            return (N > 0) & ((first <= 0x20) | (first >= 0x80)
+                              | (last <= 0x20) | (last >= 0x80))
+
+        def hard(sel):
+            # Flagged values the vectorized decode cannot prove
+            # (_qs_value_decode's ``bad``).
+            out = np.zeros(pr.size, dtype=bool)
+            idx = np.nonzero(sel)[0]
+            if idx.size:
+                seg, f_off = _flat_segments(flat_buf, L, s_row[idx], s_vs[idx],
+                                            np.where(s_he[idx], s_vl[idx], 0))
+                out[idx[_qs_value_decode(seg, f_off)[2]]] = True
+            return out
+
+        if setcookie:
+            flag = edge(s_ss, s_nl)
+        elif cookie:
+            # The host trims a cookie's name and value before it decodes
+            # the value: a span with a trimmable edge takes the per-row path.
+            flag = edge(s_ss, s_nl) | edge(s_vs, s_vl) | hard(s_dc)
+        elif uri_chain:
+            # Names that need %-repair take the per-row path; flagged
+            # values decode below (a device-valid URI query is clean ASCII,
+            # so the left-to-right rule is exact).
+            flag = field("ndec", w0) != 0
+        else:
+            flag = hard(s_dc)
+        row_flag = np.zeros(rows.size, dtype=bool)
+        row_flag[pr[flag]] = True
+        vrows, py_rows = rows[~row_flag], rows[row_flag]
+        need_dicts = any(p.comp == "*" for _, p in flist)
+
+        # ---- the flat path: the fast rows' segments.
+        fast = ~row_flag[pr]
+        n_seg = int(np.count_nonzero(fast))
+        s_row, s_ss, s_nl, s_vs, s_dc = (a[fast] for a in (s_row, s_ss, s_nl, s_vs, s_dc))
+        s_vl = np.where(s_he[fast] | setcookie, s_vl[fast], 0)
+        nb_np, non = _flat_segments(flat_buf, L, s_row, s_ss, s_nl)
+        seg_high = np.zeros(n_seg, dtype=bool)
+        if nb_np.size:   # every emitted name is non-empty
+            seg_high = np.add.reduceat((nb_np >= 0x80).astype(np.int64), non[:-1]) > 0
+        vb_np, nov = (_flat_segments(flat_buf, L, s_row, s_vs, s_vl) if need_dicts
+                      else (np.zeros(0, dtype=np.uint8), np.zeros(1, dtype=np.int64)))
+
+        # Flagged values of a query string ('%', '+', encode-set bytes) or a
+        # cookie decode here, the exact (repair +) resilientUrlDecode result
+        # for the segments proven above.
+        dec_pos = np.full(n_seg, -1, dtype=np.int64)
+        darr, d_off = np.zeros(0, dtype=np.uint8), np.zeros(1, dtype=np.int64)
+        if n_seg and not setcookie:
+            dec_idx = np.nonzero(s_dc)[0]
+            if dec_idx.size:
+                dec_pos[dec_idx] = np.arange(dec_idx.size)
+                seg, f_off = _flat_segments(flat_buf, L, s_row[dec_idx], s_vs[dec_idx],
+                                            s_vl[dec_idx])
+                darr, d_off, _ = _qs_value_decode(seg, f_off)
+                if need_dicts:
+                    # The decoded bytes (as UTF-8) replace the raw spans in
+                    # the flat value buffer.
+                    uarr, u_off = _latin1_to_utf8(darr, d_off)
+                    lens = np.diff(nov)
+                    lens2 = lens.copy()
+                    lens2[dec_idx] = np.diff(u_off)
+                    nov2 = np.zeros_like(nov)
+                    np.cumsum(lens2, out=nov2[1:])
+                    new_vb = np.empty(int(nov2[-1]), dtype=np.uint8)
+                    keep_i = np.nonzero(~s_dc)[0]
+                    _seg_scatter(new_vb, nov2[keep_i], vb_np, nov[keep_i], lens[keep_i])
+                    _seg_scatter(new_vb, nov2[dec_idx], uarr, u_off[:-1], lens2[dec_idx])
+                    vb_np, nov = new_vb, nov2
+        nb = nb_np.tobytes()
+
+        def decoded(j: int) -> str:
+            jj = int(dec_pos[j])
+            return bytes(darr[d_off[jj]:d_off[jj + 1]]).decode("latin-1")
+
+        def match_comp(comp: str) -> np.ndarray:
+            # The segments named ``comp``, a byte-wise match with ASCII case
+            # fold; a name with a byte >= 0x80 decodes one by one (its
+            # lower() can change the UTF-8 length).
+            comp_b = comp.encode("utf-8")
+            if n_seg == 0 or not comp_b:
+                return np.empty(0, dtype=np.int64)
+            out = np.nonzero((s_nl == len(comp_b)) & ~seg_high)[0]
+            if out.size:
+                g = flat_buf[(s_row * L + s_ss)[out][:, None] + np.arange(len(comp_b))]
+                folded = np.where((g >= 0x41) & (g <= 0x5A), g | 0x20, g)
+                out = out[(folded == np.frombuffer(comp_b, dtype=np.uint8)).all(axis=1)]
+            extra = [j for j in np.nonzero(seg_high)[0].tolist()
+                     if nb[non[j]:non[j + 1]].decode("utf-8", "replace").lower() == comp]
+            if extra:
+                out = np.sort(np.concatenate([out, np.asarray(extra, dtype=np.int64)]))
+            return out
+
+        def last_texts(m):
+            # (row, text) of the last matched segment of each row: the host
+            # dissects only the last of same-name segments.
+            last: Dict[int, int] = {}
+            for j in m.tolist():
+                last[int(s_row[j])] = j
+            for row, j in last.items():
+                if dec_pos[j] >= 0:
+                    yield row, decoded(j)
+                else:
+                    v0 = int(s_vs[j])
+                    yield row, bytes(buf[row, v0:v0 + int(s_vl[j])]).decode("utf-8",
+                                                                           "replace")
+
+        matches: Dict[str, np.ndarray] = {}
+        attrs_memo: Dict[str, dict] = {}
+        for fid, p in flist:
+            if p.comp == "*":
+                continue
+            m = matches.get(p.comp)
+            if m is None:
+                m = matches[p.comp] = match_comp(p.comp)
+            ov = overrides[fid]
+            if isinstance(p.attr, tuple):
+                # A remapped screen resolution: the value split on the
+                # separator.
+                for row, text in last_texts(m):
+                    value = _sres_value(p.attr, text)
+                    if value is not None:
+                        ov[row] = _apply_setter_casts(
+                            value, *self._cast_flags.get(fid, (False, False)))
+                continue
+            if p.attr:
+                akey = _setcookie_attr_key(fid, p.attr)
+                for row, text in last_texts(m):
+                    attrs = attrs_memo.get(text)
+                    if attrs is None:
+                        attrs = attrs_memo[text] = parse_attrs(text)
+                    if akey in attrs:
+                        ov[row] = attrs[akey]
+                continue
+            # A concrete name: span column writes (numpy's fancy assignment
+            # keeps the last segment of a row, the host's overwrite order).
+            col = columns[fid]
+            col["ok"][vrows] = True
+            col["null"][vrows] = True
+            if m.size:
+                mr = s_row[m]
+                col["starts"][mr] = s_vs[m]
+                col["ends"][mr] = s_vs[m] + s_vl[m]
+                col["null"][mr] = False
+                # A row whose last match was decoded delivers the decoded
+                # value as an override (a span points at raw bytes).
+                last = np.ones(m.size, dtype=bool)
+                last[:-1] = mr[:-1] != mr[1:]
+                for j in m[last & (dec_pos[m] >= 0)].tolist():
+                    ov[int(s_row[j])] = decoded(j)
+
+        def row_slots(j):
+            # Row position j's K slots: (NL, HE, SS, VS, VL, DC, ND).
+            a, v = words[0][:, j], words[1][:, j]
+            return (field("nlen", a), field("eq", a) != 0, field("start", a),
+                    field("vstart", v), field("vlen", v), field("dec", a) != 0,
+                    field("ndec", a) != 0)
+
+        dicts = self._csr_slow_rows(py_rows, rows, row_slots, mode, uri_chain, buf, flist,
+                                    overrides, attrs_memo, failed)
+        if need_dicts:
+            for fid, p in flist:
+                if p.comp != "*":
+                    continue
+                tgt = overrides[fid]
+                if vrows.size:
+                    tgt.add_chunk(vrows, s_row, nb, non, vb_np.tobytes(), nov, seg_high)
+                tgt.eager.update(dicts)
+
+    def _csr_slow_rows(self, py_rows, rows, row_slots, mode, uri_chain, buf, flist,
+                       overrides, attrs_memo, failed) -> Dict[int, dict]:
+        """The per-row path of one segment table: each row's dict the
+        reference's per-value way (``_csr_dict_slow``), its concrete and
+        attribute fields delivered as overrides; a row whose value decode
+        fails joins ``failed``.  Returns {row: dict} of the rows that did
+        not fail."""
+        dicts: Dict[int, dict] = {}
+        pos_of = {int(r): j for j, r in enumerate(rows.tolist())}
+        for i in py_rows.tolist():
+            d = _csr_dict_slow(buf[i], mode, uri_chain, *row_slots(pos_of[i]))
+            if d is None:
+                failed.add(i)
+            else:
+                dicts[i] = d
+            for fid, p in flist:
+                if p.comp == "*":
+                    continue
+                ov = overrides[fid]
+                text = d.get(p.comp) if d else None
+                if isinstance(p.attr, tuple):
+                    value = _sres_value(p.attr, text)
+                    if value is not None:
+                        ov[i] = _apply_setter_casts(
+                            value, *self._cast_flags.get(fid, (False, False)))
+                elif p.attr:
+                    if text:
+                        attrs = attrs_memo.get(text)
+                        if attrs is None:
+                            attrs = attrs_memo[text] = parse_attrs(text)
+                        akey = _setcookie_attr_key(fid, p.attr)
+                        if akey in attrs:
+                            ov[i] = attrs[akey]
+                else:
+                    ov[i] = text
+        return dicts
 
 
 class _PinnedAlloc:
@@ -1551,6 +1819,14 @@ def _raw_line_bytes(line) -> bytes:
     return str(line).encode("utf-8", errors="surrogateescape")
 
 
+def _setcookie_attr_key(fid: str, attr: str) -> str:
+    """The ``parse_attrs`` key of a requested Set-Cookie attribute: the
+    TIME.EPOCH twin of ``expires`` reads the epoch, any other its name."""
+    if attr == "expires" and fid.startswith("TIME.EPOCH:"):
+        return "expires_epoch"
+    return attr
+
+
 def _sres_value(attr, text: Optional[str]) -> Optional[str]:
     """ScreenResolutionDissector on one value: the part before / after the
     separator; None (nothing delivered) without one."""
@@ -1604,89 +1880,357 @@ del _c
 def _qs_value_decode(bts: np.ndarray, off: np.ndarray):
     """'+' / percent decode of n concatenated value segments (``off`` the
     [n+1] offsets): '+' -> 0x20, '%' + two same-segment hex digits -> the
-    byte, anything else verbatim.  Returns (decoded bytes, offsets)."""
+    byte, anything else verbatim -- the left-to-right rule of repair, then
+    URL-decode, on a query value.  Returns (decoded bytes, offsets, bad):
+    ``bad[k]`` marks a segment the rule does not cover for a direct token
+    capture, a '%' without two in-segment hex digits (the host's decoder
+    may chop it, raise, or read a %uXXXX escape) or a raw byte >= 0x80."""
     n = len(off) - 1
     total = int(off[-1])
     if total == 0:
-        return np.zeros(0, dtype=np.uint8), np.zeros(n + 1, dtype=np.int64)
+        return (np.zeros(0, dtype=np.uint8), np.zeros(n + 1, dtype=np.int64),
+                np.zeros(n, dtype=bool))
     lens = np.diff(off)
     seg_id = np.repeat(np.arange(n, dtype=np.int64), lens)
     seg_end = np.repeat(off[1:], lens)
     pos = np.arange(total, dtype=np.int64)
     hexv = _HEX_VAL[bts]
     is_hex = hexv < 16
+    is_pct = bts == 0x25
     i1 = np.minimum(pos + 1, total - 1)
     i2 = np.minimum(pos + 2, total - 1)
-    start = (bts == 0x25) & (pos + 2 < seg_end) & is_hex[i1] & is_hex[i2]
+    start = is_pct & (pos + 2 < seg_end) & is_hex[i1] & is_hex[i2]
     consumed = np.zeros(total, dtype=bool)
     consumed[1:] |= start[:-1]
     consumed[2:] |= start[:-2]
     out = np.where(bts == 0x2B, np.uint8(0x20), bts)
     out = np.where(start, (hexv[i1].astype(np.uint8) << 4) | hexv[i2], out).astype(np.uint8)
+    bad_b = (is_pct & ~start) | (bts >= 0x80)
+    bad = np.zeros(n, dtype=bool)
+    if bad_b.any():
+        bad = np.bincount(seg_id[bad_b], minlength=n) > 0
     keep = ~consumed
     new_off = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(seg_id[keep], minlength=n), out=new_off[1:])
-    return out[keep], new_off
+    return out[keep], new_off, bad
 
 
-class _QuerySegments:
-    """The emitted segments of rows whose names need no repair, in row
-    and slot order: their row, value span, decode flag, lower-cased name
-    and value ('+' / %XX-decoded as latin-1 when flagged, else the raw
-    bytes as UTF-8)."""
+def _latin1_to_utf8(bts: np.ndarray, off: np.ndarray):
+    """Decoded (latin-1) segment bytes as UTF-8, so that they ride the
+    wildcard's flat value buffer (read as UTF-8): a byte < 0x80 passes,
+    a byte >= 0x80 becomes the two-byte form of U+0080..U+00FF."""
+    hi = bts >= 0x80
+    if not hi.any():
+        return bts, off
+    n = len(off) - 1
+    lens = np.diff(off)
+    seg_id = np.repeat(np.arange(n, dtype=np.int64), lens)
+    width = 1 + hi.astype(np.int64)
+    dst = np.cumsum(width) - width
+    out = np.empty(int(dst[-1] + width[-1]) if len(dst) else 0, dtype=np.uint8)
+    out[dst] = np.where(hi, 0xC0 | (bts >> 6), bts)
+    out[dst[hi] + 1] = 0x80 | (bts[hi] & 0x3F)
+    extra = np.bincount(seg_id[hi], minlength=n)
+    new_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens + extra, out=new_off[1:])
+    return out, new_off
 
-    def __init__(self, buf, rows, emit, SS, NL, VS, VL, DC):
-        self.rows = rows
-        pr, pk = np.nonzero(emit.T)
-        sub = (pk, pr)
-        self.seg_row, self.vs, self.vl, self.dec = rows[pr], VS[sub], VL[sub], DC[sub]
-        ss, nl = SS[sub], NL[sub]
-        self.names = [bytes(buf[r, s:s + n]).decode("utf-8", "replace").lower()
-                      for r, s, n in zip(self.seg_row.tolist(), ss.tolist(), nl.tolist())]
-        self.values = [bytes(buf[r, v:v + n]).decode("utf-8", "replace")
-                       for r, v, n in zip(self.seg_row.tolist(), self.vs.tolist(),
-                                          self.vl.tolist())]
-        idx = np.nonzero(self.dec)[0]
-        if idx.size:
-            lens = self.vl[idx]
-            off = np.zeros(idx.size + 1, dtype=np.int64)
-            np.cumsum(lens, out=off[1:])
-            flat = np.concatenate([buf[r, v:v + n] for r, v, n in
-                                   zip(self.seg_row[idx], self.vs[idx], lens)])
-            darr, d_off = _qs_value_decode(flat, off)
-            for m, j in enumerate(idx.tolist()):
-                self.values[j] = bytes(darr[d_off[m]:d_off[m + 1]]).decode("latin-1")
-        self._dicts: Optional[Dict[int, Dict[str, str]]] = None
 
-    def dicts(self) -> Dict[int, Dict[str, str]]:
-        """{row: {name: value}}; a later segment of the same name wins."""
-        if self._dicts is None:
-            self._dicts = {int(i): {} for i in self.rows.tolist()}
-            for r, name, value in zip(self.seg_row.tolist(), self.names, self.values):
-                self._dicts[r][name] = value
-        return self._dicts
+def _seg_scatter(dst, dst_off, src, src_off, lens) -> None:
+    """Copy n segments ``src[src_off[k]:+lens[k]]`` to
+    ``dst[dst_off[k]:+lens[k]]`` with one gather / scatter pair."""
+    total = int(lens.sum())
+    if total == 0:
+        return
+    cum = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=cum[1:])
+    ar = np.arange(total, dtype=np.int64)
+    dst[np.repeat(dst_off - cum[:-1], lens) + ar] = src[np.repeat(src_off - cum[:-1], lens) + ar]
 
-    def last_values(self, comp: str) -> Dict[int, str]:
-        """{row: value of the row's last segment named ``comp``}."""
-        return {r: v for r, n, v in zip(self.seg_row.tolist(), self.names, self.values)
-                if n == comp}
 
-    def fill_column(self, col, ov, comp: str) -> None:
-        """A concrete key: the span of the last segment of that name, None
-        where there is none; a decoded value goes to the overrides."""
-        col["ok"][self.rows] = True
-        col["null"][self.rows] = True
-        m = np.array([j for j, n in enumerate(self.names) if n == comp], dtype=np.int64)
-        if m.size == 0:
-            return
-        mr = self.seg_row[m]
-        col["starts"][mr] = self.vs[m]
-        col["ends"][mr] = self.vs[m] + self.vl[m]
-        col["null"][mr] = False
-        last = np.ones(m.size, dtype=bool)
-        last[:-1] = mr[:-1] != mr[1:]
-        for j in m[last & self.dec[m]].tolist():
-            ov[int(self.seg_row[j])] = self.values[j]
+def _flat_segments(flat_buf, L, rows, starts, lens):
+    """n segments ``buf[rows[k], starts[k]:+lens[k]]`` of a [B, L] buffer
+    as (bytes, offsets [n+1])."""
+    off = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    idx = np.repeat(rows * L + starts - off[:-1], lens) + np.arange(int(off[-1]),
+                                                                     dtype=np.int64)
+    return flat_buf[idx], off
+
+
+def _dedup_names(seg_row, folded, nb_off, vb, vb_off):
+    """A row's segments as its dict holds them: a name seen twice keeps
+    the place of its first segment and the value of its last (``d[name] =
+    value`` in segment order).  Segments are grouped by row and a
+    signature of the folded name (length, byte sum, first and last byte),
+    and every group's members are checked byte for byte; a false
+    collision returns None (the dict path decides).  Returns (seg_row,
+    folded, values, name_lens, val_lens), the arrays unchanged where no
+    name repeats."""
+    n = len(seg_row)
+    name_lens, val_lens = np.diff(nb_off), np.diff(vb_off)
+    sums = np.add.reduceat(folded.astype(np.int64), nb_off[:-1])
+    sig = ((name_lens << 40) | (sums << 16) | (folded[nb_off[:-1]].astype(np.int64) << 8)
+           | folded[nb_off[1:] - 1])
+    order = np.lexsort((sig, seg_row))   # stable: by row, signature, position
+    same = (seg_row[order][1:] == seg_row[order][:-1]) & (sig[order][1:] == sig[order][:-1])
+    if not same.any():
+        return seg_row, folded, vb, name_lens, val_lens
+    first = np.ones(n, dtype=bool)
+    first[1:] = ~same
+    last = np.ones(n, dtype=bool)
+    last[:-1] = ~same
+    # Every member's bytes equal its group's first member's.
+    lead = order[np.maximum.accumulate(np.where(first, np.arange(n), 0))]
+    members, leads = order[~first], lead[~first]
+    ml = name_lens[members]
+    if ml.sum():
+        ramp = np.arange(int(ml.sum()), dtype=np.int64) - np.repeat(np.cumsum(ml) - ml, ml)
+        if not np.array_equal(folded[np.repeat(nb_off[members], ml) + ramp],
+                              folded[np.repeat(nb_off[leads], ml) + ramp]):
+            return None
+    value_of = np.empty(n, dtype=np.int64)
+    value_of[order[first]] = order[last]
+    kept = np.sort(order[first])
+    src = value_of[kept]
+    name_lens_k, val_lens_k = name_lens[kept], val_lens[src]
+
+    def gather(data, off, rows, lens):
+        total = int(lens.sum())
+        ramp = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(lens) - lens, lens)
+        return data[np.repeat(off[rows], lens) + ramp]
+
+    return (seg_row[kept], gather(folded, nb_off, kept, name_lens_k),
+            gather(vb, vb_off, src, val_lens_k), name_lens_k, val_lens_k)
+
+
+class _LazyWildcard:
+    """The overrides of a wildcard (``.*``) field.
+
+    The flat segment buffers of each unit's fast rows are kept as they are
+    (``chunks``: the rows, each segment's row, and the name and value
+    bytes with their offsets); the per-row dicts of ``to_pylist`` are built
+    at the first dict-style access, and ``to_arrow_map`` builds the Arrow
+    map column straight from the buffers.  ``eager`` holds dicts delivered
+    one by one (slow rows, the oracle's) and wins over chunk data for its
+    row; ``dropped`` holds the rows popped since (a row failed by another
+    group of the line), which shadow chunk data too."""
+
+    __slots__ = ("eager", "chunks", "_dense", "dropped")
+
+    def __init__(self) -> None:
+        self.eager: Dict[int, Any] = {}
+        # (vrows, seg_row, name_bytes, name_off, val_bytes, val_off, high)
+        self.chunks: List[tuple] = []
+        self._dense: Optional[Dict[int, Any]] = None
+        self.dropped: set = set()
+
+    def add_chunk(self, vrows, seg_row, nb, non, vb, nov, seg_high) -> None:
+        self.chunks.append((vrows, seg_row, nb, non, vb, nov, seg_high))
+        self._dense = None
+
+    def _materialize(self) -> Dict[int, Any]:
+        if self._dense is None:
+            dense: Dict[int, Any] = {}
+            for vrows, seg_row, nb, non, vb, nov, _hi in self.chunks:
+                for r in vrows.tolist():
+                    dense[r] = {}
+                rl = seg_row.tolist()
+                for j in range(len(rl)):
+                    name = nb[non[j]:non[j + 1]].decode("utf-8", "replace").lower()
+                    dense[rl[j]][name] = vb[nov[j]:nov[j + 1]].decode("utf-8", "replace")
+            dense.update(self.eager)
+            for i in self.dropped:
+                dense.pop(i, None)
+            self._dense = dense
+        return self._dense
+
+    def __contains__(self, i) -> bool:
+        return i in self._materialize()
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __setitem__(self, i, value) -> None:
+        self.eager[i] = value
+        self.dropped.discard(i)
+        if self._dense is not None:
+            self._dense[i] = value
+
+    def pop(self, i, default=None):
+        self.dropped.add(i)
+        if self._dense is not None:
+            self._dense.pop(i, None)
+        return self.eager.pop(i, default)
+
+    def __bool__(self) -> bool:
+        return (bool(self.eager) or any(len(c[0]) for c in self.chunks)
+                or bool(self._dense))
+
+    def sliced(self, start: int, stop: int) -> "_LazyWildcard":
+        """The rows [start, stop) rebased to 0 (``BatchResult.slice``): eager
+        rows and tombstones rebase, each chunk keeps the window's segments
+        with its byte runs re-packed -- the one-chunk layout a solo parse
+        of those rows builds, so ``to_arrow_map`` stays taken."""
+        out = _LazyWildcard()
+        out.eager = {i - start: v for i, v in self.eager.items() if start <= i < stop}
+        out.dropped = {i - start for i in self.dropped if start <= i < stop}
+        for vrows, seg_row, nb, non, vb, nov, seg_high in self.chunks:
+            vrows = np.asarray(vrows, dtype=np.int64)
+            seg_row = np.asarray(seg_row, dtype=np.int64)
+            vsel = (vrows >= start) & (vrows < stop)
+            ssel = (seg_row >= start) & (seg_row < stop)
+            if not vsel.any() and not ssel.any():
+                continue
+            name_lens = np.diff(np.asarray(non, dtype=np.int64))
+            val_lens = np.diff(np.asarray(nov, dtype=np.int64))
+            nb_np = np.frombuffer(nb, dtype=np.uint8)
+            vb_np = np.frombuffer(vb, dtype=np.uint8)
+            new_non = np.zeros(int(ssel.sum()) + 1, dtype=np.int64)
+            np.cumsum(name_lens[ssel], out=new_non[1:])
+            new_nov = np.zeros(int(ssel.sum()) + 1, dtype=np.int64)
+            np.cumsum(val_lens[ssel], out=new_nov[1:])
+            out.add_chunk(vrows[vsel] - start, seg_row[ssel] - start,
+                          nb_np[np.repeat(ssel, name_lens)].tobytes(), new_non,
+                          vb_np[np.repeat(ssel, val_lens)].tobytes(), new_nov,
+                          np.asarray(seg_high, dtype=bool)[ssel])
+        return out
+
+    def to_arrow_map(self, B: int):
+        """A pyarrow ``map<string, string>`` array built from the flat
+        buffers; None where the dict path must decide (several chunks --
+        several formats --, a name with a byte >= 0x80, whose ``lower()``
+        can differ from the ASCII fold, or many eager rows).  A name twice
+        in a row collapses as in the dicts (``_dedup_names``); eager and
+        dropped rows are spliced into the flat layout."""
+        if self._dense is not None or len(self.chunks) != 1:
+            return None
+        if len(self.eager) > max(64, B // 32):
+            return None   # heavy one-by-one traffic: splicing stops paying
+        import pyarrow as pa
+
+        vrows, seg_row, nb, non, vb, nov, seg_high = self.chunks[0]
+        seg_row = np.asarray(seg_row, dtype=np.int64)
+        seg_high = np.asarray(seg_high, dtype=bool)
+        n_seg = len(seg_row)
+        name_lens = np.diff(non)
+        val_lens = np.diff(nov)
+        nb_np = np.frombuffer(nb, dtype=np.uint8)
+        vb_np = np.frombuffer(vb, dtype=np.uint8)
+        upper = (nb_np >= 0x41) & (nb_np <= 0x5A)
+        folded = np.where(upper, nb_np | 0x20, nb_np)
+
+        # Segments of rows delivered one by one (eager wins) or popped
+        # leave before the checks below, so that a shadowed row cannot
+        # cost the column its flat path.
+        shadow = set(self.dropped)
+        shadow.update(self.eager)
+        if shadow:
+            seg_keep = ~np.isin(seg_row, np.fromiter(shadow, dtype=np.int64))
+            if not seg_keep.all():
+                folded = folded[np.repeat(seg_keep, name_lens)]
+                vb_np = vb_np[np.repeat(seg_keep, val_lens)]
+                seg_row, seg_high = seg_row[seg_keep], seg_high[seg_keep]
+                name_lens, val_lens = name_lens[seg_keep], val_lens[seg_keep]
+                n_seg = len(seg_row)
+
+        if bool(seg_high.any()):
+            return None
+        nb_off = np.zeros(n_seg + 1, dtype=np.int64)
+        np.cumsum(name_lens, out=nb_off[1:])
+        vb_off = np.zeros(n_seg + 1, dtype=np.int64)
+        np.cumsum(val_lens, out=vb_off[1:])
+        if n_seg:
+            dedup = _dedup_names(seg_row, folded, nb_off, vb_np, vb_off)
+            if dedup is None:
+                return None
+            seg_row, folded, vb_np, name_lens, val_lens = dedup
+            n_seg = len(seg_row)
+            nb_off = np.zeros(n_seg + 1, dtype=np.int64)
+            np.cumsum(name_lens, out=nb_off[1:])
+            vb_off = np.zeros(n_seg + 1, dtype=np.int64)
+            np.cumsum(val_lens, out=vb_off[1:])
+
+        counts = np.zeros(B, dtype=np.int64)
+        left = np.searchsorted(seg_row, vrows, side="left")
+        right = np.searchsorted(seg_row, vrows, side="right")
+        counts[vrows] = right - left
+        covered = np.zeros(B, dtype=bool)
+        covered[vrows] = True
+        for i in self.dropped:
+            if 0 <= i < B:
+                covered[i] = False
+                counts[i] = 0
+
+        # The eager rows' items spliced in row order (Python per row, the
+        # segments stay vectorized).
+        spliced = False
+        if self.eager:
+            cut_n = cut_v = cut_seg = 0
+            inserts = []
+            for i in sorted(self.eager):
+                if not (0 <= i < B) or i in self.dropped:
+                    continue   # dropped wins over eager, as in _materialize
+                d = self.eager[i]
+                if d is None:
+                    covered[i] = False
+                    counts[i] = 0
+                    continue
+                covered[i] = True
+                counts[i] = len(d)
+                inserts.append((i, [str(k).encode("utf-8") for k in d.keys()],
+                                [str(v).encode("utf-8") for v in d.values()]))
+            if inserts:
+                spliced = True
+                name_pieces, val_pieces, nlen_pieces, vlen_pieces = [], [], [], []
+                for i, keys_b, vals_b in inserts:
+                    at = int(np.searchsorted(seg_row, i, side="left"))
+                    name_pieces.append(folded[cut_n:int(nb_off[at])])
+                    val_pieces.append(vb_np[cut_v:int(vb_off[at])])
+                    nlen_pieces.append(name_lens[cut_seg:at])
+                    vlen_pieces.append(val_lens[cut_seg:at])
+                    if keys_b:
+                        name_pieces.append(np.frombuffer(b"".join(keys_b), dtype=np.uint8))
+                        val_pieces.append(np.frombuffer(b"".join(vals_b), dtype=np.uint8))
+                        nlen_pieces.append(np.array([len(k) for k in keys_b], dtype=np.int64))
+                        vlen_pieces.append(np.array([len(v) for v in vals_b], dtype=np.int64))
+                    cut_n, cut_v, cut_seg = int(nb_off[at]), int(vb_off[at]), at
+                name_pieces.append(folded[cut_n:])
+                val_pieces.append(vb_np[cut_v:])
+                nlen_pieces.append(name_lens[cut_seg:])
+                vlen_pieces.append(val_lens[cut_seg:])
+                folded = np.concatenate(name_pieces)
+                vb_np = np.concatenate(val_pieces)
+                name_lens = np.concatenate(nlen_pieces)
+                val_lens = np.concatenate(vlen_pieces)
+                n_seg = len(name_lens)
+
+        if spliced:   # the splice changed the lengths
+            non32 = np.zeros(n_seg + 1, dtype=np.int64)
+            np.cumsum(name_lens, out=non32[1:])
+            nov32 = np.zeros(n_seg + 1, dtype=np.int64)
+            np.cumsum(val_lens, out=nov32[1:])
+        else:
+            non32, nov32 = nb_off, vb_off
+        if max(int(non32[-1]), int(nov32[-1])) > np.iinfo(np.int32).max:
+            return None
+        offsets64 = np.zeros(B + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets64[1:])
+        mask = np.concatenate([~covered, [False]])
+        try:
+            keys = pa.StringArray.from_buffers(
+                n_seg, pa.py_buffer(non32.astype(np.int32)),
+                pa.py_buffer(np.ascontiguousarray(folded)))
+            items = pa.StringArray.from_buffers(
+                n_seg, pa.py_buffer(nov32.astype(np.int32)),
+                pa.py_buffer(np.ascontiguousarray(vb_np)))
+            arr = pa.MapArray.from_arrays(
+                pa.array(offsets64.astype(np.int32), type=pa.int32(), mask=mask),
+                keys, items)
+            arr.validate(full=True)   # the UTF-8 check
+        except (pa.lib.ArrowException, TypeError, ValueError):
+            return None   # the dict path is always exact
+        return arr
 
 
 def _csr_dict_slow(line, mode, uri_chain, NL, HE, SS, VS, VL, DC, ND
@@ -1790,6 +2334,22 @@ def _plan_group(plan: FieldPlan) -> str:
     return "host"
 
 
+def _geo_typed_fill(col, sel, typed, miss, kind_ch: str) -> None:
+    """A numeric GeoIP column's raw values and miss mask beside its object
+    values, for the bridge's typed array; fills of two numeric kinds in
+    one column turn that path off (``typed_kind`` None)."""
+    B = len(typed)
+    if "typed_values" not in col:
+        col["typed_values"] = np.zeros(B, dtype=np.float64 if kind_ch == "f" else np.int64)
+        col["typed_miss"] = np.ones(B, dtype=bool)
+        col["typed_kind"] = kind_ch
+    if col.get("typed_kind") == kind_ch:
+        col["typed_values"] = np.where(sel, typed, col["typed_values"])
+        col["typed_miss"] = np.where(sel, miss, col["typed_miss"])
+    else:
+        col["typed_kind"] = None
+
+
 def _empty_column(group: str, B: int) -> Dict[str, Any]:
     """A column's arrays before any unit fills them (a "host" column is
     never filled: every value is an oracle override)."""
@@ -1802,7 +2362,7 @@ def _empty_column(group: str, B: int) -> Dict[str, Any]:
         return col
     if group == "obj":
         return {"kind": "obj", "values": np.full(B, None, dtype=object),
-                "ok": np.zeros(B, dtype=bool)}
+                "ok": np.zeros(B, dtype=bool), "null": np.zeros(B, dtype=bool)}
     return {"kind": "numeric", "values": np.zeros(B, dtype=np.int64),
             "null": np.zeros(B, dtype=bool), "null_zero": np.zeros(B, dtype=bool),
             "ok": np.zeros(B, dtype=bool)}
@@ -1820,11 +2380,19 @@ class BatchResult:
     ``reject_reasons`` maps every invalid row to "implausible",
     "oracle_reject" or "oracle_error"; ``rescue_reasons`` counts the
     visited rows by why they left the device ("overflow",
-    "device_reject", "host_fields"); ``rescue_wall_s`` is the oracle's
-    wall time."""
+    "device_reject", "host_fields"); ``rescue_wall_s`` is the wall time
+    the oracle added.
+
+    ``packed`` is the device's trailing view block only (4 int32 rows a
+    span field, copied out of the fetch); ``device_views`` maps a field to
+    the row of its merged span word there (the next three rows are its
+    first 12 bytes); ``dirty_view_rows`` (truncated lines) are zeroed and
+    patched on the host.  ``assembly_pool`` is the parser's host pool,
+    which ``to_arrow`` and the native passes read their width from."""
 
     def __init__(self, lines, buf, lengths, valid, columns, overrides,
-                 needs_host, format_index):
+                 needs_host, format_index, packed=None, device_views=None,
+                 dirty_rows=None, assembly_pool=None):
         self._lines = lines
         self.buf = buf
         self.lengths = lengths
@@ -1833,6 +2401,11 @@ class BatchResult:
         self._overrides = overrides
         self.needs_host = needs_host
         self.format_index = format_index
+        self.packed = packed
+        self.device_views = device_views or {}
+        self.dirty_view_rows = (dirty_rows if dirty_rows is not None
+                                else np.empty(0, dtype=np.int64))
+        self.assembly_pool = assembly_pool
         self.lines_read = len(lines)
         self.good_lines = int(np.count_nonzero(valid))
         self.bad_lines = self.lines_read - self.good_lines
@@ -1843,6 +2416,7 @@ class BatchResult:
         self.d2h_bytes = 0
         self.csr_regrows = 0
         self.framer: Optional[str] = None   # "native" or "numpy"
+        self._ascii_only: Optional[bool] = None
 
     @property
     def oracle_row_ids(self) -> np.ndarray:
@@ -1854,12 +2428,28 @@ class BatchResult:
         """How many rows the oracle visited."""
         return len(self.needs_host)
 
+    @property
+    def ascii_only(self) -> bool:
+        """Every byte of the batch buffer < 0x80: then every gathered span
+        is valid UTF-8 and the bridge skips its validate pass (one max over
+        the buffer, computed once)."""
+        if self._ascii_only is None:
+            B = self.lines_read
+            self._ascii_only = bool(B == 0 or int(self.buf[:B].max(initial=0)) < 0x80)
+        return self._ascii_only
+
     def raw_line(self, i: int) -> bytes:
         """The raw bytes of line ``i`` as ingested (strings UTF-8)."""
         return _raw_line_bytes(self._lines[i])
 
     def field_ids(self) -> List[str]:
         return list(self._columns)
+
+    def column(self, field_id: str) -> Dict[str, Any]:
+        """A column's arrays: a span column's starts / ends / ok / null
+        (with amp / fix / fix_mode for a device span), a numeric one's
+        values / null / null_zero / ok, an object one's values / ok."""
+        return self._columns[cleanup_field_value(field_id)]
 
     def to_pylist(self, field_id: str) -> List[Any]:
         """One column as Python values (strings / ints / None)."""
@@ -1896,65 +2486,132 @@ class BatchResult:
     def to_dict(self) -> Dict[str, List[Any]]:
         return {fid: self.to_pylist(fid) for fid in self._columns}
 
+    def span_bytes(self, field_id: str, include_fix: bool = False, threads: int = 0):
+        """A device span column as flat bytes: (data uint8, offsets int64
+        [B+1], valid bool [B]); row r's raw value is
+        ``data[offsets[r]:offsets[r+1]]`` where ``valid[r]``.  None where
+        the column has host overrides, or URI-repair (``fix``) rows unless
+        ``include_fix`` (the bridge gathers those raw and splices the
+        repaired values in).  ``threads`` caps the native gather."""
+        from ..native import gather_spans
+
+        inputs = self._span_flat_inputs(field_id, include_fix=include_fix)
+        if inputs is None:
+            return None
+        starts, lens, valid = inputs
+        data, offsets = gather_spans(self.buf[:self.lines_read], starts, lens,
+                                     threads=threads)
+        self._amp_normalize(field_id, data, offsets, lens, valid)
+        return data, offsets, valid
+
+    def _span_flat_inputs(self, field_id: str, include_fix: bool = False):
+        """(starts, lens, valid) of a column the flat gather can take; None
+        where it needs the per-row path."""
+        field_id = cleanup_field_value(field_id)
+        col = self._columns[field_id]
+        if col["kind"] != "span" or self._overrides.get(field_id):
+            return None
+        B = self.lines_read
+        fix = col.get("fix")
+        if not include_fix and fix is not None and fix[:B].any():
+            return None
+        valid = (np.asarray(self.valid[:B]).astype(bool)
+                 & np.asarray(col["ok"][:B]).astype(bool)
+                 & ~np.asarray(col["null"][:B]).astype(bool))
+        starts = np.asarray(col["starts"][:B], dtype=np.int32)
+        lens = np.where(valid, np.asarray(col["ends"][:B]) - starts, 0).astype(np.int64)
+        return starts, lens, valid
+
+    def _amp_normalize(self, field_id, data, offsets, lens, valid) -> None:
+        """The ?& query normalization on gathered bytes, in place (column
+        offsets, B + 1 of them)."""
+        amp = self._columns[cleanup_field_value(field_id)].get("amp")
+        B = self.lines_read
+        if amp is not None and amp[:B].any():
+            swap = valid & np.asarray(amp[:B]).astype(bool) & (lens > 0)
+            at = offsets[:-1][swap]
+            at = at[data[at] == np.uint8(ord("?"))]
+            data[at] = np.uint8(ord("&"))
+
+    def span_bytes_many(self, field_ids, include_fix: bool = False, threads: int = 0):
+        """Several span columns in one native gather: {field_id: (data,
+        offsets, valid)} for the columns ``span_bytes`` would take (repair
+        rows included with ``include_fix``); the others are absent.
+        ``threads`` defaults to the assembly pool's budget."""
+        from ..native import gather_spans_multi
+
+        if not threads and self.assembly_pool is not None:
+            threads = self.assembly_pool.workers
+        B = self.lines_read
+        elig = []
+        for fid in field_ids:
+            inputs = self._span_flat_inputs(fid, include_fix=include_fix)
+            if inputs is not None:
+                elig.append((cleanup_field_value(fid), inputs))
+        if not elig:
+            return {}
+        starts = np.stack([e[1][0] for e in elig])
+        lens = np.stack([e[1][1] for e in elig])
+        data, goff = gather_spans_multi(self.buf[:B], starts, lens, threads=threads)
+        out = {}
+        for k, (fid, (_, lens_k, valid_k)) in enumerate(elig):
+            base = goff[k * B]
+            offsets = goff[k * B:k * B + B + 1] - base
+            col_data = data[base:int(goff[(k + 1) * B])]
+            self._amp_normalize(fid, col_data, offsets, lens_k, valid_k)
+            out[fid] = (col_data, offsets, valid_k)
+        return out
+
     def to_arrow(self, include_validity: bool = True, strings: str = "view"):
-        """A pyarrow Table with the reference's column rules
-        (``arrow_bridge.batch_to_arrow``): int64 numbers (null where the
-        row is invalid, not ok, a CLF null, or outside int64), a
-        ``map<string, string>`` per wildcard field, span columns as
-        ``string`` (``strings="copy"``) or ``string_view``
-        (``strings="view"``, built by copying: the zero-copy views over
-        the batch buffer are a later slice), other columns typed from
-        their values; with ``include_validity`` a last ``__valid__: bool``
-        column."""
-        import pyarrow as pa
+        """A pyarrow Table (``arrow_bridge.batch_to_arrow``): int64 numbers
+        (null where the row is invalid, not ok, a CLF null, or outside
+        int64), a ``map<string, string>`` per wildcard field, span columns
+        as ``string_view`` (``strings="view"``: views over this batch's
+        buffer, no value byte copied for a clean row; built from the
+        device's view rows where the batch has them) or ``string``
+        (``strings="copy"``), other columns typed from their values; with
+        ``include_validity`` a last ``__valid__: bool`` column."""
+        from .arrow_bridge import batch_to_arrow
 
         if strings not in ("view", "copy"):
             raise ValueError(f"strings must be 'view' or 'copy', not {strings!r}")
-        arrays = {fid: self._arrow_column(pa, fid, col, strings)
-                  for fid, col in self._columns.items()}
-        if include_validity:
-            arrays["__valid__"] = pa.array(np.asarray(self.valid, dtype=bool))
-        return pa.table(arrays)
+        return batch_to_arrow(self, include_validity=include_validity, strings=strings)
 
-    def _arrow_column(self, pa, fid: str, col, strings: str):
+    # Column entries that are not per-row arrays (shared metadata and
+    # vocabularies): never row-sliced, even where a vocabulary's length
+    # equals the batch's.
+    _NON_ROW_KEYS = frozenset(("kind", "fix_mode", "mixed_fill", "typed_kind",
+                               "dict_values"))
+
+    def slice(self, start: int, stop: int) -> "BatchResult":
+        """The rows [start, stop) (clamped) as a result of their own, with
+        nothing materialized again: column arrays and the buffer are numpy
+        views, overrides, ``needs_host`` and ``reject_reasons`` rebase to
+        the window, wildcard chunks re-pack to its segments.  Every
+        delivery of the slice equals a parse of the window's lines alone
+        (each row's verdict is its own).  The device's view rows are
+        dropped (``strings="view"`` builds views on the host), and the
+        batch-level rescue figures stay on the parent."""
         B = self.lines_read
-        overrides = self._overrides.get(fid, {})
-        if fid.endswith(".*"):
-            return pa.array([None if v is None else list(v.items())
-                             for v in self.to_pylist(fid)],
-                            type=pa.map_(pa.string(), pa.string()))
-        kind = col["kind"]
-        if kind == "numeric" and not any(isinstance(v, (str, dict))
-                                         for v in overrides.values()):
-            values = col["values"][:B].astype(np.int64)
-            null, null_zero = col["null"][:B], col["null_zero"][:B]
-            values[null & null_zero] = 0
-            mask = ~(self.valid[:B] & col["ok"][:B]) | (null & ~null_zero)
-            for i, v in overrides.items():
-                if v is None or not -2**63 <= v < 2**63:
-                    mask[i] = True   # the reference's Long.parseLong null
-                else:
-                    values[i] = v
-                    mask[i] = False
-            return pa.array(values, mask=mask, type=pa.int64())
-        values = self.to_pylist(fid)
-        if kind == "obj":
-            arr = pa.array(values, from_pandas=True)
-            if not (pa.types.is_null(arr.type) or pa.types.is_boolean(arr.type)):
-                return arr
-        non_null = [v for v in values if v is not None]
-        if kind == "span" and not overrides:
-            arr = pa.array(values, type=pa.string())
-        elif non_null and all(isinstance(v, int) and not isinstance(v, bool)
-                              for v in non_null):
-            return pa.array(values, type=pa.int64())
-        elif non_null and all(isinstance(v, (int, float)) and not isinstance(v, bool)
-                              for v in non_null):
-            return pa.array([None if v is None else float(v) for v in values],
-                            type=pa.float64())
-        else:
-            arr = pa.array([None if v is None else str(v) for v in values],
-                           type=pa.string())
-        if kind == "span" and strings == "view":
-            arr = arr.cast(pa.string_view())
-        return arr
+        start = max(0, min(int(start), B))
+        stop = max(start, min(int(stop), B))
+        columns = {fid: {k: (v if k in self._NON_ROW_KEYS or not isinstance(v, np.ndarray)
+                             else v[start:stop]) for k, v in col.items()}
+                   for fid, col in self._columns.items()}
+        overrides: Dict[str, Any] = {}
+        for fid, ov in self._overrides.items():
+            if isinstance(ov, _LazyWildcard):
+                overrides[fid] = ov.sliced(start, stop)
+            else:
+                overrides[fid] = {i - start: v for i, v in ov.items() if start <= i < stop}
+        ids = self.needs_host
+        lo = int(np.searchsorted(ids, start, side="left"))
+        hi = int(np.searchsorted(ids, stop, side="left"))
+        out = BatchResult(_SliceLines(self._lines, start, stop - start),
+                          self.buf[start:stop], self.lengths[start:stop],
+                          self.valid[start:stop], columns, overrides, ids[lo:hi] - start,
+                          self.format_index[start:stop], assembly_pool=self.assembly_pool)
+        out.reject_reasons = {i - start: r for i, r in self.reject_reasons.items()
+                              if start <= i < stop}
+        out.framer = self.framer
+        return out
