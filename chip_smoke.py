@@ -25,7 +25,8 @@ gather utilities), and fails (non-zero exit, no result line) on the
 first phase that fails:
 
 1. card    -- name and power limit (nvidia-smi), CUDA present;
-2. build   -- the nineteen kernels from logparser_tpu_torch/csrc, in parallel
+2. build   -- ``kernels.build()`` before any phase, failing on any error:
+   the nineteen kernels from logparser_tpu_torch/csrc, in parallel
    (ptxas's register and stack-frame lines of each in the phase line),
    and beside them the g++ line framer (logparser_tpu_torch/native), which
    must build: the blob and stream phases fail on a numpy framing;
@@ -154,6 +155,30 @@ first phase that fails:
    span_bytes_many, the to_pylist walk and parse_to_ipc, each timed, each
    table equal to the CPU's; a view table held across the next batch's
    parse keeps its values; the native library must be built;
+   12c. capacity, faults, the compile cache and artifacts: ``budget``
+   (the estimate of ``pipeline.estimate_device_bytes`` against
+   ``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``
+   on the headline batch, the URI chain and cookies at 128 slots and the
+   dashboard aggregate; fails where the estimate is below the peak);
+   ``faults_oom_real`` (the headline batch under
+   ``torch.cuda.set_per_process_memory_fraction`` set so that the batch
+   does not fit and a quarter does: a real out-of-memory error bisected,
+   equal to the undisturbed card run; retries, clamp and wall printed);
+   ``faults_chaos`` (each device chaos spec -- a bisect and the standing
+   clamp, each equal to the undisturbed run; a wedge past the deadline
+   raising DeviceWedgeError; the breaker opened, refusing, and closed
+   again; fail_compile raising DeviceCompileError and demoting the parser
+   -- then the same instance's parse_batch, parse_blob and
+   parse_batch_stream, each equal to the undisturbed run, or refused with
+   DeviceUnavailableError where the parser is demoted);
+   ``profile`` (a headline batch under ``observability.profile``, with
+   its NVTX stage ranges: the trace directory written);
+   ``artifact`` (to_bytes' size and libraries, then time to first batch
+   in child processes from copies of the package: nvcc, the build
+   directory, the compile cache, and the artifact with no nvcc, whose
+   prewarm must report "artifact"; each child's batch equal to the
+   CPU's).  ``fault_guard`` at the end: the fault counters moved only in
+   the fault phases, and every other parser's breaker is closed;
 13. the device mesh, each phase over ``parallel.mesh.local_devices``
    replaced with ``[cuda:0] * 4`` (one card holds every shard; restored
    after): ``mesh_dp`` (the headline batch, padded with 3 empty rows to
@@ -400,7 +425,10 @@ def main() -> int:
     t0 = time.perf_counter()
     framer_build = threading.Thread(target=native.get_lib)
     framer_build.start()   # g++ beside the nvcc processes
-    kernels.build()
+    try:
+        kernels.build()
+    except Exception as e:  # noqa: BLE001 -- a kernel that does not build fails the smoke
+        fail(f"the kernels did not build: {type(e).__name__}: {e}")
     framer_build.join()
     info = kernels.build_info()
     regs = {k: [ln.strip() for ln in log.splitlines()
@@ -408,9 +436,11 @@ def main() -> int:
             for k, log in info["ptxas"].items()}
     if not native.native_available():
         fail("the g++ framer (logparser_tpu_torch/native/logframe.cc) did not build")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": build_s,
           "kernels": len(kernels.KERNELS), "native_available": native.native_available(),
-          "framer_build_seconds": native.build_seconds(), "ptxas": regs})
+          "framer_build_seconds": native.build_seconds(), "ptxas": regs,
+          "sources": info["sources"]})
 
     # ---- 2b. the yardstick ---------------------------------------------
     clock = DeviceClock(torch)
@@ -485,9 +515,13 @@ def main() -> int:
     single_card_phases(torch, TorchBatchParser, kernels, pipeline, runtime, phase,
                        rows, smi, gpu, lines, buf, lengths, dbuf, dlen)
 
+    # ---- 12c. capacity, device faults, the compile cache, artifacts ------
+    fault_phases(torch, TorchBatchParser, kernels, smi, build_s)
+
     # ---- 13. the device mesh ----------------------------------------------
     mesh_phases(torch, TorchBatchParser, kernels, runtime, phase, rows, smi, gpu,
                 lines, buf, lengths)
+    fault_guard(TorchBatchParser, smi)
 
     # ---- 14. result ------------------------------------------------------
     missing = [k for k in REPLACES if k not in rows]
@@ -3024,6 +3058,478 @@ def counters_phase(torch, kernels, mesh, phase, rows, gpu, lines, smi):
     emit({"phase": "counters_runner", "B": B, "shards": m.shape[0],
           "wall_ms": time_wall(torch, runner, KERNEL_REPS),
           "enqueue_ms": phase.clock.enqueue_ms(runner), "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# Section 12c: capacity, device faults, the compile cache, artifacts.
+# ---------------------------------------------------------------------------
+
+FAULT_GUARD = {}
+CHAOS_LINES = 8192
+# (spec, the parser's fault-layer arguments, how the first batch ends)
+CHAOS_SPECS = (
+    ("oom_batch:count=1", {}, "bisected"),
+    ("oom_batch:sticky=1:min_lines=4097", {"clamp": True}, "clamped"),
+    ("wedge_device:seconds=2:count=1", {"execute_deadline_s": 0.5}, "raised"),
+    ("wedge_device:seconds=2:count=2",
+     {"execute_deadline_s": 0.5, "breaker": True}, "breaker"),
+    ("fail_compile", {}, "demoted"),
+)
+
+
+def fault_counters() -> dict:
+    """The counters only a device fault moves: every fault the layer met
+    (``device_faults_total``), the batches it raised out of the parse
+    (``device_demotions_total`` counts breaker openings and demotions)
+    and the aggregates that took the row path."""
+    from logparser_tpu_torch.observability import counter_sum, metrics
+
+    return {"device_faults_total": counter_sum("device_faults_total"),
+            "device_demotions_total": counter_sum("device_demotions_total"),
+            "analytics_fallback_batches": metrics().get("analytics_batches_total",
+                                                        {"path": "fallback"})}
+
+
+def same_values(got, want, what) -> None:
+    """The values, validity and rejected rows of ``want`` (the reasons of
+    a batch the fault layer sent to the oracle may read oracle_reject
+    where the device says implausible; the rows are the same)."""
+    if got.valid.tolist() != want.valid.tolist():
+        fail(f"{what}: valid differs from the undisturbed card run")
+    if sorted(got.reject_reasons) != sorted(want.reject_reasons):
+        fail(f"{what}: rejected rows differ from the undisturbed card run")
+    got_d, want_d = got.to_dict(), want.to_dict()
+    for fid in want_d:
+        if got_d[fid] != want_d[fid]:
+            i = next(i for i, (a, b) in enumerate(zip(got_d[fid], want_d[fid])) if a != b)
+            fail(f"{what}: {fid} row {i}: {got_d[fid][i]!r} != {want_d[fid][i]!r}")
+
+
+def budget_phase(torch, smi) -> None:
+    """The estimator (``pipeline.estimate_device_bytes``, through
+    ``TorchBatchParser.device_bytes_estimate``) against the measured peak
+    of one batch: ``torch.cuda.max_memory_allocated`` after
+    ``reset_peak_memory_stats``, less what was allocated before, on a
+    parser whose tables are resident (a warm run first) -- the headline
+    batch, the URI chain and cookies at 128 slots, and the dashboard
+    aggregate.  Fails where the estimate is below the peak."""
+    from logparser_tpu_torch.tools import demolog
+
+    head, _, head_lines, _ = DELIVERY["headline"]
+    dash = head_lines[:N_LINES] + demolog.aggregate_edge_lines()
+    spec = head._resolve_agg_spec(demolog.DASHBOARD_OPS)
+    cases = [
+        ("headline", head, head_lines, None),
+        ("uri_chain", DELIVERY["uri_chain"][0], DELIVERY["uri_chain"][2], None),
+        ("cookies_uniqueid", DELIVERY["cookies_uniqueid"][0],
+         DELIVERY["cookies_uniqueid"][2], None),
+        ("dashboard_aggregate", head, dash, spec),
+    ]
+    out = {}
+    for name, gpu, lines, agg in cases:
+        if name in ("uri_chain", "cookies_uniqueid") and gpu.csr_slots != 128:
+            fail(f"budget: the {name} parser is at {gpu.csr_slots} slots, not 128")
+        L = runtime_bucket(lines)
+
+        def run():
+            if agg is None:
+                return gpu.parse_batch(lines)
+            return gpu.aggregate_batch(lines, agg)
+
+        run()   # the tables resident, the allocator warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        est = gpu.device_bytes_estimate(len(lines), L, spec=agg)
+        out[name] = {"B": len(lines), "L": L, "slots": gpu.csr_slots, "estimate_bytes": est,
+                     "peak_bytes": peak, "ratio": est / peak if peak else None}
+        if est < peak:
+            fail(f"budget: {name}'s estimate {est} is below its measured peak {peak}")
+    emit({"phase": "budget", "paths": out, "card": smi})
+
+
+def runtime_bucket(lines) -> int:
+    from logparser_tpu_torch.tpu import runtime
+
+    return runtime.encode_batch(lines)[0].shape[1]
+
+
+def oom_real_phase(torch, TorchBatchParser, smi) -> None:
+    """faults_oom_real: the headline batch (65,536 lines) under
+    ``torch.cuda.set_per_process_memory_fraction``, set from the estimate
+    (the memory reserved before plus half the batch's estimate) so that
+    the whole batch does not fit and a quarter does: a real
+    ``torch.cuda.OutOfMemoryError`` the fault layer bisects.  Equal to the
+    undisturbed card run (the oracle's rows included); the retries, the
+    clamp and the wall printed; the fraction restored after."""
+    from logparser_tpu_torch.observability import counter_sum, metrics
+    from logparser_tpu_torch.tools.demolog import HEADLINE_FIELDS
+
+    head, _, head_lines, _ = DELIVERY["headline"]
+    batch = head_lines[:N_LINES]
+    want = head.parse_batch(batch)
+    p = TorchBatchParser("combined", HEADLINE_FIELDS, device_chaos=None)
+    p.parse_batch(batch[:4096])   # its tables resident
+    est = p.device_bytes_estimate(len(batch), want.buf.shape[1])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    limit = base + est // 2
+    from logparser_tpu_torch.tpu.device_faults import DeviceFault
+
+    retries = counter_sum("device_oom_retries_total")
+    ooms = metrics().get("device_faults_total", {"kind": "oom"})
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        t0 = time.perf_counter()
+        try:
+            res = p.parse_batch(batch)
+        except DeviceFault as e:
+            fail(f"faults_oom_real: the bisection did not recover ({e!r}): "
+                 f"{p.device_fault_stats()}, limit {limit}, reserved before {base}, "
+                 f"estimate {est}")
+        wall = time.perf_counter() - t0
+        peak_reserved = torch.cuda.max_memory_reserved()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    retries = counter_sum("device_oom_retries_total") - retries
+    ooms = metrics().get("device_faults_total", {"kind": "oom"}) - ooms
+    stats = p.device_fault_stats()
+    if retries < 1 or ooms < 1:
+        fail(f"faults_oom_real: no real out-of-memory error ({ooms} faults, {retries} retries)")
+    compare_results(res, want, "faults_oom_real", arrow=False)
+    if stats["state"] != "closed":
+        fail(f"faults_oom_real: the breaker is {stats['state']}")
+    FAULT_GUARD["parsers"].append(p)
+    emit({"phase": "faults_oom_real", "B": len(batch), "equal_to_undisturbed": True,
+          "estimate_bytes": est, "reserved_before": base, "limit_bytes": limit,
+          "fraction": limit / total, "oom_faults": ooms, "retries": retries,
+          "oom_clamp": stats["oom_clamp"], "oom_events": stats["oom_events"],
+          "oracle_rows": res.oracle_rows, "wall_seconds": wall,
+          "undisturbed_wall_seconds": sum(want.stage_seconds.values()),
+          "peak_reserved_bytes": peak_reserved, "card": smi})
+
+
+def chaos_phase(TorchBatchParser, smi) -> None:
+    """faults_chaos: each device chaos spec on the card, on the last
+    8,192 headline lines (the edge lines among them).  The first batch
+    bisects or clamps (equal to the undisturbed run), raises
+    DeviceWedgeError (a 2 s wedge past a 0.5 s deadline), opens the
+    breaker (two wedges; a third batch refused with
+    DeviceUnavailableError; then a 1 s cool-off) or raises
+    DeviceCompileError and demotes the parser (fail_compile); then the
+    same instance parses, blob-parses and streams (depth 2), each equal
+    to the undisturbed card run's values -- or, demoted, each refused."""
+    from logparser_tpu_torch.observability import counter_sum
+    from logparser_tpu_torch.tools.demolog import HEADLINE_FIELDS
+    from logparser_tpu_torch.tpu.device_faults import (
+        DeviceCompileError,
+        DeviceFaultPolicy,
+        DeviceUnavailableError,
+        DeviceWedgeError,
+    )
+
+    def raises(kind, call, what):
+        try:
+            call()
+        except kind as e:
+            return type(e).__name__
+        except Exception as e:  # noqa: BLE001 -- reported
+            fail(f"{what}: raised {e!r}, not {kind.__name__}")
+        fail(f"{what}: returned, did not raise {kind.__name__}")
+
+    head, _, head_lines, _ = DELIVERY["headline"]
+    lines = head_lines[-CHAOS_LINES:]
+    blob = ("\n".join(lines) + "\n").encode()
+    stream = [lines, lines[:CHAOS_LINES // 2]]
+    want = head.parse_batch(lines)
+    want_blob = head.parse_blob(blob)
+    want_stream = [head.parse_batch(b) for b in stream]
+    for spec, kw, outcome in CHAOS_SPECS:
+        policy = DeviceFaultPolicy()
+        if kw.get("clamp"):
+            policy = DeviceFaultPolicy(oom_clamp_after=2)
+        if kw.get("breaker"):
+            policy = DeviceFaultPolicy(breaker_threshold=2, breaker_cooloff_s=1.0)
+        p = TorchBatchParser("combined", HEADLINE_FIELDS, device_chaos=spec,
+                             fault_policy=policy,
+                             execute_deadline_s=kw.get("execute_deadline_s"))
+        FAULT_GUARD["parsers"].append(p)
+        before = fault_counters()
+        retries = counter_sum("device_oom_retries_total")
+        what = f"faults_chaos {spec}"
+        t0 = time.perf_counter()
+        if outcome in ("bisected", "clamped"):
+            first = "equal"
+            same_values(p.parse_batch(lines), want, what)
+        elif outcome == "demoted":
+            first = raises(DeviceCompileError, lambda: p.parse_batch(lines), what)
+        else:
+            first = raises(DeviceWedgeError, lambda: p.parse_batch(lines), what)
+        wall = time.perf_counter() - t0
+        states = [p.device_fault_stats()["state"]]
+        if kw.get("breaker"):
+            raises(DeviceWedgeError, lambda: p.parse_batch(lines), f"{what} second")
+            states.append(p.device_fault_stats()["state"])
+            if states[-1] != "open":
+                fail(f"{what}: the breaker is {states[-1]}, not open")
+            raises(DeviceUnavailableError, lambda: p.parse_batch(lines), f"{what} open")
+            time.sleep(1.05)
+        if outcome == "demoted":
+            raises(DeviceUnavailableError, lambda: p.parse_batch(lines), f"{what} again")
+            raises(DeviceUnavailableError, lambda: p.parse_blob(blob), f"{what} blob")
+            raises(DeviceUnavailableError,
+                   lambda: list(p.parse_batch_stream(stream, depth=2)), f"{what} stream")
+        else:
+            same_values(p.parse_batch(lines), want, f"{what} again")
+            same_values(p.parse_blob(blob), want_blob, f"{what} blob")
+            got_stream = list(p.parse_batch_stream(stream, depth=2))
+            if len(got_stream) != len(stream):
+                fail(f"{what}: the stream gave {len(got_stream)} batches")
+            for g, w in zip(got_stream, want_stream):
+                same_values(g, w, f"{what} stream")
+        stats = p.device_fault_stats()
+        expect = "demoted" if outcome == "demoted" else "closed"
+        if stats["state"] != expect:
+            fail(f"{what}: state {stats['state']}, expected {expect}")
+        if outcome == "clamped" and not stats["oom_clamp"]:
+            fail(f"{what}: no standing clamp")
+        after = fault_counters()
+        emit({"phase": "faults_chaos", "spec": spec, "outcome": outcome, "first": first,
+              "B": len(lines), "equal_to_undisturbed": True, "fired": p._device_chaos.fired(),
+              "states": states + [stats["state"]], "oom_clamp": stats["oom_clamp"],
+              "retries": counter_sum("device_oom_retries_total") - retries,
+              "faults": after["device_faults_total"] - before["device_faults_total"],
+              "demotions": (after["device_demotions_total"]
+                            - before["device_demotions_total"]),
+              "first_wall_seconds": wall, "card": smi})
+
+
+ARTIFACT_CHILD = r"""
+import json, os, pickle, sys, time
+t0 = time.perf_counter()
+import torch
+import logparser_tpu_torch
+from logparser_tpu_torch import TorchBatchParser
+from logparser_tpu_torch.tools.demolog import HEADLINE_FIELDS
+from logparser_tpu_torch.tpu import compile_cache, kernels
+
+mode, work = sys.argv[1], sys.argv[2]
+here = os.path.dirname(os.path.abspath(__file__))
+if not logparser_tpu_torch.__file__.startswith(here):
+    raise SystemExit(f"imported {logparser_tpu_torch.__file__}, not the copy in {here}")
+built_before = sorted(p.name for p in kernels.build_dir().glob("lib*.so")) \
+    if kernels.build_dir().exists() else []
+t1 = time.perf_counter()
+with open(os.path.join(work, "lines.pkl"), "rb") as f:
+    lines = pickle.load(f)
+load_s = time.perf_counter() - t1
+if mode == "artifact":
+    with open(os.path.join(work, "parser.lpt"), "rb") as f:
+        parser = TorchBatchParser.from_bytes(f.read())
+else:
+    parser = TorchBatchParser("combined", HEADLINE_FIELDS)
+warm = parser.prewarm()
+res = parser.parse_batch(lines)
+torch.cuda.synchronize()
+ttfb = time.perf_counter() - t0 - load_s
+with open(os.path.join(work, mode + ".pkl"), "wb") as f:
+    pickle.dump(res.to_dict(), f)
+print(json.dumps({"mode": mode, "prewarm": warm, "sources": kernels.build_info()["sources"],
+                  "nvcc": compile_cache.nvcc_path(), "libraries_before": len(built_before),
+                  "ttfb_seconds": ttfb, "import_seconds": t1 - t0,
+                  "cache": os.environ.get(compile_cache.ENV_CACHE_DIR)}))
+"""
+
+
+def artifact_phase(torch, kernels, smi, build_s) -> None:
+    """artifact: ``to_bytes()`` of the headline parser (its size, the
+    libraries it embeds), then time to first batch -- process start to the
+    first 65,5xx-line headline batch done, ``prewarm()`` in between -- in
+    a child process running from a copy of the package in a temporary
+    directory (the framer's build copied, the kernels' build directory
+    empty), by source: ``compiled`` (nvcc, writing a fresh compile cache),
+    ``disk`` (the same copy, its build directory now full), ``cache`` (a
+    second copy, empty, reading that cache) and ``artifact`` (a third
+    copy, ``from_bytes`` of the blob, no nvcc on PATH and CUDA_HOME
+    pointing nowhere: its prewarm must report "artifact", never
+    "compiled").  Each child's batch equals the CPU's."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from logparser_tpu_torch.tpu import compile_cache
+
+    head, _, lines, ref = DELIVERY["headline"]
+    t0 = time.perf_counter()
+    blob = head.to_bytes()
+    to_bytes_s = time.perf_counter() - t0
+    if not blob.startswith(type(head)._ARTIFACT_MAGIC_V2):
+        fail("artifact: to_bytes() embedded no kernel libraries")
+    info = pickle.loads(blob[len(type(head)._ARTIFACT_MAGIC_V2):])["libraries"]
+    if sorted(info["libs"]) != sorted(kernels.KERNELS):
+        fail(f"artifact: it embeds {sorted(info['libs'])}")
+    pkg = os.path.dirname(os.path.abspath(kernels.__file__))
+    pkg = os.path.dirname(pkg)
+    work = tempfile.mkdtemp(prefix="lp-artifact-")
+    try:
+        with open(os.path.join(work, "parser.lpt"), "wb") as f:
+            f.write(blob)
+        with open(os.path.join(work, "lines.pkl"), "wb") as f:
+            pickle.dump(lines, f)
+
+        def copy(name):
+            root = os.path.join(work, name)
+            shutil.copytree(pkg, os.path.join(root, "logparser_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            native = os.path.join(pkg, "native", "_build")
+            shutil.copytree(native, os.path.join(root, "logparser_tpu_torch", "native",
+                                                 "_build"))
+            with open(os.path.join(root, "child.py"), "w") as f:
+                f.write(ARTIFACT_CHILD)
+            return root
+
+        cache = os.path.join(work, "cache")
+        no_nvcc = os.pathsep.join(
+            d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc")))
+        base_env = {k: v for k, v in os.environ.items()
+                    if k not in (compile_cache.ENV_CACHE_DIR, "PYTHONPATH")}
+        runs = [("compiled", "a", {compile_cache.ENV_CACHE_DIR: cache}),
+                ("disk", "a", {}),
+                ("cache", "b", {compile_cache.ENV_CACHE_DIR: cache}),
+                ("artifact", "c", {"PATH": no_nvcc,
+                                   "CUDA_HOME": os.path.join(work, "no-toolkit")})]
+        roots, out = {}, {}
+        want = ref.to_dict()
+        for mode, where, extra in runs:
+            if where not in roots:
+                roots[where] = copy(where)
+            root = roots[where]
+            proc = subprocess.run(
+                [sys.executable, "child.py", mode, work], cwd=root,
+                env={**base_env, **extra, "PYTHONPATH": root},
+                capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"artifact: the {mode} child failed ({proc.returncode}): "
+                     f"{proc.stderr[-2000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            with open(os.path.join(work, mode + ".pkl"), "rb") as f:
+                if pickle.load(f) != want:
+                    fail(f"artifact: the {mode} child's batch differs from the CPU's")
+            out[mode] = got
+        sources = {m: sorted(set(g["sources"].values())) for m, g in out.items()}
+        expect = {"compiled": ["nvcc"], "disk": ["build_dir"], "cache": ["cache"],
+                  "artifact": ["artifact"]}
+        if sources != expect:
+            fail(f"artifact: the libraries came from {sources}, expected {expect}")
+        art = out["artifact"]
+        if art["nvcc"] is not None or "compiled" in art["prewarm"].values() \
+                or "artifact" not in art["prewarm"].values():
+            fail(f"artifact: the artifact child had nvcc {art['nvcc']} or prewarm "
+                 f"{art['prewarm']}")
+        emit({"phase": "artifact", "bytes": len(blob), "to_bytes_seconds": to_bytes_s,
+              "libraries": len(info["libs"]),
+              "library_bytes": sum(len(b) for b in info["libs"].values()),
+              "backend": info["backend"], "compiled_build_seconds": build_s,
+              "ttfb_seconds": {m: g["ttfb_seconds"] for m, g in out.items()},
+              "import_seconds": {m: g["import_seconds"] for m, g in out.items()},
+              "prewarm": {m: g["prewarm"] for m, g in out.items()},
+              "equal_to_cpu": True, "card": smi})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def fault_phases(torch, TorchBatchParser, kernels, smi, build_s) -> None:
+    """Section 12c: the budget, then the two fault phases (the only ones
+    allowed to move the fault counters), then the artifact."""
+    budget_phase(torch, smi)
+    before = fault_counters()
+    if any(before.values()):
+        fail(f"a fault was absorbed before the fault phases: {before}")
+    FAULT_GUARD["parsers"] = []
+    oom_real_phase(torch, TorchBatchParser, smi)
+    chaos_phase(TorchBatchParser, smi)
+    FAULT_GUARD["after"] = fault_counters()
+    profile_phase(torch, smi)
+    artifact_phase(torch, kernels, smi, build_s)
+
+
+def profile_phase(torch, smi) -> None:
+    """profile: one headline batch of 4,096 lines under
+    ``observability.profile`` (``torch.profiler``), its pipeline stages
+    NVTX ranges on the card: the trace directory must hold a trace file
+    with events; the kernel launches and device kernel events it names
+    are printed (the profiler's device tracing is not a condition)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from logparser_tpu_torch.observability import profile
+
+    head, _, head_lines, _ = DELIVERY["headline"]
+    batch = head_lines[:4096]
+    want = head.parse_batch(batch)
+    log_dir = tempfile.mkdtemp(prefix="lp-profile-")
+    try:
+        t0 = time.perf_counter()
+        with profile(log_dir):
+            got = head.parse_batch(batch)
+        wall = time.perf_counter() - t0
+        compare_results(got, want, "profile", arrow=False)
+        traces = glob.glob(os.path.join(log_dir, "*.json*"))
+        if not traces:
+            fail(f"profile: no trace written into {log_dir}: {os.listdir(log_dir)}")
+        opener = gzip_open if traces[0].endswith(".gz") else open
+        with opener(traces[0], "rt") as f:
+            events = json.load(f).get("traceEvents", [])
+        cats = {}
+        for ev in events:
+            cats[ev.get("cat")] = cats.get(ev.get("cat"), 0) + 1
+        launches = sum(1 for ev in events if ev.get("name") == "cudaLaunchKernel"
+                       or ev.get("name") == "cuLaunchKernel")
+        if not events:
+            fail(f"profile: the trace {traces[0]} holds no event")
+        emit({"phase": "profile", "B": len(batch), "trace_files": len(traces),
+              "trace_bytes": os.path.getsize(traces[0]), "events": len(events),
+              "launches": launches, "kernel_events": cats.get("kernel", 0),
+              "wall_seconds": wall, "card": smi})
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def gzip_open(path, mode):
+    import gzip
+
+    return gzip.open(path, mode)
+
+
+def fault_guard(TorchBatchParser, smi) -> None:
+    """No device fault met outside the fault phases (nor an aggregate
+    sent to the row path), and every other parser still on the card (its
+    breaker closed)."""
+    import gc
+
+    now = fault_counters()
+    if now != FAULT_GUARD["after"]:
+        fail(f"a device fault was met outside the fault phases: {FAULT_GUARD['after']} -> {now}")
+    skip = {id(p) for p in FAULT_GUARD["parsers"]}
+    parsers = [o for o in gc.get_objects()
+               if issubclass(type(o), TorchBatchParser) and id(o) not in skip]
+    bad = [p.device_fault_stats()["state"] for p in parsers
+           if p.device_fault_stats()["state"] != "closed"]
+    if bad:
+        fail(f"{len(bad)} parsers left the device path outside the fault phases: {bad}")
+    emit({"phase": "fault_guard", "fault_counters": now, "parsers_closed": len(parsers),
+          "card": smi})
 
 
 def compare_results(got, want, what, arrow=True) -> None:

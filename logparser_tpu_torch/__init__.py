@@ -7,6 +7,8 @@ sources in ``csrc/``).  The JAX package ``logparser_tpu`` stays the reference th
 port is held against; this package imports nothing from it and never
 imports ``jax``.
 """
+__version__ = "0.1.0"
+
 from .tpu.batch import (  # noqa: F401
     BatchResult,
     TorchBatchParser,

@@ -367,6 +367,13 @@ class ZoneDeviceTable:
         valid = t["valid_until"][zone_idx.to(torch.int64)]
         return t["offsets_s"][idx], (minutes >= 0) & (minutes < valid)
 
+    def __getstate__(self):
+        """The host tables only: the lookup's device operands are made
+        again on the host that loads a pickled parser."""
+        state = self.__dict__.copy()
+        state.pop("_tensor_cache", None)
+        return state
+
     def _tensors(self, device: torch.device) -> Dict[str, torch.Tensor]:
         """The lookup's operands on ``device`` (cached per device)."""
         cache = self.__dict__.setdefault("_tensor_cache", {})

@@ -127,6 +127,13 @@ class GeoDeviceTable:
             cols.append(col)
         return dict(zip(names, kernels.geo_gather(cols, rows)))
 
+    def __getstate__(self):
+        """The host arrays only: the device copies of the columns are made
+        again on the host that loads a pickled parser."""
+        state = self.__dict__.copy()
+        state["_device_arrays"] = {}
+        return state
+
     @classmethod
     def from_ranges(cls, starts: np.ndarray, ends: np.ndarray) -> "GeoDeviceTable":
         """A table of the ranges alone (no columns): what the device join

@@ -988,6 +988,14 @@ def batch_to_arrow(
     they parallelize; wildcard/obj/fallback columns share mutable
     per-result caches and stay on the caller thread.  A 1-wide pool is
     exactly the serial path (thread-count parity is a tested contract)."""
+    from ..observability import pipeline_stage
+
+    with pipeline_stage("assembly", items=result.lines_read):
+        return _batch_to_arrow(result, include_validity=include_validity,
+                               strings=strings, pool=pool)
+
+
+def _batch_to_arrow(result: "BatchResult", include_validity: bool, strings: str, pool):
     import pyarrow as pa
 
     from .hostpool import MIN_POOLED_ROWS, VIEW_POOL_MIN_WORKERS
@@ -1069,10 +1077,15 @@ def table_to_ipc_bytes(table) -> bytes:
     """Arrow IPC stream serialization (the cross-process/sidecar format)."""
     import pyarrow as pa
 
-    sink = io.BytesIO()
-    with pa.ipc.new_stream(sink, table.schema) as writer:
-        writer.write_table(table)
-    return sink.getvalue()
+    from ..observability import metrics, pipeline_stage
+
+    with pipeline_stage("ipc", items=table.num_rows):
+        sink = io.BytesIO()
+        with pa.ipc.new_stream(sink, table.schema) as writer:
+            writer.write_table(table)
+        out = sink.getvalue()
+    metrics().increment("ipc_bytes_out_total", len(out))
+    return out
 
 
 def table_from_ipc_bytes(data: bytes):

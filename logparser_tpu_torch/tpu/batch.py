@@ -61,6 +61,9 @@ is decided over all shards and re-runs every shard.
 """
 from __future__ import annotations
 
+import logging
+import pickle
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -93,6 +96,7 @@ from ..parallel.mesh import (
     scatter_rows,
 )
 from . import postproc, timefields
+from .device_faults import DeviceFault, as_device_fault
 from .pipeline import (
     CSR_OVERFLOW_BIT,
     CSR_SLOTS,
@@ -122,6 +126,25 @@ from .timeparse import compile_layout_for_device
 
 __all__ = ["TorchBatchParser", "BatchResult", "UnsupportedFieldError",
            "UnsupportedFormatError", "cleanup_field_value"]
+
+_LOG = logging.getLogger(__name__)
+
+# The device an artifact being loaded is bound to (``from_bytes``); a plain
+# unpickle keeps the pickled one.
+_LOADING = threading.local()
+
+
+def _parser_device(device) -> torch.device:
+    """The parser's device: CUDA unless the caller asks for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "TorchBatchParser: CUDA was asked for but is not available "
+            "(pass device='cpu' to run the plain PyTorch versions)"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 class UnsupportedFieldError(ValueError):
@@ -237,22 +260,35 @@ class TorchBatchParser:
     reference's keyword too: the width of the delivery path's host pool
     (``hostpool.AssemblyPool``; default min(8, cpu_count)), which fans
     ``to_arrow``'s columns out, budgets the native passes' threads and
-    runs the host oracle beside the query-string columns; 1 is serial."""
+    runs the host oracle beside the query-string columns; 1 is serial.
+
+    The device fault layer (the reference's keywords): ``device_bytes_budget``
+    (bytes; else ``LOGPARSER_TPU_DEVICE_BYTES_BUDGET``) rejects a batch whose
+    estimated device footprint (``pipeline.estimate_device_bytes``) exceeds
+    it with :class:`~.device_faults.DeviceBudgetError`, before any H2D copy
+    or device allocation; ``execute_deadline_s`` (else
+    ``LOGPARSER_TPU_DEVICE_DEADLINE_S``) bounds each wait on the card;
+    ``fault_policy`` is a :class:`~.device_faults.DeviceFaultPolicy`;
+    ``device_chaos`` arms fault injection (``tools.chaos``: a spec string,
+    a ``ChaosSpec`` or ``DeviceChaos``, ``"env"`` for ``LOGPARSER_TPU_CHAOS``,
+    None for none).  A device fault costs throughput, never the batch: an
+    out-of-memory error bisects the batch's rows (down to
+    ``min_bucket``), a wedge or another fault sends the batch to the host
+    oracle, a kernel that fails to build demotes the parser to the oracle
+    for good, and repeated faults open the breaker until its cool-off --
+    the values are the same either way (``device_fault_stats()``)."""
 
     def __init__(self, log_format: str, fields: Sequence[str],
                  device: Union[str, torch.device, None] = None,
                  extra_dissectors: Optional[Sequence[Any]] = None,
                  type_remappings: Optional[Dict[str, Any]] = None,
                  data_parallel: Optional[int] = None,
-                 assembly_workers: Optional[int] = None):
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchBatchParser: CUDA was asked for but is not available "
-                "(pass device='cpu' to run the plain PyTorch versions)"
-            )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+                 assembly_workers: Optional[int] = None,
+                 device_bytes_budget: Optional[int] = None,
+                 execute_deadline_s: Optional[float] = None,
+                 fault_policy: Optional[Any] = None,
+                 device_chaos: Any = "env"):
+        self.device = _parser_device(device)
         self.data_parallel = data_parallel
         self.assembly_workers = assembly_workers
         self._assembly_pool = None
@@ -327,6 +363,62 @@ class TorchBatchParser:
         self._copy_stream = None   # the side stream of staged H2D copies
         # (canonical spec, device) -> (CSR slots it was built at, AggregateExecutor)
         self._agg_executors: Dict[Tuple[str, torch.device], Tuple[int, Any]] = {}
+        self._init_fault_layer(device_bytes_budget, execute_deadline_s,
+                               fault_policy, device_chaos)
+
+    def _init_fault_layer(self, budget, deadline, policy, chaos) -> None:
+        """The device fault layer's state, shared by ``__init__`` and
+        ``__setstate__``: an artifact carries none of it (breaker, clamp,
+        chaos); it is rebuilt on the loading host from the pickled knobs
+        and the environment."""
+        from .device_faults import (
+            DeviceBreaker,
+            DeviceFaultPolicy,
+            resolve_budget,
+            resolve_deadline,
+        )
+
+        self.fault_policy = policy or DeviceFaultPolicy()
+        self.device_bytes_budget = resolve_budget(budget)
+        self.execute_deadline_s = resolve_deadline(deadline)
+        self._breaker = DeviceBreaker(self.fault_policy.breaker_threshold,
+                                      self.fault_policy.breaker_cooloff_s)
+        self._oom_clamp: Optional[int] = None
+        self._oom_events = 0
+        self._device_chaos = None
+        self.arm_device_chaos(chaos)
+
+    def arm_device_chaos(self, chaos: Any) -> None:
+        """Arm (or, with None, disarm) device fault injection: a
+        ``tools.chaos.DeviceChaos``, a ``ChaosSpec``, the grammar string,
+        or ``"env"`` (``LOGPARSER_TPU_CHAOS``, the construction default).
+        A spec with no device faults arms nothing."""
+        if chaos is None:
+            self._device_chaos = None
+            return
+        from ..tools.chaos import ChaosSpec, DeviceChaos
+
+        if isinstance(chaos, DeviceChaos):
+            self._device_chaos = chaos or None
+            return
+        if isinstance(chaos, str):
+            spec = ChaosSpec.from_env() if chaos == "env" else ChaosSpec.parse(chaos)
+        else:
+            spec = chaos
+        dc = DeviceChaos(spec) if spec is not None else None
+        self._device_chaos = dc or None
+
+    def device_fault_stats(self) -> Dict[str, Any]:
+        """The fault layer's state: the breaker's (``state`` closed / open
+        / demoted -- batches are refused while it is not closed --,
+        ``consecutive_faults``), the standing OOM clamp (rows a pass
+        executes at most), the OOM count, and whether chaos is armed."""
+        return {
+            **self._breaker.stats(),
+            "oom_clamp": self._oom_clamp,
+            "oom_events": self._oom_events,
+            "chaos_armed": self._device_chaos is not None,
+        }
 
     def _build_oracle(self, log_format: str, type_remappings, extra_dissectors) -> None:
         """The host oracle (the reference's): a stateless multi-format root
@@ -714,7 +806,9 @@ class TorchBatchParser:
         batch k while batch k + 1 runs.  ``stage_h2d`` (default on) starts
         batch k + 1's H2D copy on a side stream before waiting for batch
         k's D2H.  A CSR regrow rebuilds the executor; every pending batch
-        dispatched at the old slot count is dispatched again at its fetch."""
+        dispatched at the old slot count is dispatched again at its fetch.
+        A device fault that is not recovered raises at its batch's turn,
+        after every earlier batch was yielded; the stream ends there."""
         stage_h2d = True if stage_h2d is None else stage_h2d
         depth = max(1, depth)
         pending: deque = deque()
@@ -744,8 +838,8 @@ class TorchBatchParser:
         alloc = _PinnedAlloc() if self.device.type == "cuda" else None
         t0 = time.perf_counter()
         buf, lengths, overflow, framer = encode_lines(lines, alloc=alloc)
-        return _Batch(lines, buf, lengths, overflow, framer,
-                      time.perf_counter() - t0, alloc)
+        return _observed(_Batch(lines, buf, lengths, overflow, framer,
+                                time.perf_counter() - t0, alloc))
 
     def _encode_blob(self, data: bytes):
         """The blob framed as a _Batch, or its _BlobLines when the framer
@@ -756,8 +850,8 @@ class TorchBatchParser:
         buf, lengths, overflow = encode_blob(data, alloc=alloc)
         if buf.shape[0] != len(lines):
             return lines
-        return _Batch(lines, buf, lengths, overflow, framer(),
-                      time.perf_counter() - t0, alloc)
+        return _observed(_Batch(lines, buf, lengths, overflow, framer(),
+                                time.perf_counter() - t0, alloc))
 
     def _upload(self, batch: "_Batch", stream) -> None:
         """Pin (unless the framer wrote into pinned memory) and start the
@@ -786,68 +880,418 @@ class TorchBatchParser:
 
     def _stage_h2d(self, batch: "_Batch") -> None:
         """Start the batch's H2D copy on the side copy stream, so that it
-        overlaps the work already on the card (a no-op on the CPU)."""
-        if self.device.type != "cuda" or not self._device_fields:
+        overlaps the work already on the card (a no-op on the CPU, and
+        where no device pass will run).  The byte budget is checked first;
+        a fault while staging leaves the copy to the dispatch."""
+        if (self.device.type != "cuda" or not self._device_fields
+                or self._device_deferred(batch.buf.shape[0])):
             return
+        self._check_device_budget(*batch.buf.shape, None)
         with torch.cuda.device(self.device):
             if self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
-            self._upload(batch, self._copy_stream)
+            try:
+                self._upload(batch, self._copy_stream)
+            except Exception as e:  # noqa: BLE001 -- a device error only, below
+                if as_device_fault(e) is None:
+                    raise
+                _LOG.debug("staged H2D copy failed (the dispatch copies again): %s", e)
+                batch.drop_device()
+
+    def _device_deferred(self, n_rows: int) -> bool:
+        """No device pass is enqueued for a batch of ``n_rows`` now: the
+        breaker refuses it (``_fetch`` raises, in the batch's turn), or
+        the standing OOM clamp makes ``_fetch`` run it in clamp-sized
+        chunks."""
+        return not self._breaker.allow() or (
+            self._oom_clamp is not None and n_rows > self._oom_clamp)
 
     def _dispatch(self, batch: "_Batch", emit_views: Optional[bool]) -> "_Pending":
         """Enqueue the batch's device pass at the current slot count (none
         when every requested field is the host oracle's, as in the
-        reference: the oracle then judges every line)."""
+        reference: the oracle then judges every line; none either while
+        ``_device_deferred``).  The byte budget is checked before any H2D
+        copy or allocation (and raises here); a device fault while
+        enqueueing rides the pending batch to ``_fetch``, which raises
+        it in the batch's turn."""
+        from ..observability import metrics
+
         pend = _Pending(batch, emit_views, self.csr_slots)
-        if not self._device_fields:
+        if not self._device_fields or self._device_deferred(batch.buf.shape[0]):
             return pend
-        executor = self._executor_for(emit_views)
+        if batch.dbuf is None:   # a staged batch was checked when staged
+            self._check_device_budget(*batch.buf.shape, emit_views)
+        views = (emit_views is None or emit_views) and bool(self.view_specs)
+        metrics().increment("device_dispatch_total",
+                            labels={"views": "on" if views else "off"})
+        try:
+            self._enqueue(pend)
+        except Exception as e:  # noqa: BLE001 -- a device error only, below
+            fault = as_device_fault(e)
+            if fault is None:
+                raise
+            pend.fault = _released(fault)
+        return pend
+
+    def _enqueue(self, pend: "_Pending", lo: int = 0, hi: Optional[int] = None) -> None:
+        """The one device pass: enqueue rows [lo, hi) of the batch (all of
+        it by default) -- the H2D copy (the batch's own, staged or not,
+        for all of it; the range's rows from the pinned buffer for part of
+        it), the kernels and the D2H copy into pinned host memory, each
+        between timing events.  :meth:`_wait` collects it.  On the CPU
+        the plain versions run to the end."""
+        batch = pend.batch
+        B = batch.buf.shape[0]
+        hi = B if hi is None else hi
+        n = hi - lo
+        executor = self._executor_for(pend.emit_views)
         if self.device.type == "cpu":
             t0 = time.perf_counter()
-            B = batch.buf.shape[0]
-            buf, lengths = torch.from_numpy(batch.buf), torch.from_numpy(batch.lengths)
-            pend.packed = executor(*self._scatter(B, buf, lengths), B).numpy()
+            buf = torch.from_numpy(batch.buf[lo:hi])
+            lengths = torch.from_numpy(batch.lengths[lo:hi])
+            pend.packed = executor(*self._scatter(n, buf, lengths), n).numpy()
             batch.add("kernels", time.perf_counter() - t0)
-            return pend
+            return
         with torch.cuda.device(self.device):
             compute = torch.cuda.current_stream(self.device)
-            self._upload(batch, compute)
+            if n == B:
+                self._upload(batch, compute)
+                dbuf, dlen, pend.h2d = batch.dbuf, batch.dlen, batch.h2d
+            else:
+                host_buf, host_len = batch.pinned()
+                pend.h2d = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                pend.h2d[0].record()
+                dbuf, dlen = self._scatter(n, host_buf[lo:hi], host_len[lo:hi],
+                                           non_blocking=True)
+                pend.h2d[1].record()
             # The kernels wait for the copy, wherever it ran.
-            compute.wait_event(batch.h2d[1])
+            compute.wait_event(pend.h2d[1])
             pend.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             pend.events[0].record()
-            packed = executor(batch.dbuf, batch.dlen, batch.buf.shape[0])
+            packed = executor(dbuf, dlen, n)
             pend.events[1].record()
             pend.host_out = torch.empty(tuple(packed.shape), dtype=torch.int32,
                                         pin_memory=True)
             pend.host_out.copy_(packed, non_blocking=True)
             pend.events[2].record()
-        return pend
+
+    def _wait(self, pend: "_Pending") -> np.ndarray:
+        """Wait for a pass of :meth:`_enqueue` and return its packed rows,
+        adding its H2D (the batch's own copy once), kernel and D2H
+        seconds to the batch's stages."""
+        ev = pend.events
+        if ev is not None and pend.packed is None:
+            batch = pend.batch
+            ev[2].synchronize()
+            if pend.h2d is batch.h2d:
+                batch.count_h2d()
+            else:
+                batch.add("h2d", pend.h2d[0].elapsed_time(pend.h2d[1]) / 1e3)
+            batch.add("kernels", ev[0].elapsed_time(ev[1]) / 1e3)
+            batch.add("d2h", ev[1].elapsed_time(ev[2]) / 1e3)
+            pend.packed = pend.host_out.numpy()
+        return pend.packed
 
     def _fetch(self, pend: "_Pending"):
         """Wait for one dispatched batch's packed rows: (batch, packed,
-        regrows).  A batch dispatched before a regrow is dispatched again;
-        a batch whose row 0 carries the CSR overflow bit doubles the slots
-        (up to CSR_SLOTS_MAX) and runs again."""
+        regrows).  A batch dispatched before a regrow, or not dispatched
+        (``_device_deferred``), is executed now, guarded; a batch whose
+        row 0 carries the CSR overflow bit doubles the slots (up to
+        CSR_SLOTS_MAX) and runs again.
+
+        Every device fault lands here -- a dispatch's rides the pending
+        batch, the kernels' own surface at the wait -- and goes to
+        :meth:`_absorb_device_fault`: an out-of-memory error bisects, any
+        other fault raises, typed.  While the breaker is not closed the
+        batch is refused (:class:`~.device_faults.DeviceUnavailableError`)
+        before any device work."""
+        from ..observability import metrics
+
         batch, B = pend.batch, pend.batch.buf.shape[0]
         regrows = 0
-        while True:
-            if pend.slots != self.csr_slots:
-                pend = self._dispatch(batch, pend.emit_views)
-            if pend.events is not None:
-                ev = pend.events
-                ev[2].synchronize()
-                batch.count_h2d()
-                batch.add("kernels", ev[0].elapsed_time(ev[1]) / 1e3)
-                batch.add("d2h", ev[1].elapsed_time(ev[2]) / 1e3)
-                pend.packed = pend.host_out.numpy()
-            packed = pend.packed
-            if packed is None:   # no device pass
-                return batch, packed, regrows
+        while self._device_fields:
+            fault, packed = pend.fault, None
+            if fault is None:
+                in_flight = pend.slots == self.csr_slots and pend.dispatched
+                if not in_flight:
+                    self._refuse_unless_allowed()
+                try:
+                    packed = (self._guarded_get(pend) if in_flight
+                              else self._execute_packed(batch, pend.emit_views))
+                except DeviceFault as e:
+                    fault = _released(e)
+            if fault is not None:
+                packed = self._absorb_device_fault(
+                    fault, B, self._bisection(batch, pend.emit_views))
+            self._breaker.record_success()
+            metrics().increment("d2h_bytes_total", int(packed.nbytes))
             row0 = np.stack([packed[u.row_offset, :B] for u in self.units])
             if not ((row0 & CSR_OVERFLOW_BIT) != 0).any() or not self._grow_csr_slots():
                 return batch, packed, regrows
             regrows += 1
+            pend = _Pending(batch, pend.emit_views, self.csr_slots)
+        return batch, None, regrows
+
+    # -- the device fault layer ------------------------------------------
+    #
+    # Guarded execution, OOM bisection and the standing clamp, the
+    # deadline, build-failure demotion and the breaker, as the
+    # reference's -- but a fault that is not recovered on the card raises
+    # to the caller, typed: no batch leaves the card on its own.  The
+    # port pads no batch to a bucket: a chunk is a row range of the
+    # framed buffer (scattered over the mesh's shards).
+
+    def _refuse_unless_allowed(self) -> None:
+        """Raise :class:`~.device_faults.DeviceUnavailableError` while the
+        breaker is open (until its cool-off) or demoted (for good)."""
+        if not self._breaker.allow():
+            from .device_faults import DeviceUnavailableError
+
+            stats = self._breaker.stats()
+            raise DeviceUnavailableError(
+                stats["state"], f"{stats['consecutive_faults']} consecutive device faults"
+                if stats["state"] == "open" else "a kernel failed to build")
+
+    def _run_guarded(self, work, label: str):
+        """Run one blocking device operation under the guard: the
+        execution deadline (an abandonable worker thread) when armed, and
+        every device error typed (:func:`~.device_faults.as_device_fault`);
+        any other error propagates as it is."""
+        from .device_faults import run_with_deadline
+
+        deadline = self.execute_deadline_s
+        try:
+            if deadline:
+                return run_with_deadline(work, deadline, label)
+            return work()
+        except Exception as e:  # noqa: BLE001 -- a device error only, below
+            fault = as_device_fault(e)
+            if fault is None or fault is e:
+                raise
+            raise fault from e
+
+    def _guarded_get(self, pend: "_Pending") -> np.ndarray:
+        """The guarded wait for a dispatched batch (the reference's
+        ``_guarded_get``): its kernels' errors surface here; the chaos
+        hook fires once for the execution."""
+        chaos = self._device_chaos
+        wedge_s = chaos.on_execute(pend.batch.buf.shape[0]) if chaos is not None else None
+
+        def work():
+            if wedge_s:
+                time.sleep(wedge_s)
+            return self._wait(pend)
+
+        return self._run_guarded(work, "fetch")
+
+    def _invoke_device(self, batch: "_Batch", lo: int, hi: int,
+                       emit_views: Optional[bool]) -> np.ndarray:
+        """ONE guarded synchronous execution of rows [lo, hi): H2D, the
+        kernels, the D2H, the wait.  The chaos hook keys on the real row
+        count."""
+        chaos = self._device_chaos
+        wedge_s = chaos.on_execute(hi - lo) if chaos is not None else None
+
+        def work():
+            if wedge_s:
+                time.sleep(wedge_s)
+            return self._run_rows(batch, lo, hi, emit_views)
+
+        return self._run_guarded(work, "execute")
+
+    def _run_rows(self, batch: "_Batch", lo: int, hi: int,
+                  emit_views: Optional[bool]) -> np.ndarray:
+        """The packed [R, hi - lo] of rows [lo, hi) of the batch, waited
+        for: :meth:`_enqueue`'s pass, then :meth:`_wait`."""
+        pend = _Pending(batch, emit_views, self.csr_slots)
+        self._enqueue(pend, lo, hi)
+        return self._wait(pend)
+
+    def _execute_packed(self, batch: "_Batch",
+                        emit_views: Optional[bool]) -> np.ndarray:
+        """A fresh guarded execution of the whole batch (a re-dispatch:
+        nothing in flight, a regrow, a deferred batch).  Honours the
+        standing OOM clamp by pre-splitting into clamp-sized chunks.
+        Raises typed DeviceFault errors."""
+        from ..observability import pipeline_stage
+
+        B = batch.buf.shape[0]
+        clamp = self._oom_clamp
+        with pipeline_stage("device", items=B):
+            if clamp is not None and B > clamp:
+                return self._execute_chunks(batch, B, clamp, emit_views)
+            return self._invoke_device(batch, 0, B, emit_views)
+
+    def _execute_chunks(self, batch: "_Batch", B: int, chunk: int,
+                        emit_views: Optional[bool]) -> np.ndarray:
+        """Rows [0, B) in ``chunk``-row pieces (the standing clamp), the
+        packed columns joined."""
+        batch.drop_device()
+        parts = [self._execute_range(batch, lo, min(B, lo + chunk), 0, emit_views)
+                 for lo in range(0, B, chunk)]
+        return np.concatenate(parts, axis=1)
+
+    def _execute_range(self, batch: "_Batch", lo: int, hi: int, depth: int,
+                       emit_views: Optional[bool]) -> np.ndarray:
+        """Rows [lo, hi); on an out-of-memory error, bisect with bounded
+        depth (each retry counted on ``device_oom_retries_total``).
+        Raises the out-of-memory error when even ``min_bucket`` rows run
+        out of memory, and any other fault as it came.  A row's packed
+        words do not depend on its neighbours, so the joined columns
+        equal one pass over the whole batch."""
+        from ..observability import metrics
+        from .device_faults import classify_device_error
+
+        n = hi - lo
+        pol = self.fault_policy
+        try:
+            return self._invoke_device(batch, lo, hi, emit_views)
+        except DeviceFault as e:
+            if (classify_device_error(e) != "oom" or n <= pol.min_bucket
+                    or depth >= pol.oom_retries):
+                raise
+            _released(e)
+        # Out of the handler: the failed attempt's tensors are gone before
+        # the halves allocate theirs.
+        metrics().increment("device_oom_retries_total")
+        self._note_oom(n)
+        mid = lo + (n + 1) // 2
+        return np.concatenate([
+            self._execute_range(batch, lo, mid, depth + 1, emit_views),
+            self._execute_range(batch, mid, hi, depth + 1, emit_views),
+        ], axis=1)
+
+    def _bisection(self, batch: "_Batch", emit_views: Optional[bool]):
+        """The recovery of a whole batch's out-of-memory error: its two
+        halves, each bisected further as it needs; None at or below
+        ``min_bucket`` rows."""
+        B = batch.buf.shape[0]
+        if B <= self.fault_policy.min_bucket:
+            return None
+
+        def bisect() -> np.ndarray:
+            from ..observability import metrics
+
+            metrics().increment("device_oom_retries_total")
+            self._note_oom(B)
+            batch.drop_device()   # the retries copy their own rows
+            mid = (B + 1) // 2
+            return np.concatenate([
+                self._execute_range(batch, 0, mid, 1, emit_views),
+                self._execute_range(batch, mid, B, 1, emit_views),
+            ], axis=1)
+
+        return bisect
+
+    def _note_oom(self, failed_rows: int) -> None:
+        """Clamp bookkeeping: after ``oom_clamp_after`` out-of-memory
+        errors the parser caps for good the rows a pass executes at half
+        the failing count (at least ``min_bucket``): later batches
+        pre-split before any H2D copy (``device_bucket_clamped`` gauge; a
+        warning once)."""
+        from ..observability import log_warning_once, metrics
+
+        self._oom_events += 1
+        if self._oom_events < self.fault_policy.oom_clamp_after:
+            return
+        new_clamp = max(self.fault_policy.min_bucket, failed_rows // 2)
+        if self._oom_clamp is None or new_clamp < self._oom_clamp:
+            self._oom_clamp = new_clamp
+            metrics().gauge_set("device_bucket_clamped", new_clamp)
+            log_warning_once(
+                _LOG,
+                "device: repeated CUDA out-of-memory errors -- the rows a "
+                "pass executes are clamped for good (device_bucket_clamped "
+                "gauge; larger batches now pre-split before their H2D copy)",
+            )
+
+    def _absorb_compile_fault(self, e) -> None:
+        """A kernel that fails to build, load or bind: demote the parser
+        for good (a rebuild would fail the same way) -- every later batch
+        is refused -- warn once and count.  Never a fall back to the
+        kernels' plain versions or to the host."""
+        from ..observability import log_warning_once, metrics
+        from ..tracing import flight_event
+
+        reg = metrics()
+        reg.increment("device_compile_failures_total")
+        flight_event("device_compile_fault", error=f"{type(e).__name__}: {e}"[:200])
+        if self._breaker.record_fault(permanent=True):
+            reg.increment("device_demotions_total", labels={"reason": "compile"})
+            log_warning_once(
+                _LOG,
+                "device: a kernel failed to build -- parser demoted: every "
+                "later batch raises DeviceUnavailableError "
+                "(device_compile_failures_total counts, details at DEBUG)",
+            )
+        _LOG.debug("device compile fault: %s", e)
+
+    def _absorb_device_fault(self, e: DeviceFault, rows: int, recover=None):
+        """The central device-fault policy: classify and count the fault
+        (``device_faults_total{kind}``, a flight event); recover an
+        out-of-memory error on the card with ``recover`` (a bisection,
+        the aggregate's row path) while the breaker allows.  Returns what
+        ``recover`` returns.  Any fault not recovered scores the breaker
+        -- a build failure demotes the parser for good -- and is raised,
+        typed: the parser never moves a batch off the card on its own."""
+        from ..observability import log_warning_once, metrics
+        from ..tracing import flight_event
+        from .device_faults import classify_device_error
+
+        reg = metrics()
+        kind = classify_device_error(e)
+        reg.increment("device_faults_total", labels={"kind": kind})
+        flight_event("device_fault", fault=kind, batch_rows=rows,
+                     error=f"{type(e).__name__}: {e}"[:200])
+        if kind == "oom" and recover is not None and self._breaker.allow():
+            try:
+                return recover()
+            except DeviceFault as e2:   # what the recovery could not recover
+                e = _released(e2)
+                kind = classify_device_error(e)
+        if kind == "compile":
+            self._absorb_compile_fault(e)
+        elif self._breaker.record_fault():
+            reg.increment("device_demotions_total", labels={"reason": kind})
+            log_warning_once(
+                _LOG,
+                "device: repeated device faults -- the breaker is open: "
+                "batches raise DeviceUnavailableError until its cool-off "
+                "(device_faults_total{kind} counts, details at DEBUG)",
+            )
+        _LOG.debug("device fault raised to the caller (%s): %s", kind, e)
+        raise e
+
+    def _check_device_budget(self, n_lines: int, line_len: int,
+                             emit_views: Optional[bool], spec=None) -> None:
+        """The byte budget, before any H2D copy or device allocation of a
+        batch: over budget raises :class:`~.device_faults.DeviceBudgetError`
+        (``device_budget_rejects_total``), never a CUDA out-of-memory
+        error.  ``spec`` selects the aggregate pushdown's footprint."""
+        budget = self.device_bytes_budget
+        if not budget:
+            return
+        from ..observability import metrics
+        from .device_faults import DeviceBudgetError
+
+        est = self.device_bytes_estimate(n_lines, line_len, emit_views, spec)
+        if est > budget:
+            metrics().increment("device_budget_rejects_total")
+            raise DeviceBudgetError(est, budget, n_lines)
+
+    def device_bytes_estimate(self, n_lines: int, line_len: int,
+                              emit_views: Optional[bool] = None, spec=None) -> int:
+        """``pipeline.estimate_device_bytes`` for a batch of ``n_lines``
+        at bucket ``line_len`` over this parser's mesh, at its current
+        slot count (with ``spec``, the aggregate pushdown's footprint)."""
+        from .pipeline import estimate_device_bytes
+
+        views = emit_views is None or emit_views
+        shards = [(dev, r1 - r0) for dev, r0, r1 in
+                  dp_shardings(self._mesh, padded_rows(self._mesh, n_lines))]
+        tables = None if spec is None else self._agg_executor(spec).tables
+        return estimate_device_bytes(self.units, self.view_specs if views else (),
+                                     n_lines, line_len, shards, self.device, tables)
 
     def _finish(self, pend: "_Pending") -> "BatchResult":
         return self._materialize_fetched(*self._fetch(pend))
@@ -932,13 +1376,32 @@ class TorchBatchParser:
 
     def _dispatch_aggregate(self, batch: "_Batch", spec) -> "_Pending":
         """Enqueue the aggregate's device pass; the pending batch keeps its
-        executor (a later regrow builds another)."""
+        executor (a later regrow builds another).  None is enqueued while
+        the breaker refuses the parser (the row path then raises it) or
+        above the standing OOM clamp (the row path's chunks take the
+        batch).  The byte budget is checked first; a device fault rides
+        the pending batch to ``_finish_aggregate``."""
         B = batch.buf.shape[0]
         # Truncated lines: the device saw a prefix only; they fold.
         batch.host_kill = np.zeros(B, dtype=np.uint8)
         batch.host_kill[batch.overflow] = 1
         pend = _Pending(batch, None, self.csr_slots)
         pend.spec = spec
+        if self._device_deferred(B):
+            return pend
+        self._check_device_budget(*batch.buf.shape, None, spec=spec)
+        try:
+            self._enqueue_aggregate(pend)
+        except Exception as e:  # noqa: BLE001 -- a device error only, below
+            fault = as_device_fault(e)
+            if fault is None:
+                raise
+            pend.fault = _released(fault)
+        return pend
+
+    def _enqueue_aggregate(self, pend: "_Pending") -> None:
+        batch, spec = pend.batch, pend.spec
+        B = batch.buf.shape[0]
         pend.executor = self._agg_executor(spec)
         if self.device.type == "cpu":
             t0 = time.perf_counter()
@@ -946,19 +1409,19 @@ class TorchBatchParser:
             kill = torch.from_numpy(batch.host_kill)
             pend.out = self._aggregate_shards(spec, *self._scatter(B, buf, lengths, kill), B)
             batch.add("kernels", time.perf_counter() - t0)
-            return pend
+            return
         with torch.cuda.device(self.device):
             compute = torch.cuda.current_stream(self.device)
             t0 = time.perf_counter()
             kill = torch.from_numpy(batch.host_kill).pin_memory()
             batch.add("pin", time.perf_counter() - t0)
             self._upload(batch, compute)
-            pend.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             (kills,) = self._scatter(B, kill, non_blocking=True)
-            pend.events[0].record()
+            events[0].record()
             pend.out = self._aggregate_shards(spec, batch.dbuf, batch.dlen, kills, B)
-            pend.events[1].record()
-        return pend
+            events[1].record()
+            pend.events = events
 
     def _aggregate_shards(self, spec, bufs, lengths, kills, B: int):
         """The mesh aggregate (the reference's data-sharded in, replicated
@@ -970,31 +1433,50 @@ class TorchBatchParser:
 
     def _finish_aggregate(self, pend: "_Pending"):
         """Copy one aggregate's partials back, accumulate them, and replay
-        its folded rows through ``parse_batch``."""
-        from ..analytics.device import accumulate_partials, fetch_partials
+        its folded rows through ``parse_batch``.  A device fault goes
+        through :meth:`_absorb_device_fault`: an out-of-memory error (or
+        no device pass, above the standing clamp) sends the whole batch
+        through the row path on the card, which bisects, and aggregates
+        its delivered rows (``analytics_batches_total{path="fallback"}``);
+        any other fault raises, typed, and a build failure demotes the
+        parser."""
+        from ..analytics.device import accumulate_partials
         from ..analytics.state import AggregateOutcome, AggregateState
+        from ..observability import metrics
 
-        batch, spec, ex = pend.batch, pend.spec, pend.executor
+        batch, spec = pend.batch, pend.spec
         lines, buf, stage = batch.lines, batch.buf, batch.stage
         B = buf.shape[0]
-        if pend.events is not None:
-            pend.events[1].synchronize()   # this batch's kernels, not later ones
-        t0 = time.perf_counter()
-        if pend.events is None:
-            fetched, nbytes = fetch_partials(pend.out, ex.tables, B)
-        else:
-            with torch.cuda.device(self.device):
-                if self._copy_stream is None:
-                    self._copy_stream = torch.cuda.Stream(self.device)
-                # The copies wait for this batch's kernels only, not for
-                # batches dispatched after it.
-                self._copy_stream.wait_event(pend.events[1])
-                with torch.cuda.stream(self._copy_stream):
-                    fetched, nbytes = fetch_partials(pend.out, ex.tables, B)
-            batch.count_h2d()
-            batch.add("kernels", pend.events[0].elapsed_time(pend.events[1]) / 1e3)
+        fault, fetched = pend.fault, None
+        row_bytes = 4 * B * (packed_row_count(self.units)
+                             + VIEW_ROWS_PER_FIELD * len(self.view_specs))
+        if fault is None and pend.out is not None:
+            try:
+                fetched, nbytes = self._fetch_aggregate(pend)
+            except Exception as e:  # noqa: BLE001 -- a device error only, below
+                fault = as_device_fault(e)
+                if fault is None:
+                    raise
+                fault = _released(fault)
         pend.out = None
-        stage["d2h"] = time.perf_counter() - t0
+        if fault is not None:
+            self._absorb_device_fault(fault, B, recover=lambda: None)
+        if fetched is None:
+            result = self._finish(_Pending(batch, False, -1))
+            metrics().increment("analytics_batches_total", labels={"path": "fallback"})
+            state = AggregateState(spec)
+            state.update_from_result(result)
+            reject_items = [(int(i), reason, result.raw_line(int(i)))
+                            for i, reason in sorted(result.reject_reasons.items())]
+            out = AggregateOutcome(
+                state, B, result.good_lines, result.bad_lines, result.needs_host,
+                reject_items, device_rows=0, fold_rows=0, d2h_bytes=0,
+                row_path_d2h_bytes=row_bytes, stage_seconds=result.stage_seconds,
+            )
+            out.rescue_reasons, out.rescue_wall_s = result.rescue_reasons, result.rescue_wall_s
+            return out
+        self._breaker.record_success()
+        metrics().increment("analytics_batches_total", labels={"path": "device"})
         t1 = time.perf_counter()
         state = AggregateState(spec)
         accumulate_partials(state, spec, fetched, buf)
@@ -1022,8 +1504,6 @@ class TorchBatchParser:
             reject_items += [(int(fold_rows[j]), reason, sub.raw_line(j))
                              for j, reason in sub.reject_reasons.items()]
             reject_items.sort(key=lambda item: item[0])
-        row_bytes = 4 * B * (packed_row_count(self.units)
-                             + VIEW_ROWS_PER_FIELD * len(self.view_specs))
         out = AggregateOutcome(
             state, B, good, bad, needs_host, reject_items,
             device_rows=n_device, fold_rows=len(fold_rows), d2h_bytes=nbytes,
@@ -1032,6 +1512,32 @@ class TorchBatchParser:
         if sub is not None:
             out.rescue_reasons, out.rescue_wall_s = sub.rescue_reasons, sub.rescue_wall_s
         return out
+
+    def _fetch_aggregate(self, pend: "_Pending"):
+        """Wait for an aggregate's kernels and copy its partials back:
+        (host partials, bytes copied)."""
+        from ..analytics.device import fetch_partials
+
+        batch, ex, B = pend.batch, pend.executor, pend.batch.buf.shape[0]
+        stage = batch.stage
+        if pend.events is not None:
+            pend.events[1].synchronize()   # this batch's kernels, not later ones
+        t0 = time.perf_counter()
+        if pend.events is None:
+            fetched, nbytes = fetch_partials(pend.out, ex.tables, B)
+        else:
+            with torch.cuda.device(self.device):
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                # The copies wait for this batch's kernels only, not for
+                # batches dispatched after it.
+                self._copy_stream.wait_event(pend.events[1])
+                with torch.cuda.stream(self._copy_stream):
+                    fetched, nbytes = fetch_partials(pend.out, ex.tables, B)
+            batch.count_h2d()
+            batch.add("kernels", pend.events[0].elapsed_time(pend.events[1]) / 1e3)
+        stage["d2h"] = time.perf_counter() - t0
+        return fetched, nbytes
 
     def _materialize(self, lines, buf, lengths, overflow, packed) -> "BatchResult":
         """Per-line verdicts (the reference's _fetch_packed), the span /
@@ -1665,6 +2171,212 @@ class TorchBatchParser:
                     ov[i] = text
         return dicts
 
+    # -- warm-up, fingerprint, artifacts -----------------------------------
+
+    def executor_fingerprint(self, emit_views: Optional[bool] = None) -> str:
+        """Content hash of everything that shapes the device pass: the
+        units' programs and plans (formats, requested fields, remappings,
+        GeoIP and zone tables), the CSR slot count, the mesh width, the
+        view specs (with ``emit_views`` on) and ``code_fingerprint()`` of
+        the pipeline's sources.  Stable across processes."""
+        from .compile_cache import code_fingerprint, stable_hash
+
+        views = emit_views is None or emit_views
+        return stable_hash((
+            code_fingerprint(),
+            self.csr_slots,
+            self.mesh_devices,
+            [list(spec) for spec in self.view_specs] if views else [],
+            [(u.plausibility_only, u.row_offset, u.program, u.plans) for u in self.units],
+        ))
+
+    def prewarm(self, batch_sizes: Optional[Sequence[int]] = None,
+                max_line_len: int = 256,
+                emit_views: Optional[bool] = None) -> Dict[str, str]:
+        """Make the device path ready off the request path: one guarded
+        pass of empty lines per batch size (default
+        ``compile_cache.DEFAULT_BUCKET_LADDER``) at the line bucket of
+        ``max_line_len``, with and without view rows unless ``emit_views``
+        picks one.  Returns ``{"BxL": source}``: where that shape's
+        kernels came from -- "memory" (already loaded), "disk" (the build
+        directory or the compile cache), "artifact" (installed from a
+        loaded artifact) or "compiled" (``nvcc``).  The port has no
+        per-shape executables: one library per kernel serves every shape,
+        so the first shape reports the load and the rest "memory"; on the
+        CPU (the plain versions) every shape is "memory".  A parser whose
+        every field is the host oracle's returns {}."""
+        from . import kernels
+        from .compile_cache import DEFAULT_BUCKET_LADDER
+        from .runtime import bucket_length
+
+        if not self._device_fields:
+            return {}
+        choices = [emit_views] if emit_views is not None else [True, False]
+        L = bucket_length(max(1, int(max_line_len)))
+        out: Dict[str, str] = {}
+        for b in batch_sizes or DEFAULT_BUCKET_LADDER:
+            b = int(b)
+            src = "memory"
+            if self.device.type == "cuda":
+                src = self._run_guarded(kernels.load_all, "load")
+            batch = _Batch([b""] * b, np.zeros((b, L), dtype=np.uint8),
+                           np.zeros(b, dtype=np.int32), [], "prewarm", 0.0, None)
+            for views in choices:
+                self._run_guarded(lambda v=views: self._run_rows(batch, 0, b, v), "prewarm")
+            out[f"{b}x{L}"] = src
+        return out
+
+    # ------------------------------------------------------------------
+    # Artifacts: the compiled parser as bytes.
+    #
+    # SECURITY: the payload is a pickle (as the reference's artifact is
+    # a Java serialized object) -- loading executes code from the blob --
+    # and an artifact made with ``embed_executables`` also carries the
+    # kernels' shared libraries, native code that ``from_bytes`` writes
+    # into the build directory and the process later loads and runs on
+    # the card.  Only load artifacts produced by your own pipeline over a
+    # trusted channel; never feed user-uploaded files to from_bytes/load.
+    # ------------------------------------------------------------------
+
+    _ARTIFACT_MAGIC = b"LPTORCH-PROGRAM-v1\n"
+    # v2 wraps the parser with the kernels' libraries and the backend
+    # they were built for.
+    _ARTIFACT_MAGIC_V2 = b"LPTORCH-PROGRAM-v2\n"
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """No device state ships: the executors and their tables (CUDA
+        tensors), the copy stream, the aggregate executors, the mesh and
+        the host pool are rebuilt on the loading host; nor does runtime
+        fault state (breaker, clamp, chaos): it re-arms there from the
+        pickled knobs and the environment."""
+        state = self.__dict__.copy()
+        state["_sharded"] = {}
+        state["_copy_stream"] = None
+        state["_agg_executors"] = {}
+        state["_assembly_pool"] = None
+        state["_mesh"] = None
+        state["_breaker"] = None
+        state["_device_chaos"] = None
+        state["_oom_clamp"] = None
+        state["_oom_events"] = 0
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        loading = getattr(_LOADING, "device", None)
+        self.device = _parser_device(state["device"] if loading is None else loading)
+        self._mesh = self._build_mesh(self.data_parallel, self.device)
+        self.device = self._mesh.home
+        self._init_fault_layer(state.get("device_bytes_budget"),
+                               state.get("execute_deadline_s"),
+                               state.get("fault_policy"), "env")
+
+    def to_bytes(self, embed_executables: bool = True) -> bytes:
+        """The parser as an artifact (a pickle -- see the SECURITY note
+        above: treat artifacts as executable).  ``embed_executables``
+        (default) also ships the kernels' shared libraries of this
+        checkout with their backend (``kernels.library_blobs``), so a host
+        that loads the artifact runs its first batch without ``nvcc``; a
+        host that has none built (a CPU host) writes the parser alone.
+        Raises TypeError where a tensor would be pickled."""
+        from . import kernels
+
+        libs = kernels.library_blobs() if embed_executables else None
+        if libs is None:
+            return self._ARTIFACT_MAGIC + _dumps(self)
+        return self._ARTIFACT_MAGIC_V2 + _dumps({"parser": self, "libraries": libs})
+
+    @classmethod
+    def from_bytes(cls, blob: bytes, device=None) -> "TorchBatchParser":
+        """Load an artifact of :meth:`to_bytes` onto ``device`` (default
+        the card; ``"cpu"`` for the plain versions).  Embedded libraries
+        are installed into the build directory when they were built from
+        these sources for a backend matching this host's; on drift they
+        count ``compile_cache_errors_total`` and the kernels build fresh
+        at first use.  TRUSTED INPUT ONLY: loading executes code.  A blob
+        that is not such an artifact (the reference package's included)
+        raises ValueError."""
+        from . import kernels
+
+        blob = bytes(blob)
+        if blob.startswith(cls._ARTIFACT_MAGIC_V2):
+            payload = blob[len(cls._ARTIFACT_MAGIC_V2):]
+        elif blob.startswith(cls._ARTIFACT_MAGIC):
+            payload = blob[len(cls._ARTIFACT_MAGIC):]
+        else:
+            raise ValueError("not a logparser_tpu_torch program artifact")
+        dev = _parser_device(device)
+        _LOADING.device = dev
+        try:
+            obj = pickle.loads(payload)
+        except Exception as e:  # noqa: BLE001 -- a damaged artifact
+            raise ValueError(f"corrupt logparser_tpu_torch artifact: {e}") from e
+        finally:
+            _LOADING.device = None
+        libs = None
+        if blob.startswith(cls._ARTIFACT_MAGIC_V2) and isinstance(obj, dict):
+            obj, libs = obj.get("parser"), obj.get("libraries")
+        if not isinstance(obj, cls):
+            raise ValueError("artifact does not contain a TorchBatchParser")
+        if libs and dev.type == "cuda":
+            kernels.install_libraries(libs)
+        return obj
+
+    def save(self, path: str, embed_executables: bool = True) -> None:
+        with open(path, "wb") as f:
+            f.write(self.to_bytes(embed_executables))
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "TorchBatchParser":
+        with open(path, "rb") as f:
+            return cls.from_bytes(f.read(), device=device)
+
+
+class _ArtifactPickler(pickle.Pickler):
+    """Refuses device state: a tensor, a stream or an event in an
+    artifact would bind it to the host and card that made it."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, (torch.Tensor, torch.cuda.Stream, torch.cuda.Event)):
+            raise TypeError(f"a {type(obj).__name__} cannot ship in an artifact")
+        return NotImplemented
+
+
+def _dumps(obj) -> bytes:
+    import io
+
+    out = io.BytesIO()
+    _ArtifactPickler(out, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    return out.getvalue()
+
+
+def _released(e: BaseException) -> BaseException:
+    """Clear the finished frames of a fault (and of the faults chained to
+    it) and return it: a failed device attempt's tensors -- its copy of
+    the rows, its outputs -- are the frames' locals, and would otherwise
+    stay allocated on the card as long as the fault is kept (a retry
+    would then run out of memory on the failed attempt's leftovers)."""
+    import traceback
+
+    seen, cur = set(), e
+    while cur is not None and id(cur) not in seen:
+        seen.add(id(cur))
+        if cur.__traceback__ is not None:
+            traceback.clear_frames(cur.__traceback__)
+        cur = cur.__cause__ or cur.__context__
+    return e
+
+
+def _observed(batch: "_Batch") -> "_Batch":
+    """Feed one encoded batch to the metrics registry: the encode stage
+    and the batch's shape (the reference's series)."""
+    from ..observability import observe_stage, record_batch_shape
+
+    B, L = batch.buf.shape
+    observe_stage("encode", batch.stage["encode"], B)
+    record_batch_shape(B, B, L, int(batch.lengths.sum()))
+    return batch
+
 
 class _PinnedAlloc:
     """``encode_blob``'s ``alloc`` hook: the framer writes straight into
@@ -1711,9 +2423,15 @@ class _Batch:
                          torch.from_numpy(self.lengths).pin_memory())
         return self.host
 
+    def drop_device(self) -> None:
+        """Let go of the batch's device copy (the fault layer's retries
+        copy their own rows)."""
+        self.dbuf = self.dlen = None
+        self.h2d = None
+
     def count_h2d(self) -> None:
         """Add the finished H2D copy's seconds (once)."""
-        if not self._h2d_counted:
+        if not self._h2d_counted and self.h2d is not None:
             self.add("h2d", self.h2d[0].elapsed_time(self.h2d[1]) / 1e3)
             self._h2d_counted = True
 
@@ -1721,14 +2439,21 @@ class _Batch:
 class _Pending:
     """A dispatched batch: the slot count it ran at and, on the card, its
     events and the pinned buffer its D2H copy lands in (an aggregate's
-    executor, spec and device partials)."""
+    executor, spec and device partials), or the fault its dispatch met."""
 
     def __init__(self, batch: _Batch, emit_views: Optional[bool], slots: int):
         self.batch, self.emit_views, self.slots = batch, emit_views, slots
         self.events: Optional[List[Any]] = None
+        self.h2d: Optional[List[Any]] = None   # the events around its H2D copy
         self.host_out: Optional[torch.Tensor] = None
         self.packed: Optional[np.ndarray] = None
         self.spec = self.executor = self.out = None
+        self.fault: Optional[BaseException] = None
+
+    @property
+    def dispatched(self) -> bool:
+        """A device pass is in flight (the card) or done (the CPU)."""
+        return self.events is not None or self.packed is not None
 
 
 class _BlobLines:

@@ -15,12 +15,17 @@ ctypes, numpy reductions, pyarrow buffer construction) release the GIL,
 and the Arrow buffers must reference the batch's host memory without a
 copy, which a process pool would force.
 
-The port's own copy of the reference package's ``tpu/hostpool.py``
-without its metrics calls (the port's observability is a later slice).
+The port's own copy of the reference package's ``tpu/hostpool.py``,
+its metrics included: ``hostpool_workers``, ``hostpool_queue_depth`` and
+``hostpool_active_workers`` gauges, ``hostpool_runs_total``,
+``hostpool_tasks_total``, ``hostpool_busy_seconds_total`` and
+``hostpool_wall_seconds_total`` counters, and the
+``hostpool_task_seconds`` histogram.
 """
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, List, Optional, Sequence
 
@@ -76,16 +81,47 @@ class AssemblyPool:
         ex = self._get_executor()
         if ex is None:
             return [t() for t in tasks]
-        return list(ex.map(lambda t: t(), tasks))
+
+        from ..observability import metrics
+
+        reg = metrics()
+        reg.gauge_set("hostpool_workers", self.workers)
+        reg.increment("hostpool_runs_total")
+        reg.increment("hostpool_tasks_total", len(tasks))
+        reg.gauge_add("hostpool_queue_depth", len(tasks))
+
+        def timed(t: Callable[[], Any]) -> Any:
+            # Submitted -> running: the task leaves the queue.
+            reg.gauge_add("hostpool_queue_depth", -1)
+            reg.gauge_add("hostpool_active_workers", 1)
+            t0 = time.perf_counter()
+            try:
+                return t()
+            finally:
+                dt = time.perf_counter() - t0
+                reg.gauge_add("hostpool_active_workers", -1)
+                reg.increment("hostpool_busy_seconds_total", dt)
+                reg.observe("hostpool_task_seconds", dt)
+
+        t_run = time.perf_counter()
+        try:
+            return list(ex.map(timed, tasks))
+        finally:
+            reg.increment("hostpool_wall_seconds_total", time.perf_counter() - t_run)
 
     def submit(self, fn: Callable[[], Any]):
         """Run one thunk in the background: a Future, or None when the pool
-        is 1-wide or closed (the caller then runs the thunk itself)."""
+        is 1-wide or closed (the caller then runs the thunk itself).  Only
+        the run is counted; ``run_all``'s task metrics stay per column."""
         if self.workers == 1:
             return None
         ex = self._get_executor()
         if ex is None:
             return None
+
+        from ..observability import metrics
+
+        metrics().increment("hostpool_runs_total")
         return ex.submit(fn)
 
     def close(self) -> None:

@@ -3,8 +3,11 @@
 Sources live in ``logparser_tpu_torch/csrc``; at first use on a CUDA
 tensor they are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library per source (all ``nvcc`` processes run at once) under
-``csrc/_build/<hash of the sources>/`` and loaded with ``ctypes``.  The
-C entry points take raw device pointers and PyTorch's current stream, and
+``csrc/_build/<hash of the sources>/`` and loaded with ``ctypes``
+(:func:`build`: a library already in that directory for this host's
+backend, or in the compile cache ``LOGPARSER_TPU_COMPILE_CACHE``, or
+installed from a parser artifact, is loaded without ``nvcc``).  The C
+entry points take raw device pointers and PyTorch's current stream, and
 return ``cudaGetLastError()`` after the launch.
 
 Each wrapper (``split``, ``span_stages``, ``timestamp``, ``zone_lookup``,
@@ -16,7 +19,8 @@ utilities' ``unescape`` and ``geo_gather``, and the mesh's ``sp_split``,
 
 - on a CUDA tensor checks device, dtype, shape and contiguity, allocates
   its outputs with ``torch.empty`` (or fills the ``out`` it is given),
-  launches the kernel on the current stream, raises on a launch error,
+  launches the kernel on the current stream, raises a
+  :class:`KernelLaunchError` (with the CUDA error code) on a launch error,
   and adds one to its ``launches`` count;
 - on a CPU tensor runs the kernel's plain PyTorch version (the tests do
   this); any other device raises.  A CUDA tensor never falls back.
@@ -27,9 +31,9 @@ import array
 import ctypes
 import fcntl
 import hashlib
+import json
 import os
 import re
-import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -42,7 +46,8 @@ from ..analytics.device import AggTables
 from ..geoip.device import geo_gather_plain
 from ..parallel import mesh
 from ..parallel.mesh import SP_BYTES, SP_CHARSET, SP_FIND, SP_MAX_LIT, SpTables
-from . import pipeline, postproc
+from . import compile_cache, pipeline, postproc
+from .device_faults import DeviceCompileError, DeviceExecutionError
 from .pipeline import (
     CONS_NEVER,
     CSR_SLOTS_MAX,
@@ -110,17 +115,34 @@ _SIGNATURES = {
 }
 
 
-class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+class KernelBuildError(DeviceCompileError, RuntimeError):
+    """nvcc is missing or refused a source, or a built library failed to
+    load or bind (the fault layer's "compile": the parser demotes to the
+    host oracle for good)."""
+
+
+class KernelLaunchError(DeviceExecutionError, RuntimeError):
+    """A launch returned a CUDA error; ``cuda_error`` is its code.  The
+    fault layer reads ``cudaErrorMemoryAllocation`` as "oom" (the batch
+    bisects) and any other code as "execute" (the batch goes to the host
+    oracle; a sticky error opens the breaker)."""
+
+    def __init__(self, message: str, cuda_error: int):
+        super().__init__(message)
+        self.cuda_error = int(cuda_error)
 
 
 class _Build:
-    """The compiled libraries of this checkout's sources (one per process)."""
+    """The loaded libraries of this checkout's sources (one per process),
+    and where each came from (``build_info()["sources"]``)."""
 
     def __init__(self) -> None:
         self.libs: Dict[str, ctypes.CDLL] = {}
         self.seconds: Optional[float] = None
         self.ptxas: Dict[str, str] = {}
+        # kernel -> "build_dir" | "cache" | "nvcc" | "artifact"
+        self.sources: Dict[str, str] = {}
+        self.installed: set = set()   # written from an artifact this process
 
 
 _BUILD = _Build()
@@ -145,25 +167,74 @@ def csrc_constant(kernel: str, name: str) -> int:
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    found = compile_cache.nvcc_path()
     if not found:
         raise KernelBuildError("nvcc not found (CUDA_HOME or PATH)")
     return found
 
 
+def build_dir() -> Path:
+    """``csrc/_build/<digest of the sources>``: the libraries this
+    checkout built or installed, beside ``key.json`` (the backend they
+    are valid for)."""
+    return CSRC / "_build" / source_digest()
+
+
+def _dir_matches(out_dir: Path) -> bool:
+    try:
+        recorded = json.loads((out_dir / "key.json").read_text())
+    except (OSError, ValueError):
+        return False
+    return isinstance(recorded, dict) and compile_cache.backend_matches(recorded)
+
+
+def _write_key(out_dir: Path, components: Dict[str, Optional[str]]) -> None:
+    tmp = out_dir / f"key.json.tmp{os.getpid()}"
+    tmp.write_text(json.dumps(components, sort_keys=True))
+    os.replace(tmp, out_dir / "key.json")
+
+
 def build() -> Dict[str, Path]:
-    """Compile every kernel whose library is missing (all at once) and
-    return {kernel: library path}.  Records the wall seconds and ptxas's
-    register / shared-memory report in ``build_info()``."""
-    out_dir = CSRC / "_build" / source_digest()
+    """Resolve every kernel's library and return {kernel: library path}.
+
+    Each library comes from the first of: the process (already loaded),
+    ``build_dir()`` (when its ``key.json`` matches this host's backend;
+    a mismatch discards the directory's libraries), the compile cache
+    (``LOGPARSER_TPU_COMPILE_CACHE``, ``compile_cache.CompileCache``), and
+    ``nvcc`` (every missing source at once), whose output is written back
+    to the cache.  Records the wall seconds, ptxas's register /
+    shared-memory report and each library's source in ``build_info()``."""
+    digest = source_digest()
+    out_dir = CSRC / "_build" / digest
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {k: out_dir / f"lib{k}.so" for k in KERNELS}
     t0 = time.perf_counter()
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        components = compile_cache.backend_components()
+        if any(p.exists() for p in paths.values()) and not _dir_matches(out_dir):
+            compile_cache._metrics().increment("compile_cache_errors_total",
+                                               labels={"kind": "backend"})
+            for path in paths.values():
+                path.unlink(missing_ok=True)
+            _BUILD.installed.clear()
+        fresh = {k: "artifact" if k in _BUILD.installed else "build_dir"
+                 for k in KERNELS if paths[k].exists()}
         missing = [k for k in KERNELS if not paths[k].exists()]
+        cache = compile_cache.CompileCache.from_env()
+        if missing and cache.enabled:
+            for k in list(missing):
+                payload = cache.get(compile_cache.library_key(digest, k, components))
+                if payload is None:
+                    continue
+                tmp = out_dir / f"lib{k}.so.tmp{os.getpid()}"
+                tmp.write_bytes(payload)
+                os.replace(tmp, paths[k])
+                fresh[k] = "cache"
+                missing.remove(k)
+            compile_cache._metrics().increment("compile_cache_misses_total", len(missing))
+            compile_cache._metrics().increment(
+                "compile_cache_hits_total", len(KERNELS) - len(missing))
         if missing:
             nvcc = _nvcc()
             procs: List[Tuple[str, Path, subprocess.Popen]] = []
@@ -182,14 +253,27 @@ def build() -> Dict[str, Path]:
                     failed.append(f"{k}.cu (exit {proc.returncode}):\n{log}")
                 else:
                     os.replace(tmp, paths[k])
+                    fresh[k] = "nvcc"
+                    if cache.enabled:
+                        cache.put(compile_cache.library_key(digest, k, components),
+                                  paths[k].read_bytes(), meta={"kernel": k, "digest": digest})
             if failed:
                 raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
+        if not _dir_matches(out_dir):
+            _write_key(out_dir, components)
+        for k, src in fresh.items():
+            if k not in _BUILD.libs:
+                _BUILD.sources[k] = src
     _BUILD.seconds = time.perf_counter() - t0
     return paths
 
 
 def build_info() -> Dict[str, object]:
-    return {"seconds": _BUILD.seconds, "ptxas": dict(_BUILD.ptxas)}
+    """The last build's wall seconds, ptxas's reports, and where each
+    loaded (or about to be loaded) library came from: "build_dir",
+    "cache", "nvcc" or "artifact"."""
+    return {"seconds": _BUILD.seconds, "ptxas": dict(_BUILD.ptxas),
+            "sources": dict(_BUILD.sources)}
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -197,11 +281,15 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         for k, path in build().items():
             if k not in _BUILD.libs:
-                dll = ctypes.CDLL(str(path))
-                fn = getattr(dll, f"lp_{k}")
+                try:
+                    dll = ctypes.CDLL(str(path))
+                    fn = getattr(dll, f"lp_{k}")
+                    err = getattr(dll, f"lp_{k}_error")
+                except (OSError, AttributeError) as e:
+                    raise KernelBuildError(
+                        f"{k}: {path} failed to load or bind: {e}") from e
                 fn.argtypes = _SIGNATURES[k]
                 fn.restype = ctypes.c_int
-                err = getattr(dll, f"lp_{k}_error")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 _BUILD.libs[k] = dll
@@ -209,16 +297,87 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+_SOURCE_RANK = {"memory": 0, "disk": 1, "artifact": 2, "compiled": 3}
+
+
+def load_all() -> str:
+    """Load every kernel's library into the process; return where the
+    coldest of those loaded by this call came from: "memory" (all loaded
+    already), "disk" (the build directory or the compile cache),
+    "artifact" or "compiled" (nvcc)."""
+    before = set(_BUILD.libs)
+    _lib(KERNELS[0])
+    for k in KERNELS:
+        _lib(k)
+    names = {"build_dir": "disk", "cache": "disk", "artifact": "artifact",
+             "nvcc": "compiled"}
+    got = [names.get(_BUILD.sources.get(k), "disk") for k in KERNELS if k not in before]
+    return max(got, key=_SOURCE_RANK.__getitem__, default="memory")
+
+
+def library_blobs() -> Optional[Dict[str, object]]:
+    """Every kernel's library as bytes, with the sources' digest and the
+    backend they were built for (what an artifact embeds), or None where
+    this checkout holds no complete set valid on this host."""
+    out_dir = build_dir()
+    paths = {k: out_dir / f"lib{k}.so" for k in KERNELS}
+    if not all(p.exists() for p in paths.values()) or not _dir_matches(out_dir):
+        return None
+    recorded = json.loads((out_dir / "key.json").read_text())
+    return {"digest": source_digest(), "backend": recorded,
+            "libs": {k: p.read_bytes() for k, p in paths.items()}}
+
+
+def install_libraries(blobs: Dict[str, object]) -> bool:
+    """Write an artifact's libraries into ``build_dir()`` when they were
+    built from these sources for a backend that matches this host's;
+    True when installed (or the directory already holds a valid set).
+    Drift counts ``compile_cache_errors_total{kind}``, warns once and
+    installs nothing: the kernels then build fresh at first use."""
+    reg = compile_cache._metrics()
+    if blobs.get("digest") != source_digest():
+        reg.increment("compile_cache_errors_total", labels={"kind": "digest"})
+        compile_cache._warn_once("artifact libraries refused (sources' digest drift); "
+                                 "building fresh")
+        return False
+    backend = blobs.get("backend") or {}
+    if not compile_cache.backend_matches(backend):
+        reg.increment("compile_cache_errors_total", labels={"kind": "backend"})
+        compile_cache._warn_once(
+            "artifact libraries refused (backend drift): "
+            f"{compile_cache.backend_fingerprint(backend)!r} != "
+            f"{compile_cache.backend_fingerprint()!r}; building fresh")
+        return False
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = blobs.get("libs") or {}
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        paths = {k: out_dir / f"lib{k}.so" for k in KERNELS}
+        if all(p.exists() for p in paths.values()) and _dir_matches(out_dir):
+            return True
+        if set(libs) != set(KERNELS):
+            return False
+        for k, path in paths.items():
+            tmp = out_dir / f"lib{k}.so.tmp{os.getpid()}"
+            tmp.write_bytes(libs[k])
+            os.replace(tmp, path)
+            _BUILD.installed.add(k)
+        _write_key(out_dir, backend)
+    return True
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
     """Launch on ``device``'s current stream (appended as the last
-    argument) with ``device`` current; raise on a launch error."""
+    argument) with ``device`` current; raise a :class:`KernelLaunchError`
+    carrying the CUDA error code on a launch error."""
     lib = _lib(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, f"lp_{name}")(*args, stream)
     if code != 0:
         msg = getattr(lib, f"lp_{name}_error")(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
+        raise KernelLaunchError(f"{name} kernel launch failed: {msg} ({code})", code)
 
 
 def _ptr(t: torch.Tensor) -> int:

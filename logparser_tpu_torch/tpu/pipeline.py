@@ -48,7 +48,7 @@ launch the kernels or raise.
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dataclass_field
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1808,3 +1808,114 @@ class UnitsExecutor(nn.Module):
                 else:
                     kernels.csr_split(c, buf, block, starts, ends)
         return flags, comps
+
+
+# ---------------------------------------------------------------------------
+# The device footprint of one batch (the fault layer's byte budget).
+# ---------------------------------------------------------------------------
+
+# The caching allocator hands out blocks in multiples of 512 bytes.
+_ALLOC_ROUND = 512
+
+
+def _block(nbytes: int) -> int:
+    return -(-int(nbytes) // _ALLOC_ROUND) * _ALLOC_ROUND
+
+
+def estimate_device_bytes(
+    units: Sequence[FormatUnit],
+    view_specs: ViewSpecs,
+    n_lines: int,
+    line_len: int,
+    shards: Optional[Sequence[Tuple[object, int]]] = None,
+    home: object = None,
+    aggregate: Optional[Any] = None,
+) -> int:
+    """A ceiling on the device bytes one batch of ``n_lines`` lines at
+    bucket ``line_len`` allocates, on the device that allocates most: what
+    the port's launch sequence holds at once, each tensor rounded up to
+    the caching allocator's 512-byte blocks.
+
+    ``shards`` is the mesh's data split, (device, rows) per shard (default
+    one shard of ``n_lines`` on ``home``).  Per shard: the ``[b, L]`` buffer
+    and its lengths; the executor's working set (``UnitsExecutor``): the
+    flags ``[U, b]`` and the component rows ``[n_comp, b]`` (the CSR
+    groups' 2 words a slot at the units' current slot count among them),
+    then either the split's cursors ``[T, b]`` of the two widest units (a
+    unit's cursors are alive while the next one's are made) with a zone
+    row, or the packed ``[K + 4V, b]`` output; each shard's packed output
+    stays alive until the home device gathers them into ``[K + 4V, B]``.
+
+    ``aggregate`` (an ``AggTables``) selects the aggregate pushdown's
+    footprint instead (``AggregateExecutor``): the truncated lines' kill
+    plane beside the bytes, the unit pass without view
+    rows, then the packed rows beside the class plane, the lanes, the
+    counts and the sum tiles, then one ``agg_group`` table a grouping lane
+    (its ``[B, 4 | 2]`` groups and its hash table of 3 words a slot at the
+    least power of two >= 2B), all alive until the partials are fetched.
+    """
+    units = list(units)
+    views = [] if aggregate is not None else [(f, tuple(i)) for f, i in view_specs]
+    ucs = [unit_components(u, [f for f, idx in views if ui in idx])
+           for ui, u in enumerate(units)]
+    U = len(units)
+    n_comp = sum(uc.n_rows for uc in ucs)
+    R = sum(u.layout.n_rows for u in units) + VIEW_ROWS_PER_FIELD * len(views)
+    cursors = sorted((2 * len(u.program.tokens) for u in units if not u.plausibility_only),
+                     reverse=True)[:2]
+    zone = any(uc.ts_groups for uc in ucs)
+    if shards is None:
+        shards = [(home, n_lines)]
+
+    def inputs(b: int) -> int:
+        """The shard's bytes and lengths (and an aggregate's kill plane)."""
+        return (_block(b * line_len) + _block(4 * b)
+                + (_block(b) if aggregate is not None else 0))
+
+    def working(b: int) -> int:
+        """The unit pass of one shard, its packed output included."""
+        held = _block(4 * U * b) + _block(4 * n_comp * b)
+        split = sum(_block(4 * t * b) for t in cursors) + (_block(4 * b) if zone else 0)
+        return held + max(split, _block(4 * R * b))
+
+    if aggregate is not None:
+        from ..analytics.device import sum_tiling
+        from .kernels import group_capacity
+
+        def partials(b: int) -> int:
+            ntiles = sum_tiling(b)[1]
+            return (_block(b) + _block(4 * aggregate.n_lane_rows * b)
+                    + _block(4 * (1 + aggregate.n_bins))
+                    + _block(24 * len(aggregate.sums_py) * ntiles))
+
+        def groups(b: int) -> int:
+            return sum(_block((16 if spans else 8) * b) + _block(4 * (3 * group_capacity(b) + 1))
+                       for _, spans in aggregate.groups_py)
+
+    per_device: Dict[object, List[int]] = {}
+    for dev, rows in shards:
+        per_device.setdefault(dev, []).append(int(rows))
+    gather = len(shards) > 1 or shards[0][0] != home
+    worst = 0
+    for dev, rows in per_device.items():
+        total = sum(inputs(b) for b in rows)
+        if aggregate is None:
+            # Every shard's packed part is alive until the gather; the
+            # widest shard's working set holds its own.
+            total += sum(_block(4 * R * b) for b in rows) - _block(4 * R * max(rows))
+            total += max(working(b) for b in rows)
+            if dev == home and gather:
+                total += _block(4 * R * n_lines)
+        else:
+            total += sum(partials(b) for b in rows) - partials(max(rows))
+            b = max(rows)
+            total += max(working(b), _block(4 * R * b) + partials(b))
+            if dev == home:
+                if gather:
+                    # The class planes and lanes gathered, the counts and
+                    # tiles added / joined, every shard's bytes joined.
+                    padded = sum(r for _, r in shards)
+                    total += partials(n_lines) + _block(padded * line_len)
+                total += groups(n_lines)
+        worst = max(worst, total)
+    return int(worst)

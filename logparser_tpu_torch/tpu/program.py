@@ -191,6 +191,14 @@ class DeviceProgram:
     charset_ids: Dict[str, int]
     max_lit_len: int
 
+    def __getstate__(self):
+        """The program alone: the per-device tables that
+        ``runtime.run_program`` and the sequence-parallel runner cache on
+        it (device tensors) are made again where it is loaded, and are
+        not part of its content (``compile_cache.stable_hash``)."""
+        return {k: v for k, v in self.__dict__.items()
+                if k not in ("_split_tables", "_sp_tables")}
+
 
 def _token_charset(token: Token) -> Tuple[str, int, int, bool]:
     known = _KNOWN_REGEX_CHARSETS.get(token.regex)

@@ -343,3 +343,66 @@ def test_arrow_bridge_helpers_match_reference():
     vocab = np.array(["a", "b", "ü"], dtype=object)
     assert arrow_bridge._pa_vocab(vocab) is arrow_bridge._pa_vocab(vocab)
     assert arrow_bridge._pa_vocab(vocab).equals(ref_bridge._pa_vocab(vocab))
+
+
+def test_delivery_feeds_the_metrics_registry():
+    """One parse_to_ipc moves ipc_bytes_out_total by the bytes it returns
+    and the assembly and ipc stages by one observation each (the
+    reference's series); a pooled run_all counts its tasks and leaves its
+    queue and active gauges where they were."""
+    from logparser_tpu_torch.observability import counter_sum, metrics
+
+    def calls(stage):
+        return metrics().stage_breakdown().get(stage, {}).get("calls", 0)
+
+    parser = TorchBatchParser("combined", demolog.HEADLINE_FIELDS, device="cpu")
+    before = (counter_sum("ipc_bytes_out_total"), calls("assembly"), calls("ipc"))
+    out = parse_to_ipc(parser, demolog.generate_combined_lines(40, seed=5))
+    assert counter_sum("ipc_bytes_out_total") == before[0] + len(out)
+    assert (calls("assembly"), calls("ipc")) == (before[1] + 1, before[2] + 1)
+    tasks = counter_sum("hostpool_tasks_total")
+    pool = hostpool.AssemblyPool(2)
+    assert pool.run_all([lambda: 1, lambda: 2, lambda: 3]) == [1, 2, 3]
+    pool.close()
+    assert counter_sum("hostpool_tasks_total") == tasks + 3
+    assert metrics().gauge_get("hostpool_workers") == 2
+    assert metrics().gauge_get("hostpool_queue_depth") == 0
+    assert metrics().gauge_get("hostpool_active_workers") == 0
+    assert metrics().histogram("hostpool_task_seconds").count >= 3
+
+
+def test_stage_annotations_are_nothing_on_the_cpu(monkeypatch):
+    """Where no card is present a pipeline stage pushes no NVTX range
+    (on a card every stage is one, with no switch to turn on)."""
+    import torch
+
+    from logparser_tpu_torch import observability
+
+    def no_range(*a, **k):  # pragma: no cover - would mean a range was pushed
+        raise AssertionError("an NVTX range on a host without a card")
+
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", no_range)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", no_range)
+    assert observability._nvtx() is None
+    parser = TorchBatchParser("combined", demolog.HEADLINE_FIELDS, device="cpu")
+    before = observability.metrics().stage_breakdown().get("assembly", {}).get("calls", 0)
+    parse_to_ipc(parser, demolog.generate_combined_lines(8, seed=6))
+    assert observability.metrics().stage_breakdown()["assembly"]["calls"] == before + 1
+
+
+def test_profile_writes_a_trace_of_a_batch(tmp_path):
+    """``observability.profile`` writes a torch.profiler trace of the
+    block into the directory (here of the CPU's plain versions)."""
+    import json
+
+    from logparser_tpu_torch.observability import profile
+
+    parser = TorchBatchParser("combined", demolog.HEADLINE_FIELDS, device="cpu")
+    lines = demolog.generate_combined_lines(16, seed=7)
+    with profile(str(tmp_path / "trace")):
+        res = parser.parse_batch(lines)
+    assert res.good_lines + res.bad_lines == len(lines)
+    traces = list((tmp_path / "trace").glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(ev.get("cat") == "cpu_op" for ev in events)

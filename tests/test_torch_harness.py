@@ -8,7 +8,10 @@ named by ``(field, component)`` through ``PackedLayout.slots``.
 
 This module also holds a few tests of the harness itself.
 """
+import os
+
 import numpy as np
+import torch
 
 import jax.numpy as jnp
 
@@ -18,6 +21,14 @@ from logparser_tpu.tpu import pipeline as ref_pipeline
 from logparser_tpu.tools.demolog import HEADLINE_FIELDS, generate_combined_lines
 from logparser_tpu_torch.analytics import AggregateSpec
 from logparser_tpu_torch.tpu.runtime import encode_batch
+
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    # One intra-op thread a test worker: the port's plain versions are
+    # small tensor ops, and beside the other workers (the reference's jit
+    # compiles take every core) a pool of cpu_count spinning threads a
+    # process made the same tests run up to ten times slower.  Every
+    # worker imports this module when it collects the test files.
+    torch.set_num_threads(1)
 
 _EDGE_PREFIX = '1.2.3.4 - - [01/Jan/2024:00:00:00 +0000] "GET / HTTP/1.0" 200 0'
 
